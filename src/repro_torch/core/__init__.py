@@ -1,0 +1,12 @@
+"""Core — the matmul-based parallel scan and the scan-based operators."""
+from repro_torch.core.autotune import (
+    AutotuneFallbackWarning, maybe_resolve, method_override, resolve_method,
+)
+from repro_torch.core.precision import PRECISIONS, pdot, resolve_precision
+from repro_torch.core.primitives import (
+    multi_split, radix_sort, sort, top_p_sample, topk, weighted_sample,
+)
+from repro_torch.core.scan import (
+    accum_dtype_for, cumsum, scan, strictly_lower_ones, tile_scan_scanu,
+    tile_scan_scanul1, upper_ones,
+)

@@ -1,0 +1,404 @@
+"""Scan-based operators (paper §5): multi-way split, radix sort, top-k, top-p.
+
+Port of ``repro/core/primitives.py`` for the operators on the decode path.
+Every operator takes ``method=`` and routes through one dispatch table:
+
+* ``"matmul"`` / ``"vector"`` — the unfused operators: one batched exclusive
+  :func:`~repro_torch.core.scan.scan` over the one-hot digit masks, then a
+  torch scatter (the scan method differs underneath);
+* ``"kernel"`` — the hand-written CUDA kernels of ``repro_torch.kernels``: B7
+  for each radix pass, B8 for the whole top-p tail;
+* ``"blocked"`` — the unfused operators over the blocked scan, which is not
+  ported yet and raises ``NotImplementedError``.
+
+Bucket offsets are exact int32 mask scans for every method, so sorts are
+bit-identical across methods in values and permutation.
+
+Sort keys travel as raw words: ``uint8`` for 8-bit keys, ``int16`` for
+16-bit and ``int32`` for 32-bit keys, holding the bits of the JAX package's
+unsigned encodings (``uint8``/``uint16``/``uint32``).  ``split``/``compress``
+wait for the SplitInd kernel (B5).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import guards
+from repro_torch.core.autotune import maybe_resolve
+from repro_torch.core.scan import METHODS, scan
+
+__all__ = ["multi_split", "radix_sort", "sort", "topk", "top_p_sample",
+           "weighted_sample", "float_to_sortable_int", "sortable_int_to_float",
+           "dispatch", "METHODS"]
+
+_DISPATCH: Dict[str, Dict[str, Callable]] = {}
+
+
+def _register(op: str, *methods: str):
+    """Register the decorated function as ``op``'s impl for ``methods``."""
+    def deco(fn):
+        table = _DISPATCH.setdefault(op, {})
+        for m in methods:
+            table[m] = fn
+        return fn
+    return deco
+
+
+def dispatch(op: str, method: str) -> Callable:
+    """Look up the implementation of ``op`` for ``method``.
+
+    Example:
+        >>> dispatch("radix_passes", "vector").__name__
+        '_radix_passes_unfused'
+    """
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
+    try:
+        return _DISPATCH[op][method]
+    except KeyError:
+        raise ValueError(f"operator {op!r} has no {method!r} implementation") from None
+
+
+def _take_along_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather ``x`` along the last axis."""
+    return torch.gather(x, -1, idx.to(torch.int64))
+
+
+def _scatter_payloads(payloads, dest, *, with_indices):
+    """Scatter each ``(..., n)`` payload to the per-row destinations ``dest``."""
+    d = dest.to(torch.int64)
+    outs = tuple(torch.empty_like(p).scatter_(-1, d, p) for p in payloads)
+    if with_indices:
+        n = dest.shape[-1]
+        iota = torch.arange(n, dtype=torch.int32, device=dest.device).expand(dest.shape)
+        outs += (torch.empty(dest.shape, dtype=torch.int32,
+                             device=dest.device).scatter_(-1, d, iota),)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# multi_split (radix-2^k generalization of SplitInd)
+# ---------------------------------------------------------------------------
+
+
+def _multi_split_dest(digits, num_buckets, *, method, tile_s):
+    """Destinations for a stable ``num_buckets``-way split.
+
+    One batched exclusive scan over the ``(..., R, n)`` int8 one-hot digit
+    masks gives every bucket's mask scan at once; the bucket bases are the
+    ``R``-wide exclusive prefix of the bucket counts.
+    """
+    d = digits.to(torch.int64)
+    buckets = torch.arange(num_buckets, device=digits.device)
+    oh = (d[..., None, :] == buckets[:, None]).to(torch.int8)        # (..., R, n)
+    ex = scan(oh, axis=-1, exclusive=True, method=method, tile_s=tile_s)
+    counts = ex[..., -1] + oh[..., -1].to(torch.int32)                # (..., R)
+    base = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
+    ex_d = torch.gather(ex, -2, d[..., None, :])[..., 0, :]
+    dest = _take_along_last(base, d) + ex_d
+    return dest, counts
+
+
+@_register("multi_split", "matmul", "vector", "blocked")
+def _multi_split_unfused(x, digits, num_buckets, *, method, tile_s):
+    """Multi-way SplitInd via one batched ``scan`` + torch scatter."""
+    dest, counts = _multi_split_dest(digits, num_buckets, method=method,
+                                     tile_s=tile_s)
+    z, ind = _scatter_payloads((x,), dest, with_indices=True)
+    return z, ind, counts
+
+
+@_register("multi_split", "kernel")
+def _multi_split_fused(x, digits, num_buckets, *, method, tile_s):
+    raise NotImplementedError(
+        "multi_split(method='kernel') needs the multi-way split kernel B6 "
+        "(src/repro/kernels/split_mm.py:194 _multi_split_kernel), which is not "
+        "ported yet; use method='matmul' or 'vector'")
+
+
+def multi_split(x: torch.Tensor, digits: torch.Tensor, num_buckets: int, *,
+                method: str = "auto", return_indices: bool = True,
+                tile_s: int = 128):
+    """Stable ``num_buckets``-way partition — radix-2^k SplitInd.
+
+    Returns:
+        ``(z, indices, counts)`` (or ``(z, counts)``): the bucket-grouped
+        payload, each output's original position (int32) and the per-bucket
+        counts ``(..., num_buckets)`` (int32).
+
+    Example:
+        >>> z, ind, c = multi_split(torch.tensor([50, 10, 70, 30]),
+        ...                         torch.tensor([2, 0, 2, 1]), 4)
+        >>> z.tolist(), ind.tolist(), c.tolist()
+        ([10, 30, 50, 70], [1, 3, 0, 2], [1, 1, 2, 0])
+    """
+    if num_buckets < 1:
+        raise ValueError(f"num_buckets must be >= 1, got {num_buckets}")
+    guards.validate_same_shape(x.shape, digits.shape, op="multi_split",
+                               b_name="digits")
+    method = maybe_resolve(method, "multi_split", x.shape[-1], x.dtype,
+                           device=x.device)
+    z, ind, counts = dispatch("multi_split", method)(
+        x, digits, num_buckets, method=method, tile_s=tile_s)
+    if return_indices:
+        return z, ind, counts
+    return z, counts
+
+
+# ---------------------------------------------------------------------------
+# Radix sort (paper §5, LSB; floats via order-preserving bit encodings)
+# ---------------------------------------------------------------------------
+
+_MSB = {torch.int16: -(1 << 15), torch.int32: -(1 << 31)}
+_RAW = {torch.float16: torch.int16, torch.bfloat16: torch.int16,
+        torch.float32: torch.int32}
+
+
+def float_to_sortable_int(x: torch.Tensor) -> torch.Tensor:
+    """Order-preserving float -> unsigned encoding, as raw words.
+
+    Positive floats flip the sign bit, negative floats flip every bit.  The
+    result holds the bits of the unsigned key in an ``int16`` (fp16/bf16) or
+    ``int32`` (fp32) tensor.
+
+    Example:
+        >>> u = float_to_sortable_int(torch.tensor([-1.0, 0.0, 1.0]))
+        >>> [v & 0xFFFFFFFF for v in u.tolist()] == sorted(
+        ...     v & 0xFFFFFFFF for v in u.tolist())
+        True
+    """
+    if x.dtype not in _RAW:
+        raise TypeError(f"unsupported float dtype {x.dtype}")
+    raw = _RAW[x.dtype]
+    u = x.view(raw)
+    return torch.where(u < 0, ~u, u | _MSB[raw])
+
+
+def sortable_int_to_float(u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`float_to_sortable_int`."""
+    if dtype not in _RAW:
+        raise TypeError(f"unsupported float dtype {dtype}")
+    msb = _MSB[_RAW[dtype]]
+    dec = torch.where(u < 0, u & ~msb, ~u)       # MSB set <=> a positive float
+    return dec.view(dtype)
+
+
+def _encode_for_sort(x: torch.Tensor) -> Tuple[torch.Tensor, int, Callable]:
+    """Map ``x`` to raw-word unsigned keys; returns ``(keys, n_bits, decode)``."""
+    dt = x.dtype
+    if dt.is_floating_point:
+        enc = float_to_sortable_int(x)
+        return enc, enc.element_size() * 8, lambda u: sortable_int_to_float(u, dt)
+    if dt in (torch.int16, torch.int32):
+        msb = _MSB[dt]
+        return x ^ msb, x.element_size() * 8, lambda u: u ^ msb
+    if dt == torch.int8:
+        return (x.view(torch.uint8) ^ 0x80, 8,
+                lambda u: (u ^ 0x80).view(torch.int8))
+    if dt == torch.uint8:
+        return x, 8, lambda u: u
+    if dt in (torch.uint16, torch.uint32):
+        raw = torch.int16 if dt == torch.uint16 else torch.int32
+        return x.view(raw), x.element_size() * 8, lambda u: u.view(dt)
+    raise TypeError(f"radix sort: unsupported dtype {dt}")
+
+
+@_register("radix_passes", "matmul", "vector", "blocked")
+def _radix_passes_unfused(enc, bits, *, method, tile_s, bits_per_pass=1):
+    """``ceil(bits / k)`` multi-way splits, keys and permutation co-scattered."""
+    n = enc.shape[-1]
+    perm = torch.arange(n, dtype=torch.int32, device=enc.device).expand(enc.shape)
+    work = enc
+    for shift in range(0, bits, bits_per_pass):
+        k = min(bits_per_pass, bits - shift)
+        digits = (work >> shift) & ((1 << k) - 1)
+        dest, _ = _multi_split_dest(digits, 1 << k, method=method, tile_s=tile_s)
+        work, perm = _scatter_payloads((work, perm), dest, with_indices=False)
+    return work, perm
+
+
+@_register("radix_passes", "kernel")
+def _radix_passes_fused(enc, bits, *, method, tile_s, bits_per_pass=1):
+    """All radix passes as B7 launches, ``bits_per_pass`` bits each."""
+    from repro_torch.kernels import ops as _kops
+    return _kops.radix_sort_enc_kernel(enc, bits=bits, bits_per_pass=bits_per_pass)
+
+
+def radix_sort(x: torch.Tensor, *, descending: bool = False, method: str = "auto",
+               return_indices: bool = True, tile_s: int = 128,
+               bits_per_pass: int = 4):
+    """Stable LSB radix sort built on scan-based multi-way splits (paper §5).
+
+    Each pass is a stable ``2^bits_per_pass``-way split on one digit, so a key
+    sorts in ``ceil(bits / bits_per_pass)`` passes.  Every (method,
+    bits_per_pass) combination gives the same values and permutation.
+
+    Returns:
+        ``(values, permutation)`` (or ``values``); ``permutation`` is int32
+        with ``values == gather(x, -1, permutation)``.
+
+    Example:
+        >>> v, idx = radix_sort(torch.tensor([3, -1, 2, -5], dtype=torch.int8),
+        ...                     method="vector")
+        >>> v.tolist(), idx.tolist()
+        ([-5, -1, 2, 3], [3, 1, 2, 0])
+    """
+    bits_per_pass = guards.validate_bits_per_pass(bits_per_pass, op="radix_sort")
+    method = maybe_resolve(method, "radix_sort", x.shape[-1], x.dtype,
+                           device=x.device)
+    enc, bits, decode = _encode_for_sort(x)
+    if descending:
+        enc = ~enc  # complement keeps stability while reversing the order
+    work, perm = dispatch("radix_passes", method)(
+        enc, bits, method=method, tile_s=tile_s,
+        bits_per_pass=min(bits_per_pass, bits))
+    if descending:
+        work = ~work
+    values = decode(work)
+    if return_indices:
+        return values, perm
+    return values
+
+
+def sort(x: torch.Tensor, *, descending: bool = False, method: str = "auto",
+         tile_s: int = 128, bits_per_pass: int = 4):
+    """``(values, indices)`` of a stable sort; radix under the hood."""
+    return radix_sort(x, descending=descending, method=method,
+                      return_indices=True, tile_s=tile_s,
+                      bits_per_pass=bits_per_pass)
+
+
+def topk(x: torch.Tensor, k: int, *, method: str = "auto", tile_s: int = 128,
+         bits_per_pass: int = 4):
+    """Top-k via the descending radix sort: ``(values, indices)``."""
+    values, idx = radix_sort(x, descending=True, method=method, tile_s=tile_s,
+                             bits_per_pass=bits_per_pass)
+    return values[..., :k], idx[..., :k]
+
+
+# ---------------------------------------------------------------------------
+# weighted / top-p sampling
+# ---------------------------------------------------------------------------
+
+
+def _uniforms(shape, generator, device) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+def weighted_sample(w: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+                    method: str = "auto", cdf: Optional[torch.Tensor] = None,
+                    tile_s: int = 128, u: Optional[torch.Tensor] = None,
+                    nonfinite: str = "propagate") -> torch.Tensor:
+    """Inverse-transform sampling on the scanned CDF (paper §5).
+
+    Args:
+        w: Non-negative weights ``(..., n)``.
+        generator: Source of the uniforms when ``u`` is not given.
+        method: Scan method for the CDF.
+        cdf: Optional precomputed inclusive scan of ``w``.
+        tile_s: Tile side for the matmul scans.
+        u: Optional uniforms of shape ``w.shape[:-1] + (1,)``.
+        nonfinite: Only ``"propagate"`` is ported.
+
+    Returns:
+        int32 indices of shape ``w.shape[:-1]``, in ``[0, n)``.
+
+    Example:
+        >>> int(weighted_sample(torch.tensor([1.0, 1.0]), u=torch.tensor([0.75]),
+        ...                     method="vector"))
+        1
+    """
+    method = maybe_resolve(method, "weighted_sample", w.shape[-1], w.dtype,
+                           device=w.device)
+    guards.resolve_nonfinite(nonfinite, op="weighted_sample")
+    if cdf is None:
+        cdf = scan(w, axis=-1, method=method, tile_s=tile_s)
+    total = cdf[..., -1:]
+    if u is None:
+        u = _uniforms(w.shape[:-1] + (1,), generator, w.device)
+    theta = u.to(device=cdf.device, dtype=cdf.dtype) * total
+    idx = torch.sum(cdf < theta, dim=-1, dtype=torch.int32)
+    return torch.clamp(idx, 0, w.shape[-1] - 1)
+
+
+@_register("top_p_tail", "matmul", "vector", "blocked")
+def _top_p_tail_unfused(sorted_p, generator, *, p, method, tile_s, u=None):
+    """Cumsum -> cutoff -> masked renormalised CDF -> inverse-transform sample."""
+    cum = scan(sorted_p, axis=-1, method=method, tile_s=tile_s)
+    cut = (cum - sorted_p) > p                    # llama3's sample_top_p formula
+    masked = torch.where(cut, torch.zeros_like(sorted_p), sorted_p)
+    return weighted_sample(masked, generator, method=method, tile_s=tile_s, u=u)
+
+
+@_register("top_p_tail", "kernel")
+def _top_p_tail_fused(sorted_p, generator, *, p, method, tile_s, u=None):
+    """The whole nucleus-sampling tail as one B8 launch."""
+    from repro_torch.kernels.split_mm import topp_mask_sample_tiles
+    if u is None:
+        u = _uniforms(sorted_p.shape[:-1] + (1,), generator, sorted_p.device)
+    return topp_mask_sample_tiles(sorted_p, u.to(torch.float32), p=p)
+
+
+def top_p_sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 p: float = 0.9, temperature: float = 1.0, *, method: str = "auto",
+                 sort_method: str = "radix", tile_s: int = 128,
+                 bits_per_pass: int = 4, u: Optional[torch.Tensor] = None,
+                 nonfinite: str = "propagate") -> torch.Tensor:
+    """Nucleus sampling as in the paper's Llama3 case study (§5, §6.5).
+
+    fp32 softmax -> radix sort on bf16-rounded keys (16 sort bits) -> prefix
+    sum of the sorted probabilities -> mask tokens whose *preceding* mass
+    exceeds ``p`` -> renormalised inverse-transform sample.  With
+    ``method="kernel"`` the sort runs as B7 passes and the tail as one B8
+    launch.
+
+    Args:
+        logits: Scores ``(..., vocab)``.
+        generator: Source of the uniforms when ``u`` is not given.
+        p: Nucleus mass in ``[0, 1]``.
+        temperature: Logit divisor; ``0`` is the greedy (argmax) limit.
+        method: One of ``METHODS`` or ``"auto"``.
+        sort_method: ``"radix"`` (scan-based) or ``"xla"`` (a stable
+            ``torch.argsort``; the name matches the JAX package's baseline).
+        tile_s: Tile side for the matmul scans.
+        bits_per_pass: Bits per radix pass (1..8).
+        u: Optional uniforms of shape ``logits.shape[:-1] + (1,)``.
+        nonfinite: Only ``"propagate"`` is ported.
+
+    Returns:
+        int32 token ids of shape ``logits.shape[:-1]``.
+
+    Example:
+        >>> logits = torch.tensor([[0.0, 20.0, 0.0, 0.0]])
+        >>> top_p_sample(logits, u=torch.tensor([[0.5]]), method="vector").tolist()
+        [1]
+        >>> top_p_sample(logits, temperature=0.0).tolist()
+        [1]
+    """
+    guards.validate_probability(p, op="top_p_sample")
+    guards.validate_temperature(temperature, op="top_p_sample")
+    guards.resolve_nonfinite(nonfinite, op="top_p_sample")
+    guards.validate_choice(sort_method, ("radix", "xla"), name="sort_method",
+                           op="top_p_sample")
+    if float(temperature) == 0.0:
+        # the temperature -> 0 limit: all mass on the max logit
+        greedy = torch.where(torch.isnan(logits), float("-inf"), logits)
+        return torch.argmax(greedy, dim=-1).to(torch.int32)
+    method = maybe_resolve(method, "top_p_sample", logits.shape[-1], logits.dtype,
+                           device=logits.device)
+    if temperature != 1.0:
+        logits = logits / temperature
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    if sort_method == "radix":
+        # 16 sort bits, as in the paper's fp16 evaluation
+        keys16 = probs.to(torch.bfloat16)
+        _, order = radix_sort(keys16, descending=True, method=method,
+                              tile_s=tile_s, bits_per_pass=bits_per_pass)
+    else:
+        order = torch.argsort(-probs, dim=-1, stable=True)
+    sorted_p = _take_along_last(probs, order)
+    j = dispatch("top_p_tail", method)(sorted_p, generator, p=p, method=method,
+                                       tile_s=tile_s, u=u)
+    return _take_along_last(order, j[..., None].to(torch.int64))[..., 0].to(torch.int32)

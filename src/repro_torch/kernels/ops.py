@@ -1,0 +1,56 @@
+"""The radix-sort pass chain, and the launch counters of the port's kernels.
+
+Port of ``repro/kernels/ops.py`` for the kernels ported so far (B1, B7, B8).
+The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
+``split_mm.radix_pass_multibit`` (B7) and ``split_mm.topp_mask_sample_tiles``
+(B8); each runs its CUDA kernel on CUDA tensors and the kernel's plain PyTorch
+version on CPU tensors.  Every kernel launch adds one to its count;
+:func:`launch_counts` reads the counts and :func:`reset_launch_counts` sets
+them to zero, so a caller can show that a run went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.split_mm import radix_pass_multibit
+
+__all__ = ["radix_sort_enc_kernel", "launch_counts", "reset_launch_counts", "KERNELS"]
+
+# launch-counter key -> the TPU kernel it replaces
+KERNELS = {
+    "scan_mm": "B1 src/repro/kernels/scan_mm.py:36 _kernel",
+    "radix_pass": "B7 src/repro/kernels/split_mm.py:262 _radix_pass_multibit_kernel",
+    "topp_tail": "B8 src/repro/kernels/split_mm.py:360 _topp_kernel",
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`, per kernel."""
+    return {k: _build.LAUNCHES[k] for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to zero."""
+    _build.LAUNCHES.clear()
+
+
+def radix_sort_enc_kernel(enc: torch.Tensor, *, bits: int, bits_per_pass: int = 1):
+    """Stable LSB radix sort of raw-word keys via ``ceil(bits / k)`` fused passes.
+
+    ``enc``: ``(..., n)`` raw-word keys (see ``primitives._encode_for_sort``).
+    Returns ``(sorted_enc, permutation)``.  The kernel masks the ragged end of
+    a row itself, so unlike the Pallas chain no max-key tail padding is
+    needed; a ragged final digit uses the remaining bits.
+    """
+    *lead, n = enc.shape
+    work = enc.reshape(-1, n)
+    perm = torch.arange(n, dtype=torch.int32, device=enc.device).expand(
+        work.shape[0], n).contiguous()
+    for shift in range(0, bits, bits_per_pass):
+        k = min(bits_per_pass, bits - shift)
+        work, perm = radix_pass_multibit(work, perm, shift=shift, pass_bits=k)
+    return work.reshape(*lead, n), perm.reshape(*lead, n)
+

@@ -1,0 +1,141 @@
+"""B7 (one radix-2^k pass) and B8 (the fused top-p tail).
+
+Port of the two kernels of ``repro/kernels/split_mm.py`` that the top-p
+decode path runs:
+
+* :func:`radix_pass_multibit` (``csrc/radix_pass.cu``): one stable LSB
+  radix-2^k pass — digit extraction, the one-hot mask scans that rank each key
+  within its bucket, and the scatter of keys and permutation.
+* :func:`topp_mask_sample_tiles` (``csrc/topp_tail.cu``): prefix sum of the
+  sorted probabilities, the llama3 cut ``(cum - sp) > p``, the masked CDF and
+  the inverse-transform sample, one int32 per row.
+
+Keys travel as raw words: ``uint8`` for 8-bit keys, ``int16`` for 16-bit keys
+and ``int32`` for 32-bit keys (the bit patterns of the unsigned encodings;
+torch's ``uint16``/``uint32`` lack shifts and scatters on the CPU).  A pass
+only ever extracts bits, so the signed container is harmless.
+
+On CUDA tensors the wrappers launch the kernels; on CPU tensors they run the
+plain versions in this module.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import guards
+from repro_torch.kernels import _build
+
+__all__ = ["radix_pass_multibit", "radix_pass_plain", "topp_mask_sample_tiles",
+           "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND"]
+
+KEY_DTYPES = {torch.uint8: 8, torch.int16: 16, torch.int32: 32}
+
+# fp32 summation-order band of the fused top-p tail, relative to the row's
+# probability mass (derivation in csrc/topp_tail.cu)
+TOPP_BAND = 2.0 ** -16
+
+
+def radix_pass_plain(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
+                     pass_bits: int):
+    """Plain version of one radix pass on ``(b, n)`` raw-word keys.
+
+    Bucket ranks are exclusive scans of the ``(b, 2^k, n)`` one-hot digit
+    masks; destinations are the bucket bases plus those ranks.
+    """
+    radix = 1 << pass_bits
+    digits = ((work >> shift) & (radix - 1)).to(torch.int64)
+    buckets = torch.arange(radix, device=work.device)
+    oh = (digits[:, None, :] == buckets[None, :, None]).to(torch.int32)
+    ex = torch.cumsum(oh, dim=-1, dtype=torch.int32) - oh      # exclusive, exact
+    counts = ex[..., -1] + oh[..., -1]
+    base = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
+    rank = torch.gather(ex, 1, digits[:, None, :])[:, 0]
+    dest = (torch.gather(base, 1, digits) + rank).to(torch.int64)
+    return (torch.empty_like(work).scatter_(1, dest, work),
+            torch.empty_like(perm).scatter_(1, dest, perm))
+
+
+def radix_pass_multibit(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
+                        pass_bits: int):
+    """One stable radix-2^k pass: ``(keys, perm)`` regrouped by digit ``shift``.
+
+    Args:
+        work: ``(b, n)`` raw-word keys (``uint8``, ``int16`` or ``int32``).
+        perm: ``(b, n)`` int32 permutation carried along with the keys.
+        shift: Lowest bit of the digit.
+        pass_bits: Digit width ``k`` in ``[1, 8]``.
+
+    Returns:
+        ``(keys, perm)`` after the pass.
+    """
+    if work.dtype not in KEY_DTYPES:
+        raise TypeError(f"radix_pass_multibit: keys must be one of "
+                        f"{list(KEY_DTYPES)}, got {work.dtype}")
+    if perm.dtype != torch.int32:
+        raise TypeError(f"radix_pass_multibit: perm must be int32, got {perm.dtype}")
+    if work.dim() != 2:
+        raise ValueError(f"radix_pass_multibit: keys must be (b, n), got {tuple(work.shape)}")
+    guards.validate_same_shape(work.shape, perm.shape, op="radix_pass_multibit",
+                               a_name="keys", b_name="perm")
+    pass_bits = guards.validate_bits_per_pass(pass_bits, op="radix_pass_multibit")
+    if not 0 <= shift <= KEY_DTYPES[work.dtype] - pass_bits:
+        raise ValueError(f"radix_pass_multibit: bits [{shift}, {shift + pass_bits}) "
+                         f"do not fit {KEY_DTYPES[work.dtype]}-bit keys")
+    if work.device != perm.device:
+        raise ValueError("radix_pass_multibit: keys and perm live on different devices")
+    if not work.is_cuda:
+        return radix_pass_plain(work, perm, shift=shift, pass_bits=pass_bits)
+    work, perm = work.contiguous(), perm.contiguous()
+    b, n = work.shape
+    keys_out = torch.empty_like(work)
+    perm_out = torch.empty_like(perm)
+    with torch.cuda.device(work.device):
+        stream = torch.cuda.current_stream(work.device).cuda_stream
+        _build.launch("radix_pass", work.data_ptr(), perm.data_ptr(),
+                      keys_out.data_ptr(), perm_out.data_ptr(), b, n, shift,
+                      pass_bits, work.element_size(), stream)
+    return keys_out, perm_out
+
+
+def topp_tail_plain(sp: torch.Tensor, u: torch.Tensor, *, p: float) -> torch.Tensor:
+    """Plain version of the fused tail on ``(b, n)`` fp32 and ``(b, 1)`` uniforms."""
+    cum = torch.cumsum(sp, dim=-1)
+    cut = (cum - sp) > p
+    masked = torch.where(cut, torch.zeros_like(sp), sp)
+    cdf = torch.cumsum(masked, dim=-1)
+    theta = u * cdf[:, -1:]
+    j = torch.sum(cdf < theta, dim=-1, dtype=torch.int32)
+    return torch.clamp(j, 0, sp.shape[-1] - 1)
+
+
+def topp_mask_sample_tiles(sorted_p: torch.Tensor, u: torch.Tensor, *,
+                           p: float) -> torch.Tensor:
+    """Fused nucleus-sampling tail: index into the descending sorted order.
+
+    Args:
+        sorted_p: ``(..., n)`` probabilities sorted descending (cast to fp32).
+        u: ``(..., 1)`` uniforms in ``[0, 1)``.
+        p: Nucleus mass in ``[0, 1]``.
+
+    Returns:
+        ``(...)`` int32 indices into the sorted order.
+    """
+    guards.validate_probability(p, op="topp_mask_sample_tiles")
+    *lead, n = sorted_p.shape
+    if n == 0:
+        raise ValueError("topp_mask_sample_tiles: empty rows")
+    sp = sorted_p.reshape(-1, n).to(torch.float32)
+    ub = u.reshape(-1, 1).to(device=sp.device, dtype=torch.float32)
+    if ub.shape[0] != sp.shape[0]:
+        raise ValueError(f"topp_mask_sample_tiles: {ub.shape[0]} uniforms for "
+                         f"{sp.shape[0]} rows")
+    if not sp.is_cuda:
+        return topp_tail_plain(sp, ub, p=p).reshape(lead)
+    sp, ub = sp.contiguous(), ub.contiguous()
+    b = sp.shape[0]
+    j = torch.empty((b,), dtype=torch.int32, device=sp.device)
+    with torch.cuda.device(sp.device):
+        stream = torch.cuda.current_stream(sp.device).cuda_stream
+        _build.launch("topp_tail", sp.data_ptr(), ub.data_ptr(), j.data_ptr(), b, n,
+                      float(p), stream)
+    return j.reshape(lead)

@@ -1,0 +1,121 @@
+"""Grouped-query attention for the dense decoder: full (prefill) and decode.
+
+Port of ``repro/models/attention.py`` (``_qk``, ``attn_full``, ``attn_decode``)
+in plain einsum/matmul, with the same ``-1e30`` masking.  Scores and the
+probability-value product accumulate in fp32 as the JAX package's
+``preferred_element_type=float32`` does: the bf16 operands are widened to fp32
+first (exact), and the probabilities are rounded to the value dtype before
+the second product, as the JAX code casts them.
+
+The KV cache is a pair of ``(B, T, K, D)`` tensors.  ``attn_decode`` writes the
+new key and value into it in place (the JAX version returns an updated copy),
+which saves a cache-sized copy per layer and step.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import guards
+from repro_torch.models.layers import apply_rope, linear, ninit, softcap
+
+__all__ = ["attn_init", "attn_full", "attn_decode"]
+
+F32 = torch.float32
+NEG = -1e30
+
+
+def _cache_len(cache_len, s: int, *, op: str) -> int:
+    if cache_len is None:
+        return s
+    clen = guards.validate_positive(cache_len, name="cache_len", op=op)
+    if clen < s:
+        raise ValueError(f"{op}: cache_len ({clen}) is shorter than the "
+                         f"prefill length ({s}); the KV cache must hold at "
+                         "least the prompt")
+    return clen
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, hd)
+
+
+def _gqa_scores(q, k, scale, cap):
+    """q: (B,S,K,G,D), k: (B,T,K,D) -> (B,K,G,S,T) fp32."""
+    s = torch.einsum("bskgd,btkd->bkgst", q.to(F32), k.to(F32)) * scale
+    return softcap(s, cap)
+
+
+def _gqa_out(probs, v):
+    """probs: (B,K,G,S,T), v: (B,T,K,D) -> (B,S,K*G,D) fp32."""
+    o = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).to(F32), v.to(F32))
+    b, s, k, g, d = o.shape
+    return o.reshape(b, s, k * g, d)
+
+
+def _qk(p, x, cfg, positions, cdt):
+    hd = cfg.head_dim_
+    q = _split_heads(linear({"w": p["wq"]}, x, cdt), cfg.n_heads, hd)
+    k = _split_heads(linear({"w": p["wk"]}, x, cdt), cfg.n_kv_heads, hd)
+    v = _split_heads(linear({"w": p["wv"]}, x, cdt), cfg.n_kv_heads, hd)
+    if cfg.rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_full(p, x, cfg, *, positions, cdt, return_cache=False, cache_len=None):
+    """Full-sequence causal attention (prefill); optionally returns a KV cache."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    kh, gh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q, k, v = _qk(p, x, cfg, positions, cdt)
+    scores = _gqa_scores(q.reshape(b, s, kh, gh, hd), k, hd ** -0.5, cfg.attn_softcap)
+    i = torch.arange(s, device=x.device)[:, None]
+    j = torch.arange(k.shape[1], device=x.device)[None, :]
+    scores = torch.where(j <= i, scores, NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v).to(x.dtype)
+    y = linear({"w": p["wo"]}, out.reshape(b, s, -1), cdt)
+    if not return_cache:
+        return y
+    clen = _cache_len(cache_len, s, op="attn_full")
+    kc = torch.zeros((b, clen, kh, hd), dtype=x.dtype, device=x.device)
+    vc = torch.zeros((b, clen, kh, hd), dtype=x.dtype, device=x.device)
+    kc[:, :s] = k.to(x.dtype)
+    vc[:, :s] = v.to(x.dtype)
+    return y, {"k": kc, "v": vc}
+
+
+def attn_decode(p, x, cfg, cache, pos: int, *, cdt):
+    """Single-token decode at scalar position ``pos``; updates ``cache`` in place.
+
+    ``x``: (B, 1, D); ``cache["k"/"v"]``: (B, T, K, D).
+    """
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    kh, gh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    positions = torch.full((b, s), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qk(p, x, cfg, positions, cdt)
+    kc, vc = cache["k"], cache["v"]
+    kc[:, pos:pos + s] = k.to(kc.dtype)
+    vc[:, pos:pos + s] = v.to(vc.dtype)
+    scores = _gqa_scores(q.reshape(b, s, kh, gh, hd), kc, hd ** -0.5,
+                         cfg.attn_softcap)                        # (B,K,G,1,T)
+    j = torch.arange(kc.shape[1], device=x.device)
+    scores = torch.where(j <= pos, scores, NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, vc).to(x.dtype).reshape(b, s, -1)
+    return linear({"w": p["wo"]}, out, cdt), cache
+
+
+def attn_init(gen, cfg, *, n, dtype, device):
+    """Stacked attention weights for ``n`` layers, JAX ``(d_in, d_out)`` layout."""
+    hd = cfg.head_dim_
+    kw = dict(n=n, dtype=dtype, device=device)
+    return {
+        "wq": ninit(gen, (cfg.d_model, cfg.n_heads * hd), **kw),
+        "wk": ninit(gen, (cfg.d_model, cfg.n_kv_heads * hd), **kw),
+        "wv": ninit(gen, (cfg.d_model, cfg.n_kv_heads * hd), **kw),
+        "wo": ninit(gen, (cfg.n_heads * hd, cfg.d_model), **kw),
+    }

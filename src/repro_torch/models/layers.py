@@ -1,0 +1,106 @@
+"""Basic layers on plain parameter dicts (the JAX package's pytree layout).
+
+Port of ``repro/models/layers.py``.  Weights keep the JAX ``(d_in, d_out)``
+layout, so ``linear`` is ``x @ w``.  The compute dtype ``cdt`` is passed in
+explicitly rather than read from a thread-local context.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["ninit", "linear", "rmsnorm", "embed_lookup", "unembed", "mlp",
+           "rope_freqs", "apply_rope", "softcap", "matmul_f32"]
+
+
+def ninit(gen: torch.Generator, shape, *, n: Optional[int] = None, scale=None,
+          dtype=torch.float32, device=None) -> torch.Tensor:
+    """Normal init scaled by ``fan_in ** -0.5`` (``shape[0]``), as the JAX ``ninit``.
+
+    With ``n`` the result is ``n`` independent draws stacked on a leading
+    axis (one per layer), made one layer at a time so a full-size init never
+    holds more than one layer in fp32.
+    """
+    scale = scale if scale is not None else shape[0] ** -0.5
+    if n is None:
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+    out = torch.empty((n, *shape), dtype=dtype, device=device)
+    for i in range(n):
+        out[i] = (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+    return out
+
+
+def linear(p, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """``x @ w`` in the compute dtype (no fp32 materialisation of the output)."""
+    return torch.matmul(x.to(cdt), p["w"].to(cdt))
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32 with the ``(1 + g)`` scale (zero-initialised ``g``)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + p["g"].to(torch.float32))
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def embed_lookup(p, tokens: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """Rows of the embedding table, in the compute dtype."""
+    return F.embedding(tokens.to(torch.int64), p["embed"]).to(cdt)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with fp32 accumulation and an fp32 result.
+
+    bf16/fp16 operands on the card use ``torch.mm(..., out_dtype=float32)``
+    (the analogue of ``preferred_element_type=float32``); elsewhere the
+    operands are widened to fp32 first, which is exact.
+    """
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and a.dtype == b.dtype:
+        lead = a.shape[:-1]
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*lead, b.shape[-1])
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def unembed(p, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """fp32 logits ``x @ E^T`` from compute-dtype operands."""
+    return matmul_f32(x.to(cdt), p["embed"].to(cdt).t())
+
+
+ACTS = {"silu": F.silu}
+
+
+def mlp(p, x: torch.Tensor, cdt: torch.dtype, act: str = "silu") -> torch.Tensor:
+    """Gated MLP: ``down(act(gate(x)) * up(x))``."""
+    up = linear({"w": p["w_up"]}, x, cdt)
+    if "w_gate" in p:
+        h = ACTS[act](linear({"w": p["w_gate"]}, x, cdt)) * up
+    else:
+        h = ACTS[act](up)
+    return linear({"w": p["w_down"]}, h, cdt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
+    """Half-split RoPE.  ``x``: (B, S, H, D); ``positions``: (B, S) or (S,)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    ang = positions.to(torch.float32)[..., None] * freqs    # (B, S, D/2)
+    if ang.dim() == 2:
+        ang = ang[None]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,26 @@
+"""Model registry: architecture name -> config module -> model."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import TransformerLM
+
+__all__ = ["ARCHS", "get_config", "build_model"]
+
+# the architectures ported so far (the JAX package registers ten)
+ARCHS = {
+    "llama3-8b": "repro_torch.configs.llama3_8b",
+}
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    """The full config of ``arch``, or its reduced ``SMOKE`` config."""
+    if arch not in ARCHS:
+        raise ValueError(f"unknown or unported arch {arch!r}; ported: {list(ARCHS)}")
+    mod = importlib.import_module(ARCHS[arch])
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+def build_model(cfg: ModelConfig) -> TransformerLM:
+    return TransformerLM(cfg)

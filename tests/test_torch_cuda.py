@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+needs an NVIDIA GPU and ``nvcc``; the kernels are built at first use.  A CUDA
+kernel has no CPU mode, so elsewhere every test here skips.  This file imports
+neither JAX nor the JAX package: the machine with the card need not have them.
+"""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from repro_torch.core.primitives import radix_sort, top_p_sample
+from repro_torch.kernels import ops, scan_mm, split_mm
+from repro_torch.models.model import build_model, get_config
+from repro_torch.serving.engine import ServeEngine
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(dev, seed=0):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@pytest.mark.parametrize("n", [1, 100, 16387])
+@pytest.mark.parametrize("s", [1, 8, 16, 100, 128])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32, torch.bfloat16])
+def test_scan_tiles_kernel_matches_plain(dev, dtype, s, n):
+    x = torch.randint(-100, 100, (3, n), generator=_gen(dev), device=dev)
+    x = x.to(dtype) if not dtype.is_floating_point else (x % 7 - 3).to(dtype)
+    for variant in ("scanu", "scanul1"):
+        got = scan_mm.scan_tiles(x, s=s, variant=variant)
+        want = scan_mm.scan_tiles_plain(x, s=s, variant=variant, acc=got.dtype)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 33, 5000])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("word", [torch.uint8, torch.int16, torch.int32])
+def test_radix_pass_kernel_matches_plain(dev, word, k, n):
+    bits = split_mm.KEY_DTYPES[word]
+    w = torch.randint(-(1 << 31), (1 << 31) - 1, (2, n), generator=_gen(dev), device=dev,
+                      dtype=torch.int64).to(word)
+    perm = torch.randperm(n, generator=_gen(dev), device=dev).to(torch.int32)
+    perm = perm.expand(2, n).contiguous()
+    for shift in (0, bits - k):
+        kw, kp = split_mm.radix_pass_multibit(w, perm, shift=shift, pass_bits=k)
+        pw, pp = split_mm.radix_pass_plain(w, perm, shift=shift, pass_bits=k)
+        assert torch.equal(kw, pw) and torch.equal(kp, pp)
+
+
+def test_radix_sort_kernel_is_a_stable_sort(dev):
+    x = torch.randn((3, 70001), generator=_gen(dev), device=dev).to(torch.bfloat16)
+    v, i = radix_sort(x, descending=True, method="kernel")
+    lv, li = torch.sort(x, dim=-1, descending=True, stable=True)
+    assert torch.equal(v, lv) and torch.equal(i.long(), li)
+
+
+def test_topp_tail_kernel_matches_plain_on_peaked_rows(dev):
+    """Peaked rows keep every decision far outside the fp32 summation band."""
+    logits = torch.zeros((6, 1000), device=dev)
+    logits[:, :4] = torch.tensor([9.0, 8.0, 7.0, 6.0], device=dev)
+    sp = torch.sort(torch.softmax(logits, -1), -1, descending=True).values
+    u = torch.tensor([[0.05], [0.3], [0.6], [0.8], [0.95], [0.999]], device=dev)
+    for p in (0.0, 0.5, 0.9, 1.0):
+        got = split_mm.topp_mask_sample_tiles(sp, u, p=p)
+        assert torch.equal(got, split_mm.topp_tail_plain(sp, u, p=p))
+
+
+def test_wrappers_count_launches_and_check_inputs(dev):
+    ops.reset_launch_counts()
+    x = torch.ones((2, 300), device=dev)[:, ::2]              # not contiguous
+    assert torch.equal(scan_mm.scan_tiles(x, s=8)[:, -1].cpu(), torch.full((2,), 150.0))
+    k = torch.zeros((2, 64), dtype=torch.int16, device=dev)
+    ops.radix_sort_enc_kernel(k, bits=16, bits_per_pass=4)
+    split_mm.topp_mask_sample_tiles(torch.full((2, 5), 0.2, device=dev),
+                                    torch.full((2, 1), 0.5, device=dev), p=0.9)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"scan_mm": 1, "radix_pass": 4, "topp_tail": 1}
+    with pytest.raises(TypeError):
+        scan_mm.scan_tiles(torch.ones((2, 8), dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):
+        split_mm.radix_pass_multibit(k, torch.zeros((2, 64), dtype=torch.int32), shift=0,
+                                     pass_bits=4)
+
+
+def test_engine_topp_kernel_launches_per_step(dev):
+    cfg = get_config("llama3-8b", smoke=True)
+    params = build_model(cfg).init(0, device=dev)
+    eng = ServeEngine(cfg, params, max_len=24, sampler="topp_kernel")
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=_gen(dev), device=dev)
+    u = torch.rand((5, 2), generator=_gen(dev), device=dev)
+    ops.reset_launch_counts()
+    out = eng.generate({"tokens": toks}, 5, uniforms=u)
+    assert tuple(out.shape) == (2, 5)
+    assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 20, "topp_tail": 5}
+    plain = ServeEngine(cfg, params, max_len=24, sampler="topp_scan")
+    assert torch.equal(plain.generate({"tokens": toks}, 5, uniforms=u), out)
+    logits = torch.randn((2, cfg.vocab_size), generator=_gen(dev), device=dev)
+    assert torch.equal(top_p_sample(logits, temperature=0.0),
+                       torch.argmax(logits, -1).to(torch.int32))

@@ -1,0 +1,202 @@
+"""Guards of the PyTorch port: import boundary, device defaults, CPU fallbacks.
+
+The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX nor
+the JAX package; its entry points default to the GPU and refuse to carry on
+quietly without one; its kernel wrappers take the plain path only for CPU
+tensors, and then count no launch.
+"""
+from __future__ import annotations
+
+import ast
+import os
+import pathlib
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.convert import params_from_jax
+from repro_torch.core import autotune, guards, precision
+from repro_torch.kernels import _build, ops, scan_mm, split_mm
+from repro_torch.models.model import build_model, get_config
+from repro_torch.serving.engine import ServeEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "repro"), f"{path} imports {mod}"
+
+
+def test_port_has_every_kernel_source():
+    names = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert names == set(_build.SOURCES) == set(ops.KERNELS)
+
+
+def test_engine_and_init_default_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-GPU refusal cannot be shown here")
+    cfg = get_config("llama3-8b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg).init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        guards.resolve_device("cuda", op="t")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax({"w": np.ones((2, 2), np.float32)})
+    assert guards.resolve_device("cpu", op="t") == torch.device("cpu")
+
+
+def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
+    ops.reset_launch_counts()
+    x = torch.arange(300, dtype=torch.int32).reshape(3, 100)
+    scan_mm.scan_tiles(x, s=8)
+    ops.radix_sort_enc_kernel(x.to(torch.int16), bits=16, bits_per_pass=4)
+    split_mm.topp_mask_sample_tiles(torch.full((2, 5), 0.2), torch.full((2, 1), 0.5), p=0.9)
+    assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 0, "topp_tail": 0}
+
+
+def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_build_paths_are_keyed_by_source_hash():
+    p = _build._lib_path("scan_mm")
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("scan_mm_")
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_transformer_rejects_unported_kinds():
+    cfg = ModelConfig(name="moe", family="moe", n_layers=2, d_model=8, n_heads=2,
+                      n_kv_heads=2, d_ff=16, vocab_size=32,
+                      moe=MoEConfig(n_experts=2, top_k=1, d_ff_expert=8))
+    with pytest.raises(NotImplementedError):
+        build_model(cfg)
+
+
+# ---- validation guards ----
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(sampler="beam"), ValueError),
+    (dict(bits_per_pass=9), ValueError),
+    (dict(top_p=1.5), ValueError),
+    (dict(temperature=-1.0), ValueError),
+    (dict(temperature=float("nan")), ValueError),
+    (dict(max_len=0), ValueError),
+])
+def test_engine_validates_arguments(kw, exc):
+    with pytest.raises(exc):
+        ServeEngine(get_config("llama3-8b", smoke=True), None, device="cpu", **kw)
+
+
+def test_guard_helpers():
+    assert guards.validate_axis(-1, 3, op="t") == 2
+    with pytest.raises(ValueError):
+        guards.validate_axis(3, 3, op="t")
+    with pytest.raises(ValueError):
+        guards.validate_axis(0, 0, op="t")
+    with pytest.raises(ValueError):
+        guards.validate_probability(float("nan"), op="t")
+    with pytest.raises(ValueError):
+        guards.validate_same_shape((2, 3), (3, 2), op="t")
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        guards.resolve_nonfinite("sanitize", op="t")
+    with pytest.raises(ValueError):
+        guards.resolve_nonfinite("ignore", op="t")
+
+
+def test_precision_highest_only_and_no_tf32():
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+        precision.resolve_precision("compensated", method="matmul")
+    with pytest.raises(ValueError):
+        precision.resolve_precision("fast", method="vector")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            precision.require_ieee_fp32()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    precision.require_ieee_fp32()
+
+
+def test_pdot_widens_int8_before_the_product():
+    a = torch.full((1, 4), 100, dtype=torch.int8)
+    assert (a @ a.t()).item() != 40000                   # torch's own int8 product wraps
+    assert precision.pdot(a, a.t(), acc=torch.int32).item() == 40000
+
+
+# ---- method="auto" resolution chain ----
+
+
+def test_autotune_chain(monkeypatch):
+    autotune._reset_for_testing()
+    monkeypatch.delenv(autotune.ENV_VAR, raising=False)
+    table = autotune.load_table()
+    assert table["schema_version"] == 1 and "cpu" in table["backends"]
+    assert autotune.resolve_method("scan", 100, torch.float32, backend="cpu") == "vector"
+    assert autotune.resolve_method("cumsum", 1 << 20, torch.float32,
+                                   backend="cpu") == "matmul"
+    # missing dtype -> float32 entry
+    assert autotune.resolve_method("scan", 1 << 20, torch.int16, backend="cpu") == "matmul"
+    monkeypatch.setenv(autotune.ENV_VAR, "vector")
+    assert autotune.resolve_method("scan", 1 << 20, torch.float32, backend="cpu") == "vector"
+    with autotune.method_override("kernel"):
+        assert autotune.resolve_method("scan", 8, torch.float32, backend="cpu") == "kernel"
+    monkeypatch.setenv(autotune.ENV_VAR, "cube")
+    with pytest.raises(ValueError):
+        autotune.resolve_method("scan", 8, torch.float32, backend="cpu")
+
+
+def test_autotune_cuda_falls_back_to_the_default_backend_once(monkeypatch):
+    autotune._reset_for_testing()
+    monkeypatch.delenv(autotune.ENV_VAR, raising=False)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        m1 = autotune.resolve_method("scan", 1 << 20, torch.float32, backend="cuda")
+        m2 = autotune.resolve_method("scan", 1 << 20, torch.float32, backend="cuda")
+    assert m1 == m2 == autotune.resolve_method("scan", 1 << 20, torch.float32,
+                                               backend="cpu")
+    hits = [x for x in w if issubclass(x.category, autotune.AutotuneFallbackWarning)]
+    assert len(hits) == 1 and "'cuda'" in str(hits[0].message)
+
+
+def test_autotune_table_matches_the_jax_package_copy():
+    ours = (ROOT / "src" / "repro_torch" / "configs" / "tuning" / "default.json").read_text()
+    theirs = (ROOT / "src" / "repro" / "configs" / "tuning" / "default.json").read_text()
+    assert ours == theirs
+
+
+def test_ulp_copy_matches_the_jax_package_oracle():
+    from repro.analysis import ulp as jax_ulp
+    from repro_torch.analysis import ulp as port_ulp
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 300)).astype(np.float32)
+    got = np.cumsum(x, -1, dtype=np.float32)
+    assert port_ulp.ulp_bound("highest", 300) == jax_ulp.ulp_bound("highest", 300)
+    assert port_ulp.max_ulp(got, port_ulp.scan_ref(x), port_ulp.scan_scale(x)) == \
+        jax_ulp.max_ulp(got, jax_ulp.scan_ref(x), jax_ulp.scan_scale(x))
