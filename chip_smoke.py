@@ -12,10 +12,16 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 5. b8      -- the fused top-p tail at (4, 128256): on every row within the window
               of indices that the stated band allows, and exact where that
               window holds one index;
-6. main    -- the two main paths with the launch counters zeroed before and read
-              after: ``scan(method="kernel")`` at (4, 2^24), and ServeEngine
-              (``sampler="topp_kernel"``) on llama3-8b at full width, 32 layers, bf16;
-7. timing  -- kernel, plain-version and library times beside each kernel's bound.
+6. b2b4    -- the §4 pipeline's block sums, carry scan and block scan each against
+              their plain versions at (4, 2^24), then the whole pipeline on a
+              ragged row and on a one-block row (where B2 and B3 must not launch);
+7. b5      -- SplitInd against its plain version and a stable argsort, exact;
+8. main    -- the main paths with the launch counters zeroed before and read
+              after each: ``scan(method="kernel")`` and ``scan(method="blocked")``
+              at (4, 2^24), ``compress`` with ``method="kernel"`` and
+              ``"blocked"``, and ServeEngine (``sampler="topp_kernel"``, then
+              ``"topp_blocked"``) on llama3-8b at full width, 32 layers, bf16;
+9. timing  -- kernel, plain-version and library times beside each kernel's bound.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run exits non-zero and prints no result.  Without a
@@ -41,6 +47,8 @@ SERVE = dict(batch=4, prompt=128, new=32, seed=0)
 # rounds its operands to TF32 or bf16 reads thousands (the phase's controls
 # show it on the same input), so 16 tells true fp32 from either.
 B1_F32_ULP = 16.0
+RAGGED_N = (1 << 24) - 12345        # a row whose last block is partial
+VOCAB = 128256                      # llama3's vocabulary: one block at s=128, 8 tiles
 
 
 class SmokeFailure(RuntimeError):
@@ -50,6 +58,12 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def expect_counts(counts, what: str, **want) -> None:
+    """Every kernel's launch count is ``want``'s (0 where it names none)."""
+    full = {k: want.get(k, 0) for k in ops.KERNELS}
+    check(counts == full, f"{what}: expected launches {full}, got {counts}")
 
 
 def emit(obj) -> None:
@@ -75,9 +89,9 @@ torch = _startup()
 import numpy as np  # noqa: E402
 
 from repro_torch.analysis import ulp  # noqa: E402
-from repro_torch.core.primitives import radix_sort, top_p_sample  # noqa: E402
-from repro_torch.core.scan import scan  # noqa: E402
-from repro_torch.kernels import _build, ops, scan_mm, split_mm  # noqa: E402
+from repro_torch.core.primitives import compress, radix_sort, top_p_sample  # noqa: E402
+from repro_torch.core.scan import accum_dtype_for, scan  # noqa: E402
+from repro_torch.kernels import _build, ops, scan_mm, scan_pipeline, split_mm  # noqa: E402
 from repro_torch.models.model import build_model, get_config  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
@@ -311,6 +325,162 @@ def phase_b8(gen):
 
 
 # ---------------------------------------------------------------------------
+# B2-B4: the blocked pipeline
+# ---------------------------------------------------------------------------
+
+
+def _ulp_cpu(got, ref, scale):
+    return ulp.max_ulp(got.cpu().numpy(), ref, scale)
+
+
+def phase_b2b4(gen):
+    """B2, B3 and B4 each against their plain versions on the same inputs, then the
+    whole pipeline; ints and integer-valued fp32 exact, random fp32 within
+    ``B1_F32_ULP`` of the fp64 scan (block sums and carries at the scan's scale)."""
+    b, n = SCAN_SHAPE
+    inputs = {
+        "int8": torch.randint(-128, 128, SCAN_SHAPE, generator=gen, device=DEV).to(torch.int8),
+        "int32": torch.randint(-1000, 1000, SCAN_SHAPE, generator=gen, device=DEV,
+                               dtype=torch.int32),
+        "f32int": torch.randint(-3, 4, SCAN_SHAPE, generator=gen,
+                                device=DEV).to(torch.float32),
+        "f32rand": torch.randn(SCAN_SHAPE, generator=gen, device=DEV),
+    }
+    xr64 = inputs["f32rand"].double()
+    ref_np, scale_np = ulp.scan_ref(xr64.cpu().numpy()), ulp.scan_scale(xr64.cpu().numpy())
+    limit = B1_F32_ULP
+    cases = []
+    worst = {"B2": 0.0, "B3": 0.0, "B4": 0.0}
+    for s in (16, 128):
+        for bt in (1, 8):
+            m, block_len, nb = scan_pipeline.block_geometry(n, s, bt)
+            for name, x in inputs.items():
+                blocks = x.reshape(b, nb, m, s)
+                acc = accum_dtype_for(x.dtype)
+                tag = f"{name} s={s} block_tiles={bt}"
+                sums = scan_pipeline.block_partial_sums(blocks)
+                sums_p = scan_pipeline.block_partial_sums_plain(blocks, acc)
+                carries = scan_pipeline.carry_scan(sums_p)
+                carries_p = scan_pipeline.carry_scan_plain(sums_p)
+                case = {"input": name, "s": s, "block_tiles": bt, "nb": nb}
+                if name != "f32rand":
+                    check(torch.equal(sums, sums_p), f"B2 {tag}: kernel != plain")
+                    check(torch.equal(carries, carries_p), f"B3 {tag}: kernel != plain")
+                else:
+                    b64 = blocks.double()
+                    bref, bscale = b64.sum((-2, -1)), b64.abs().sum((-2, -1))
+                    cref = torch.cumsum(bref, -1) - bref
+                    cscale = torch.cumsum(bscale, -1) - bscale
+                    for key, got, plain, r, sc in (
+                            ("B2", sums, sums_p, bref, bscale),
+                            ("B3", carries, carries_p, cref, cscale)):
+                        r, sc = r.cpu().numpy(), sc.cpu().numpy()
+                        e_k, e_p = _ulp_cpu(got, r, sc), _ulp_cpu(plain, r, sc)
+                        check(e_k <= limit and e_p <= limit,
+                              f"{key} {tag}: kernel {e_k} / plain {e_p} ulp > {limit}")
+                        worst[key] = max(worst[key], float((got - plain).abs().max()))
+                        case[f"{key}_kernel_max_ulp"], case[f"{key}_plain_max_ulp"] = e_k, e_p
+                for variant in ("scanu", "scanul1"):
+                    got = scan_pipeline.block_scan_carry(blocks, carries_p, variant=variant)
+                    plain = scan_pipeline.block_scan_carry_plain(blocks, carries_p,
+                                                                 variant=variant, acc=acc)
+                    whole = scan(x, method="blocked", tile_s=s, block_tiles=bt,
+                                 variant=variant)
+                    if name != "f32rand":
+                        check(torch.equal(got, plain), f"B4 {tag} {variant}: kernel != plain")
+                        check(torch.equal(whole, plain.reshape(b, n)),
+                              f"pipeline {tag} {variant}: kernel != plain")
+                        continue
+                    e_k = _ulp_cpu(got.reshape(b, n), ref_np, scale_np)
+                    e_p = _ulp_cpu(plain.reshape(b, n), ref_np, scale_np)
+                    e_w = _ulp_cpu(whole, ref_np, scale_np)
+                    check(max(e_k, e_p, e_w) <= limit,
+                          f"B4 {tag} {variant}: kernel {e_k} / plain {e_p} / pipeline "
+                          f"{e_w} ulp > {limit}")
+                    worst["B4"] = max(worst["B4"], float((got - plain).abs().max()))
+                    case[f"B4_{variant}_kernel_max_ulp"] = e_k
+                    case[f"B4_{variant}_plain_max_ulp"] = e_p
+                    case[f"pipeline_{variant}_max_ulp"] = e_w
+                cases.append(case)
+    # a ragged row, and a row that is one block at the default geometry
+    rows = []
+    for n2 in (RAGGED_N, VOCAB):
+        xg = torch.randint(-1000, 1000, (b, n2), generator=gen, device=DEV, dtype=torch.int32)
+        xr = torch.randn((b, n2), generator=gen, device=DEV)
+        r64 = xr.double().cpu().numpy()
+        ref2, scale2 = ulp.scan_ref(r64), ulp.scan_scale(r64)
+        for s, bt in ((16, 1), (128, 8)):
+            nb = scan_pipeline.block_geometry(n2, s, bt)[2]
+            for variant in ("scanu", "scanul1"):
+                ops.reset_launch_counts()
+                got = scan_pipeline.blocked_scan(xg, s=s, block_tiles=bt, variant=variant)
+                sync()
+                two = 1 if nb > 1 else 0
+                expect_counts(ops.launch_counts(), f"blocked_scan n={n2} s={s} nb={nb}",
+                              block_sums=two, carry_scan=two, block_scan=1)
+                plain = scan_pipeline.blocked_scan_plain(xg, s=s, block_tiles=bt,
+                                                         variant=variant, acc=torch.int32)
+                check(torch.equal(got, plain) and
+                      torch.equal(got, torch.cumsum(xg, -1, dtype=torch.int32)),
+                      f"pipeline int32 n={n2} s={s} {variant}: kernel != plain or cumsum")
+                e = _ulp_cpu(scan_pipeline.blocked_scan(xr, s=s, block_tiles=bt,
+                                                        variant=variant), ref2, scale2)
+                check(e <= limit, f"pipeline fp32 n={n2} s={s} {variant}: {e} ulp > {limit}")
+                rows.append({"n": n2, "s": s, "block_tiles": bt, "nb": nb,
+                             "variant": variant, "f32rand_max_ulp": e})
+    sync()
+    emit({"phase": "b2b4", "shape": list(SCAN_SHAPE), "cases": cases, "rows": rows,
+          "ulp_limit": limit, "max_abs_err_f32rand_vs_plain": worst})
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# B5: SplitInd
+# ---------------------------------------------------------------------------
+
+
+_WORD = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def phase_b5(gen):
+    """SplitInd against its plain version and a stable argsort of the flags, exact.
+
+    Returns the largest absolute difference between kernel and plain output
+    over every case: ``z`` compared as raw integer words of its element size,
+    ``ind`` and ``n_true`` as integers.
+    """
+    cases = []
+    worst = 0
+    for n in (SCAN_SHAPE[1], VOCAB):
+        shape = (SCAN_SHAPE[0], n)
+        f = torch.rand(shape, generator=gen, device=DEV) < 0.5
+        f[1] = True                                            # all true
+        f[2] = False                                           # all false
+        order = torch.argsort((~f).to(torch.uint8), dim=-1, stable=True)
+        for dt in (torch.float32, torch.bfloat16, torch.int64):
+            if dt == torch.int64:
+                x = torch.randint(-(1 << 40), 1 << 40, shape, generator=gen, device=DEV)
+            else:
+                x = torch.randn(shape, generator=gen, device=DEV).to(dt)
+            z, ind, cnt = split_mm.split_tiles(x, f)
+            pz, pind, pcnt = split_mm.split_plain(x, f)
+            tag = f"B5 n={n} {dt}"
+            word = _WORD[z.element_size()]
+            worst = max(worst,
+                        int((z.view(word).long() - pz.view(word).long()).abs().max()),
+                        int((ind.long() - pind.long()).abs().max()),
+                        int((cnt.long() - pcnt.long()).abs().max()))
+            check(torch.equal(z, pz) and torch.equal(ind, pind) and torch.equal(cnt, pcnt),
+                  f"{tag}: kernel != plain")
+            check(torch.equal(ind.long(), order), f"{tag}: indices != stable argsort")
+            check(torch.equal(cnt.long(), f.sum(-1)), f"{tag}: n_true != flag count")
+            cases.append({"n": n, "payload": str(dt).rsplit(".", 1)[-1], "exact": True,
+                          "n_true": cnt.tolist()})
+    sync()
+    emit({"phase": "b5", "cases": cases, "max_abs_err_vs_plain": worst})
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
@@ -329,6 +499,43 @@ def main_scan(gen):
     emit({"phase": "main_scan", "shape": list(SCAN_SHAPE), "launches": counts,
           "abs_err_of_row_totals": err})
     return counts
+
+
+def main_blocked(gen):
+    """``scan(method="blocked")`` and ``compress`` through B5 and through the
+    pipeline, each with the counters zeroed just before and read just after."""
+    x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
+    mask = torch.rand(SCAN_SHAPE, generator=gen, device=DEV) < 0.5
+    runs = {}
+    ops.reset_launch_counts()
+    out = scan(x, method="blocked")
+    sync()
+    runs["scan"] = ops.launch_counts()
+    expect_counts(runs["scan"], "scan(method='blocked')", block_sums=1, carry_scan=1,
+                  block_scan=1)
+    check(out.shape == x.shape and out.dtype == torch.float32 and bool(out.isfinite().all()),
+          "scan(method='blocked') output has the wrong shape or non-finite values")
+    err = float((out[:, -1].double() - x.double().sum(-1)).abs().max())
+    ops.reset_launch_counts()
+    vk, kk = compress(x, mask, method="kernel")
+    sync()
+    runs["compress_kernel"] = ops.launch_counts()
+    expect_counts(runs["compress_kernel"], "compress(method='kernel')", split=1)
+    ops.reset_launch_counts()
+    vb, kb = compress(x, mask, method="blocked")
+    sync()
+    runs["compress_blocked"] = ops.launch_counts()
+    expect_counts(runs["compress_blocked"], "compress(method='blocked')", block_sums=1,
+                  carry_scan=1, block_scan=1)
+    check(torch.equal(kk.long(), mask.sum(-1)) and torch.equal(kk, kb) and torch.equal(vk, vb),
+          "compress: the kernel and blocked paths disagree")
+    for r in range(SCAN_SHAPE[0]):
+        k = int(kk[r])
+        check(torch.equal(vk[r, :k], x[r][mask[r]]) and not bool(vk[r, k:].any()),
+              f"compress row {r}: not the masked elements packed left, zeros after")
+    emit({"phase": "main_blocked", "shape": list(SCAN_SHAPE), "launches": runs,
+          "abs_err_of_row_totals": err, "n_true": kk.tolist()})
+    return {k: sum(c[k] for c in runs.values()) for k in ops.KERNELS}
 
 
 def _timed_generate(eng, batch, new, **kw):
@@ -368,6 +575,56 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def check_sampled(eng, batch, uniforms, toks, new):
+    """Rerun ``eng`` on the same batch and uniforms, recording each step, and hold
+    every sampled token to the ``topp_window`` of its row: inside it on every row,
+    and equal to the plain sampler's token where the window has one index."""
+    steps = []
+    orig = eng._sample
+
+    def recording(logits, generator, u):
+        tok = orig(logits, generator, u)
+        steps.append((logits.clone(), u.clone(), tok.clone()))
+        return tok
+
+    eng._sample = recording
+    toks2 = eng.generate(batch, new, uniforms=uniforms)
+    eng._sample = orig
+    check(torch.equal(toks2, toks), f"the {eng.sampler} run is not repeatable")
+    agree = total = one_answer = plain_in = widest = 0
+    for logits, u, tok in steps:
+        check(bool(logits.isfinite().all()), "non-finite logits on the decode path")
+        plain = top_p_sample(logits, p=eng.top_p, method="vector", u=u)
+        probs = torch.softmax(logits.float(), -1)
+        _, order = radix_sort(probs.to(torch.bfloat16), descending=True, method="vector")
+        sp = torch.gather(probs, -1, order.long())
+        _, lo, hi = topp_window(sp, u, eng.top_p)
+        # the sampled token's place in the sorted order
+        jk = (order == tok[:, None]).int().argmax(-1).cpu().numpy()
+        jp = (order == plain[:, None]).int().argmax(-1).cpu().numpy()
+        check(((lo <= jk) & (jk <= hi)).all(),
+              f"{eng.sampler} token outside the band's window: {jk.tolist()} not in "
+              f"{lo.tolist()}..{hi.tolist()}")
+        same = (tok == plain).cpu().numpy()
+        check(same[lo == hi].all(),
+              f"{eng.sampler} != plain sampler on a row outside the band")
+        agree += int(same.sum())
+        total += same.size
+        one_answer += int((lo == hi).sum())
+        plain_in += int(((lo <= jp) & (jp <= hi)).sum())
+        widest = max(widest, int((hi - lo).max()))
+    return {"steps_checked": len(steps), "token_agreement_with_plain_sampler": agree / total,
+            "rows_with_one_answer": one_answer, "widest_window": widest,
+            "plain_sampler_rows_in_window": plain_in}
+
+
+def blocked_scans_per_token(eng) -> int:
+    """B4 launches per sampled token of ``topp_blocked``: one batched mask scan per
+    radix pass over the 16-bit keys, the tail's prefix sum, and the CDF of
+    ``weighted_sample``.  A llama3 row is one block, so B2 and B3 launch 0 times."""
+    return -(-16 // eng.bits_per_pass) + 2
+
+
 def main_serve(gen):
     cfg = get_config("llama3-8b")
     b, s, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
@@ -394,41 +651,21 @@ def main_serve(gen):
     _, t_one = _timed_generate(eng, batch, 1, uniforms=uniforms[:1])
     decode_ms = (t_full - t_one) / (new - 1) * 1e3
     # --- the same run, each step's sample checked against the plain sampler ---
-    steps = []
-    orig = eng._sample
-
-    def recording(logits, generator, u):
-        tok = orig(logits, generator, u)
-        steps.append((logits.clone(), u.clone(), tok.clone()))
-        return tok
-
-    eng._sample = recording
-    toks2 = eng.generate(batch, new, uniforms=uniforms)
-    eng._sample = orig
-    check(torch.equal(toks2, toks), "the topp_kernel run is not repeatable")
-    agree = total = one_answer = plain_in = widest = 0
-    for logits, u, tok in steps:
-        check(bool(logits.isfinite().all()), "non-finite logits on the decode path")
-        plain = top_p_sample(logits, p=eng.top_p, method="vector", u=u)
-        probs = torch.softmax(logits.float(), -1)
-        _, order = radix_sort(probs.to(torch.bfloat16), descending=True, method="vector")
-        sp = torch.gather(probs, -1, order.long())
-        _, lo, hi = topp_window(sp, u, eng.top_p)
-        # the sampled token's place in the sorted order
-        jk = (order == tok[:, None]).int().argmax(-1).cpu().numpy()
-        jp = (order == plain[:, None]).int().argmax(-1).cpu().numpy()
-        check(((lo <= jk) & (jk <= hi)).all(),
-              f"topp_kernel token outside the band's window: {jk.tolist()} not in "
-              f"{lo.tolist()}..{hi.tolist()}")
-        same = (tok == plain).cpu().numpy()
-        check(same[lo == hi].all(), "topp_kernel != plain sampler on a row outside the band")
-        agree += int(same.sum())
-        total += same.size
-        one_answer += int((lo == hi).sum())
-        plain_in += int(((lo <= jp) & (jp <= hi)).sum())
-        widest = max(widest, int((hi - lo).max()))
+    sampled = check_sampled(eng, batch, uniforms, toks, new)
+    # --- this slice's path: the same weights and uniforms through topp_blocked ---
+    eng_b = ServeEngine(cfg, params, max_len=s + new, sampler="topp_blocked")
+    eng_b.generate(batch, 2, uniforms=uniforms[:2])                # warm-up
+    ops.reset_launch_counts()
+    toks_b, t_b = _timed_generate(eng_b, batch, new, uniforms=uniforms)
+    counts_b = ops.launch_counts()
+    expect_counts(counts_b, "topp_blocked serving",
+                  block_scan=blocked_scans_per_token(eng_b) * new)
+    check(tuple(toks_b.shape) == (b, new) and toks_b.dtype == torch.int32,
+          f"topp_blocked tokens have shape {tuple(toks_b.shape)}")
+    _, t_one_b = _timed_generate(eng_b, batch, 1, uniforms=uniforms[:1])
+    sampled_b = check_sampled(eng_b, batch, uniforms, toks_b, new)
     # --- greedy and the plain-path sampler over the same weights and uniforms ---
-    runs = {"topp_kernel": t_full}
+    runs = {"topp_kernel": t_full, "topp_blocked": t_b}
     for sampler in ("greedy", "topp_scan"):
         e2 = ServeEngine(cfg, params, max_len=s + new, sampler=sampler)
         e2.generate(batch, 2, uniforms=uniforms[:2])
@@ -436,6 +673,7 @@ def main_serve(gen):
         runs[sampler] = t2[1]
         if sampler == "topp_scan":
             scan_agree = float((t2[0] == toks).float().mean())
+            scan_agree_b = float((t2[0] == toks_b).float().mean())
     peak_gb = torch.cuda.max_memory_allocated(DEV) / 1e9
     busy = decode_busy(eng, params, batch, uniforms, s, new)
     emit({"phase": "main_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
@@ -444,15 +682,18 @@ def main_serve(gen):
           "init_s": init_s, "launches": counts,
           "tokens_per_s": {k: b * new / v for k, v in runs.items()},
           "generate_s": runs, "prefill_plus_first_sample_ms": t_one * 1e3,
-          "decode_step_ms": decode_ms, "peak_mem_gb": peak_gb,
-          "steps_checked": len(steps), "token_agreement_with_plain_sampler": agree / total,
-          "rows_with_one_answer": one_answer, "widest_window": widest,
-          "plain_sampler_rows_in_window": plain_in,
+          "decode_step_ms": decode_ms, "peak_mem_gb": peak_gb, **sampled,
           "stream_agreement_with_topp_scan": scan_agree,
           "profiled_decode": busy,
           "device_idle_share": (None if busy["device_busy_ms_per_step"] is None
                                 else 1.0 - busy["device_busy_ms_per_step"] / decode_ms)})
-    return counts
+    emit({"phase": "main_serve_topp_blocked", "launches": counts_b,
+          "blocked_scans_per_token": blocked_scans_per_token(eng_b),
+          "decode_step_ms": (t_b - t_one_b) / (new - 1) * 1e3,
+          "prefill_plus_first_sample_ms": t_one_b * 1e3, **sampled_b,
+          "stream_agreement_with_topp_kernel": float((toks_b == toks).float().mean()),
+          "stream_agreement_with_topp_scan": scan_agree_b})
+    return counts, counts_b
 
 
 @torch.inference_mode()
@@ -537,12 +778,87 @@ def phase_timing(gen):
     logits = torch.randn((VOCAB_ROWS, v), generator=gen, device=DEV) * 4
     uu = torch.rand((VOCAB_ROWS, 1), generator=gen, device=DEV)
     sampler = {m: cuda_ms(lambda m=m: top_p_sample(logits, method=m, u=uu), 20)
-               for m in ("kernel", "vector", "matmul")}
+               for m in ("kernel", "blocked", "vector", "matmul")}
     sampler["xla_argsort"] = cuda_ms(
         lambda: top_p_sample(logits, method="vector", sort_method="xla", u=uu), 20)
+    out.update(time_pipeline(x, x8))
+    out.update(time_split(gen))
     emit({"phase": "timing", "kernels": out, "top_p_sample_ms": sampler,
-          "shapes": {"B1": list(SCAN_SHAPE), "B7": [VOCAB_ROWS, v], "B8": [VOCAB_ROWS, v]}})
+          "shapes": {"B1": list(SCAN_SHAPE), "B2-B4": list(SCAN_SHAPE),
+                     "B5": [[b, n], [VOCAB_ROWS, v]], "B7": [VOCAB_ROWS, v],
+                     "B8": [VOCAB_ROWS, v]}})
     return out
+
+
+def time_pipeline(x, x8):
+    """B2, B3, B4 and the whole pipeline at the default geometry (s=128, 8 tiles:
+    128 blocks per row), fp32 and int8, each kernel timed in turns with its plain
+    version.  The keys without a prefix are fp32's."""
+    b, n = x.shape
+    m, block_len, nb = scan_pipeline.block_geometry(n, 128, 8)
+    out = {"B2": {}, "B3": {}, "B4": {}, "pipeline": {}}
+    for name, xx in (("", x), ("int8_", x8)):
+        blocks = xx.reshape(b, nb, m, 128)
+        acc = accum_dtype_for(xx.dtype)
+        esz, f32 = xx.element_size(), xx.dtype == torch.float32
+        sums = scan_pipeline.block_partial_sums_plain(blocks, acc)
+        carries = scan_pipeline.carry_scan_plain(sums)
+        k, pl = paired_ms(lambda: scan_pipeline.block_partial_sums(blocks),
+                          lambda: scan_pipeline.block_partial_sums_plain(blocks, acc), 10)
+        bms, by = bound(b * n * esz + b * nb * 4, b * n if f32 else 0)
+        out["B2"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
+                          name + "bound_by": by, name + "library_ms": cuda_ms(
+                              lambda: torch.sum(blocks, dim=(-2, -1), dtype=acc), 10)})
+        k, pl = paired_ms(lambda: scan_pipeline.carry_scan(sums),
+                          lambda: scan_pipeline.carry_scan_plain(sums), 50)
+        bms, by = bound(b * nb * 8, b * nb if f32 else 0)
+        out["B3"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
+                          name + "bound_by": by, name + "library_ms": None})
+        k, pl = paired_ms(
+            lambda: scan_pipeline.block_scan_carry(blocks, carries),
+            lambda: scan_pipeline.block_scan_carry_plain(blocks, carries, variant="scanul1",
+                                                         acc=acc), 10)
+        bms, by = bound(b * n * (esz + 4) + b * nb * 4, 3 * b * n if f32 else 0)
+        out["B4"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
+                          name + "bound_by": by, name + "library_ms": None,
+                          name + "scanu_ms": cuda_ms(lambda: scan_pipeline.block_scan_carry(
+                              blocks, carries, variant="scanu"), 10)})
+        k, pl = paired_ms(
+            lambda: scan(xx, method="blocked"),
+            lambda: scan_pipeline.blocked_scan_plain(xx, s=128, block_tiles=8,
+                                                     variant="scanul1", acc=acc), 5)
+        out["pipeline"].update({
+            name + "ms": k, name + "plain_ms": pl,
+            name + "library_ms": cuda_ms(lambda: torch.cumsum(xx, -1, dtype=acc), 5),
+            name + "bound_ms": bound(b * n * (esz + 4))[0],               # the scan's bytes
+            name + "pipeline_bytes_bound_ms": bound(b * n * (2 * esz + 4))[0]})
+    # B3 where it has real work: s=16, one tile per block gives 65536 blocks a row
+    nb16 = scan_pipeline.block_geometry(n, 16, 1)[2]
+    big = torch.randn((b, nb16), device=DEV)
+    out["B3"]["nb65536_ms"], out["B3"]["nb65536_plain_ms"] = paired_ms(
+        lambda: scan_pipeline.carry_scan(big), lambda: scan_pipeline.carry_scan_plain(big), 20)
+    out["B3"]["nb65536_bound_ms"] = bound(b * nb16 * 8, b * nb16)[0]
+    return out
+
+
+def time_split(gen):
+    """B5 at (4, 2^24) and (4, 128256), fp32 payload and bool flags, in turns with
+    its plain version; beside it a stable argsort of the flags plus a gather of the
+    payload (two PyTorch calls: no single call is the same function)."""
+    res = {}
+    for n5, reps, key in ((SCAN_SHAPE[1], 3, "B5"), (VOCAB, 20, "B5_vocab")):
+        shape = (SCAN_SHAPE[0], n5)
+        f = torch.rand(shape, generator=gen, device=DEV) < 0.5
+        xx = torch.randn(shape, generator=gen, device=DEV)
+        order_key = (~f).to(torch.uint8)
+        k, pl = paired_ms(lambda: split_mm.split_tiles(xx, f),
+                          lambda: split_mm.split_plain(xx, f), reps)
+        two = cuda_ms(lambda: torch.gather(
+            xx, -1, torch.argsort(order_key, dim=-1, stable=True)), reps)
+        res[key] = dict(ms=k, plain_ms=pl, library_ms=None, argsort_gather_ms=two,
+                        bound_ms=bound(shape[0] * n5 * 13 + shape[0] * 4)[0],
+                        bound_by="bytes")
+    return res
 
 
 def main() -> int:
@@ -566,16 +882,31 @@ def main() -> int:
     b1_err = phase_b1(gen)
     b7_err = phase_b7(gen)
     b8_err = phase_b8(gen)
+    b2b4_err = phase_b2b4(gen)
+    b5_err = phase_b5(gen)
     scan_counts = main_scan(gen)
+    blocked_counts = main_blocked(gen)
     ref = smoke_reference(gen)
     emit({"phase": "smoke_reference", **ref})
-    serve_counts = main_serve(gen)
+    serve_counts, serve_b_counts = main_serve(gen)
     timing = phase_timing(gen)
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [
         ("B1 scan_tiles (ScanU/ScanUL1 tile scan)", "scan_mm.cu",
          "src/repro/kernels/scan_mm.py:36", scan_counts["scan_mm"], b1_err, timing["B1"]),
+        ("B2 block_partial_sums (block sums of the blocked pipeline)", "block_sums.cu",
+         "src/repro/kernels/scan_pipeline.py:71", blocked_counts["block_sums"],
+         b2b4_err["B2"], timing["B2"]),
+        ("B3 carry_scan (exclusive scan of the block sums)", "carry_scan.cu",
+         "src/repro/kernels/scan_pipeline.py:105", blocked_counts["carry_scan"],
+         b2b4_err["B3"], timing["B3"]),
+        ("B4 block_scan_carry (block scan plus carry; launches include topp_blocked "
+         "serving)", "block_scan.cu", "src/repro/kernels/scan_pipeline.py:143",
+         blocked_counts["block_scan"] + serve_b_counts["block_scan"], b2b4_err["B4"],
+         timing["B4"]),
+        ("B5 split_tiles (SplitInd)", "split.cu", "src/repro/kernels/split_mm.py:136",
+         blocked_counts["split"], b5_err, timing["B5"]),
         ("B7 radix_pass_multibit (radix-16 pass; times are the 4-pass bf16 sort chain)",
          "radix_pass.cu", "src/repro/kernels/split_mm.py:262", serve_counts["radix_pass"],
          float(b7_err), timing["B7"]),

@@ -42,6 +42,7 @@ CONCRETE_METHODS = ("matmul", "vector", "kernel", "blocked")
 OP_ALIASES: Dict[str, str] = {
     "cumsum": "scan",
     "weighted_sample": "scan",
+    "compress": "split",
     "multi_split": "split",
     "radix_sort": "sort",
     "topk": "sort",

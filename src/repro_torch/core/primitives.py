@@ -1,23 +1,24 @@
-"""Scan-based operators (paper §5): multi-way split, radix sort, top-k, top-p.
+"""Scan-based operators (paper §5): split, compress, multi-way split, sorts, top-p.
 
-Port of ``repro/core/primitives.py`` for the operators on the decode path.
+Port of ``repro/core/primitives.py`` for the operators on the main path.
 Every operator takes ``method=`` and routes through one dispatch table:
 
-* ``"matmul"`` / ``"vector"`` — the unfused operators: one batched exclusive
-  :func:`~repro_torch.core.scan.scan` over the one-hot digit masks, then a
-  torch scatter (the scan method differs underneath);
-* ``"kernel"`` — the hand-written CUDA kernels of ``repro_torch.kernels``: B7
-  for each radix pass, B8 for the whole top-p tail;
-* ``"blocked"`` — the unfused operators over the blocked scan, which is not
-  ported yet and raises ``NotImplementedError``.
+* ``"matmul"`` / ``"vector"`` / ``"blocked"`` — the unfused operators: one
+  batched exclusive :func:`~repro_torch.core.scan.scan` over the int8 masks
+  (the flags, or the one-hot digit masks), then a torch scatter; the scan
+  method differs underneath, and ``"blocked"`` runs it on the §4 pipeline
+  (B2–B4), so ``split``, ``compress``, ``multi_split``, ``radix_sort``,
+  ``sort``, ``topk``, ``weighted_sample`` and ``top_p_sample`` all run there;
+* ``"kernel"`` — the hand-written CUDA kernels of ``repro_torch.kernels``: B5
+  for ``split``/``compress``, B7 for each radix pass, B8 for the whole top-p
+  tail.  ``multi_split(method="kernel")`` waits for B6 and raises.
 
-Bucket offsets are exact int32 mask scans for every method, so sorts are
-bit-identical across methods in values and permutation.
+Destination offsets are exact int32 mask scans for every method, so splits
+and sorts are bit-identical across methods in values and permutation.
 
 Sort keys travel as raw words: ``uint8`` for 8-bit keys, ``int16`` for
 16-bit and ``int32`` for 32-bit keys, holding the bits of the JAX package's
-unsigned encodings (``uint8``/``uint16``/``uint32``).  ``split``/``compress``
-wait for the SplitInd kernel (B5).
+unsigned encodings (``uint8``/``uint16``/``uint32``).
 """
 from __future__ import annotations
 
@@ -29,9 +30,9 @@ from repro_torch.core import guards
 from repro_torch.core.autotune import maybe_resolve
 from repro_torch.core.scan import METHODS, scan
 
-__all__ = ["multi_split", "radix_sort", "sort", "topk", "top_p_sample",
-           "weighted_sample", "float_to_sortable_int", "sortable_int_to_float",
-           "dispatch", "METHODS"]
+__all__ = ["split", "compress", "multi_split", "radix_sort", "sort", "topk",
+           "top_p_sample", "weighted_sample", "float_to_sortable_int",
+           "sortable_int_to_float", "dispatch", "METHODS"]
 
 _DISPATCH: Dict[str, Dict[str, Callable]] = {}
 
@@ -50,8 +51,8 @@ def dispatch(op: str, method: str) -> Callable:
     """Look up the implementation of ``op`` for ``method``.
 
     Example:
-        >>> dispatch("radix_passes", "vector").__name__
-        '_radix_passes_unfused'
+        >>> dispatch("split", "vector").__name__
+        '_split_unfused'
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
@@ -76,6 +77,91 @@ def _scatter_payloads(payloads, dest, *, with_indices):
         outs += (torch.empty(dest.shape, dtype=torch.int32,
                              device=dest.device).scatter_(-1, d, iota),)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# split / compress
+# ---------------------------------------------------------------------------
+
+
+@_register("split", "matmul", "vector", "blocked")
+def _split_unfused(x, flags, *, method, tile_s):
+    """SplitInd via one exclusive int8 mask ``scan`` + torch scatter."""
+    n = x.shape[-1]
+    f8 = flags.to(torch.int8)
+    ex = scan(f8, axis=-1, exclusive=True, method=method, tile_s=tile_s)
+    n_true = ex[..., -1] + flags[..., -1].to(torch.int32)
+    iota = torch.arange(n, dtype=torch.int32, device=x.device)
+    dest = torch.where(flags.to(torch.bool), ex, n_true[..., None] + (iota - ex))
+    z, ind = _scatter_payloads((x,), dest, with_indices=True)
+    return z, ind, n_true
+
+
+@_register("split", "kernel")
+def _split_fused(x, flags, *, method, tile_s):
+    """SplitInd as one B5 launch (the kernel takes no tile side)."""
+    from repro_torch.kernels.split_mm import split_tiles
+    return split_tiles(x, flags)
+
+
+def split(x: torch.Tensor, flags: torch.Tensor, *, method: str = "auto",
+          return_indices: bool = True, tile_s: int = 128):
+    """Stable partition (the paper's SplitInd): flagged elements first, order kept.
+
+    Args:
+        x: Payload ``(..., n)``, any dtype.
+        flags: Boolean ``(..., n)``; true elements move to the front.
+        method: One of ``METHODS`` or ``"auto"`` (``"kernel"`` is one B5
+            launch; ``"blocked"`` runs the mask scan on the §4 pipeline).
+        return_indices: If false, omit the permutation from the result.
+        tile_s: Tile side ``s`` for the matmul scans.
+
+    Returns:
+        ``(z, indices, n_true)`` (or ``(z, n_true)``): the partitioned
+        payload, each output's original position (int32) and the per-row
+        count of flagged elements (int32, 0-d for a 1-D ``x``).
+
+    Example:
+        >>> z, ind, k = split(torch.tensor([10, 20, 30, 40]),
+        ...                   torch.tensor([False, True, False, True]), method="vector")
+        >>> z.tolist(), ind.tolist(), int(k)
+        ([20, 40, 10, 30], [1, 3, 0, 2], 2)
+    """
+    guards.validate_same_shape(x.shape, flags.shape, op="split")
+    method = maybe_resolve(method, "split", x.shape[-1], x.dtype, device=x.device)
+    z, ind, n_true = dispatch("split", method)(x, flags, method=method, tile_s=tile_s)
+    if return_indices:
+        return z, ind, n_true
+    return z, n_true
+
+
+def compress(x: torch.Tensor, mask: torch.Tensor, *, method: str = "auto",
+             fill_value=0, tile_s: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked select: the elements where ``mask`` is true, packed left.
+
+    Args:
+        x: Payload ``(..., n)``.
+        mask: Boolean ``(..., n)``.
+        method: One of ``METHODS`` or ``"auto"``; forwarded to :func:`split`.
+        fill_value: Value for the ``values[..., count:]`` tail.
+        tile_s: Tile side ``s`` for the matmul scans.
+
+    Returns:
+        ``(values, count)``: ``values`` shaped like ``x``, with
+        ``values[..., count:]`` set to ``fill_value``.
+
+    Example:
+        >>> v, k = compress(torch.tensor([1, 2, 3, 4]),
+        ...                 torch.tensor([True, False, True, False]), method="vector")
+        >>> v.tolist(), int(k)
+        ([1, 3, 0, 0], 2)
+    """
+    method = maybe_resolve(method, "compress", x.shape[-1], x.dtype, device=x.device)
+    z, _, n_true = split(x, mask, method=method, tile_s=tile_s)
+    iota = torch.arange(x.shape[-1], dtype=torch.int32, device=x.device)
+    keep = iota < n_true[..., None]
+    z = torch.where(keep, z, torch.tensor(fill_value, dtype=z.dtype, device=z.device))
+    return z, n_true
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +200,8 @@ def _multi_split_unfused(x, digits, num_buckets, *, method, tile_s):
 def _multi_split_fused(x, digits, num_buckets, *, method, tile_s):
     raise NotImplementedError(
         "multi_split(method='kernel') needs the multi-way split kernel B6 "
-        "(src/repro/kernels/split_mm.py:194 _multi_split_kernel), which is not "
-        "ported yet; use method='matmul' or 'vector'")
+        "(src/repro/kernels/split_mm.py:194 _multi_split_kernel), which the next "
+        "slice of the port brings; use method='matmul', 'vector' or 'blocked'")
 
 
 def multi_split(x: torch.Tensor, digits: torch.Tensor, num_buckets: int, *,

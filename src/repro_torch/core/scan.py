@@ -11,8 +11,10 @@ Port of ``repro/core/scan.py``:
 
 Methods: ``"vector"`` is ``torch.cumsum``; ``"matmul"`` is the tile algebra
 above as torch matrix products; ``"kernel"`` is the hand-written CUDA tile
-scan (``repro_torch.kernels.scan_mm``, whose plain version runs on CPU
-tensors).  ``"blocked"`` (the §4 pipeline, TPU kernels B2–B4) is not ported.
+scan (``repro_torch.kernels.scan_mm``, B1); ``"blocked"`` is the §4 three-phase
+pipeline (``repro_torch.kernels.scan_pipeline``: block sums, carry scan and
+the fused block scan plus carry, B2–B4).  The two kernel methods run their
+plain PyTorch versions on CPU tensors.
 
 Dtype rules follow the paper's cube unit: int8/uint8/int16/bool accumulate in
 int32, bf16/fp16 in fp32, everything else in its own dtype.  Every method
@@ -138,7 +140,8 @@ def _scan_last_axis_matmul(x: torch.Tensor, s: int, variant: str, acc,
 def scan(x: torch.Tensor, axis: int = -1, *, exclusive: bool = False,
          reverse: bool = False, method: str = "auto",
          precision: str = "highest", variant: str = "scanul1",
-         tile_s: int = 128, accum_dtype: Optional[torch.dtype] = None,
+         tile_s: int = 128, block_tiles: int = 8,
+         accum_dtype: Optional[torch.dtype] = None,
          nonfinite: str = "propagate") -> torch.Tensor:
     """Inclusive (or exclusive) prefix sum along ``axis``.
 
@@ -147,11 +150,15 @@ def scan(x: torch.Tensor, axis: int = -1, *, exclusive: bool = False,
         axis: Axis to scan along.
         exclusive: Shift the result right by one with a leading zero.
         reverse: Scan from the end (suffix sums).
-        method: ``"auto"`` (tuning table), ``"vector"``, ``"matmul"`` or
-            ``"kernel"``; ``"blocked"`` raises ``NotImplementedError``.
-        precision: Only ``"highest"`` is ported.
+        method: ``"auto"`` (tuning table), ``"vector"``, ``"matmul"``,
+            ``"kernel"`` or ``"blocked"``.
+        precision: Only ``"highest"`` is ported; any other value raises
+            ``NotImplementedError`` (ROADMAP Queue A item 2).
         variant: ``"scanu"`` (Alg. 1) or ``"scanul1"`` (Alg. 2).
         tile_s: Tile side ``s``; a tile covers ``s²`` elements.
+        block_tiles: Tiles per block for ``method="blocked"`` (ignored
+            otherwise, but validated as positive); a block covers
+            ``block_tiles * tile_s²`` elements.
         accum_dtype: Accumulation dtype override.
         nonfinite: Only ``"propagate"`` is ported.
 
@@ -163,12 +170,15 @@ def scan(x: torch.Tensor, axis: int = -1, *, exclusive: bool = False,
         [1, 3, 6, 10, 15, 21, 28, 36]
         >>> scan(torch.arange(1, 5), exclusive=True, method="matmul").tolist()
         [0, 1, 3, 6]
+        >>> scan(torch.ones(10, dtype=torch.int8), method="blocked", tile_s=8)[-1].item()
+        10
     """
     if method != "auto" and method not in METHODS:
         raise ValueError(f"unknown scan method {method!r}; expected one of "
                          f"{METHODS + ('auto',)}")
     if variant not in _TILE_FNS:
         raise ValueError(f"unknown scan variant {variant!r}")
+    block_tiles = guards.validate_positive(block_tiles, name="block_tiles", op="scan")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(x.dtype)
     axis = guards.validate_axis(axis, x.dim(), op="scan")
     guards.resolve_nonfinite(nonfinite, op="scan")
@@ -190,9 +200,9 @@ def scan(x: torch.Tensor, axis: int = -1, *, exclusive: bool = False,
         out = scan_tiles(x, s=tile_s, variant=variant, accum_dtype=acc,
                          precision=precision)
     elif method == "blocked":
-        raise NotImplementedError(
-            "scan(method='blocked') needs the §4 pipeline kernels B2-B4 "
-            "(kernels/scan_pipeline.py), which are not ported yet")
+        from repro_torch.kernels.scan_pipeline import blocked_scan  # no cycle
+        out = blocked_scan(x, s=tile_s, block_tiles=block_tiles, variant=variant,
+                           accum_dtype=acc, precision=precision)
     else:
         out = _scan_last_axis_matmul(x, tile_s, variant, acc, precision)
 

@@ -38,6 +38,10 @@ SOURCES: Dict[str, tuple] = {
     "scan_mm": ("repro_scan_tiles", [_P, _P, _I, _L, _I, _I, _I, _P]),
     "radix_pass": ("repro_radix_pass", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
     "topp_tail": ("repro_topp_tail", [_P, _P, _P, _I, _L, _F, _P]),
+    "block_sums": ("repro_block_sums", [_P, _P, _I, _L, _I, _L, _I, _P]),
+    "carry_scan": ("repro_carry_scan", [_P, _P, _I, _L, _I, _P]),
+    "block_scan": ("repro_block_scan", [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P]),
+    "split": ("repro_split", [_P, _P, _P, _P, _P, _I, _L, _I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -40,4 +40,31 @@ __device__ __forceinline__ A warp_inclusive_scan(A v, int lane) {
     return v;
 }
 
+// Block-wide exclusive scan of one value per thread, in thread order, for a
+// block of kWarps full warps.  scratch holds 2 * kWarps + 1 values; total gets
+// the block's sum.  Ends with a barrier, so scratch may be reused at once.
+template <typename A, int kWarps>
+__device__ __forceinline__ A block_exclusive_scan(A v, A* scratch, A& total) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const A incl = warp_inclusive_scan(v, lane);
+    if (lane == 31) scratch[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        const A w = lane < kWarps ? scratch[lane] : A(0);
+        const A wi = warp_inclusive_scan(w, lane);
+        A we = __shfl_up_sync(kFullMask, wi, 1);
+        if (lane == 0) we = A(0);
+        if (lane < kWarps) scratch[kWarps + lane] = we;
+        if (lane == kWarps - 1) scratch[2 * kWarps] = wi;
+    }
+    __syncthreads();
+    A lane_ex = __shfl_up_sync(kFullMask, incl, 1);
+    if (lane == 0) lane_ex = A(0);
+    const A ex = scratch[kWarps + warp] + lane_ex;
+    total = scratch[2 * kWarps];
+    __syncthreads();
+    return ex;
+}
+
 }  // namespace repro

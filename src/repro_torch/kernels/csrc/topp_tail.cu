@@ -43,31 +43,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 4;
 constexpr int kChunk = kThreads * kItems;
 
-// Block-wide exclusive scan of one float per thread.  scratch: 2 * kWarps + 1.
-__device__ __forceinline__ float block_exclusive_scan(float v, float* scratch,
-                                                      float& total) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const float incl = repro::warp_inclusive_scan(v, lane);
-    if (lane == 31) scratch[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-        const float w = scratch[lane];
-        const float wi = repro::warp_inclusive_scan(w, lane);
-        float we = __shfl_up_sync(repro::kFullMask, wi, 1);
-        if (lane == 0) we = 0.0f;
-        scratch[kWarps + lane] = we;
-        if (lane == 31) scratch[2 * kWarps] = wi;
-    }
-    __syncthreads();
-    float lane_ex = __shfl_up_sync(repro::kFullMask, incl, 1);
-    if (lane == 0) lane_ex = 0.0f;
-    const float ex = scratch[kWarps + warp] + lane_ex;
-    total = scratch[2 * kWarps];
-    __syncthreads();                         // scratch is reused by the next scan
-    return ex;
-}
-
 __global__ void __launch_bounds__(kThreads)
 topp_tail_kernel(const float* __restrict__ sp, const float* __restrict__ u,
                  int* __restrict__ out, long long n, float p) {
@@ -97,7 +72,8 @@ topp_tail_kernel(const float* __restrict__ sp, const float* __restrict__ u,
                 l[k] = run;
             }
             float tot_cum;
-            const float ex_cum = block_exclusive_scan(run, scratch, tot_cum);
+            const float ex_cum =
+                repro::block_exclusive_scan<float, kWarps>(run, scratch, tot_cum);
             float m[kItems];
 #pragma unroll
             for (int k = 0; k < kItems; ++k) {
@@ -113,7 +89,8 @@ topp_tail_kernel(const float* __restrict__ sp, const float* __restrict__ u,
                 l[k] = run;
             }
             float tot_cdf;
-            const float ex_cdf = block_exclusive_scan(run, scratch, tot_cdf);
+            const float ex_cdf =
+                repro::block_exclusive_scan<float, kWarps>(run, scratch, tot_cdf);
 #pragma unroll
             for (int k = 0; k < kItems; ++k) {
                 const float cdf = (ex_cdf + l[k]) + carry_cdf;

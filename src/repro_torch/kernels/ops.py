@@ -1,10 +1,13 @@
-"""The radix-sort pass chain, and the launch counters of the port's kernels.
+"""Public kernel entry points, and the launch counters of the port's kernels.
 
-Port of ``repro/kernels/ops.py`` for the kernels ported so far (B1, B7, B8).
-The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
-``split_mm.radix_pass_multibit`` (B7) and ``split_mm.topp_mask_sample_tiles``
-(B8); each runs its CUDA kernel on CUDA tensors and the kernel's plain PyTorch
-version on CPU tensors.  Every kernel launch adds one to its count;
+Port of ``repro/kernels/ops.py`` for the kernels ported so far (B1–B5, B7,
+B8).  The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
+``scan_pipeline.{block_partial_sums,carry_scan,block_scan_carry}`` (B2–B4),
+``split_mm.split_tiles`` (B5), ``split_mm.radix_pass_multibit`` (B7) and
+``split_mm.topp_mask_sample_tiles`` (B8); each runs its CUDA kernel on CUDA
+tensors and the kernel's plain PyTorch version on CPU tensors.  PyTorch runs
+eagerly, so the entry points here are plain calls where the JAX package
+``jit``s.  Every kernel launch adds one to its count;
 :func:`launch_counts` reads the counts and :func:`reset_launch_counts` sets
 them to zero, so a caller can show that a run went through the kernels.
 """
@@ -17,13 +20,19 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.split_mm import radix_pass_multibit
 
-__all__ = ["radix_sort_enc_kernel", "launch_counts", "reset_launch_counts", "KERNELS"]
+__all__ = ["radix_sort_enc_kernel",
+           "launch_counts", "reset_launch_counts", "KERNELS"]
 
 # launch-counter key -> the TPU kernel it replaces
 KERNELS = {
     "scan_mm": "B1 src/repro/kernels/scan_mm.py:36 _kernel",
     "radix_pass": "B7 src/repro/kernels/split_mm.py:262 _radix_pass_multibit_kernel",
     "topp_tail": "B8 src/repro/kernels/split_mm.py:360 _topp_kernel",
+    "block_sums": "B2 src/repro/kernels/scan_pipeline.py:71 _block_sums_kernel",
+    "carry_scan": "B3 src/repro/kernels/scan_pipeline.py:105 _carry_scan_kernel",
+    "block_scan": "B4 src/repro/kernels/scan_pipeline.py:143/:152 "
+                  "_block_scan_scanu_kernel/_block_scan_scanul1_kernel",
+    "split": "B5 src/repro/kernels/split_mm.py:136 _split_kernel",
 }
 
 

@@ -14,7 +14,7 @@ from repro_torch.core.scan import (accum_dtype_for, tile_scan_scanu,
                                    tile_scan_scanul1)
 from repro_torch.kernels import _build
 
-__all__ = ["scan_tiles", "scan_tiles_plain", "VARIANTS"]
+__all__ = ["scan_tiles", "scan_tiles_plain", "kernel_operand", "VARIANTS", "MAX_TILE"]
 
 VARIANTS = ("scanul1", "scanu")
 MAX_TILE = 128
@@ -46,25 +46,35 @@ def scan_tiles_plain(xb: torch.Tensor, *, s: int, variant: str,
     return out[:, :n]
 
 
-def _scan_tiles_cuda(xb: torch.Tensor, *, s: int, variant: str,
-                     acc: torch.dtype) -> torch.Tensor:
+def kernel_operand(xb: torch.Tensor, acc: torch.dtype, *, op: str):
+    """``xb`` as the scan kernels read it, and its dtype code.
+
+    ``bool`` is read as ``uint8``; an input whose ``accum_dtype_for`` is not
+    ``acc`` is cast to ``acc`` first.  Raises ``TypeError`` for a dtype or an
+    accumulation dtype the kernels do not take.
+    """
     if xb.dtype == torch.bool:
         xb = xb.view(torch.uint8)
     if xb.dtype not in _DTYPE_CODES:
-        raise TypeError(f"scan_tiles: the CUDA kernel takes {list(_DTYPE_CODES)}, "
+        raise TypeError(f"{op}: the CUDA kernel takes {list(_DTYPE_CODES)}, "
                         f"got {xb.dtype}")
     if acc != accum_dtype_for(xb.dtype):
         if acc not in (torch.float32, torch.int32):
-            raise TypeError(f"scan_tiles: the CUDA kernel accumulates in fp32 or "
+            raise TypeError(f"{op}: the CUDA kernel accumulates in fp32 or "
                             f"int32, got accum_dtype={acc}")
         xb = xb.to(acc)
-    xb = xb.contiguous()
+    return xb.contiguous(), _DTYPE_CODES[xb.dtype]
+
+
+def _scan_tiles_cuda(xb: torch.Tensor, *, s: int, variant: str,
+                     acc: torch.dtype) -> torch.Tensor:
+    xb, code = kernel_operand(xb, acc, op="scan_tiles")
     b, n = xb.shape
     out = torch.empty((b, n), dtype=acc, device=xb.device)
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         _build.launch("scan_mm", xb.data_ptr(), out.data_ptr(), b, n, s,
-                      1 if variant == "scanul1" else 0, _DTYPE_CODES[xb.dtype], stream)
+                      1 if variant == "scanul1" else 0, code, stream)
     return out
 
 

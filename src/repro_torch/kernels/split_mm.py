@@ -1,8 +1,10 @@
-"""B7 (one radix-2^k pass) and B8 (the fused top-p tail).
+"""B5 (SplitInd), B7 (one radix-2^k pass) and B8 (the fused top-p tail).
 
-Port of the two kernels of ``repro/kernels/split_mm.py`` that the top-p
-decode path runs:
+Port of three kernels of ``repro/kernels/split_mm.py``:
 
+* :func:`split_tiles` (``csrc/split.cu``): SplitInd — the mask scan, stable
+  destinations (flagged elements first) and the scatter of the payload and
+  its original index, with the number of flagged elements.
 * :func:`radix_pass_multibit` (``csrc/radix_pass.cu``): one stable LSB
   radix-2^k pass — digit extraction, the one-hot mask scans that rank each key
   within its bucket, and the scatter of keys and permutation.
@@ -25,14 +27,77 @@ import torch
 from repro_torch.core import guards
 from repro_torch.kernels import _build
 
-__all__ = ["radix_pass_multibit", "radix_pass_plain", "topp_mask_sample_tiles",
-           "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND"]
+__all__ = ["split_tiles", "split_plain", "radix_pass_multibit", "radix_pass_plain",
+           "topp_mask_sample_tiles", "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND"]
 
 KEY_DTYPES = {torch.uint8: 8, torch.int16: 16, torch.int32: 32}
 
 # fp32 summation-order band of the fused top-p tail, relative to the row's
 # probability mass (derivation in csrc/topp_tail.cu)
 TOPP_BAND = 2.0 ** -16
+
+
+def split_plain(x: torch.Tensor, flags: torch.Tensor):
+    """Plain version of SplitInd on ``(b, n)`` payloads and ``bool`` flags.
+
+    Returns ``(z, ind, n_true)``: destinations are the exclusive int32 mask
+    scan ``ex`` for a flagged element and ``n_true + i - ex`` for the others.
+    """
+    fi = flags.to(torch.int32)
+    inc = torch.cumsum(fi, dim=-1, dtype=torch.int32)               # exact
+    ex = inc - fi
+    n_true = inc[:, -1]
+    iota = torch.arange(x.shape[-1], dtype=torch.int32, device=x.device)
+    dest = torch.where(flags, ex, n_true[:, None] + iota - ex).to(torch.int64)
+    z = torch.empty_like(x).scatter_(1, dest, x)
+    ind = torch.empty_like(dest, dtype=torch.int32).scatter_(1, dest, iota.expand_as(ex))
+    return z, ind, n_true
+
+
+def split_tiles(x: torch.Tensor, flags: torch.Tensor):
+    """SplitInd over the last axis: ``(z, ind, n_true)``.
+
+    Args:
+        x: ``(..., n)`` payload of any dtype with 1-, 2-, 4- or 8-byte
+            elements; a CUDA tensor launches the kernel, a CPU tensor runs
+            :func:`split_plain`.
+        flags: Same shape; cast to ``bool`` first, so every non-zero flag
+            counts as true.  (The Pallas kernel casts flags to int8 and puts
+            an element first only where its flag is exactly 1; for ``bool``
+            flags the two agree.)  The Pallas kernel's tile side ``s`` has
+            no counterpart: the CUDA kernel scans the mask 32 lanes at a time.
+
+    Returns:
+        ``z`` shaped like ``x``, ``ind`` (int32) shaped like ``x``, and
+        ``n_true`` (int32) of shape ``x.shape[:-1]`` (0-d for a 1-D ``x``).
+    """
+    guards.validate_same_shape(x.shape, flags.shape, op="split_tiles")
+    if x.device != flags.device:
+        raise ValueError("split_tiles: x and flags live on different devices")
+    *lead, n = x.shape
+    if x.numel() == 0:
+        return (x.clone(), torch.zeros(x.shape, dtype=torch.int32, device=x.device),
+                torch.zeros(lead, dtype=torch.int32, device=x.device))
+    xb = x.reshape(-1, n)
+    fb = flags.reshape(-1, n).to(torch.bool)
+    b = xb.shape[0]
+    if not xb.is_cuda:
+        z, ind, cnt = split_plain(xb, fb)
+    else:
+        if xb.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"split_tiles: the CUDA kernel moves 1-, 2-, 4- or 8-byte "
+                            f"elements, got {xb.dtype}")
+        if n >= 1 << 31:
+            raise ValueError(f"split_tiles: rows of {n} elements overflow the int32 index")
+        xb, fb = xb.contiguous(), fb.contiguous()
+        z = torch.empty_like(xb)
+        ind = torch.empty((b, n), dtype=torch.int32, device=xb.device)
+        cnt = torch.empty((b,), dtype=torch.int32, device=xb.device)
+        with torch.cuda.device(xb.device):
+            stream = torch.cuda.current_stream(xb.device).cuda_stream
+            _build.launch("split", xb.data_ptr(), fb.data_ptr(), z.data_ptr(),
+                          ind.data_ptr(), cnt.data_ptr(), b, n, xb.element_size(), stream)
+    return z.reshape(x.shape), ind.reshape(x.shape), cnt.reshape(lead)
 
 
 def radix_pass_plain(work: torch.Tensor, perm: torch.Tensor, *, shift: int,

@@ -4,7 +4,8 @@
       --batch 2 --prompt-len 16 --new-tokens 8 --sampler topp_scan
 
 Without ``--device`` it runs on the GPU (``--sampler topp_kernel`` then runs
-the B7/B8 kernels).  Weights are random, made from ``--seed``.
+the B7/B8 kernels, ``--sampler topp_blocked`` the B4 block scan).  Weights
+are random, made from ``--seed``.
 """
 from __future__ import annotations
 

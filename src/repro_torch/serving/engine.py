@@ -2,8 +2,9 @@
 
 Port of ``repro/serving/engine.py`` ``ServeEngine`` for the samplers
 ``greedy``, ``topp_auto``, ``topp_scan`` (matmul scans), ``topp_kernel`` (B7
-radix passes + the B8 tail) and ``topp_xla`` (a stable ``torch.argsort``; the
-name matches the JAX package's baseline).  The engine runs on the card unless
+radix passes + the B8 tail), ``topp_blocked`` (every scan of the sampler on
+the §4 blocked pipeline, B2–B4) and ``topp_xla`` (a stable ``torch.argsort``;
+the name matches the JAX package's baseline).  The engine runs on the card unless
 it is given ``device="cpu"``.
 
 ``generate(..., uniforms=)`` feeds the sampler's per-step uniforms from
@@ -26,7 +27,8 @@ __all__ = ["ServeEngine"]
 
 
 class ServeEngine:
-    SAMPLERS = ("greedy", "topp_auto", "topp_scan", "topp_kernel", "topp_xla")
+    SAMPLERS = ("greedy", "topp_auto", "topp_scan", "topp_kernel", "topp_blocked",
+                "topp_xla")
 
     def __init__(self, cfg, params, *, max_len: int = 512, top_p: float = 0.9,
                  temperature: float = 1.0, sampler: str = "topp_scan",
@@ -49,8 +51,8 @@ class ServeEngine:
     def _sample(self, logits: torch.Tensor, generator, u) -> torch.Tensor:
         if self.sampler == "greedy":
             return torch.argmax(logits, dim=-1).to(torch.int32)
-        method = {"topp_kernel": "kernel", "topp_auto": "auto"}.get(self.sampler,
-                                                                    "matmul")
+        method = {"topp_kernel": "kernel", "topp_blocked": "blocked",
+                  "topp_auto": "auto"}.get(self.sampler, "matmul")
         sort_method = "xla" if self.sampler == "topp_xla" else "radix"
         return top_p_sample(logits, generator, p=self.top_p,
                             temperature=self.temperature, method=method,

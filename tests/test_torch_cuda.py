@@ -11,8 +11,9 @@ from __future__ import annotations
 import pytest
 import torch
 
-from repro_torch.core.primitives import radix_sort, top_p_sample
-from repro_torch.kernels import ops, scan_mm, split_mm
+from repro_torch.core.primitives import compress, radix_sort, split, top_p_sample
+from repro_torch.core.scan import accum_dtype_for, scan
+from repro_torch.kernels import ops, scan_mm, scan_pipeline, split_mm
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
 
@@ -76,6 +77,77 @@ def test_topp_tail_kernel_matches_plain_on_peaked_rows(dev):
         assert torch.equal(got, split_mm.topp_tail_plain(sp, u, p=p))
 
 
+def _int_payload(dtype, shape, dev):
+    x = torch.randint(-100, 100, shape, generator=_gen(dev), device=dev)
+    return x.to(dtype) if not dtype.is_floating_point else (x % 7 - 3).to(dtype)
+
+
+@pytest.mark.parametrize("s,block_tiles", [(8, 1), (16, 4), (100, 1), (128, 2)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32, torch.bfloat16])
+def test_pipeline_kernels_match_plain(dev, dtype, s, block_tiles):
+    """B2, B3 and B4 each against their plain versions on the same block view."""
+    m, block_len, _ = scan_pipeline.block_geometry(1 << 30, s, block_tiles)
+    blocks = _int_payload(dtype, (3, 5, m, s), dev)
+    acc = accum_dtype_for(dtype)
+    sums = scan_pipeline.block_partial_sums(blocks)
+    assert torch.equal(sums, scan_pipeline.block_partial_sums_plain(blocks, acc))
+    carries = scan_pipeline.carry_scan(sums)
+    assert torch.equal(carries, scan_pipeline.carry_scan_plain(sums))
+    for variant in ("scanu", "scanul1"):
+        got = scan_pipeline.block_scan_carry(blocks, carries, variant=variant)
+        want = scan_pipeline.block_scan_carry_plain(blocks, carries, variant=variant,
+                                                    acc=acc)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 100, 16387, 300001])
+@pytest.mark.parametrize("s,block_tiles", [(8, 1), (16, 2), (128, 8)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32, torch.bool])
+def test_blocked_scan_kernels_match_cumsum(dev, dtype, s, block_tiles, n):
+    """The unpadded kernel path, ragged rows included, against an exact cumsum."""
+    x = _int_payload(torch.int32, (3, n), dev) > 0 if dtype == torch.bool else \
+        _int_payload(dtype, (3, n), dev)
+    for variant in ("scanu", "scanul1"):
+        got = scan_pipeline.blocked_scan(x, s=s, block_tiles=block_tiles, variant=variant)
+        want = torch.cumsum(x.to(got.dtype), -1, dtype=got.dtype)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 5000, 1 << 20])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int8, torch.bfloat16, torch.float32,
+                                   torch.int64, torch.float64])
+def test_split_kernel_matches_plain(dev, dtype, n):
+    x = _int_payload(torch.int32, (4, n), dev).to(dtype)
+    f = torch.rand((4, n), generator=_gen(dev), device=dev) < 0.5
+    f[1] = True
+    f[2] = False
+    z, ind, cnt = split_mm.split_tiles(x, f)
+    pz, pind, pcnt = split_mm.split_plain(x, f)
+    assert torch.equal(z, pz) and torch.equal(ind, pind) and torch.equal(cnt, pcnt)
+    order = torch.argsort((~f).to(torch.uint8), dim=-1, stable=True)
+    assert torch.equal(ind.long(), order)
+
+
+def test_pipeline_and_split_launch_counts(dev):
+    x = torch.randn((4, 1 << 18), generator=_gen(dev), device=dev)
+    ops.reset_launch_counts()
+    scan(x, method="blocked", tile_s=16, block_tiles=8)          # 128 blocks per row
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 0, "topp_tail": 0,
+                                   "block_sums": 1, "carry_scan": 1, "block_scan": 1,
+                                   "split": 0}
+    ops.reset_launch_counts()
+    scan(x, method="blocked", tile_s=128, block_tiles=16)        # one block per row
+    assert ops.launch_counts()["block_scan"] == 1
+    assert ops.launch_counts()["block_sums"] == ops.launch_counts()["carry_scan"] == 0
+    ops.reset_launch_counts()
+    m = x > 0
+    v, k = compress(x, m, method="kernel")
+    assert ops.launch_counts()["split"] == 1
+    assert torch.equal(v, compress(x, m, method="vector")[0])
+    assert torch.equal(split(x, m, method="blocked")[1], split(x, m, method="vector")[1])
+
+
 def test_wrappers_count_launches_and_check_inputs(dev):
     ops.reset_launch_counts()
     x = torch.ones((2, 300), device=dev)[:, ::2]              # not contiguous
@@ -85,7 +157,9 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     split_mm.topp_mask_sample_tiles(torch.full((2, 5), 0.2, device=dev),
                                     torch.full((2, 1), 0.5, device=dev), p=0.9)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"scan_mm": 1, "radix_pass": 4, "topp_tail": 1}
+    assert ops.launch_counts() == {"scan_mm": 1, "radix_pass": 4, "topp_tail": 1,
+                                   "block_sums": 0, "carry_scan": 0, "block_scan": 0,
+                                   "split": 0}
     with pytest.raises(TypeError):
         scan_mm.scan_tiles(torch.ones((2, 8), dtype=torch.float64, device=dev))
     with pytest.raises(ValueError):
@@ -102,9 +176,29 @@ def test_engine_topp_kernel_launches_per_step(dev):
     ops.reset_launch_counts()
     out = eng.generate({"tokens": toks}, 5, uniforms=u)
     assert tuple(out.shape) == (2, 5)
-    assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 20, "topp_tail": 5}
+    assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 20, "topp_tail": 5,
+                                   "block_sums": 0, "carry_scan": 0, "block_scan": 0,
+                                   "split": 0}
     plain = ServeEngine(cfg, params, max_len=24, sampler="topp_scan")
     assert torch.equal(plain.generate({"tokens": toks}, 5, uniforms=u), out)
     logits = torch.randn((2, cfg.vocab_size), generator=_gen(dev), device=dev)
     assert torch.equal(top_p_sample(logits, temperature=0.0),
                        torch.argmax(logits, -1).to(torch.int32))
+
+
+def test_engine_topp_blocked_launches_per_step(dev):
+    """topp_blocked: 4 radix passes, the tail's prefix and the sample's CDF, each one
+    B4 launch per sampled token; a SMOKE vocab is one block, so no B2 or B3."""
+    cfg = get_config("llama3-8b", smoke=True)
+    params = build_model(cfg).init(0, device=dev)
+    eng = ServeEngine(cfg, params, max_len=24, sampler="topp_blocked")
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=_gen(dev), device=dev)
+    u = torch.rand((5, 2), generator=_gen(dev), device=dev)
+    ops.reset_launch_counts()
+    out = eng.generate({"tokens": toks}, 5, uniforms=u)
+    assert tuple(out.shape) == (2, 5)
+    counts = ops.launch_counts()
+    assert counts["block_scan"] == 6 * 5
+    assert counts["block_sums"] == counts["carry_scan"] == 0
+    plain = ServeEngine(cfg, params, max_len=24, sampler="topp_scan")
+    assert torch.equal(plain.generate({"tokens": toks}, 5, uniforms=u), out)

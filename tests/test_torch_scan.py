@@ -119,9 +119,13 @@ def test_bf16_scan_accumulates_in_fp32_like_jax():
 
 
 def test_blocked_and_unknown_methods_raise():
+    """``blocked`` runs now; what it has not ported (other precisions) raises."""
     x = torch.ones(10)
-    with pytest.raises(NotImplementedError, match="B2-B4"):
-        port_scan(x, method="blocked")
+    assert port_scan(x, method="blocked", tile_s=8)[-1].item() == 10.0
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+        port_scan(x, method="blocked", precision="compensated")
+    with pytest.raises(ValueError, match="block_tiles"):
+        port_scan(x, method="blocked", block_tiles=0)
     with pytest.raises(ValueError):
         port_scan(x, method="cube")
     with pytest.raises(ValueError):

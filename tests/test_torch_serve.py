@@ -128,7 +128,7 @@ def test_greedy_tokens_match_jax():
     np.testing.assert_array_equal(t.numpy(), j)
 
 
-@pytest.mark.parametrize("sampler", ["topp_scan", "topp_kernel", "topp_xla"])
+@pytest.mark.parametrize("sampler", ["topp_scan", "topp_kernel", "topp_blocked", "topp_xla"])
 def test_topp_tokens_match_jax_under_its_uniforms(sampler):
     je, te = _engines(sampler, temperature=1.3)
     key = jax.random.PRNGKey(7)
