@@ -16,12 +16,20 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               their plain versions at (4, 2^24), then the whole pipeline on a
               ragged row and on a one-block row (where B2 and B3 must not launch);
 7. b5      -- SplitInd against its plain version and a stable argsort, exact;
-8. main    -- the main paths with the launch counters zeroed before and read
+8. seg     -- the segmented scan kernels (B9-B12) each against its plain version at
+              (4, 2^24) on rows cut into segments of log-uniform length (empty
+              ones included), then the segmented scans on a ragged row, a
+              one-block row (where B10 and B11 must not launch) and the
+              sampler's (16, 513024) one-hot rows over one row of flags;
+9. main    -- the main paths with the launch counters zeroed before and read
               after each: ``scan(method="kernel")`` and ``scan(method="blocked")``
               at (4, 2^24), ``compress`` with ``method="kernel"`` and
-              ``"blocked"``, and ServeEngine (``sampler="topp_kernel"``, then
-              ``"topp_blocked"``) on llama3-8b at full width, 32 layers, bf16;
-9. timing  -- kernel, plain-version and library times beside each kernel's bound.
+              ``"blocked"``, ``segment_compress`` with both, and ServeEngine
+              (``sampler="topp_kernel"``, ``"topp_blocked"``, then
+              ``"topp_segmented"`` under ``method_override("kernel")`` and
+              ``("blocked")``, with ``sample_packed`` on a ragged batch) on
+              llama3-8b at full width, 32 layers, bf16;
+10. timing -- kernel, plain-version and library times beside each kernel's bound.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run exits non-zero and prints no result.  Without a
@@ -49,6 +57,9 @@ SERVE = dict(batch=4, prompt=128, new=32, seed=0)
 B1_F32_ULP = 16.0
 RAGGED_N = (1 << 24) - 12345        # a row whose last block is partial
 VOCAB = 128256                      # llama3's vocabulary: one block at s=128, 8 tiles
+SEG_MAX_LEN = 1 << 20               # segment lengths are log-uniform in [1, 2^20]
+SEG_SEED = 13
+PACKED_ROWS = (VOCAB, 32000, 0, 50257)   # sample_packed: ragged logit rows, one empty
 
 
 class SmokeFailure(RuntimeError):
@@ -89,9 +100,14 @@ torch = _startup()
 import numpy as np  # noqa: E402
 
 from repro_torch.analysis import ulp  # noqa: E402
+from repro_torch.core.autotune import method_override  # noqa: E402
 from repro_torch.core.primitives import compress, radix_sort, top_p_sample  # noqa: E402
 from repro_torch.core.scan import accum_dtype_for, scan  # noqa: E402
-from repro_torch.kernels import _build, ops, scan_mm, scan_pipeline, split_mm  # noqa: E402
+from repro_torch.core.segmented import (SegmentedBatch, boundary_flags,  # noqa: E402
+                                        segment_compress, segment_scan,
+                                        segment_top_p_sample)
+from repro_torch.kernels import (_build, ops, scan_mm, scan_pipeline,  # noqa: E402
+                                 segscan_mm, split_mm)
 from repro_torch.models.model import build_model, get_config  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
@@ -482,6 +498,172 @@ def phase_b5(gen):
 
 
 # ---------------------------------------------------------------------------
+# B9-B12: the segmented scans
+# ---------------------------------------------------------------------------
+
+
+def seg_offsets(rng, n: int) -> torch.Tensor:
+    """CSR offsets of a packed row of ``n``: segment lengths log-uniform in
+    ``[1, SEG_MAX_LEN]``, every seventh segment empty, the last one cut at ``n``."""
+    lens, total = [], 0
+    while total < n:
+        if len(lens) % 7 == 3:
+            lens.append(0)
+        ln = min(int(np.exp(rng.uniform(0.0, np.log(SEG_MAX_LEN)))), n - total)
+        lens.append(ln)
+        total += ln
+    return torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32,
+                        device=DEV)
+
+
+def seg_ref64(x, f):
+    """The fp64 per-segment inclusive scan of ``x`` under the nonzero ``f`` (broadcast
+    to ``x``), and its scale, the running ``Σ|x|`` since the segment start: a
+    log-step doubling scan on the card, so no partial sum of another segment is
+    ever subtracted."""
+    h = (f != 0).expand(x.shape).clone()
+    v, a = x.double(), x.double().abs()
+    n, d = x.shape[-1], 1
+    while d < n:
+        ov, oa, oh = torch.zeros_like(v), torch.zeros_like(a), torch.zeros_like(h)
+        ov[..., d:], oa[..., d:], oh[..., d:] = v[..., :-d], a[..., :-d], h[..., :-d]
+        v = torch.where(h, v, ov + v)
+        a = torch.where(h, a, oa + a)
+        h |= oh
+        d *= 2
+    return v, a
+
+
+def max_ulp_dev(got, ref, scale) -> float:
+    """``analysis/ulp.py``'s max ulp error, computed on the card: ``|got - ref|`` in
+    fp32 spacings at ``scale``."""
+    sc = scale.float().clamp(min=float(np.finfo(np.float32).tiny))
+    spacing = (torch.nextafter(sc, torch.full_like(sc, float("inf"))) - sc).double()
+    return float(((got.double() - ref).abs() / spacing).max())
+
+
+def _seg_inputs(gen, shape):
+    return {
+        "int8": torch.randint(-128, 128, shape, generator=gen, device=DEV).to(torch.int8),
+        "f32int": torch.randint(-3, 4, shape, generator=gen, device=DEV).to(torch.float32),
+        "f32rand": torch.randn(shape, generator=gen, device=DEV),
+    }
+
+
+def phase_seg(gen):
+    """B9, B10, B11 and B12 each against its plain version on the same inputs, then
+    the segmented scans whole.  Ints and integer-valued fp32 are exact against the
+    plain version and an exact reference; random fp32 from a kernel stays within
+    ``B1_F32_ULP`` of the fp64 per-segment scan at the per-segment scale.  Returns
+    each kernel's largest absolute difference from its plain version."""
+    rng = np.random.default_rng(SEG_SEED)
+    b, n = SCAN_SHAPE
+    offs = [seg_offsets(rng, n) for _ in range(b)]
+    flags = torch.stack([boundary_flags(o, n) for o in offs])           # (b, n) int8
+    inputs = _seg_inputs(gen, SCAN_SHAPE)
+    limit = B1_F32_ULP
+    worst = {"B9": 0.0, "B10": 0.0, "B11": 0.0, "B12": 0.0}
+    cases = []
+
+    def hold(key, tag, got, plain, ref=None, scale=None, exact=True):
+        """Exact (and equal to ``ref``) for ints; for random fp32 the kernel within
+        the ulp limit of ``ref``.  Records the kernel's distance from its plain version."""
+        worst[key] = max(worst[key], float((got.double() - plain.double()).abs().max()))
+        if exact:
+            check(got.dtype == plain.dtype and torch.equal(got, plain),
+                  f"{key} {tag}: kernel != plain ({int((got != plain).sum())} elements)")
+            if ref is not None:
+                check(torch.equal(got.double(), ref), f"{key} {tag}: != exact reference")
+            return None
+        e = max_ulp_dev(got, ref, scale)
+        check(e <= limit, f"{key} {tag}: kernel {e} ulp > {limit}")
+        return e
+
+    refs = {name: seg_ref64(x, flags) for name, x in inputs.items()}
+    for name, x in inputs.items():
+        acc, exact = accum_dtype_for(x.dtype), name != "f32rand"
+        ref, scale = refs[name]
+        got = segscan_mm.seg_scan_tiles(x, flags)
+        plain = segscan_mm.seg_scan_tiles_plain(x, flags != 0, s=128, acc=acc)
+        case = {"input": name, "B9_max_ulp": hold("B9", name, got, plain, ref, scale, exact),
+                "B9_plain_max_ulp": None if exact else max_ulp_dev(plain, ref, scale)}
+        for s, bt in ((16, 8), (128, 8)):
+            m, block_len, nb = scan_pipeline.block_geometry(n, s, bt)
+            blocks, fblocks = x.reshape(b, nb, m, s), flags.reshape(b, nb, m, s)
+            tag = f"{name} s={s} block_tiles={bt} nb={nb}"
+            ts, hb = segscan_mm.seg_block_summaries(blocks, fblocks)
+            pts, phb = segscan_mm.seg_block_summaries_plain(blocks, fblocks, acc)
+            check(torch.equal(hb, phb), f"B10 {tag}: has-boundary != plain")
+            r_ts, s_ts = segscan_mm.seg_block_summaries_plain(blocks.double(), fblocks,
+                                                              torch.float64)
+            a_ts, _ = segscan_mm.seg_block_summaries_plain(blocks.double().abs(), fblocks,
+                                                           torch.float64)
+            case[f"B10_s{s}_max_ulp"] = hold("B10", tag, ts, pts, r_ts, a_ts, exact)
+            carries = segscan_mm.seg_carry_scan(pts, phb)
+            pcarries = segscan_mm.seg_carry_scan_plain(pts, phb)
+            r_c = segscan_mm.seg_carry_scan_plain(pts.double(), phb)
+            a_c = segscan_mm.seg_carry_scan_plain(pts.double().abs(), phb)
+            case[f"B11_s{s}_max_ulp"] = hold("B11", tag, carries, pcarries, r_c, a_c, exact)
+            got = segscan_mm.seg_block_scan_carry(blocks, fblocks, pcarries)
+            plain = segscan_mm.seg_block_scan_carry_plain(blocks, fblocks, pcarries, acc)
+            case[f"B12_s{s}_max_ulp"] = hold("B12", tag, got.reshape(b, n),
+                                             plain.reshape(b, n), ref, scale, exact)
+            whole = segscan_mm.seg_blocked_scan(x, flags, s=s, block_tiles=bt)
+            if exact:
+                check(torch.equal(whole.double(), ref), f"pipeline {tag}: != exact reference")
+            else:
+                e = max_ulp_dev(whole, ref, scale)
+                check(e <= limit, f"pipeline {tag}: {e} ulp > {limit}")
+                case[f"pipeline_s{s}_max_ulp"] = e
+                case[f"B12_s{s}_plain_max_ulp"] = max_ulp_dev(plain.reshape(b, n), ref, scale)
+        cases.append(case)
+    del refs
+    # the operator over offsets shared by every row, on a ragged row, a one-block row
+    # and the sampler's one-hot rows
+    rows = []
+    onehot = (torch.randint(0, 16, (4 * VOCAB,), generator=gen, device=DEV)
+              == torch.arange(16, device=DEV)[:, None]).to(torch.int8)
+    for name, x, off in (
+            ("ragged int32", torch.randint(-1000, 1000, (b, RAGGED_N), generator=gen,
+                                            device=DEV, dtype=torch.int32),
+             seg_offsets(rng, RAGGED_N)),
+            ("one-block f32rand", torch.randn((b, VOCAB), generator=gen, device=DEV),
+             seg_offsets(rng, VOCAB)),
+            ("sampler one-hot int8", onehot,
+             torch.arange(5, device=DEV, dtype=torch.int32) * VOCAB)):
+        nn = x.shape[-1]
+        f = boundary_flags(off, nn)
+        ref, scale = seg_ref64(x, f)
+        exact = x.dtype != torch.float32
+        nb = scan_pipeline.block_geometry(nn, 128, 8)[2]
+        row = {"case": name, "shape": list(x.shape), "nb": nb}
+        for method, want in (("kernel", {"seg_scan": 1}),
+                             ("blocked", {"seg_block_scan": 1, **(
+                                 {"seg_summaries": 1, "seg_carry": 1} if nb > 1 else {})})):
+            ops.reset_launch_counts()
+            got = segment_scan(x, off, method=method)
+            sync()
+            expect_counts(ops.launch_counts(), f"segment_scan {name} {method}", **want)
+            if exact:
+                check(torch.equal(got.double(), ref), f"segment_scan {name} {method}: "
+                      "!= exact reference")
+            else:
+                e = row[f"{method}_max_ulp"] = max_ulp_dev(got, ref, scale)
+                check(e <= limit, f"segment_scan {name} {method}: {e} ulp > {limit}")
+        xb = x.reshape(-1, nn)
+        plain = segscan_mm.seg_scan_tiles_plain(xb, f.expand(xb.shape) != 0, s=128,
+                                                acc=accum_dtype_for(x.dtype))
+        row["B9_max_ulp"] = hold("B9", name, segscan_mm.seg_scan_tiles(x, f),
+                                 plain.reshape(x.shape), ref, scale, exact)
+        rows.append(row)
+    sync()
+    emit({"phase": "seg", "shape": list(SCAN_SHAPE), "segments_per_row": [
+        int(o.numel() - 1) for o in offs], "ulp_limit": limit, "cases": cases, "rows": rows,
+        "max_abs_err_vs_plain": worst})
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
 
@@ -535,6 +717,45 @@ def main_blocked(gen):
               f"compress row {r}: not the masked elements packed left, zeros after")
     emit({"phase": "main_blocked", "shape": list(SCAN_SHAPE), "launches": runs,
           "abs_err_of_row_totals": err, "n_true": kk.tolist()})
+    return {k: sum(c[k] for c in runs.values()) for k in ops.KERNELS}
+
+
+def main_segmented(gen):
+    """``segment_compress`` through B9 and through B10-B12 on the four (4, 2^24) rows
+    packed as one batch, each with the counters zeroed just before and read just
+    after; the two agree, and every segment equals the port's ``compress`` of it."""
+    rng = np.random.default_rng(SEG_SEED + 1)
+    b, n = SCAN_SHAPE
+    x = torch.randn((b * n,), generator=gen, device=DEV)
+    mask = torch.rand((b * n,), generator=gen, device=DEV) < 0.5
+    off = torch.cat([seg_offsets(rng, n)[:-1] + r * n for r in range(b)]
+                    + [torch.tensor([b * n], dtype=torch.int32, device=DEV)])
+    runs = {}
+    ops.reset_launch_counts()
+    zk, ck = segment_compress(x, mask, off, method="kernel")
+    sync()
+    runs["segment_compress_kernel"] = ops.launch_counts()
+    expect_counts(runs["segment_compress_kernel"], "segment_compress(method='kernel')",
+                  seg_scan=1)
+    ops.reset_launch_counts()
+    zb, cb = segment_compress(x, mask, off, method="blocked")
+    sync()
+    runs["segment_compress_blocked"] = ops.launch_counts()
+    expect_counts(runs["segment_compress_blocked"], "segment_compress(method='blocked')",
+                  seg_summaries=1, seg_carry=1, seg_block_scan=1)
+    check(torch.equal(zk, zb) and torch.equal(ck, cb),
+          "segment_compress: the kernel and blocked paths disagree")
+    bounds = off.tolist()
+    for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        if hi > lo:
+            v, k = compress(x[lo:hi], mask[lo:hi], method="vector")
+            check(int(k) == int(ck[i]) and torch.equal(zk[lo:hi], v),
+                  f"segment_compress segment {i}: != compress of the segment")
+        else:
+            check(int(ck[i]) == 0, f"segment_compress: empty segment {i} keeps {int(ck[i])}")
+    emit({"phase": "main_segmented", "packed_n": b * n, "segments": len(bounds) - 1,
+          "empty_segments": int((off[1:] == off[:-1]).sum()), "launches": runs,
+          "kept": int(ck.sum())})
     return {k: sum(c[k] for c in runs.values()) for k in ops.KERNELS}
 
 
@@ -625,6 +846,98 @@ def blocked_scans_per_token(eng) -> int:
     return -(-16 // eng.bits_per_pass) + 2
 
 
+def segmented_scans_per_token(eng) -> int:
+    """Segmented scans per sampled token of ``topp_segmented``: the softmax's
+    normaliser, one batched one-hot scan per radix pass over the 16-bit keys, the
+    prefix sum of the sorted probabilities, the CDF and the count below ``theta``."""
+    return 1 + -(-16 // eng.bits_per_pass) + 3
+
+
+def seg_counts(method: str, n: int, scans: int) -> dict:
+    """The launches of ``scans`` segmented scans of a packed row of ``n`` on ``method``
+    at the default geometry: B9 once each, or B12 once each and B10, B11 too when
+    the row has more than one block."""
+    if method == "kernel":
+        return {"seg_scan": scans}
+    two = scans if scan_pipeline.block_geometry(n, 128, 8)[2] > 1 else 0
+    return {"seg_summaries": two, "seg_carry": two, "seg_block_scan": scans}
+
+
+def serve_segmented(eng_k, cfg, params, batch, uniforms, s, new):
+    """``topp_segmented`` under ``method_override("kernel")`` and ``("blocked")`` on
+    the same weights and uniforms, with exact launch counts and every token held to
+    its window; then ``sample_packed`` on ragged logit rows under each override."""
+    eng = ServeEngine(cfg, params, max_len=s + new, sampler="topp_segmented")
+    per_token = segmented_scans_per_token(eng)
+    b = batch["tokens"].shape[0]
+    out, counts = {}, {}
+    for method in ("kernel", "blocked"):
+        with method_override(method):
+            eng.generate(batch, 2, uniforms=uniforms[:2])                  # warm-up
+            ops.reset_launch_counts()
+            toks, t_full = _timed_generate(eng, batch, new, uniforms=uniforms)
+            counts[method] = ops.launch_counts()
+            expect_counts(counts[method], f"topp_segmented serving under {method}",
+                          **seg_counts(method, b * cfg.padded_vocab, per_token * new))
+            check(tuple(toks.shape) == (b, new) and toks.dtype == torch.int32,
+                  f"topp_segmented tokens have shape {tuple(toks.shape)}")
+            _, t_one = _timed_generate(eng, batch, 1, uniforms=uniforms[:1])
+            sampled = check_sampled(eng, batch, uniforms, toks, new)
+        out[method] = {"launches": counts[method], "tokens_per_s": b * new / t_full,
+                       "decode_step_ms": (t_full - t_one) / (new - 1) * 1e3, **sampled,
+                       "stream": toks}
+    for method in ("kernel", "blocked"):
+        out[method]["stream_agreement_with_topp_kernel"] = float(
+            (out[method].pop("stream") == eng_k).float().mean())
+    packed, packed_counts = sample_packed_check(eng, params, batch, uniforms, s, new)
+    emit({"phase": "main_serve_topp_segmented", "segmented_scans_per_token": per_token,
+          "packed_n": b * cfg.padded_vocab, **out, "sample_packed": packed})
+    return {k: counts["kernel"][k] + counts["blocked"][k] + packed_counts[k]
+            for k in ops.KERNELS}
+
+
+def sample_packed_check(eng, params, batch, uniforms, s, new):
+    """``sample_packed`` on ragged rows of the prefill's logits (``PACKED_ROWS`` long,
+    one empty) under each override: exact launch counts, and each segment's token
+    inside its window and equal to the port's 1-D ``top_p_sample`` of the row where
+    the window has one index."""
+    logits, _ = eng.model.prefill(params, batch, cache_len=s + new)
+    segs = [logits[i % logits.shape[0], :ln].float() for i, ln in enumerate(PACKED_ROWS)]
+    off = torch.tensor(np.concatenate([[0], np.cumsum(PACKED_ROWS)]), dtype=torch.int32,
+                       device=DEV)
+    packed = SegmentedBatch(torch.cat(segs), off)
+    u = uniforms[0][:len(PACKED_ROWS), None]
+    res, total = {}, {k: 0 for k in ops.KERNELS}
+    for method in ("kernel", "blocked"):
+        with method_override(method):
+            ops.reset_launch_counts()
+            tok = eng.sample_packed(packed, u=u)
+            sync()
+            counts = ops.launch_counts()
+        expect_counts(counts, f"sample_packed under {method}",
+                      **seg_counts(method, int(off[-1]), segmented_scans_per_token(eng)))
+        total = {k: total[k] + counts[k] for k in ops.KERNELS}
+        rows = []
+        for i, seg in enumerate(segs):
+            if seg.numel() == 0:
+                check(int(tok[i]) == 0, "sample_packed: an empty row sampled a token")
+                continue
+            one = top_p_sample(seg[None], p=eng.top_p, method="vector", u=u[i:i + 1])
+            probs = torch.softmax(seg, -1)
+            _, order = radix_sort(probs.to(torch.bfloat16), descending=True, method="vector")
+            _, lo, hi = topp_window(probs[order.long()][None], u[i:i + 1], eng.top_p)
+            jk = int((order == tok[i]).int().argmax())
+            check(lo[0] <= jk <= hi[0], f"sample_packed row {i} under {method}: position "
+                  f"{jk} outside the window {lo[0]}..{hi[0]}")
+            check(lo[0] < hi[0] or int(tok[i]) == int(one[0]),
+                  f"sample_packed row {i} under {method}: != top_p_sample outside the band")
+            rows.append({"row": i, "n": seg.numel(), "token": int(tok[i]),
+                         "top_p_sample_token": int(one[0]), "window": [int(lo[0]),
+                                                                        int(hi[0])]})
+        res[method] = {"launches": counts, "rows": rows}
+    return res, total
+
+
 def main_serve(gen):
     cfg = get_config("llama3-8b")
     b, s, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
@@ -674,6 +987,8 @@ def main_serve(gen):
         if sampler == "topp_scan":
             scan_agree = float((t2[0] == toks).float().mean())
             scan_agree_b = float((t2[0] == toks_b).float().mean())
+    # --- this slice's path: the same weights and uniforms through topp_segmented ---
+    counts_s = serve_segmented(toks, cfg, params, batch, uniforms, s, new)
     peak_gb = torch.cuda.max_memory_allocated(DEV) / 1e9
     busy = decode_busy(eng, params, batch, uniforms, s, new)
     emit({"phase": "main_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
@@ -693,7 +1008,7 @@ def main_serve(gen):
           "prefill_plus_first_sample_ms": t_one_b * 1e3, **sampled_b,
           "stream_agreement_with_topp_kernel": float((toks_b == toks).float().mean()),
           "stream_agreement_with_topp_scan": scan_agree_b})
-    return counts, counts_b
+    return counts, counts_b, counts_s
 
 
 @torch.inference_mode()
@@ -783,10 +1098,13 @@ def phase_timing(gen):
         lambda: top_p_sample(logits, method="vector", sort_method="xla", u=uu), 20)
     out.update(time_pipeline(x, x8))
     out.update(time_split(gen))
+    out.update(time_seg(gen))
     emit({"phase": "timing", "kernels": out, "top_p_sample_ms": sampler,
+          "segment_top_p_sample_ms": out.pop("segment_top_p_sample_ms"),
           "shapes": {"B1": list(SCAN_SHAPE), "B2-B4": list(SCAN_SHAPE),
                      "B5": [[b, n], [VOCAB_ROWS, v]], "B7": [VOCAB_ROWS, v],
-                     "B8": [VOCAB_ROWS, v]}})
+                     "B8": [VOCAB_ROWS, v], "B9-B12": list(SCAN_SHAPE),
+                     "segment_top_p_sample": [4 * VOCAB]}})
     return out
 
 
@@ -861,6 +1179,64 @@ def time_split(gen):
     return res
 
 
+def time_seg(gen):
+    """B9-B12 and the segmented pipeline at (4, 2^24) fp32, each row cut into its own
+    segments, timed in turns with their plain versions; beside them the operator on
+    offsets shared by the rows (``segment_scan`` with ``"vector"``, the unsegmented
+    cumsum minus a gather, and with the two kernel methods), and the packed sampler
+    at (4 * 128256,) for each method.  No single PyTorch call computes a segmented
+    scan, so ``library_ms`` is None."""
+    rng = np.random.default_rng(SEG_SEED + 2)
+    b, n = SCAN_SHAPE
+    flags = torch.stack([boundary_flags(seg_offsets(rng, n), n) for _ in range(b)])
+    x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
+    f32 = torch.float32
+    out = {}
+    k, pl = paired_ms(lambda: segscan_mm.seg_scan_tiles(x, flags),
+                      lambda: segscan_mm.seg_scan_tiles_plain(x, flags != 0, s=128, acc=f32),
+                      2)
+    bms, by = bound(b * n * 9, b * n)                  # 4 B in, 1 B of flags, 4 B out
+    out["B9"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by)
+    m, block_len, nb = scan_pipeline.block_geometry(n, 128, 8)
+    blocks, fblocks = x.reshape(b, nb, m, 128), flags.reshape(b, nb, m, 128)
+    k, pl = paired_ms(lambda: segscan_mm.seg_block_summaries(blocks, fblocks),
+                      lambda: segscan_mm.seg_block_summaries_plain(blocks, fblocks, f32), 10)
+    # what this run's data needs: every flag byte, the values of each block's trailing
+    # segment, 8 B out per block
+    fb = fblocks.flatten(-2) != 0
+    rank = torch.arange(block_len, device=DEV)
+    trailing = int((block_len - torch.where(fb, rank, 0).amax(-1)).sum())
+    bms, by = bound(b * n + trailing * 4 + b * nb * 8, trailing)
+    out["B10"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by,
+                      trailing_elements=trailing)
+    ts, hb = segscan_mm.seg_block_summaries_plain(blocks, fblocks, f32)
+    k, pl = paired_ms(lambda: segscan_mm.seg_carry_scan(ts, hb),
+                      lambda: segscan_mm.seg_carry_scan_plain(ts, hb), 50)
+    bms, by = bound(b * nb * 12, b * nb)
+    out["B11"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by, nb=nb)
+    carries = segscan_mm.seg_carry_scan_plain(ts, hb)
+    k, pl = paired_ms(lambda: segscan_mm.seg_block_scan_carry(blocks, fblocks, carries),
+                      lambda: segscan_mm.seg_block_scan_carry_plain(blocks, fblocks, carries,
+                                                                    f32), 3)
+    bms, by = bound(b * n * 9 + b * nb * 4, b * n)
+    out["B12"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by)
+    k, pl = paired_ms(lambda: segscan_mm.seg_blocked_scan(x, flags),
+                      lambda: segscan_mm.seg_blocked_scan_plain(x, flags != 0, s=128,
+                                                                block_tiles=8, acc=f32), 3)
+    off = seg_offsets(rng, n)
+    out["seg_pipeline"] = dict(
+        ms=k, plain_ms=pl, library_ms=None, bound_ms=bound(b * n * 9)[0],
+        segment_scan_shared_offsets_ms={m_: cuda_ms(lambda m_=m_: segment_scan(
+            x, off, method=m_), 5) for m_ in ("vector", "kernel", "blocked")})
+    logits = torch.randn((4 * VOCAB,), generator=gen, device=DEV) * 4
+    poff = torch.arange(5, dtype=torch.int32, device=DEV) * VOCAB
+    uu = torch.rand((4, 1), generator=gen, device=DEV)
+    out["segment_top_p_sample_ms"] = {
+        m_: cuda_ms(lambda m_=m_: segment_top_p_sample(logits, poff, method=m_, u=uu), 10)
+        for m_ in ("kernel", "blocked", "vector", "matmul")}
+    return out
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -884,12 +1260,15 @@ def main() -> int:
     b8_err = phase_b8(gen)
     b2b4_err = phase_b2b4(gen)
     b5_err = phase_b5(gen)
+    seg_err = phase_seg(gen)
     scan_counts = main_scan(gen)
     blocked_counts = main_blocked(gen)
+    segmented_counts = main_segmented(gen)
     ref = smoke_reference(gen)
     emit({"phase": "smoke_reference", **ref})
-    serve_counts, serve_b_counts = main_serve(gen)
+    serve_counts, serve_b_counts, serve_s_counts = main_serve(gen)
     timing = phase_timing(gen)
+    seg_launches = {k: segmented_counts[k] + serve_s_counts[k] for k in ops.KERNELS}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [
@@ -913,6 +1292,20 @@ def main() -> int:
         ("B8 topp_mask_sample_tiles (fused top-p tail)", "topp_tail.cu",
          "src/repro/kernels/split_mm.py:360", serve_counts["topp_tail"], float(b8_err),
          timing["B8"]),
+        ("B9 seg_scan_tiles (segmented tile scan; launches: segment_compress, "
+         "topp_segmented serving and sample_packed under method_override('kernel'))",
+         "seg_scan.cu", "src/repro/kernels/segscan_mm.py:186", seg_launches["seg_scan"],
+         seg_err["B9"], timing["B9"]),
+        ("B10 seg_block_summaries (trailing-segment sums and has-boundary per block; "
+         "launches as B11 and B12, under method_override('blocked'))", "seg_summaries.cu",
+         "src/repro/kernels/segscan_mm.py:252", seg_launches["seg_summaries"], seg_err["B10"],
+         timing["B10"]),
+        ("B11 seg_carry_scan (segmented exclusive scan of the block summaries)",
+         "seg_carry.cu", "src/repro/kernels/segscan_mm.py:293", seg_launches["seg_carry"],
+         seg_err["B11"], timing["B11"]),
+        ("B12 seg_block_scan_carry (segmented block scan plus gated carry)",
+         "seg_block_scan.cu", "src/repro/kernels/segscan_mm.py:325",
+         seg_launches["seg_block_scan"], seg_err["B12"], timing["B12"]),
     ]
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep, launches=n,
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],

@@ -6,6 +6,11 @@ from repro_torch.core.precision import PRECISIONS, pdot, resolve_precision
 from repro_torch.core.primitives import (
     multi_split, radix_sort, sort, top_p_sample, topk, weighted_sample,
 )
+from repro_torch.core.segmented import (
+    SegmentedBatch, boundary_flags, segment_compress, segment_cumsum, segment_ids,
+    segment_scan, segment_softmax, segment_sort, segment_sums, segment_top_p_sample,
+    segment_topk,
+)
 from repro_torch.core.scan import (
     accum_dtype_for, cumsum, scan, strictly_lower_ones, tile_scan_scanu,
     tile_scan_scanul1, upper_ones,

@@ -46,6 +46,15 @@ OP_ALIASES: Dict[str, str] = {
     "multi_split": "split",
     "radix_sort": "sort",
     "topk": "sort",
+    # every segment_* op is built from segmented mask / prefix scans
+    "segment_cumsum": "segment_scan",
+    "segment_sums": "segment_scan",
+    "segment_softmax": "segment_scan",
+    "segment_compress": "segment_scan",
+    "segment_sort": "segment_scan",
+    "segment_topk": "segment_scan",
+    "segment_top_p_sample": "segment_scan",
+    "segment_ids": "segment_scan",
 }
 
 

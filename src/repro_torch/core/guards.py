@@ -18,8 +18,8 @@ import torch
 __all__ = [
     "NONFINITE", "validate_axis", "validate_bits_per_pass",
     "validate_positive", "validate_choice", "validate_probability",
-    "validate_temperature", "validate_same_shape", "resolve_nonfinite",
-    "resolve_device",
+    "validate_temperature", "validate_same_shape", "validate_broadcastable_to",
+    "validate_offsets", "resolve_nonfinite", "resolve_device",
 ]
 
 NONFINITE = ("propagate", "raise", "sanitize")
@@ -85,6 +85,62 @@ def validate_same_shape(a_shape: Tuple[int, ...], b_shape: Tuple[int, ...],
     if tuple(a_shape) != tuple(b_shape):
         raise ValueError(f"{op}: {a_name} shape {tuple(a_shape)} and "
                          f"{b_name} shape {tuple(b_shape)} must match")
+
+
+def validate_broadcastable_to(b_shape, target, *, op: str,
+                              name: str = "flags") -> None:
+    """Reject a companion operand that does not broadcast to the payload shape.
+
+    Example:
+        >>> validate_broadcastable_to((8,), (4, 8), op="seg_scan_tiles")
+    """
+    try:
+        ok = tuple(torch.broadcast_shapes(tuple(b_shape), tuple(target))) == tuple(target)
+    except RuntimeError:
+        ok = False
+    if not ok:
+        raise ValueError(f"{op}: {name} shape {tuple(b_shape)} does not "
+                         f"broadcast to the payload shape {tuple(target)}")
+
+
+def validate_offsets(offsets: torch.Tensor, n: int, *, op: str) -> torch.Tensor:
+    """Validate CSR segment ``offsets`` against a packed length ``n``.
+
+    Checks the whole contract on every call: rank 1 and not empty, an integer
+    dtype, ``offsets[0] == 0``, ``offsets[-1] == n`` and non-decreasing.  The
+    values are read on the host once per call, which for offsets on the card
+    is one device-to-host copy (the packed sampler pays it once per token).
+
+    Returns:
+        ``offsets`` unchanged.
+
+    Raises:
+        ValueError: A structural or CSR violation.
+        TypeError: Non-integer offsets.
+
+    Example:
+        >>> o = torch.tensor([0, 3, 5], dtype=torch.int32)
+        >>> validate_offsets(o, 5, op="segment_scan") is o
+        True
+    """
+    if offsets.dim() != 1:
+        raise ValueError(f"{op}: offsets must be 1-D (num_segments + 1,), got "
+                         f"shape {tuple(offsets.shape)}")
+    if offsets.shape[0] < 1:
+        raise ValueError(f"{op}: offsets cannot be empty (need at least [0] — one "
+                         "entry per segment boundary plus one)")
+    if offsets.dtype.is_floating_point or offsets.dtype.is_complex or \
+            offsets.dtype == torch.bool:
+        raise TypeError(f"{op}: offsets must be integer, got {offsets.dtype}")
+    off = offsets.tolist()
+    if off[0] != 0:
+        raise ValueError(f"{op}: offsets[0] must be 0, got {off[0]}")
+    if off[-1] != n:
+        raise ValueError(f"{op}: offsets[-1] ({off[-1]}) must equal the packed "
+                         f"length ({n})")
+    if any(b < a for a, b in zip(off, off[1:])):
+        raise ValueError(f"{op}: offsets must be non-decreasing, got {off}")
+    return offsets
 
 
 def resolve_device(device, *, op: str):

@@ -42,6 +42,10 @@ SOURCES: Dict[str, tuple] = {
     "carry_scan": ("repro_carry_scan", [_P, _P, _I, _L, _I, _P]),
     "block_scan": ("repro_block_scan", [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P]),
     "split": ("repro_split", [_P, _P, _P, _P, _P, _I, _L, _I, _P]),
+    "seg_scan": ("repro_seg_scan", [_P, _P, _L, _P, _I, _L, _I, _P]),
+    "seg_summaries": ("repro_seg_summaries", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
+    "seg_carry": ("repro_seg_carry", [_P, _P, _P, _I, _L, _I, _P]),
+    "seg_block_scan": ("repro_seg_block_scan", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

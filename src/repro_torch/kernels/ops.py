@@ -1,10 +1,12 @@
 """Public kernel entry points, and the launch counters of the port's kernels.
 
-Port of ``repro/kernels/ops.py`` for the kernels ported so far (B1–B5, B7,
-B8).  The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
+Port of ``repro/kernels/ops.py`` for the kernels ported so far (B1–B5,
+B7–B12).  The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
 ``scan_pipeline.{block_partial_sums,carry_scan,block_scan_carry}`` (B2–B4),
-``split_mm.split_tiles`` (B5), ``split_mm.radix_pass_multibit`` (B7) and
-``split_mm.topp_mask_sample_tiles`` (B8); each runs its CUDA kernel on CUDA
+``split_mm.split_tiles`` (B5), ``split_mm.radix_pass_multibit`` (B7),
+``split_mm.topp_mask_sample_tiles`` (B8) and
+``segscan_mm.{seg_scan_tiles,seg_block_summaries,seg_carry_scan,seg_block_scan_carry}``
+(B9–B12); each runs its CUDA kernel on CUDA
 tensors and the kernel's plain PyTorch version on CPU tensors.  PyTorch runs
 eagerly, so the entry points here are plain calls where the JAX package
 ``jit``s.  Every kernel launch adds one to its count;
@@ -33,6 +35,10 @@ KERNELS = {
     "block_scan": "B4 src/repro/kernels/scan_pipeline.py:143/:152 "
                   "_block_scan_scanu_kernel/_block_scan_scanul1_kernel",
     "split": "B5 src/repro/kernels/split_mm.py:136 _split_kernel",
+    "seg_scan": "B9 src/repro/kernels/segscan_mm.py:186 _seg_kernel",
+    "seg_summaries": "B10 src/repro/kernels/segscan_mm.py:252 _seg_summary_kernel",
+    "seg_carry": "B11 src/repro/kernels/segscan_mm.py:293 _seg_carry_kernel",
+    "seg_block_scan": "B12 src/repro/kernels/segscan_mm.py:325 _seg_block_carry_kernel",
 }
 
 

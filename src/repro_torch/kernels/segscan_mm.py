@@ -1,0 +1,438 @@
+"""B9–B12: the segmented scan kernels (the carry resets at segment boundaries).
+
+Port of ``repro/kernels/segscan_mm.py``.  A packed batch is a row of values
+plus flags, nonzero where an element starts a new segment.  Four kernels:
+
+* :func:`seg_scan_tiles` (B9, ``csrc/seg_scan.cu``) — the segmented scan of
+  each row, walked in order with a running carry that never crosses a flag;
+* :func:`seg_block_summaries` (B10, ``csrc/seg_summaries.cu``) — phase 1 of
+  the segmented §4 pipeline: per block, the sum of the elements at or after
+  its last flag (all of them if it has none) and whether it has a flag;
+* :func:`seg_carry_scan` (B11, ``csrc/seg_carry.cu``) — phase 2: the
+  exclusive scan of those summaries under the segmented-pair operator
+  ``(a ⊕ b) = b.h ? b.ts : a.ts + b.ts``;
+* :func:`seg_block_scan_carry` (B12, ``csrc/seg_block_scan.cu``) — phases 1
+  and 3 fused: each block's segmented scan plus its carry, added only where no
+  flag has been seen since the block start.
+
+:func:`seg_blocked_scan` runs B10–B12 with the geometry of
+``scan_pipeline.blocked_scan``; with one block per row the carries are zero
+and B10 and B11 are not launched.
+
+On CUDA tensors the wrappers launch the kernels, which read any flag dtype's
+nonzero bytes, take ``(n,)`` flags shared by every row with a row stride of 0,
+and mask the ragged row end themselves, so nothing is padded.  On CPU tensors
+they run the plain versions (``*_plain``), which follow the JAX block algebra
+on the zero-padded tile or block view: row starts from a ``cummax`` of
+``iota · flag``, the flag-masked ``A @ U_s`` contraction (B9) or its
+start-column gather form (B12), the masked triangular row carries, and the
+``seen`` gate.  They build on the port's ``pdot``, so no integer product goes
+through torch's wrapping ``int8 @ int8``.  Padding joins the last segment, as
+in the JAX code, and is sliced off.
+
+Flags count as set where they are nonzero (the JAX kernels test ``> 0`` after
+an int8 cast; the two agree on boolean and non-negative flags), and the
+has-boundary output of B10 is 0 or 1.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import guards
+from repro_torch.core.precision import pdot, resolve_precision
+from repro_torch.core.scan import _operand_dtype, accum_dtype_for
+from repro_torch.kernels import _build
+from repro_torch.kernels.scan_mm import kernel_operand
+from repro_torch.kernels.scan_pipeline import block_geometry
+
+__all__ = ["seg_scan_tiles", "seg_block_summaries", "seg_carry_scan",
+           "seg_block_scan_carry", "seg_blocked_scan", "seg_scan_tiles_plain",
+           "seg_block_summaries_plain", "seg_carry_scan_plain",
+           "seg_block_scan_carry_plain", "seg_blocked_scan_plain"]
+
+_CARRY_CODES = {torch.float32: 0, torch.int32: 1}
+# elements of the largest intermediate a plain version builds at once
+_CHUNK_ELEMS = 1 << 26
+
+
+# ---------------------------------------------------------------------------
+# the block algebra of the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _row_starts(f: torch.Tensor) -> torch.Tensor:
+    """``start[..., r, j]``: the last flagged column ``<= j`` of row ``r`` (0 if none)."""
+    pos = torch.arange(f.shape[-1], device=f.device)
+    return torch.cummax(torch.where(f, pos, 0), dim=-1).values
+
+
+def _seg_rows_masked(a: torch.Tensor, startc: torch.Tensor, acc) -> torch.Tensor:
+    """Row-local segmented scans as one flag-masked ``A @ U_s`` contraction.
+
+    ``mask[r, i, j] = start[r, j] <= i <= j`` folds the flags into the upper
+    triangle, one masked operand per row.
+    """
+    s = a.shape[-1]
+    ri = torch.arange(s, device=a.device)[:, None]
+    cj = torch.arange(s, device=a.device)[None, :]
+    mseg = (ri <= cj) & (ri >= startc[..., None, :])            # (..., m, s, s)
+    return pdot(a[..., None, :], mseg.to(_operand_dtype(a.dtype)), acc=acc)[..., 0, :]
+
+
+def _seg_rows_gather(a: torch.Tensor, startc: torch.Tensor, acc) -> torch.Tensor:
+    """Row-local segmented scans as ``A @ U_s`` minus the value before each start.
+
+    ``local[r, j] = (A @ U_s)[r, j] - exclusive(A @ U_s)[r, start[r, j]]``:
+    exact for integers and integer-valued floats; no ``(m, s, s)`` mask.
+    """
+    s = a.shape[-1]
+    u = torch.triu(torch.ones((s, s), dtype=_operand_dtype(a.dtype), device=a.device))
+    full = pdot(a, u, acc=acc).to(acc)
+    ex = full - a.to(acc)
+    return full - torch.gather(ex, -1, startc)
+
+
+def _seg_row_carries(ts: torch.Tensor, hrow: torch.Tensor, acc) -> torch.Tensor:
+    """Exclusive segmented carry over rows: ``c[r] = Σ ts[lastb[r] .. r-1]``.
+
+    ``lastb[r]`` is the last row before ``r`` that holds a flag (0 if none);
+    the sum is one masked triangular contraction.
+    """
+    m = ts.shape[-1]
+    rowi = torch.arange(m, device=ts.device)
+    lastb = torch.cummax(torch.where(hrow, rowi, 0), dim=-1).values
+    lastb_ex = torch.cat([torch.zeros_like(lastb[..., :1]), lastb[..., :-1]], dim=-1)
+    qi, rj = rowi[:, None], rowi[None, :]
+    m2 = (qi < rj) & (qi >= lastb_ex[..., None, :])              # (..., m, m)
+    return pdot(ts[..., None, :], m2.to(acc), acc=acc)[..., 0, :]
+
+
+def _seg_block_scan(a: torch.Tensor, f: torch.Tensor, acc, *, masked: bool):
+    """Segmented scan of ``(K, m, s)`` row-major blocks, with no incoming carry.
+
+    Returns ``(out, seen)``; ``seen`` is true where a flag lies at or before the
+    element within its block — where an incoming carry must not reach.
+    """
+    startc = _row_starts(f)
+    local = (_seg_rows_masked if masked else _seg_rows_gather)(a, startc, acc)
+    hrow = f.any(dim=-1)
+    c = _seg_row_carries(local[..., -1], hrow, acc)
+    seen_row = torch.cummax(f.to(torch.int32), dim=-1).values > 0
+    out = local + torch.where(seen_row, torch.zeros((), dtype=acc, device=a.device),
+                              c[..., None])
+    prev = torch.cummax(hrow.to(torch.int32), dim=-1).values
+    prev = torch.cat([torch.zeros_like(prev[..., :1]), prev[..., :-1]], dim=-1)
+    return out, seen_row | (prev[..., None] > 0)
+
+
+def _seg_blocks(a: torch.Tensor, f: torch.Tensor, acc, *, masked: bool):
+    """:func:`_seg_block_scan` over ``(..., m, s)`` blocks, a bounded number at a time."""
+    *lead, m, s = a.shape
+    a2, f2 = a.reshape(-1, m, s), f.reshape(-1, m, s)
+    per = max(m * s * s if masked else m * s, m * m)
+    step = max(1, _CHUNK_ELEMS // per)
+    parts = [_seg_block_scan(a2[i:i + step], f2[i:i + step], acc, masked=masked)
+             for i in range(0, a2.shape[0], step)]
+    out = torch.cat([p[0] for p in parts]).reshape(*lead, m, s)
+    seen = torch.cat([p[1] for p in parts]).reshape(*lead, m, s)
+    return out, seen
+
+
+def _seg_pair_exclusive(v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Exclusive scan of the last axis under ``(a ⊕ b) = b.h ? b.v : a.v + b.v``.
+
+    Log-step doubling, so each result is a direct sum of one segment's terms.
+    """
+    n = v.shape[-1]
+    d = 1
+    while d < n:
+        ov = torch.cat([torch.zeros_like(v[..., :d]), v[..., :-d]], dim=-1)
+        oh = torch.cat([torch.zeros_like(h[..., :d]), h[..., :-d]], dim=-1)
+        v = torch.where(h, v, ov + v)
+        h = h | oh
+        d *= 2
+    return torch.cat([torch.zeros_like(v[..., :1]), v[..., :-1]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path)
+# ---------------------------------------------------------------------------
+
+
+def seg_scan_tiles_plain(xb: torch.Tensor, fb: torch.Tensor, *, s: int,
+                         acc: torch.dtype) -> torch.Tensor:
+    """Plain version of B9 on ``(b, n)`` values and ``(b, n)`` bool flags.
+
+    Each ``s×s`` tile is scanned with the flag-masked contraction, its rows
+    linked by the masked row carries; the tiles are then linked in order, the
+    carry into a tile being the segmented-pair scan of the tile totals.
+    """
+    b, n = xb.shape
+    pad = (-n) % (s * s)
+    tiles = torch.nn.functional.pad(xb.to(acc), (0, pad)).reshape(b, -1, s, s)
+    # padding joins the last segment
+    ftiles = torch.nn.functional.pad(fb, (0, pad)).reshape(b, -1, s, s)
+    out, seen = _seg_blocks(tiles, ftiles, acc, masked=True)
+    cin = _seg_pair_exclusive(out[..., -1, -1], ftiles.flatten(-2).any(dim=-1))
+    out = out + torch.where(seen, torch.zeros((), dtype=acc, device=xb.device),
+                            cin[..., None, None])
+    return out.reshape(b, -1)[:, :n]
+
+
+def seg_block_summaries_plain(blocks: torch.Tensor, fblocks: torch.Tensor,
+                              acc: torch.dtype):
+    """Per ``(m, s)`` block: ``(trailing-segment sum, has-flag)`` as two ``(b, nb)``."""
+    a = blocks.flatten(-2).to(acc)
+    f = fblocks.flatten(-2) != 0
+    rank = torch.arange(a.shape[-1], device=a.device)
+    lastpos = torch.where(f, rank, 0).amax(dim=-1, keepdim=True)
+    trailing = torch.where(rank >= lastpos, a, torch.zeros((), dtype=acc, device=a.device))
+    return torch.sum(trailing, dim=-1, dtype=acc), f.any(dim=-1).to(torch.int32)
+
+
+def seg_carry_scan_plain(sums: torch.Tensor, has_boundary: torch.Tensor) -> torch.Tensor:
+    """Exclusive segmented scan of each row of the ``(b, nb)`` summaries."""
+    return _seg_row_carries(sums, has_boundary != 0, sums.dtype)
+
+
+def seg_block_scan_carry_plain(blocks: torch.Tensor, fblocks: torch.Tensor,
+                               carries: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+    """Each ``(m, s)`` block's segmented scan (gather form) plus its gated carry."""
+    out, seen = _seg_blocks(blocks, fblocks != 0, acc, masked=False)
+    return out + torch.where(seen, torch.zeros((), dtype=acc, device=blocks.device),
+                             carries.to(acc)[..., None, None])
+
+
+def seg_blocked_scan_plain(xb: torch.Tensor, fb: torch.Tensor, *, s: int,
+                           block_tiles: int, acc: torch.dtype) -> torch.Tensor:
+    """Plain version of the segmented pipeline on ``(b, n)`` rows and bool flags."""
+    b, n = xb.shape
+    m, block_len, nb = block_geometry(n, s, block_tiles)
+    pad = nb * block_len - n
+    blocks = torch.nn.functional.pad(xb.to(acc), (0, pad)).reshape(b, nb, m, s)
+    fblocks = torch.nn.functional.pad(fb, (0, pad)).reshape(b, nb, m, s)
+    if nb == 1:
+        carries = torch.zeros((b, 1), dtype=acc, device=xb.device)
+    else:
+        carries = seg_carry_scan_plain(*seg_block_summaries_plain(blocks, fblocks, acc))
+    out = seg_block_scan_carry_plain(blocks, fblocks, carries, acc)
+    return out.reshape(b, nb * block_len)[:, :n]
+
+
+# ---------------------------------------------------------------------------
+# kernel launches on (b, n) rows; the kernels mask the ragged end
+# ---------------------------------------------------------------------------
+
+
+def _flag_rows(flags: torch.Tensor, shape):
+    """Flags as the kernels read them — one byte each, nonzero where a segment
+    starts — and their row stride: 0 when one row of flags serves every row."""
+    n = shape[-1]
+    f = flags.view(torch.uint8) if flags.dtype == torch.bool else flags
+    if f.dtype not in (torch.int8, torch.uint8):
+        f = (f != 0).view(torch.uint8)
+    if f.numel() == n:
+        return f.reshape(n).contiguous(), 0
+    return f.expand(shape).reshape(-1, n).contiguous(), n
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _seg_scan_cuda(xk, code, fk, fstride, acc):
+    b, n = xk.shape
+    out = torch.empty((b, n), dtype=acc, device=xk.device)
+    with torch.cuda.device(xk.device):
+        _build.launch("seg_scan", xk.data_ptr(), fk.data_ptr(), fstride, out.data_ptr(),
+                      b, n, code, _stream(xk))
+    return out
+
+
+def _seg_summaries_cuda(xk, code, fk, fstride, acc, nb, block_len):
+    b, n = xk.shape
+    ts = torch.empty((b, nb), dtype=acc, device=xk.device)
+    h = torch.empty((b, nb), dtype=torch.int32, device=xk.device)
+    with torch.cuda.device(xk.device):
+        _build.launch("seg_summaries", xk.data_ptr(), fk.data_ptr(), fstride, ts.data_ptr(),
+                      h.data_ptr(), b, n, nb, block_len, code, _stream(xk))
+    return ts, h
+
+
+def _seg_carry_cuda(ts, h):
+    b, nb = ts.shape
+    carries = torch.empty_like(ts)
+    with torch.cuda.device(ts.device):
+        _build.launch("seg_carry", ts.data_ptr(), h.data_ptr(), carries.data_ptr(), b, nb,
+                      _CARRY_CODES[ts.dtype], _stream(ts))
+    return carries
+
+
+def _seg_block_scan_cuda(xk, code, fk, fstride, carries, acc, nb, block_len):
+    b, n = xk.shape
+    out = torch.empty((b, n), dtype=acc, device=xk.device)
+    with torch.cuda.device(xk.device):
+        _build.launch("seg_block_scan", xk.data_ptr(), fk.data_ptr(), fstride,
+                      carries.data_ptr(), out.data_ptr(), b, n, nb, block_len, code,
+                      _stream(xk))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_blocks(op: str, blocks: torch.Tensor, fblocks: torch.Tensor) -> None:
+    if blocks.dim() != 4:
+        raise ValueError(f"{op}: blocks must be (b, nb, m, s), got {tuple(blocks.shape)}")
+    guards.validate_same_shape(blocks.shape, fblocks.shape, op=op, a_name="blocks",
+                               b_name="fblocks")
+
+
+def seg_scan_tiles(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
+                   accum_dtype=None, precision: str = "highest") -> torch.Tensor:
+    """Segmented scan of the last axis of ``x`` as one ordered walk per row.
+
+    Args:
+        x: ``(..., n)`` packed values; a CUDA tensor launches B9, a CPU tensor
+            runs the plain version.
+        flags: Broadcastable to ``x``; nonzero where an element starts a new
+            segment.  ``(n,)`` flags are shared by every row.
+        s: Tile side of the plain version's ``s×s`` tiles (the kernel walks
+            elements and reads no tile side).
+        accum_dtype: Accumulation dtype; defaults to ``accum_dtype_for``.
+        precision: Only ``"highest"`` is ported.
+
+    Returns:
+        The per-segment inclusive scan in the accumulation dtype, shaped like ``x``.
+
+    Example:
+        >>> seg_scan_tiles(torch.ones(5, dtype=torch.int8),
+        ...                torch.tensor([1, 0, 1, 0, 0]), s=2).tolist()
+        [1, 2, 1, 2, 3]
+    """
+    guards.validate_broadcastable_to(flags.shape, x.shape, op="seg_scan_tiles")
+    s = guards.validate_positive(s, name="s", op="seg_scan_tiles")
+    resolve_precision(precision)
+    acc = accum_dtype if accum_dtype is not None else accum_dtype_for(x.dtype)
+    if x.numel() == 0:
+        return torch.zeros(x.shape, dtype=acc, device=x.device)
+    n = x.shape[-1]
+    xb = x.reshape(-1, n)
+    if not xb.is_cuda:
+        fb = (flags != 0).expand(x.shape).reshape(xb.shape)
+        return seg_scan_tiles_plain(xb, fb, s=s, acc=acc).reshape(x.shape)
+    xk, code = kernel_operand(xb, acc, op="seg_scan_tiles")
+    fk, fstride = _flag_rows(flags, x.shape)
+    return _seg_scan_cuda(xk, code, fk, fstride, acc).reshape(x.shape)
+
+
+def seg_block_summaries(blocks: torch.Tensor, fblocks: torch.Tensor, *,
+                        accum_dtype=None):
+    """Phase 1: ``(trailing sums, has-boundary)`` of ``(b, nb, m, s)`` blocks.
+
+    ``ts`` is the sum of a block's elements at or after its last flag (the
+    whole block if it has none), in ``acc``; ``h`` is int32, 1 where the block
+    holds a flag.  Reads the raw input only.
+    """
+    _check_blocks("seg_block_summaries", blocks, fblocks)
+    b, nb, m, s = blocks.shape
+    acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
+    if not blocks.is_cuda or blocks.numel() == 0:
+        return seg_block_summaries_plain(blocks, fblocks, acc)
+    xk, code = kernel_operand(blocks.reshape(b, nb * m * s), acc, op="seg_block_summaries")
+    fk, fstride = _flag_rows(fblocks.reshape(b, nb * m * s), xk.shape)
+    return _seg_summaries_cuda(xk, code, fk, fstride, acc, nb, m * s)
+
+
+def seg_carry_scan(sums: torch.Tensor, has_boundary: torch.Tensor, *,
+                   precision: str = "highest") -> torch.Tensor:
+    """Phase 2: exclusive segmented scan of the ``(b, nb)`` block summaries.
+
+    The carry into block ``i`` is the sum of ``sums`` from the last block
+    before ``i`` that has a boundary (the first block if none) up to ``i-1``.
+    """
+    resolve_precision(precision)
+    if sums.dim() != 2:
+        raise ValueError(f"seg_carry_scan: sums must be (b, nb), got {tuple(sums.shape)}")
+    guards.validate_same_shape(sums.shape, has_boundary.shape, op="seg_carry_scan",
+                               a_name="sums", b_name="has_boundary")
+    if not sums.is_cuda or sums.numel() == 0:
+        return seg_carry_scan_plain(sums, has_boundary)
+    if sums.dtype not in _CARRY_CODES:
+        raise TypeError(f"seg_carry_scan: the CUDA kernel takes {list(_CARRY_CODES)}, "
+                        f"got {sums.dtype}")
+    return _seg_carry_cuda(sums.contiguous(), has_boundary.to(torch.int32).contiguous())
+
+
+def seg_block_scan_carry(blocks: torch.Tensor, fblocks: torch.Tensor,
+                         carries: torch.Tensor, *, accum_dtype=None,
+                         precision: str = "highest") -> torch.Tensor:
+    """Fused phases 1 and 3: each block's segmented scan plus its gated carry.
+
+    Args:
+        blocks: ``(b, nb, m, s)`` row-major block views.
+        fblocks: Their flags, same shape.
+        carries: ``(b, nb)`` from :func:`seg_carry_scan`; block ``i``'s carry
+            reaches only its elements with no flag at or before them.
+        accum_dtype: Accumulation dtype; defaults to ``accum_dtype_for``.
+        precision: Only ``"highest"`` is ported.
+
+    Returns:
+        ``(b, nb, m, s)`` in the accumulation dtype.
+    """
+    resolve_precision(precision)
+    _check_blocks("seg_block_scan_carry", blocks, fblocks)
+    b, nb, m, s = blocks.shape
+    guards.validate_same_shape((b, nb), carries.shape, op="seg_block_scan_carry",
+                               a_name="blocks (b, nb)", b_name="carries")
+    acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
+    if not blocks.is_cuda or blocks.numel() == 0:
+        return seg_block_scan_carry_plain(blocks, fblocks, carries, acc)
+    xk, code = kernel_operand(blocks.reshape(b, nb * m * s), acc, op="seg_block_scan_carry")
+    fk, fstride = _flag_rows(fblocks.reshape(b, nb * m * s), xk.shape)
+    out = _seg_block_scan_cuda(xk, code, fk, fstride, carries.to(acc).contiguous(), acc,
+                               nb, m * s)
+    return out.reshape(b, nb, m, s)
+
+
+def seg_blocked_scan(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
+                     block_tiles: int = 8, accum_dtype=None,
+                     precision: str = "highest") -> torch.Tensor:
+    """Segmented scan of the last axis with the three-phase blocked pipeline.
+
+    Blocks are ``block_tiles`` tiles of ``s×s`` (clamped to the row's tiles),
+    as in ``scan_pipeline.blocked_scan``; with one block per row B10 and B11
+    are skipped.
+
+    Example:
+        >>> seg_blocked_scan(torch.ones(300, dtype=torch.int8),
+        ...                  torch.tensor([1] + [0] * 199 + [1] + [0] * 99), s=8)[-1].item()
+        100
+    """
+    guards.validate_broadcastable_to(flags.shape, x.shape, op="seg_blocked_scan")
+    s = guards.validate_positive(s, name="s", op="seg_blocked_scan")
+    block_tiles = guards.validate_positive(block_tiles, name="block_tiles",
+                                           op="seg_blocked_scan")
+    resolve_precision(precision)
+    acc = accum_dtype if accum_dtype is not None else accum_dtype_for(x.dtype)
+    if x.numel() == 0:
+        return torch.zeros(x.shape, dtype=acc, device=x.device)
+    n = x.shape[-1]
+    xb = x.reshape(-1, n)
+    if not xb.is_cuda:
+        fb = (flags != 0).expand(x.shape).reshape(xb.shape)
+        return seg_blocked_scan_plain(xb, fb, s=s, block_tiles=block_tiles,
+                                      acc=acc).reshape(x.shape)
+    _, block_len, nb = block_geometry(n, s, block_tiles)
+    xk, code = kernel_operand(xb, acc, op="seg_blocked_scan")
+    fk, fstride = _flag_rows(flags, x.shape)
+    if nb == 1:
+        # one block: the carry is zero, so phases 1 and 2 are skipped
+        carries = torch.zeros((xb.shape[0], 1), dtype=acc, device=x.device)
+    else:
+        carries = _seg_carry_cuda(*_seg_summaries_cuda(xk, code, fk, fstride, acc, nb,
+                                                       block_len))
+    return _seg_block_scan_cuda(xk, code, fk, fstride, carries, acc, nb,
+                                block_len).reshape(x.shape)

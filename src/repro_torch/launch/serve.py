@@ -4,8 +4,10 @@
       --batch 2 --prompt-len 16 --new-tokens 8 --sampler topp_scan
 
 Without ``--device`` it runs on the GPU (``--sampler topp_kernel`` then runs
-the B7/B8 kernels, ``--sampler topp_blocked`` the B4 block scan).  Weights
-are random, made from ``--seed``.
+the B7/B8 kernels, ``--sampler topp_blocked`` the B4 block scan, and
+``--sampler topp_segmented`` its segmented scans on the method that
+``REPRO_SCAN_METHOD`` names: ``kernel`` for B9, ``blocked`` for B10–B12).
+Weights are random, made from ``--seed``.
 """
 from __future__ import annotations
 

@@ -3,9 +3,13 @@
 Port of ``repro/serving/engine.py`` ``ServeEngine`` for the samplers
 ``greedy``, ``topp_auto``, ``topp_scan`` (matmul scans), ``topp_kernel`` (B7
 radix passes + the B8 tail), ``topp_blocked`` (every scan of the sampler on
-the §4 blocked pipeline, B2–B4) and ``topp_xla`` (a stable ``torch.argsort``;
-the name matches the JAX package's baseline).  The engine runs on the card unless
-it is given ``device="cpu"``.
+the §4 blocked pipeline, B2–B4), ``topp_segmented`` (the batch's logit rows
+packed as segments of one array and sampled by ``segment_top_p_sample``, whose
+``method="auto"`` the caller steers with ``method_override``: ``"kernel"``
+runs B9, ``"blocked"`` B10–B12) and ``topp_xla`` (a stable ``torch.argsort``;
+the name matches the JAX package's baseline).  :meth:`ServeEngine.sample_packed`
+samples a ragged packed batch of logit rows without padding.  The engine runs
+on the card unless it is given ``device="cpu"``.
 
 ``generate(..., uniforms=)`` feeds the sampler's per-step uniforms from
 outside, as the operators' ``u=`` does: row ``i`` holds the draws of the
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch.core import guards
 from repro_torch.core.primitives import top_p_sample
+from repro_torch.core.segmented import SegmentedBatch, segment_top_p_sample
 from repro_torch.models.model import build_model
 
 __all__ = ["ServeEngine"]
@@ -28,7 +33,7 @@ __all__ = ["ServeEngine"]
 
 class ServeEngine:
     SAMPLERS = ("greedy", "topp_auto", "topp_scan", "topp_kernel", "topp_blocked",
-                "topp_xla")
+                "topp_segmented", "topp_xla")
 
     def __init__(self, cfg, params, *, max_len: int = 512, top_p: float = 0.9,
                  temperature: float = 1.0, sampler: str = "topp_scan",
@@ -51,6 +56,12 @@ class ServeEngine:
     def _sample(self, logits: torch.Tensor, generator, u) -> torch.Tensor:
         if self.sampler == "greedy":
             return torch.argmax(logits, dim=-1).to(torch.int32)
+        if self.sampler == "topp_segmented":
+            b, v = logits.shape
+            offsets = torch.arange(b + 1, dtype=torch.int32, device=logits.device) * v
+            return segment_top_p_sample(logits.reshape(b * v), offsets, generator,
+                                        p=self.top_p, temperature=self.temperature,
+                                        bits_per_pass=self.bits_per_pass, u=u)
         method = {"topp_kernel": "kernel", "topp_blocked": "blocked",
                   "topp_auto": "auto"}.get(self.sampler, "matmul")
         sort_method = "xla" if self.sampler == "topp_xla" else "radix"
@@ -58,6 +69,26 @@ class ServeEngine:
                             temperature=self.temperature, method=method,
                             sort_method=sort_method,
                             bits_per_pass=self.bits_per_pass, u=u)
+
+    @torch.inference_mode()
+    def sample_packed(self, packed: SegmentedBatch,
+                      generator: Optional[torch.Generator] = None, *,
+                      u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Top-p sample every segment of a packed ragged batch of logit rows.
+
+        Args:
+            packed: Per-request logit slices as segments (rows may differ in
+                length, e.g. per-request vocabulary masks; empties allowed).
+            generator: Source of the uniforms when ``u`` is not given.
+            u: Optional ``(num_segments, 1)`` uniforms.
+
+        Returns:
+            ``(num_segments,)`` int32 segment-local token ids, with no padding
+            to the longest row.
+        """
+        return segment_top_p_sample(packed, None, generator, p=self.top_p,
+                                    temperature=self.temperature,
+                                    bits_per_pass=self.bits_per_pass, u=u)
 
     @torch.inference_mode()
     def generate(self, batch: Dict, max_new_tokens: int,

@@ -11,9 +11,11 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch.core.autotune import method_override
 from repro_torch.core.primitives import compress, radix_sort, split, top_p_sample
 from repro_torch.core.scan import accum_dtype_for, scan
-from repro_torch.kernels import ops, scan_mm, scan_pipeline, split_mm
+from repro_torch.core.segmented import SegmentedBatch, segment_compress, segment_scan
+from repro_torch.kernels import ops, scan_mm, scan_pipeline, segscan_mm, split_mm
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
 
@@ -30,6 +32,11 @@ def dev():
 
 def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _counts(**want):
+    """Every kernel's launch count: ``want``'s, 0 where it names none."""
+    return {k: want.get(k, 0) for k in ops.KERNELS}
 
 
 @pytest.mark.parametrize("n", [1, 100, 16387])
@@ -133,9 +140,7 @@ def test_pipeline_and_split_launch_counts(dev):
     ops.reset_launch_counts()
     scan(x, method="blocked", tile_s=16, block_tiles=8)          # 128 blocks per row
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 0, "topp_tail": 0,
-                                   "block_sums": 1, "carry_scan": 1, "block_scan": 1,
-                                   "split": 0}
+    assert ops.launch_counts() == _counts(block_sums=1, carry_scan=1, block_scan=1)
     ops.reset_launch_counts()
     scan(x, method="blocked", tile_s=128, block_tiles=16)        # one block per row
     assert ops.launch_counts()["block_scan"] == 1
@@ -157,9 +162,7 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     split_mm.topp_mask_sample_tiles(torch.full((2, 5), 0.2, device=dev),
                                     torch.full((2, 1), 0.5, device=dev), p=0.9)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"scan_mm": 1, "radix_pass": 4, "topp_tail": 1,
-                                   "block_sums": 0, "carry_scan": 0, "block_scan": 0,
-                                   "split": 0}
+    assert ops.launch_counts() == _counts(scan_mm=1, radix_pass=4, topp_tail=1)
     with pytest.raises(TypeError):
         scan_mm.scan_tiles(torch.ones((2, 8), dtype=torch.float64, device=dev))
     with pytest.raises(ValueError):
@@ -176,9 +179,7 @@ def test_engine_topp_kernel_launches_per_step(dev):
     ops.reset_launch_counts()
     out = eng.generate({"tokens": toks}, 5, uniforms=u)
     assert tuple(out.shape) == (2, 5)
-    assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 20, "topp_tail": 5,
-                                   "block_sums": 0, "carry_scan": 0, "block_scan": 0,
-                                   "split": 0}
+    assert ops.launch_counts() == _counts(radix_pass=20, topp_tail=5)
     plain = ServeEngine(cfg, params, max_len=24, sampler="topp_scan")
     assert torch.equal(plain.generate({"tokens": toks}, 5, uniforms=u), out)
     logits = torch.randn((2, cfg.vocab_size), generator=_gen(dev), device=dev)
@@ -202,3 +203,170 @@ def test_engine_topp_blocked_launches_per_step(dev):
     assert counts["block_sums"] == counts["carry_scan"] == 0
     plain = ServeEngine(cfg, params, max_len=24, sampler="topp_scan")
     assert torch.equal(plain.generate({"tokens": toks}, 5, uniforms=u), out)
+
+
+# ---- the segmented family (B9-B12) ----
+
+
+def _seg_flags(kind, shape, dev):
+    """Segment-start flags of a layout: random starts (some runs of empty-like
+    adjacent starts), every element, none, only the first element, or values
+    other than 1 (any nonzero byte starts a segment)."""
+    if kind == "random":
+        return (torch.rand(shape, generator=_gen(dev, 3), device=dev) < 0.01).to(torch.int8)
+    if kind == "all":
+        return torch.ones(shape, dtype=torch.int8, device=dev)
+    f = torch.zeros(shape, dtype=torch.int8, device=dev)
+    if kind == "first":
+        f[..., 0] = 1
+    if kind == "nonbool":
+        f = (torch.rand(shape, generator=_gen(dev, 4), device=dev) < 0.02).to(torch.int8) * 3
+    return f
+
+
+def _seg_reference(x, f):
+    """Exact int64 segmented scan of integer-valued ``x`` under nonzero ``f``."""
+    x64 = x.to(torch.int64)
+    full = torch.cumsum(x64, -1)
+    n = x.shape[-1]
+    pos = torch.arange(n, device=x.device).expand(x.shape)
+    start = torch.cummax(torch.where(f.expand(x.shape) != 0, pos, 0), -1).values
+    base = torch.gather(full - x64, -1, start)
+    return full - base
+
+
+@pytest.mark.parametrize("n", [1, 100, 16387, 300001])
+@pytest.mark.parametrize("flags", ["random", "all", "none", "first", "nonbool"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32, torch.bfloat16,
+                                   torch.bool])
+def test_seg_scan_kernel_matches_plain_and_reference(dev, dtype, flags, n):
+    x = _int_payload(torch.int32, (3, n), dev) > 0 if dtype == torch.bool else \
+        _int_payload(dtype, (3, n), dev)
+    f = _seg_flags(flags, (3, n), dev)
+    got = segscan_mm.seg_scan_tiles(x, f)
+    plain = segscan_mm.seg_scan_tiles_plain(x, f != 0, s=16, acc=got.dtype)
+    assert torch.equal(got, plain)
+    assert torch.equal(got.to(torch.int64), _seg_reference(x, f))
+
+
+def test_seg_scan_kernel_shares_one_row_of_flags(dev):
+    """The sampler's one-hot scans: (16, n) int8 rows over one (n,) row of flags."""
+    n = 50000
+    x = (torch.rand((16, n), generator=_gen(dev), device=dev) < 0.1).to(torch.int8)
+    f = _seg_flags("random", (n,), dev)
+    got = segscan_mm.seg_scan_tiles(x, f)
+    assert torch.equal(got, segscan_mm.seg_scan_tiles(x, f.expand(16, n).contiguous()))
+    assert torch.equal(got.to(torch.int64), _seg_reference(x, f))
+
+
+@pytest.mark.parametrize("s,block_tiles", [(8, 1), (16, 4), (100, 1), (128, 2)])
+@pytest.mark.parametrize("flags", ["random", "all", "none", "nonbool"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32])
+def test_seg_pipeline_kernels_match_plain(dev, dtype, flags, s, block_tiles):
+    """B10, B11 and B12 each against their plain versions on the same block view."""
+    m, _, _ = scan_pipeline.block_geometry(1 << 30, s, block_tiles)
+    blocks = _int_payload(dtype, (3, 5, m, s), dev)
+    fblocks = _seg_flags(flags, (3, 5, m, s), dev)
+    acc = accum_dtype_for(dtype)
+    ts, h = segscan_mm.seg_block_summaries(blocks, fblocks)
+    pts, ph = segscan_mm.seg_block_summaries_plain(blocks, fblocks, acc)
+    assert torch.equal(ts, pts) and torch.equal(h, ph)
+    carries = segscan_mm.seg_carry_scan(ts, h)
+    assert torch.equal(carries, segscan_mm.seg_carry_scan_plain(ts, h))
+    got = segscan_mm.seg_block_scan_carry(blocks, fblocks, carries)
+    assert torch.equal(got, segscan_mm.seg_block_scan_carry_plain(blocks, fblocks, carries,
+                                                                  acc))
+
+
+@pytest.mark.parametrize("nb", [1, 7, 8192, 70001])
+def test_seg_carry_kernel_many_rounds(dev, nb):
+    ts = torch.randint(-100, 100, (3, nb), generator=_gen(dev), device=dev,
+                       dtype=torch.int32)
+    h = (torch.rand((3, nb), generator=_gen(dev, 1), device=dev) < 0.001).to(torch.int32)
+    got = segscan_mm.seg_carry_scan(ts, h)
+    inc = _seg_reference(ts, h)
+    want = torch.cat([torch.zeros_like(inc[:, :1]), inc[:, :-1]], -1)
+    assert torch.equal(got.to(torch.int64), want)
+    if nb <= 8192:
+        assert torch.equal(got, segscan_mm.seg_carry_scan_plain(ts, h))
+
+
+@pytest.mark.parametrize("n", [1, 100, 16387, 300001])
+@pytest.mark.parametrize("s,block_tiles", [(8, 1), (16, 2), (128, 8)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32, torch.bool])
+def test_seg_blocked_scan_kernels_match_reference(dev, dtype, s, block_tiles, n):
+    """The unpadded kernel path, ragged rows included, against an exact segmented scan."""
+    x = _int_payload(torch.int32, (3, n), dev) > 0 if dtype == torch.bool else \
+        _int_payload(dtype, (3, n), dev)
+    f = _seg_flags("random", (3, n), dev)
+    got = segscan_mm.seg_blocked_scan(x, f, s=s, block_tiles=block_tiles)
+    assert torch.equal(got.to(torch.int64), _seg_reference(x, f))
+
+
+def test_seg_random_fp32_close_to_fp64(dev):
+    """Random fp32: every kernel path within 16 ulp of the fp64 per-segment scan,
+    the ulp taken at the running sum of |x| since the segment start."""
+    n = 1 << 20
+    x = torch.randn((2, n), generator=_gen(dev), device=dev)
+    f = _seg_flags("random", (2, n), dev)
+    full = torch.cumsum(x.double(), -1)
+    pos = torch.arange(n, device=dev).expand(x.shape)
+    start = torch.cummax(torch.where(f != 0, pos, 0), -1).values
+    ref = full - torch.gather(full - x.double(), -1, start)
+    absf = torch.cumsum(x.double().abs(), -1)
+    scale = absf - torch.gather(absf - x.double().abs(), -1, start)
+    sc = scale.float()
+    ulp = torch.nextafter(sc, torch.full_like(sc, float("inf"))) - sc
+    for got in (segscan_mm.seg_scan_tiles(x, f),
+                segscan_mm.seg_blocked_scan(x, f, s=128, block_tiles=8),
+                segscan_mm.seg_blocked_scan(x, f, s=16, block_tiles=1)):
+        assert float(((got.double() - ref).abs() / ulp.double()).max()) <= 16.0
+
+
+def test_seg_launch_counts(dev):
+    x = torch.randint(0, 5, (1 << 18,), generator=_gen(dev), device=dev, dtype=torch.int32)
+    off = torch.tensor([0, 1000, 1000, 90000, 1 << 18], device=dev)
+    ops.reset_launch_counts()
+    k = segment_scan(x, off, method="kernel")
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(seg_scan=1)
+    ops.reset_launch_counts()
+    b = segment_scan(x, off, method="blocked", tile_s=16, block_tiles=8)   # 128 blocks
+    assert ops.launch_counts() == _counts(seg_summaries=1, seg_carry=1, seg_block_scan=1)
+    ops.reset_launch_counts()
+    b1 = segment_scan(x, off, method="blocked", tile_s=128, block_tiles=16)  # one block
+    assert ops.launch_counts() == _counts(seg_block_scan=1)
+    v = segment_scan(x, off, method="vector")
+    assert torch.equal(k, v) and torch.equal(b, v) and torch.equal(b1, v)
+    m = x > 2
+    ops.reset_launch_counts()
+    zk, ck = segment_compress(x, m, off, method="kernel")
+    assert ops.launch_counts() == _counts(seg_scan=1)
+    zv, cv = segment_compress(x, m, off, method="vector")
+    assert torch.equal(zk, zv) and torch.equal(ck, cv)
+
+
+def test_engine_topp_segmented_launches_per_step(dev):
+    """topp_segmented: eight segmented scans per sampled token (the softmax's
+    normaliser, four radix passes, cum, cdf and the count), one B9 launch each
+    under method_override("kernel"); a SMOKE batch is one block, so the
+    blocked run launches B12 alone."""
+    cfg = get_config("llama3-8b", smoke=True)
+    params = build_model(cfg).init(0, device=dev)
+    eng = ServeEngine(cfg, params, max_len=24, sampler="topp_segmented")
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=_gen(dev), device=dev)
+    u = torch.rand((5, 2), generator=_gen(dev), device=dev)
+    plain = ServeEngine(cfg, params, max_len=24, sampler="topp_scan")
+    want = plain.generate({"tokens": toks}, 5, uniforms=u)
+    for method, counts in (("kernel", _counts(seg_scan=40)),
+                           ("blocked", _counts(seg_block_scan=40))):
+        with method_override(method):
+            ops.reset_launch_counts()
+            out = eng.generate({"tokens": toks}, 5, uniforms=u)
+            assert ops.launch_counts() == counts
+        assert torch.equal(out, want)
+    rows = SegmentedBatch.from_ragged([[0.0] * 300, [], [1.0, 9.0, 1.0]])
+    rows = SegmentedBatch(rows.values.to(dev), rows.offsets.to(dev))
+    with method_override("kernel"):
+        got = eng.sample_packed(rows, u=torch.tensor([[0.5], [0.5], [0.5]], device=dev))
+    assert got.tolist()[1:] == [0, 1]

@@ -20,10 +20,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.segmented import SegmentedBatch as JaxSegmentedBatch
 from repro.models.model import build_model as jax_build_model
 from repro.models.model import get_config as jax_get_config
 from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro_torch.convert import params_from_jax
+from repro_torch.core.autotune import method_override
+from repro_torch.core.segmented import SegmentedBatch
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
@@ -128,7 +131,8 @@ def test_greedy_tokens_match_jax():
     np.testing.assert_array_equal(t.numpy(), j)
 
 
-@pytest.mark.parametrize("sampler", ["topp_scan", "topp_kernel", "topp_blocked", "topp_xla"])
+@pytest.mark.parametrize("sampler", ["topp_scan", "topp_kernel", "topp_blocked",
+                                     "topp_segmented", "topp_xla"])
 def test_topp_tokens_match_jax_under_its_uniforms(sampler):
     je, te = _engines(sampler, temperature=1.3)
     key = jax.random.PRNGKey(7)
@@ -137,6 +141,23 @@ def test_topp_tokens_match_jax_under_its_uniforms(sampler):
     t = te.generate({"tokens": _prompts()}, NEW, uniforms=u)
     np.testing.assert_array_equal(t.numpy(), j)
     assert len(np.unique(j)) > 2            # a real sample, not a constant stream
+
+
+@pytest.mark.parametrize("method", ["vector", "matmul", "kernel", "blocked"])
+def test_sample_packed_matches_jax_under_its_uniforms(method):
+    """Ragged per-request logit rows (three lengths, one empty), sampled without
+    padding; the port under ``method_override`` on each method against the JAX
+    engine's own ``"auto"`` path, fed the uniforms its key draws."""
+    je, te = _engines("topp_segmented", temperature=1.3)
+    rng = np.random.default_rng(5)
+    rows = [(rng.standard_normal(n) * 3).astype(np.float32) for n in (200, 0, 77, 5)]
+    key = jax.random.PRNGKey(11)
+    j = np.asarray(je.sample_packed(JaxSegmentedBatch.from_ragged(rows), key))
+    u = np.asarray(jax.random.uniform(key, (len(rows), 1), dtype=jnp.float32))
+    with method_override(method):
+        t = te.sample_packed(SegmentedBatch.from_ragged(rows), u=torch.tensor(u))
+    assert t.dtype == torch.int32 and t[1] == 0
+    np.testing.assert_array_equal(t.numpy(), j)
 
 
 def test_eos_zero_tokens_and_kv_budget_match_jax():
