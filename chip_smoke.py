@@ -21,15 +21,28 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ones included), then the segmented scans on a ragged row, a
               one-block row (where B10 and B11 must not launch) and the
               sampler's (16, 513024) one-hot rows over one row of flags;
-9. main    -- the main paths with the launch counters zeroed before and read
+9. linrec -- the linear-recurrence kernels (B13-B16) each against its plain version
+              at (4, 2^24) on random, integer-valued and a = 1 rows (ints exact and
+              equal to an fp64 reference; random fp32 within 16 ulp of the fp64
+              recurrence, a bf16-operand control failing that limit), then a
+              ragged row, a one-block row (where B14 and B15 must not launch), the
+              SSD's (4, 16, 64, 64, 64) shape along axis 1, and cumprod,
+              segment_linear_scan and cummax on the kernel methods;
+10. main   -- the main paths with the launch counters zeroed before and read
               after each: ``scan(method="kernel")`` and ``scan(method="blocked")``
               at (4, 2^24), ``compress`` with ``method="kernel"`` and
-              ``"blocked"``, ``segment_compress`` with both, and ServeEngine
-              (``sampler="topp_kernel"``, ``"topp_blocked"``, then
-              ``"topp_segmented"`` under ``method_override("kernel")`` and
-              ``("blocked")``, with ``sample_packed`` on a ragged batch) on
-              llama3-8b at full width, 32 layers, bf16;
-10. timing -- kernel, plain-version and library times beside each kernel's bound.
+              ``"blocked"``, ``segment_compress`` with both, ``linear_scan`` with
+              both (``main_linrec``), and ServeEngine (``sampler="topp_kernel"``,
+              ``"topp_blocked"``, then ``"topp_segmented"`` under
+              ``method_override("kernel")`` and ``("blocked")``, with
+              ``sample_packed`` on a ragged batch) on llama3-8b at full width,
+              32 layers, bf16;
+11. ssd    -- ``ssd_scan`` at zamba2's shapes on "kernel" (B1 + B13) and "blocked"
+              (B4 + B16) against "vector" and the fp64 sequential oracle;
+12. serve_zamba2 -- zamba2-1.2b at full width and depth (38 layers, bf16) serving
+              batch 4, prompt 2048, 32 new tokens with ``topp_kernel`` under
+              ``scan_method="kernel"`` and ``"blocked"``, exact launch counts;
+13. timing -- kernel, plain-version and library times beside each kernel's bound.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run exits non-zero and prints no result.  Without a
@@ -59,6 +72,12 @@ RAGGED_N = (1 << 24) - 12345        # a row whose last block is partial
 VOCAB = 128256                      # llama3's vocabulary: one block at s=128, 8 tiles
 SEG_MAX_LEN = 1 << 20               # segment lengths are log-uniform in [1, 2^20]
 SEG_SEED = 13
+SSD_ROWS = (4, 16, 64, 64, 64)      # the SSD's cross-chunk states at zamba2's prefill
+SSD = dict(batch=4, seq=2048, heads=64, head_dim=64, state=64, chunk=128)
+ZAMBA = dict(batch=4, prompt=2048, new=32, seed=0)
+# ssd_scan's "kernel" and "blocked" against "vector" on the card, in units of max|y|:
+# 4.0e-7 was read at zamba2's shapes, so 2e-6 keeps a 5x margin
+SSD_REL = 2e-6
 PACKED_ROWS = (VOCAB, 32000, 0, 50257)   # sample_packed: ragged logit rows, one empty
 
 
@@ -101,13 +120,15 @@ import numpy as np  # noqa: E402
 
 from repro_torch.analysis import ulp  # noqa: E402
 from repro_torch.core.autotune import method_override  # noqa: E402
+from repro_torch.core.linrec import cummax, cumprod, linear_scan  # noqa: E402
 from repro_torch.core.primitives import compress, radix_sort, top_p_sample  # noqa: E402
 from repro_torch.core.scan import accum_dtype_for, scan  # noqa: E402
 from repro_torch.core.segmented import (SegmentedBatch, boundary_flags,  # noqa: E402
-                                        segment_compress, segment_scan,
-                                        segment_top_p_sample)
-from repro_torch.kernels import (_build, ops, scan_mm, scan_pipeline,  # noqa: E402
-                                 segscan_mm, split_mm)
+                                        segment_compress, segment_linear_scan,
+                                        segment_scan, segment_top_p_sample)
+from repro_torch.core.ssd import ssd_scan, ssd_scan_ref  # noqa: E402
+from repro_torch.kernels import (_build, linrec_mm, ops, scan_mm,  # noqa: E402
+                                 scan_pipeline, segscan_mm, split_mm)
 from repro_torch.models.model import build_model, get_config  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
@@ -664,6 +685,252 @@ def phase_seg(gen):
 
 
 # ---------------------------------------------------------------------------
+# B13-B16: the linear recurrences
+# ---------------------------------------------------------------------------
+
+
+def lin_ref64(a, b):
+    """The recurrence ``y_t = a_t y_{t-1} + b_t`` of the last axis in fp64, by log-step
+    doubling of the affine pairs on the card.  Its rounding lies ~2^-29 below fp32's,
+    so it stands for the sequential fp64 recurrence, which a host loop could not run
+    at (4, 2^24)."""
+    av, bv = a.double(), b.double()
+    d = 1
+    while d < a.shape[-1]:
+        bl = torch.nn.functional.pad(bv[..., :-d], (d, 0))
+        al = torch.nn.functional.pad(av[..., :-d], (d, 0), value=1.0)
+        bv = av * bl + bv
+        av = av * al
+        d *= 2
+    return bv
+
+
+def lin_inputs(gen, shape):
+    """The phase's three kinds of rows: random (a in [0.9, 1) with one exact zero per
+    4096, b ~ N(0, 1)), integer-valued (a in {-1, 0, 1}, b in [-3, 3]) and a = 1 with
+    integer b (the prefix sum)."""
+    n = shape[-1]
+    a = 0.9 + 0.1 * torch.rand(shape, generator=gen, device=DEV)
+    a = torch.where(a >= 1.0, 0.9, a)
+    zeros = torch.arange(0, n, 4096, device=DEV)
+    zeros = zeros + torch.randint(0, 4096, zeros.shape, generator=gen, device=DEV)
+    a[..., zeros[zeros < n]] = 0.0
+    bi = torch.randint(-3, 4, shape, generator=gen, device=DEV).float()
+    return {
+        "random": (a, torch.randn(shape, generator=gen, device=DEV)),
+        "int": (torch.randint(-1, 2, shape, generator=gen, device=DEV).float(), bi),
+        "ones": (torch.ones(shape, device=DEV), bi),
+    }
+
+
+def block_views(a, b, s, bt):
+    """The identity-padded ``(rows, nb, m, s)`` views of ``(rows, n)`` pairs, and nb."""
+    rows, n = a.shape
+    m, block_len, nb = scan_pipeline.block_geometry(n, s, bt)
+    pad = nb * block_len - n
+    ab = torch.nn.functional.pad(a, (0, pad), value=1.0).reshape(rows, nb, m, s)
+    bb = torch.nn.functional.pad(b, (0, pad)).reshape(rows, nb, m, s)
+    return ab, bb, nb, block_len
+
+
+def phase_linrec(gen):
+    """B13, B14, B15 and B16 each against its plain version on the same inputs, then the
+    pipeline whole.  Integer-valued rows are exact against the plain version and the
+    fp64 recurrence; random fp32 from a kernel stays within ``B1_F32_ULP`` of the fp64
+    recurrence, the ulp taken at the recurrence run on ``|a|, |b|``.  Returns each
+    kernel's largest absolute difference from its plain version."""
+    rows, n = SCAN_SHAPE
+    limit = B1_F32_ULP
+    worst = {"B13": 0.0, "B14": 0.0, "B15": 0.0, "B16": 0.0, "pipeline": 0.0}
+    cases = []
+
+    def hold(key, tag, got, plain, ref, scale, exact):
+        """Exact (and equal to ``ref``) for integer values; else the kernel within the
+        ulp limit of ``ref``.  Records the distance from the plain version, and returns
+        the kernel's and the plain version's ulp readings."""
+        if plain is not None and key in worst:
+            worst[key] = max(worst[key], float((got.double() - plain.double()).abs().max()))
+        if exact:
+            if plain is not None:
+                check(torch.equal(got, plain), f"{key} {tag}: kernel != plain "
+                      f"({int((got != plain).sum())} elements)")
+            check(torch.equal(got.double(), ref), f"{key} {tag}: != the fp64 recurrence")
+            return None, None
+        e = max_ulp_dev(got, ref, scale)
+        check(e <= limit, f"{key} {tag}: kernel {e} ulp > {limit}")
+        return e, (None if plain is None else max_ulp_dev(plain, ref, scale))
+
+    inputs = lin_inputs(gen, SCAN_SHAPE)
+    s, bt = 128, 8
+    for kind, (a, b) in inputs.items():
+        exact = kind != "random"
+        ref = lin_ref64(a, b)
+        scale = lin_ref64(a.abs(), b.abs())
+        case = {"input": kind}
+        got = linrec_mm.linrec_scan_tiles(a, b, s=s)
+        plain = linrec_mm.linrec_scan_tiles_plain(a, b, s=s, acc=torch.float32)
+        case["B13_max_ulp"], case["B13_plain_max_ulp"] = hold("B13", kind, got, plain, ref,
+                                                              scale, exact)
+        if kind == "ones":
+            check(torch.equal(got, scan_mm.scan_tiles(b, s=s)), "B13 with a = 1 != B1")
+        del got, plain
+        ab, bb, nb, block_len = block_views(a, b, s, bt)
+        prods, lasts = linrec_mm.linrec_block_summaries(ab, bb)
+        pp, pl = linrec_mm.linrec_block_summaries_plain(ab, bb, torch.float32)
+        # the summaries and the states entering the blocks in fp64, and their scales
+        rp, rl = linrec_mm.linrec_block_summaries_plain(ab.double(), bb.double(),
+                                                        torch.float64)
+        _, sl = linrec_mm.linrec_block_summaries_plain(ab.double().abs(), bb.double().abs(),
+                                                       torch.float64)
+        rc = torch.nn.functional.pad(ref[:, block_len - 1::block_len], (1, 0))[:, :nb]
+        sc = torch.nn.functional.pad(scale[:, block_len - 1::block_len], (1, 0))[:, :nb]
+        case["B14_prods_max_ulp"] = hold("B14", kind, prods, pp, rp, rp.abs(), exact)[0]
+        case["B14_lasts_max_ulp"], case["B14_plain_max_ulp"] = hold("B14", kind, lasts, pl,
+                                                                     rl, sl, exact)
+        carries = linrec_mm.linrec_carry_scan(prods, lasts)
+        pc = linrec_mm.linrec_carry_scan_plain(prods, lasts)
+        case["B15_max_ulp"], case["B15_plain_max_ulp"] = hold("B15", kind, carries, pc, rc,
+                                                              sc, exact)
+        # B16 seeded with the exact states entering the blocks, rounded to fp32
+        cin = rc.float()
+        out = linrec_mm.linrec_block_scan_carry(ab, bb, cin).reshape(rows, -1)[:, :n]
+        po = linrec_mm.linrec_block_scan_carry_plain(ab, bb, cin, torch.float32)
+        case["B16_max_ulp"], case["B16_plain_max_ulp"] = hold(
+            "B16", kind, out, po.reshape(rows, -1)[:, :n], ref, scale, exact)
+        del ab, bb, out, po
+        whole = linrec_mm.linrec_blocked_scan(a, b, s=s, block_tiles=bt)
+        wplain = linrec_mm.linrec_blocked_scan_plain(a, b, s=s, block_tiles=bt,
+                                                     acc=torch.float32)
+        case["pipeline_max_ulp"], case["pipeline_plain_max_ulp"] = hold(
+            "pipeline", kind, whole, wplain, ref, scale, exact)
+        case["nb"] = nb
+        cases.append(case)
+        del whole, wplain
+    # controls: the plain scan of the random rows with their operands rounded to
+    # bf16 or TF32 must fail the limit above
+    a, b = inputs["random"]
+    ref, scale = lin_ref64(a, b), lin_ref64(a.abs(), b.abs())
+    controls = {}
+    for name, rnd in (("bf16_operands", lambda x: x.to(torch.bfloat16).float()),
+                      ("tf32_operands", _round_tf32)):
+        out = linrec_mm.linrec_scan_tiles_plain(rnd(a), rnd(b), s=s, acc=torch.float32)
+        controls[name] = max_ulp_dev(out, ref, scale)
+        check(controls[name] > limit,
+              f"linrec fp32 limit {limit} ulp passes a {name} scan ({controls[name]} ulp)")
+    del inputs, ref, scale
+    rows_out = [linrec_rows(gen, limit), linrec_ssd_rows(gen, limit)]
+    rows_out.append(linrec_operators(gen))
+    sync()
+    emit({"phase": "linrec", "shape": list(SCAN_SHAPE), "ulp_limit": limit, "cases": cases,
+          "controls_max_ulp": controls, "rows": rows_out, "max_abs_err_vs_plain": worst})
+    return worst
+
+
+def linrec_rows(gen, limit):
+    """A ragged row and a one-block row through B13 and the pipeline, with exact launch
+    counts: B14 and B15 launch only where a row has more than one block."""
+    out = []
+    for n2 in (RAGGED_N, 100003):
+        shape = (SCAN_SHAPE[0], n2)
+        for kind, (a, b) in lin_inputs(gen, shape).items():
+            if kind == "ones":
+                continue
+            ref, scale = lin_ref64(a, b), lin_ref64(a.abs(), b.abs())
+            nb = scan_pipeline.block_geometry(n2, 128, 8)[2]
+            row = {"n": n2, "input": kind, "nb": nb}
+            for method, want in (("kernel", {"linrec_scan": 1}),
+                                 ("blocked", {"linrec_block_scan": 1, **(
+                                     {"linrec_summaries": 1, "linrec_carry": 1}
+                                     if nb > 1 else {})})):
+                ops.reset_launch_counts()
+                got = linear_scan(a, b, method=method)
+                sync()
+                expect_counts(ops.launch_counts(), f"linear_scan n={n2} {kind} {method}",
+                              **want)
+                if kind == "int":
+                    check(torch.equal(got.double(), ref),
+                          f"linear_scan n={n2} int {method}: != the fp64 recurrence")
+                else:
+                    e = row[f"{method}_max_ulp"] = max_ulp_dev(got, ref, scale)
+                    check(e <= limit, f"linear_scan n={n2} {method}: {e} ulp > {limit}")
+            out.append(row)
+    return {"case": "ragged and one-block rows", "rows": out}
+
+
+def ssd_rows(gen, kind):
+    """The SSD's cross-chunk pairs at zamba2's prefill: a chunk decay shared by the
+    (64, 64) state, scanned along axis 1 (16 chunks); and the same pairs as the
+    ``(2^20, 16)`` rows that the kernel methods of ``linear_scan`` hand over."""
+    b5, nc, h, nn, pp = SSD_ROWS
+    if kind == "int":
+        a = torch.randint(-1, 2, (b5, nc, h, 1, 1), generator=gen, device=DEV).float()
+        b = torch.randint(-3, 4, SSD_ROWS, generator=gen, device=DEV).float()
+    else:
+        a = 0.9 + 0.1 * torch.rand((b5, nc, h, 1, 1), generator=gen, device=DEV)
+        b = torch.randn(SSD_ROWS, generator=gen, device=DEV)
+    ar = torch.movedim(a.expand(SSD_ROWS), 1, -1).reshape(-1, nc).contiguous()
+    br = torch.movedim(b, 1, -1).reshape(-1, nc).contiguous()
+    return a, b, ar, br
+
+
+def linrec_ssd_rows(gen, limit):
+    """B13 and B16 (one 16-long block a row) at the SSD shape, through ``linear_scan``
+    along axis 1 as ``ssd_scan`` calls it, and through the wrappers on the rows."""
+    res = {"case": "ssd shape", "shape": list(SSD_ROWS)}
+    for kind in ("int", "random"):
+        a, b, ar, br = ssd_rows(gen, kind)
+        ref, scale = lin_ref64(ar, br), lin_ref64(ar.abs(), br.abs())
+        for method, key, plain in (
+                ("kernel", "linrec_scan",
+                 linrec_mm.linrec_scan_tiles_plain(ar, br, s=16, acc=torch.float32)),
+                ("blocked", "linrec_block_scan",
+                 linrec_mm.linrec_blocked_scan_plain(ar, br, s=16, block_tiles=8,
+                                                     acc=torch.float32))):
+            ops.reset_launch_counts()
+            got = linear_scan(a, b, axis=1, method=method, tile_s=16)
+            sync()
+            expect_counts(ops.launch_counts(), f"linear_scan ssd {kind} {method}", **{key: 1})
+            rows = torch.movedim(got, 1, -1).reshape(-1, SSD_ROWS[1])
+            if kind == "int":
+                check(torch.equal(rows, plain) and torch.equal(rows.double(), ref),
+                      f"ssd rows int {method}: != plain or the fp64 recurrence")
+            else:
+                e = res[f"{method}_max_ulp"] = max_ulp_dev(rows, ref, scale)
+                res[f"{method}_plain_max_ulp"] = max_ulp_dev(plain, ref, scale)
+                res[f"{method}_max_abs_err_vs_plain"] = float((rows - plain).abs().max())
+                check(e <= limit, f"ssd rows {method}: {e} ulp > {limit}")
+    return res
+
+
+def linrec_operators(gen):
+    """``cumprod`` and ``segment_linear_scan`` on "kernel" and "blocked" against exact
+    references, and ``cummax`` bit-identical on every method."""
+    shape = (SCAN_SHAPE[0], 1 << 20)
+    x = torch.randint(-1, 2, shape, generator=gen, device=DEV).float()
+    x[x == 0] = 1.0
+    x[:, 7919] = 0.0
+    rng = np.random.default_rng(SEG_SEED + 3)
+    off = seg_offsets(rng, shape[1])
+    a = torch.randint(-1, 2, shape, generator=gen, device=DEV).float()
+    b = torch.randint(-3, 4, shape, generator=gen, device=DEV).float()
+    seg_want = segment_linear_scan(a, b, off, method="vector", initial=2.0)
+    res = {"case": "operators", "shape": list(shape), "segments": int(off.numel() - 1)}
+    for method in ("kernel", "blocked"):
+        check(torch.equal(cumprod(x, method=method), torch.cumprod(x, -1)),
+              f"cumprod {method} != torch.cumprod")
+        check(torch.equal(segment_linear_scan(a, b, off, method=method, initial=2.0),
+                          seg_want), f"segment_linear_scan {method} != vector")
+    for dt in (torch.int32, torch.float32):
+        xm = torch.randint(-1000, 1000, shape, generator=gen, device=DEV).to(dt)
+        want = torch.cummax(xm, -1).values
+        for method in ("vector", "matmul", "kernel", "blocked"):
+            check(torch.equal(cummax(xm, method=method), want),
+                  f"cummax {dt} {method} != torch.cummax")
+    res["exact"] = True
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
 
@@ -757,6 +1024,182 @@ def main_segmented(gen):
           "empty_segments": int((off[1:] == off[:-1]).sum()), "launches": runs,
           "kept": int(ck.sum())})
     return {k: sum(c[k] for c in runs.values()) for k in ops.KERNELS}
+
+
+def main_linrec(gen):
+    """``linear_scan`` through the public entry on (4, 2^24) random rows: ``"kernel"``
+    launches exactly one B13, ``"blocked"`` (128 blocks a row) exactly one each of
+    B14, B15 and B16; both within the ulp limit of the fp64 recurrence."""
+    a, b = lin_inputs(gen, SCAN_SHAPE)["random"]
+    ref, scale = lin_ref64(a, b), lin_ref64(a.abs(), b.abs())
+    runs, res = {}, {}
+    for method, want in (("kernel", {"linrec_scan": 1}),
+                         ("blocked", {"linrec_summaries": 1, "linrec_carry": 1,
+                                      "linrec_block_scan": 1})):
+        ops.reset_launch_counts()
+        out = linear_scan(a, b, method=method)
+        sync()
+        runs[method] = ops.launch_counts()
+        expect_counts(runs[method], f"linear_scan(method={method!r})", **want)
+        check(out.shape == a.shape and out.dtype == torch.float32
+              and bool(out.isfinite().all()),
+              f"linear_scan({method}) output has the wrong shape or non-finite values")
+        res[f"{method}_max_ulp"] = e = max_ulp_dev(out, ref, scale)
+        check(e <= B1_F32_ULP, f"linear_scan({method}): {e} ulp > {B1_F32_ULP}")
+    emit({"phase": "main_linrec", "shape": list(SCAN_SHAPE), "launches": runs, **res})
+    return {k: sum(c[k] for c in runs.values()) for k in ops.KERNELS}
+
+
+def ssd_inputs(gen, dtype=torch.float32):
+    """zamba2's SSD operands: x ~ N(0, 1), log decays -|0.01 g| (a chunk of 128 decays
+    by ~e^-1, so the cross-chunk states matter), B and C scaled by 0.3."""
+    b, s, h, p, n = (SSD[k] for k in ("batch", "seq", "heads", "head_dim", "state"))
+    return (torch.randn((b, s, h, p), generator=gen, device=DEV, dtype=dtype),
+            -(torch.randn((b, s, h), generator=gen, device=DEV, dtype=dtype) * 0.01).abs(),
+            torch.randn((b, s, h, n), generator=gen, device=DEV, dtype=dtype) * 0.3,
+            torch.randn((b, s, h, n), generator=gen, device=DEV, dtype=dtype) * 0.3)
+
+
+def phase_ssd(gen):
+    """``ssd_scan`` at zamba2's shapes on each method: "kernel" launches one B1 and one
+    B13, "blocked" one B4 and one B16; both within ``SSD_REL``·max|y| of "vector" on
+    the card, and every method within the JAX package's 2e-3 of the fp64 oracle."""
+    args = ssd_inputs(gen)
+    ref, ref_state = ssd_scan_ref(*(t.double() for t in args), return_final_state=True)
+    out, runs = {}, {}
+    for method, want in (("vector", {}),
+                         ("kernel", {"scan_mm": 1, "linrec_scan": 1}),
+                         ("blocked", {"block_scan": 1, "linrec_block_scan": 1})):
+        ops.reset_launch_counts()
+        y, state = ssd_scan(*args, chunk=SSD["chunk"], scan_method=method,
+                            return_final_state=True)
+        sync()
+        runs[method] = ops.launch_counts()
+        expect_counts(runs[method], f"ssd_scan({method})", **want)
+        err = float(((y.double() - ref).abs() - 2e-3 * ref.abs()).max())
+        serr = float(((state.double() - ref_state).abs() - 2e-3 * ref_state.abs()).max())
+        check(bool(y.isfinite().all()) and err <= 2e-3 and serr <= 2e-3,
+              f"ssd_scan({method}): outside 2e-3 of the fp64 oracle ({err}, {serr})")
+        out[method] = (y, state)
+    ymax = float(out["vector"][0].abs().max())
+    res = {"max_abs_y": ymax, "launches": runs}
+    for method in ("kernel", "blocked"):
+        d = float((out[method][0] - out["vector"][0]).abs().max())
+        ds = float((out[method][1] - out["vector"][1]).abs().max())
+        res[f"{method}_max_abs_diff_vs_vector"] = d
+        res[f"{method}_state_max_abs_diff_vs_vector"] = ds
+        check(d <= SSD_REL * ymax, f"ssd_scan({method}) differs from vector by {d} > "
+              f"{SSD_REL} * {ymax}")
+    for method, (y, _) in out.items():
+        res[f"{method}_max_abs_err_vs_fp64"] = float((y.double() - ref).abs().max())
+        res[f"{method}_ms"] = cuda_ms(lambda m=method: ssd_scan(
+            *args, chunk=SSD["chunk"], scan_method=m), 3)
+    res["zamba2_decays"] = ssd_strong_decays(gen)
+    emit({"phase": "ssd", **SSD, "limit_rel_to_max_y": SSD_REL, **res})
+    return {k: runs["kernel"][k] + runs["blocked"][k] for k in ops.KERNELS}
+
+
+def ssd_strong_decays(gen):
+    """The same shapes with the decays of zamba2's init (``-exp(A_log)·softplus(dt)``,
+    ``A_log = log(linspace(1, 16, H))``): the log-decay cumsum of a chunk reaches
+    ~10^3, so the methods' cumsum orders differ by ulps of that, which ``exp(cs_i -
+    cs_j)`` carries into the output.  Every method within 2e-3 of the fp64 oracle;
+    the distance between methods is reported."""
+    x, _, bm, cm = ssd_inputs(gen)
+    h = SSD["heads"]
+    dt = torch.nn.functional.softplus(torch.randn(x.shape[:3], generator=gen, device=DEV))
+    al = -torch.linspace(1.0, 16.0, h, device=DEV) * dt
+    ref = ssd_scan_ref(x.double(), al.double(), bm.double(), cm.double())
+    ys, res = {}, {"max_abs_log_decay_cumsum_per_chunk": float(
+        al.reshape(al.shape[0], -1, SSD["chunk"], h).sum(2).abs().max())}
+    for method in ("vector", "kernel", "blocked"):
+        ys[method] = ssd_scan(x, al, bm, cm, chunk=SSD["chunk"], scan_method=method)
+        err = float(((ys[method].double() - ref).abs() - 2e-3 * ref.abs()).max())
+        check(bool(ys[method].isfinite().all()) and err <= 2e-3,
+              f"ssd_scan({method}) with zamba2's decays: outside 2e-3 of the fp64 oracle")
+        res[f"{method}_max_abs_err_vs_fp64"] = float((ys[method].double() - ref).abs().max())
+    res["max_abs_y"] = float(ys["vector"].abs().max())
+    for method in ("kernel", "blocked"):
+        res[f"{method}_max_abs_diff_vs_vector"] = float((ys[method] - ys["vector"]).abs().max())
+    return res
+
+
+def serve_zamba2(gen):
+    """zamba2-1.2b at full width and depth, bf16 weights from seed 0: ServeEngine with
+    ``topp_kernel`` on injected uniforms under ``scan_method="kernel"`` (B1 + B13 once
+    per Mamba2 layer in prefill) and ``"blocked"`` (B4 + B16), exact launch counts,
+    no linear-recurrence launch in decode, every token held to its window."""
+    cfg = get_config("zamba2-1.2b")
+    b, s, new = ZAMBA["batch"], ZAMBA["prompt"], ZAMBA["new"]
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(ZAMBA["seed"], device=DEV, dtype=torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV)}
+    uniforms = torch.rand((new, b), generator=gen, device=DEV)
+    layers = cfg.n_layers
+    sampler = {"radix_pass": 4 * new, "topp_tail": new}
+    torch.cuda.reset_peak_memory_stats(DEV)
+    out, counts, engines = {}, {}, {}
+    for method, want in (("kernel", {"scan_mm": layers, "linrec_scan": layers}),
+                         ("blocked", {"block_scan": layers, "linrec_block_scan": layers})):
+        eng = ServeEngine(cfg, params, max_len=s + new, sampler="topp_kernel",
+                          scan_method=method)
+        eng.generate(batch, 2, uniforms=uniforms[:2])                      # warm-up
+        ops.reset_launch_counts()
+        toks, t_full = _timed_generate(eng, batch, new, uniforms=uniforms)
+        counts[method] = ops.launch_counts()
+        expect_counts(counts[method], f"zamba2 serving under scan_method={method!r}",
+                      **want, **sampler)
+        check(tuple(toks.shape) == (b, new) and toks.dtype == torch.int32
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"zamba2 {method}: tokens of shape {tuple(toks.shape)} or out of range")
+        ops.reset_launch_counts()
+        _, t_one = _timed_generate(eng, batch, 1, uniforms=uniforms[:1])
+        expect_counts(ops.launch_counts(), f"zamba2 {method}: prefill and one sample",
+                      **want, radix_pass=4, topp_tail=1)
+        sync()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            eng.model.prefill(params, batch, cache_len=s + new)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        decode_ms = (t_full - t_one) / (new - 1) * 1e3
+        sampled = check_sampled(eng, batch, uniforms, toks, new)
+        out[method] = {"launches": counts[method], "prefill_ms": prefill_ms,
+                       "prefill_plus_first_sample_ms": t_one * 1e3,
+                       "decode_step_ms": decode_ms, "tokens_per_s": b * new / t_full,
+                       "generate_s": t_full, **sampled}
+        engines[method] = eng
+    peak_gb = torch.cuda.max_memory_allocated(DEV) / 1e9
+    busy = decode_busy(engines["kernel"], params, batch, uniforms, s, new)
+    out["kernel"]["profiled_decode"] = busy
+    out["kernel"]["device_idle_share"] = (
+        None if busy["device_busy_ms_per_step"] is None
+        else 1.0 - busy["device_busy_ms_per_step"] / out["kernel"]["decode_step_ms"])
+    greedy, logits = {}, {}
+    for method in ("vector", "kernel", "blocked"):
+        e2 = ServeEngine(cfg, params, max_len=s + new, sampler="greedy", scan_method=method)
+        greedy[method] = e2.generate(batch, new)
+        with torch.inference_mode():
+            logits[method] = e2.model.prefill(params, batch, cache_len=s + new)[0]
+    agree = {m: int((greedy[m] == greedy["vector"]).sum()) for m in ("kernel", "blocked")}
+    # how far apart the bf16 runs are, against how close the vector run's top two are
+    top2 = torch.topk(logits["vector"], 2, dim=-1).values
+    prefill_logits = {
+        "vector_top2_margin": (top2[:, 0] - top2[:, 1]).tolist(),
+        **{f"{m}_max_abs_diff_vs_vector": float((logits[m] - logits["vector"]).abs().max())
+           for m in ("kernel", "blocked")},
+        **{f"{m}_first_token_equal": int((greedy[m][:, 0] == greedy["vector"][:, 0]).sum())
+           for m in ("kernel", "blocked")}}
+    emit({"phase": "serve_zamba2", "arch": cfg.name, "n_layers": layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "params": n_params,
+          "dtype": "bfloat16", "batch": b, "prompt": s, "new_tokens": new, "init_s": init_s,
+          "peak_mem_gb": peak_gb, **out,
+          "greedy_tokens_equal_to_vector": agree, "greedy_tokens": b * new,
+          "prefill_logits": prefill_logits})
+    return {k: counts["kernel"][k] + counts["blocked"][k] for k in ops.KERNELS}
 
 
 def _timed_generate(eng, batch, new, **kw):
@@ -1099,11 +1542,13 @@ def phase_timing(gen):
     out.update(time_pipeline(x, x8))
     out.update(time_split(gen))
     out.update(time_seg(gen))
+    out.update(time_linrec(gen))
     emit({"phase": "timing", "kernels": out, "top_p_sample_ms": sampler,
           "segment_top_p_sample_ms": out.pop("segment_top_p_sample_ms"),
           "shapes": {"B1": list(SCAN_SHAPE), "B2-B4": list(SCAN_SHAPE),
                      "B5": [[b, n], [VOCAB_ROWS, v]], "B7": [VOCAB_ROWS, v],
                      "B8": [VOCAB_ROWS, v], "B9-B12": list(SCAN_SHAPE),
+                     "B13-B16": [list(SCAN_SHAPE), list(SSD_ROWS)],
                      "segment_top_p_sample": [4 * VOCAB]}})
     return out
 
@@ -1237,6 +1682,70 @@ def time_seg(gen):
     return out
 
 
+def time_linrec(gen):
+    """B13-B16 and the pipeline on random fp32 rows at (4, 2^24) (s=128, 8 tiles a
+    block: 128 blocks a row) and at the SSD shape (the rows of (4, 16, 64, 64, 64)
+    along axis 1: 2^20 rows of 16, one block each), each in turns with its plain
+    version.  No single PyTorch call computes the general recurrence, so
+    ``library_ms`` is None; beside B13 stands ``torch.cumsum``, the a = 1 case."""
+    out = {}
+    a, b = lin_inputs(gen, SCAN_SHAPE)["random"]
+    rows, n = SCAN_SHAPE
+    ab, bb, nb, block_len = block_views(a, b, 128, 8)
+    f32 = torch.float32
+    k, pl = paired_ms(lambda: linrec_mm.linrec_scan_tiles(a, b),
+                      lambda: linrec_mm.linrec_scan_tiles_plain(a, b, s=128, acc=f32), 1)
+    out["B13"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bound(rows * n * 12)[0],
+                      bound_by="bytes", cumsum_a1_ms=cuda_ms(lambda: torch.cumsum(b, -1), 5))
+    k, pl = paired_ms(lambda: linrec_mm.linrec_block_summaries(ab, bb),
+                      lambda: linrec_mm.linrec_block_summaries_plain(ab, bb, f32), 5)
+    out["B14"] = dict(ms=k, plain_ms=pl, library_ms=None,
+                      bound_ms=bound(rows * n * 8 + rows * nb * 8)[0], bound_by="bytes")
+    pp, pl_ = linrec_mm.linrec_block_summaries_plain(ab, bb, f32)
+    k, pl = paired_ms(lambda: linrec_mm.linrec_carry_scan(pp, pl_),
+                      lambda: linrec_mm.linrec_carry_scan_plain(pp, pl_), 20)
+    bms, by = bound(rows * nb * 12, rows * nb * 2)
+    out["B15"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by, nb=nb)
+    cin = linrec_mm.linrec_carry_scan_plain(pp, pl_)
+    k, pl = paired_ms(lambda: linrec_mm.linrec_block_scan_carry(ab, bb, cin),
+                      lambda: linrec_mm.linrec_block_scan_carry_plain(ab, bb, cin, f32), 1)
+    out["B16"] = dict(ms=k, plain_ms=pl, library_ms=None,
+                      bound_ms=bound(rows * n * 12 + rows * nb * 4)[0], bound_by="bytes")
+    k, pl = paired_ms(lambda: linear_scan(a, b, method="blocked"),
+                      lambda: linrec_mm.linrec_blocked_scan_plain(a, b, s=128, block_tiles=8,
+                                                                  acc=f32), 1)
+    out["linrec_pipeline"] = dict(ms=k, plain_ms=pl, library_ms=None,
+                                  bound_ms=bound(rows * n * 20)[0],     # B14's and B16's reads
+                                  recurrence_bound_ms=bound(rows * n * 12)[0],
+                                  vector_ms=cuda_ms(lambda: linear_scan(a, b, method="vector"),
+                                                    2))
+    del a, b, ab, bb
+    # the SSD shape: the rows as the kernel methods of linear_scan hand them over
+    sa, sb, ar, br = ssd_rows(gen, "random")
+    nr, nn = ar.shape
+    ssd = {}
+    k, pl = paired_ms(lambda: linrec_mm.linrec_scan_tiles(ar, br, s=16),
+                      lambda: linrec_mm.linrec_scan_tiles_plain(ar, br, s=16, acc=f32), 5)
+    ssd["B13"] = dict(ms=k, plain_ms=pl, bound_ms=bound(nr * nn * 12)[0])
+    a4, b4 = ar.reshape(nr, 1, 1, nn), br.reshape(nr, 1, 1, nn)
+    k, pl = paired_ms(lambda: linrec_mm.linrec_block_summaries(a4, b4),
+                      lambda: linrec_mm.linrec_block_summaries_plain(a4, b4, f32), 5)
+    ssd["B14"] = dict(ms=k, plain_ms=pl, bound_ms=bound(nr * nn * 8 + nr * 8)[0])
+    p1, l1 = linrec_mm.linrec_block_summaries_plain(a4, b4, f32)
+    k, pl = paired_ms(lambda: linrec_mm.linrec_carry_scan(p1, l1),
+                      lambda: linrec_mm.linrec_carry_scan_plain(p1, l1), 5)
+    ssd["B15"] = dict(ms=k, plain_ms=pl, bound_ms=bound(nr * 12)[0])
+    z = torch.zeros((nr, 1), device=DEV)
+    k, pl = paired_ms(lambda: linrec_mm.linrec_block_scan_carry(a4, b4, z),
+                      lambda: linrec_mm.linrec_block_scan_carry_plain(a4, b4, z, f32), 5)
+    ssd["B16"] = dict(ms=k, plain_ms=pl, bound_ms=bound(nr * nn * 12 + nr * 4)[0])
+    for method in ("kernel", "blocked", "vector", "matmul"):
+        ssd[f"linear_scan_{method}_ms"] = cuda_ms(
+            lambda m=method: linear_scan(sa, sb, axis=1, method=m, tile_s=16), 5)
+    out["ssd_shape"] = ssd
+    return out
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1261,19 +1770,25 @@ def main() -> int:
     b2b4_err = phase_b2b4(gen)
     b5_err = phase_b5(gen)
     seg_err = phase_seg(gen)
+    lin_err = phase_linrec(gen)
     scan_counts = main_scan(gen)
     blocked_counts = main_blocked(gen)
     segmented_counts = main_segmented(gen)
+    linrec_counts = main_linrec(gen)
     ref = smoke_reference(gen)
     emit({"phase": "smoke_reference", **ref})
     serve_counts, serve_b_counts, serve_s_counts = main_serve(gen)
+    phase_ssd(gen)
+    zamba_counts = serve_zamba2(gen)
     timing = phase_timing(gen)
     seg_launches = {k: segmented_counts[k] + serve_s_counts[k] for k in ops.KERNELS}
+    lin_launches = {k: linrec_counts[k] + zamba_counts[k] for k in ops.KERNELS}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [
-        ("B1 scan_tiles (ScanU/ScanUL1 tile scan)", "scan_mm.cu",
-         "src/repro/kernels/scan_mm.py:36", scan_counts["scan_mm"], b1_err, timing["B1"]),
+        ("B1 scan_tiles (ScanU/ScanUL1 tile scan; launches include zamba2 serving under "
+         "scan_method='kernel')", "scan_mm.cu", "src/repro/kernels/scan_mm.py:36",
+         scan_counts["scan_mm"] + zamba_counts["scan_mm"], b1_err, timing["B1"]),
         ("B2 block_partial_sums (block sums of the blocked pipeline)", "block_sums.cu",
          "src/repro/kernels/scan_pipeline.py:71", blocked_counts["block_sums"],
          b2b4_err["B2"], timing["B2"]),
@@ -1281,17 +1796,19 @@ def main() -> int:
          "src/repro/kernels/scan_pipeline.py:105", blocked_counts["carry_scan"],
          b2b4_err["B3"], timing["B3"]),
         ("B4 block_scan_carry (block scan plus carry; launches include topp_blocked "
-         "serving)", "block_scan.cu", "src/repro/kernels/scan_pipeline.py:143",
-         blocked_counts["block_scan"] + serve_b_counts["block_scan"], b2b4_err["B4"],
-         timing["B4"]),
+         "serving and zamba2 serving under scan_method='blocked')", "block_scan.cu",
+         "src/repro/kernels/scan_pipeline.py:143",
+         blocked_counts["block_scan"] + serve_b_counts["block_scan"]
+         + zamba_counts["block_scan"], b2b4_err["B4"], timing["B4"]),
         ("B5 split_tiles (SplitInd)", "split.cu", "src/repro/kernels/split_mm.py:136",
          blocked_counts["split"], b5_err, timing["B5"]),
-        ("B7 radix_pass_multibit (radix-16 pass; times are the 4-pass bf16 sort chain)",
-         "radix_pass.cu", "src/repro/kernels/split_mm.py:262", serve_counts["radix_pass"],
-         float(b7_err), timing["B7"]),
+        ("B7 radix_pass_multibit (radix-16 pass; times are the 4-pass bf16 sort chain; "
+         "launches: topp_kernel serving of llama3-8b and zamba2)", "radix_pass.cu",
+         "src/repro/kernels/split_mm.py:262",
+         serve_counts["radix_pass"] + zamba_counts["radix_pass"], float(b7_err), timing["B7"]),
         ("B8 topp_mask_sample_tiles (fused top-p tail)", "topp_tail.cu",
-         "src/repro/kernels/split_mm.py:360", serve_counts["topp_tail"], float(b8_err),
-         timing["B8"]),
+         "src/repro/kernels/split_mm.py:360",
+         serve_counts["topp_tail"] + zamba_counts["topp_tail"], float(b8_err), timing["B8"]),
         ("B9 seg_scan_tiles (segmented tile scan; launches: segment_compress, "
          "topp_segmented serving and sample_packed under method_override('kernel'))",
          "seg_scan.cu", "src/repro/kernels/segscan_mm.py:186", seg_launches["seg_scan"],
@@ -1306,6 +1823,20 @@ def main() -> int:
         ("B12 seg_block_scan_carry (segmented block scan plus gated carry)",
          "seg_block_scan.cu", "src/repro/kernels/segscan_mm.py:325",
          seg_launches["seg_block_scan"], seg_err["B12"], timing["B12"]),
+        ("B13 linrec_scan_tiles (linear-recurrence tile scan; launches: main_linrec and "
+         "zamba2 prefill under scan_method='kernel')", "linrec_scan.cu",
+         "src/repro/kernels/linrec_mm.py:72", lin_launches["linrec_scan"], lin_err["B13"],
+         timing["B13"]),
+        ("B14 linrec_block_summaries ((prod a, trailing sum) per block)",
+         "linrec_summaries.cu", "src/repro/kernels/linrec_mm.py:143",
+         lin_launches["linrec_summaries"], lin_err["B14"], timing["B14"]),
+        ("B15 linrec_carry_scan (exclusive affine scan of the block summaries)",
+         "linrec_carry.cu", "src/repro/kernels/linrec_mm.py:183",
+         lin_launches["linrec_carry"], lin_err["B15"], timing["B15"]),
+        ("B16 linrec_block_scan_carry (block recurrence seeded with its carry; launches: "
+         "main_linrec and zamba2 prefill under scan_method='blocked')",
+         "linrec_block_scan.cu", "src/repro/kernels/linrec_mm.py:219",
+         lin_launches["linrec_block_scan"], lin_err["B16"], timing["B16"]),
     ]
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep, launches=n,
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],

@@ -2,14 +2,15 @@
 from repro_torch.core.autotune import (
     AutotuneFallbackWarning, maybe_resolve, method_override, resolve_method,
 )
+from repro_torch.core.linrec import cummax, cumprod, linear_scan, linrec_accum_dtype_for
 from repro_torch.core.precision import PRECISIONS, pdot, resolve_precision
 from repro_torch.core.primitives import (
     multi_split, radix_sort, sort, top_p_sample, topk, weighted_sample,
 )
 from repro_torch.core.segmented import (
     SegmentedBatch, boundary_flags, segment_compress, segment_cumsum, segment_ids,
-    segment_scan, segment_softmax, segment_sort, segment_sums, segment_top_p_sample,
-    segment_topk,
+    segment_linear_scan, segment_scan, segment_softmax, segment_sort, segment_sums,
+    segment_top_p_sample, segment_topk,
 )
 from repro_torch.core.scan import (
     accum_dtype_for, cumsum, scan, strictly_lower_ones, tile_scan_scanu,

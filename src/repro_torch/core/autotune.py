@@ -46,6 +46,8 @@ OP_ALIASES: Dict[str, str] = {
     "multi_split": "split",
     "radix_sort": "sort",
     "topk": "sort",
+    "cumprod": "linear_scan",
+    "cummax": "linear_scan",
     # every segment_* op is built from segmented mask / prefix scans
     "segment_cumsum": "segment_scan",
     "segment_sums": "segment_scan",
@@ -54,6 +56,7 @@ OP_ALIASES: Dict[str, str] = {
     "segment_sort": "segment_scan",
     "segment_topk": "segment_scan",
     "segment_top_p_sample": "segment_scan",
+    "segment_linear_scan": "segment_scan",
     "segment_ids": "segment_scan",
 }
 

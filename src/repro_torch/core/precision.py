@@ -3,7 +3,9 @@
 Port of ``repro/core/precision.py``.  Only ``precision="highest"`` is ported:
 operands reach the matrix product in fp32 (or exactly, for integers) and
 accumulate in the accumulation dtype.  ``"compensated"`` and ``"fast"`` raise
-``NotImplementedError`` until they are ported (ROADMAP Queue A item 2).
+``NotImplementedError`` until they are ported (ROADMAP Queue A item 2), and
+so does the fp16 split behind them; :func:`normalize_exponents`, the exact
+exponent split of the linear recurrences' weighted triangle, is ported.
 
 PyTorch has no ``preferred_element_type``, so :func:`pdot` casts both operands
 to the accumulation dtype before the product.  That is exact for the cases the
@@ -23,9 +25,11 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["PRECISIONS", "resolve_precision", "pdot", "require_ieee_fp32"]
+__all__ = ["PRECISIONS", "resolve_precision", "pdot", "require_ieee_fp32",
+           "normalize_exponents"]
 
 PRECISIONS = ("highest", "compensated", "fast")
+_SQRT_HALF = 0.7071067811865476
 
 
 def resolve_precision(precision: str = "highest", *, method=None,
@@ -56,6 +60,26 @@ def require_ieee_fp32() -> None:
         raise RuntimeError(
             "precision='highest' needs IEEE fp32 products: set "
             "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def normalize_exponents(a: torch.Tensor, acc: torch.dtype):
+    """Split ``a`` exactly into mantissas in ``[√½, √2)`` and int32 exponents.
+
+    ``a == a_norm · 2^e`` with no rounding (``frexp`` and the conditional
+    doubling move exponents only).  Mantissas centred on 1 keep a product of
+    ``n`` of them within ``2^±(n/2)``, the bound the linear recurrences'
+    weighted triangle (``repro_torch.core.linrec._pair_w``) relies on.
+
+    Example:
+        >>> m, e = normalize_exponents(torch.tensor([0.25, 3.0]), torch.float32)
+        >>> m.tolist(), e.tolist()
+        ([1.0, 0.75], [-2, 2])
+    """
+    m, e = torch.frexp(a.to(acc))                         # a = m·2^e, |m| ∈ [½, 1)
+    small = m.abs() < _SQRT_HALF
+    a_norm = torch.where(small, m * 2, m).to(acc)
+    es = torch.where(small, e - 1, e).to(torch.int32)
+    return a_norm, es
 
 
 def pdot(a: torch.Tensor, b: torch.Tensor, *, acc: torch.dtype,

@@ -20,15 +20,16 @@ segment boundaries, dispatched through the ``method=`` table of
 
 On top ride :func:`segment_cumsum`, :func:`segment_sums`,
 :func:`segment_compress`, :func:`segment_sort`, :func:`segment_topk`,
-:func:`segment_softmax` and :func:`segment_top_p_sample`.  Each is
+:func:`segment_softmax` and :func:`segment_top_p_sample`;
+:func:`segment_linear_scan` is one unsegmented ``linear_scan`` with ``a``
+zeroed at the segment starts.  Each is
 bit-identical to looping the 1-D operator over the segments, for every
 method: offsets, permutations and counts come from exact int8 -> int32 mask
 scans.
 
 Every entry point validates the offsets on the host (``guards.validate_offsets``),
-one read per call.  ``segment_linear_scan`` waits for the linear recurrences
-(ROADMAP Queue A item 7) and raises; ``precision`` other than ``"highest"``
-and ``nonfinite`` other than ``"propagate"`` raise as elsewhere in the port.
+one read per call.  ``precision`` other than ``"highest"`` and ``nonfinite``
+other than ``"propagate"`` raise as elsewhere in the port.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.core import guards
 from repro_torch.core.autotune import maybe_resolve
+from repro_torch.core.linrec import linear_scan, linrec_accum_dtype_for
 from repro_torch.core.precision import resolve_precision
 from repro_torch.core.primitives import _encode_for_sort, _register, dispatch
 from repro_torch.core.scan import accum_dtype_for, scan
@@ -309,16 +311,77 @@ def segment_cumsum(values, offsets=None, **kw) -> torch.Tensor:
     return segment_scan(values, offsets, **kw)
 
 
-def segment_linear_scan(*args, **kwargs):
-    """Per-segment linear recurrence: not ported yet.
+def segment_linear_scan(a, b, offsets=None, *, exclusive: bool = False,
+                        reverse: bool = False, method: str = "auto", initial=0.0,
+                        tile_s: int = 128, block_tiles: int = 8, accum_dtype=None,
+                        precision: str = "highest",
+                        nonfinite: str = "propagate") -> torch.Tensor:
+    """Per-segment linear recurrence ``y_t = a_t * y_{t-1} + b_t`` of a packed batch.
 
-    Raises:
-        NotImplementedError: always; it comes with the linear recurrences
-            (ROADMAP Queue A item 7).
+    At every segment start the state resets to ``initial``: ``a`` is zeroed
+    there and ``a_t * initial`` folded into ``b_t``, so the packed batch runs as
+    one unsegmented :func:`~repro_torch.core.linrec.linear_scan` on any
+    ``method`` (B13 on ``"kernel"``, B14–B16 on ``"blocked"``), with no extra
+    kernel: a zero of ``a`` resets the recurrence exactly.
+
+    Args:
+        a: Packed multipliers ``(..., n)``, or a :class:`SegmentedBatch`
+            (then ``offsets`` comes from it); broadcast against ``b``.
+        b: Packed additive inputs ``(..., n)``.
+        offsets: ``(num_segments + 1,)`` CSR offsets of the last axis.
+        exclusive: Return the state entering each step; segment starts get
+            ``initial``.
+        reverse: Scan each segment from its end.
+        method: ``"auto"`` or one of ``METHODS``, forwarded to ``linear_scan``.
+        initial: The state at each segment start: a scalar, or a tensor
+            broadcastable against the leading dims (one value per row).
+        tile_s, block_tiles, accum_dtype, precision: As in ``linear_scan``.
+        nonfinite: Only ``"propagate"`` is ported.
+
+    Returns:
+        The per-segment recurrence at the broadcast shape of ``a`` and ``b``,
+        in the linrec accumulation dtype.
+
+    Example:
+        >>> a, b = torch.full((5,), 2.0), torch.ones(5)
+        >>> segment_linear_scan(a, b, [0, 2, 5], method="vector").tolist()
+        [1.0, 3.0, 1.0, 3.0, 7.0]
+        >>> segment_linear_scan(a, b, [0, 2, 5], initial=1.0, method="matmul").tolist()
+        [3.0, 7.0, 3.0, 7.0, 15.0]
     """
-    raise NotImplementedError(
-        "segment_linear_scan is not ported yet: it rides on linear_scan and the "
-        "kernels B13-B16 (ROADMAP Queue A item 7)")
+    a, offsets = _unwrap(a, offsets, op="segment_linear_scan")
+    guards.resolve_nonfinite(nonfinite, op="segment_linear_scan")
+    b = torch.as_tensor(b, device=a.device)
+    shp = torch.broadcast_shapes(a.shape, b.shape)
+    a, b = a.expand(shp), b.expand(shp)
+    n = shp[-1]
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    explicit_method = method != "auto"
+    method = maybe_resolve(method, "segment_linear_scan", n, dtype, device=a.device)
+    resolve_precision(precision, method=method, explicit_method=explicit_method)
+    acc = accum_dtype if accum_dtype is not None else linrec_accum_dtype_for(dtype)
+    if n == 0:
+        return torch.zeros(shp, dtype=acc, device=a.device)
+    if reverse:
+        rev_off = torch.flip(n - offsets, dims=(0,))
+        out = segment_linear_scan(torch.flip(a, dims=(-1,)), torch.flip(b, dims=(-1,)),
+                                  rev_off, exclusive=exclusive, method=method,
+                                  initial=initial, tile_s=tile_s, block_tiles=block_tiles,
+                                  accum_dtype=accum_dtype, precision=precision)
+        return torch.flip(out, dims=(-1,))
+    flags = boundary_flags(offsets, n) > 0
+    init = torch.as_tensor(initial, dtype=acc, device=a.device)
+    # an array initial is per leading row: align it against the packed axis
+    init_e = init[..., None] if init.dim() else init
+    a_acc, b_acc = a.to(acc), b.to(acc)
+    a_cut = torch.where(flags, torch.zeros((), dtype=acc, device=a.device), a_acc)
+    b_cut = torch.where(flags, b_acc + a_acc * init_e, b_acc)
+    out = linear_scan(a_cut, b_cut, method=method, tile_s=tile_s, block_tiles=block_tiles,
+                      accum_dtype=acc, precision=precision)
+    if exclusive:
+        shifted = torch.nn.functional.pad(out, (1, 0))[..., :-1]
+        out = torch.where(flags, init_e.expand(out.shape), shifted)
+    return out
 
 
 def segment_sums(values, offsets=None, *, method: str = "auto", tile_s: int = 128,

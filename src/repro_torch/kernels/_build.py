@@ -46,6 +46,10 @@ SOURCES: Dict[str, tuple] = {
     "seg_summaries": ("repro_seg_summaries", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
     "seg_carry": ("repro_seg_carry", [_P, _P, _P, _I, _L, _I, _P]),
     "seg_block_scan": ("repro_seg_block_scan", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
+    "linrec_scan": ("repro_linrec_scan", [_P, _P, _P, _I, _L, _P]),
+    "linrec_summaries": ("repro_linrec_summaries", [_P, _P, _P, _P, _I, _L, _I, _L, _P]),
+    "linrec_carry": ("repro_linrec_carry", [_P, _P, _P, _I, _L, _P]),
+    "linrec_block_scan": ("repro_linrec_block_scan", [_P, _P, _P, _P, _I, _L, _I, _L, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -1,0 +1,346 @@
+"""B13–B16: the linear-recurrence kernels (``y_t = a_t·y_{t−1} + b_t``).
+
+Port of ``repro/kernels/linrec_mm.py``.  Four kernels, one CUDA source each,
+sharing the affine-pair walk of ``csrc/affine_tile.cuh``:
+
+* :func:`linrec_scan_tiles` (B13, ``csrc/linrec_scan.cu``) — the recurrence of
+  each row, walked in order with a running state;
+* :func:`linrec_block_summaries` (B14, ``csrc/linrec_summaries.cu``) — phase 1
+  of the §4 pipeline: each block's affine map ``y_out = p·y_in + l`` as the
+  pair ``(Π a, trailing sum)``;
+* :func:`linrec_carry_scan` (B15, ``csrc/linrec_carry.cu``) — phase 2: the
+  exclusive scan of those pairs under affine composition, the state entering
+  each block;
+* :func:`linrec_block_scan_carry` (B16, ``csrc/linrec_block_scan.cu``) —
+  phases 1 and 3 fused: each block's recurrence seeded with its carry.
+
+:func:`linrec_blocked_scan` runs B14–B16 with the JAX geometry: blocks of
+``t = min(block_tiles, ⌈n/s²⌉)`` tiles, ``m = t·s`` rows of ``s``; with one
+block per row the carry is zero and B14 and B15 are not launched.
+
+On CUDA tensors the wrappers launch the kernels, which read and write fp32
+only (operands are cast to fp32; any other accumulation dtype raises on the
+card) and mask the ragged row end themselves.  On CPU tensors they run the
+plain versions (``*_plain``), which follow the JAX block algebra on the
+identity-padded (``a = 1``, ``b = 0``) tile or block view: the weighted
+triangles of ``core.linrec._linrec_block``, suffix products for the
+summaries, the chunked ``W @ b`` scan for the carries, and the running state
+across ordered tiles.  They build ``(…, s, s)`` triangles per row of ``s``, so
+they work a bounded number of tiles or blocks at a time.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import guards
+from repro_torch.core.linrec import _linrec_block, _linrec_matmul, linrec_accum_dtype_for
+from repro_torch.core.precision import resolve_precision
+from repro_torch.kernels import _build
+from repro_torch.kernels.scan_pipeline import block_geometry
+
+__all__ = ["linrec_scan_tiles", "linrec_block_summaries", "linrec_carry_scan",
+           "linrec_block_scan_carry", "linrec_blocked_scan", "linrec_scan_tiles_plain",
+           "linrec_block_summaries_plain", "linrec_carry_scan_plain",
+           "linrec_block_scan_carry_plain", "linrec_blocked_scan_plain"]
+
+# elements of the largest triangle stack a plain version builds at once
+_CHUNK_ELEMS = 1 << 26
+# row counts reach the kernels as a C int
+_MAX_ROWS = (1 << 31) - 1
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path)
+# ---------------------------------------------------------------------------
+
+
+def _blocks(a: torch.Tensor, b: torch.Tensor, acc, precision):
+    """``_linrec_block`` over ``(..., m, s)`` blocks, a bounded number at a time."""
+    *lead, m, s = a.shape
+    a2, b2 = a.reshape(-1, m, s), b.reshape(-1, m, s)
+    step = max(1, _CHUNK_ELEMS // (m * s * s + m * m))
+    parts = [_linrec_block(a2[i:i + step], b2[i:i + step], acc, precision)
+             for i in range(0, a2.shape[0], step)]
+    out = torch.cat([p[0] for p in parts]).reshape(*lead, m, s)
+    mult = torch.cat([p[1] for p in parts]).reshape(*lead, m, s)
+    return out, mult
+
+
+def _identity_pad(ab: torch.Tensor, bb: torch.Tensor, length: int, acc):
+    """``(rows, n)`` pairs padded to ``length`` with the identity ``a = 1, b = 0``."""
+    pad = length - ab.shape[-1]
+    return F.pad(ab.to(acc), (0, pad), value=1.0), F.pad(bb.to(acc), (0, pad))
+
+
+def linrec_scan_tiles_plain(ab: torch.Tensor, bb: torch.Tensor, *, s: int,
+                            acc: torch.dtype, precision: str = "highest") -> torch.Tensor:
+    """Plain version of B13 on ``(rows, n)`` pairs.
+
+    Each ``s×s`` tile runs the block algebra; the tiles are then linked in
+    order as the Pallas kernel links them, the running state ``y`` entering a
+    tile as ``out + mult·y`` and leaving as that tile's last value.
+    """
+    rows, n = ab.shape
+    ell = s * s
+    a, b = _identity_pad(ab, bb, -(-n // ell) * ell, acc)
+    nt = a.shape[-1] // ell
+    out, mult = _blocks(a.reshape(rows, nt, s, s), b.reshape(rows, nt, s, s), acc, precision)
+    last_out, last_mult = out[..., -1, -1], mult[..., -1, -1]
+    y = torch.zeros((rows,), dtype=acc, device=ab.device)
+    ins = []
+    for t in range(nt):
+        ins.append(y)
+        y = last_out[:, t] + last_mult[:, t] * y
+    out = out + mult * torch.stack(ins, dim=-1)[..., None, None]
+    return out.reshape(rows, nt * ell)[:, :n]
+
+
+def _suffix_prods_excl(a: torch.Tensor) -> torch.Tensor:
+    """Exclusive suffix products ``Π_{k > j} a_k`` of the last axis (no division)."""
+    cp = torch.flip(torch.cumprod(torch.flip(a, dims=(-1,)), dim=-1), dims=(-1,))
+    return F.pad(cp[..., 1:], (0, 1), value=1.0)
+
+
+def linrec_block_summaries_plain(ablocks: torch.Tensor, bblocks: torch.Tensor,
+                                 acc: torch.dtype):
+    """Per ``(m, s)`` block: ``(Π a, trailing sum)`` as two ``(rows, nb)``, from
+    suffix products, as the Pallas kernel forms them."""
+    a, b = ablocks.to(acc), bblocks.to(acc)
+    rl = torch.sum(b * _suffix_prods_excl(a), dim=-1)       # row-local last values
+    rp = torch.prod(a, dim=-1)                              # row products
+    return torch.prod(rp, dim=-1), torch.sum(rl * _suffix_prods_excl(rp), dim=-1)
+
+
+def linrec_carry_scan_plain(prods: torch.Tensor, lasts: torch.Tensor, *,
+                            precision: str = "highest") -> torch.Tensor:
+    """Exclusive affine scan of ``(rows, nb)`` summaries through the chunked scan."""
+    inc = _linrec_matmul(prods, lasts, method="matmul", tile_s=128, block_tiles=0,
+                         accum_dtype=prods.dtype, precision=precision)
+    return F.pad(inc, (1, 0))[..., :-1]
+
+
+def linrec_block_scan_carry_plain(ablocks: torch.Tensor, bblocks: torch.Tensor,
+                                  carries: torch.Tensor, acc: torch.dtype,
+                                  precision: str = "highest") -> torch.Tensor:
+    """Each ``(m, s)`` block's recurrence plus ``mult · carry``."""
+    out, mult = _blocks(ablocks, bblocks, acc, precision)
+    return out + mult * carries.to(acc)[..., None, None]
+
+
+def linrec_blocked_scan_plain(ab: torch.Tensor, bb: torch.Tensor, *, s: int,
+                              block_tiles: int, acc: torch.dtype,
+                              precision: str = "highest") -> torch.Tensor:
+    """Plain version of the pipeline on ``(rows, n)`` pairs."""
+    rows, n = ab.shape
+    m, block_len, nb = block_geometry(n, s, block_tiles)
+    a, b = _identity_pad(ab, bb, nb * block_len, acc)
+    ablocks, bblocks = a.reshape(rows, nb, m, s), b.reshape(rows, nb, m, s)
+    if nb == 1:
+        carries = torch.zeros((rows, 1), dtype=acc, device=ab.device)
+    else:
+        carries = linrec_carry_scan_plain(
+            *linrec_block_summaries_plain(ablocks, bblocks, acc), precision=precision)
+    out = linrec_block_scan_carry_plain(ablocks, bblocks, carries, acc, precision)
+    return out.reshape(rows, nb * block_len)[:, :n]
+
+
+# ---------------------------------------------------------------------------
+# kernel launches on (rows, n) fp32 rows; the kernels mask the ragged end
+# ---------------------------------------------------------------------------
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def _kernel_rows(a: torch.Tensor, b: torch.Tensor, acc, *, op: str):
+    """``(rows, n)`` operands as the kernels read them: contiguous fp32."""
+    if acc != torch.float32:
+        raise TypeError(f"{op}: the CUDA kernels accumulate in fp32, got accum_dtype={acc}")
+    if a.shape[0] > _MAX_ROWS:
+        raise ValueError(f"{op}: {a.shape[0]} rows exceed the kernels' int row count")
+    return _f32(a), _f32(b)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _linrec_scan_cuda(ak, bk):
+    rows, n = ak.shape
+    out = torch.empty_like(ak)
+    with torch.cuda.device(ak.device):
+        _build.launch("linrec_scan", ak.data_ptr(), bk.data_ptr(), out.data_ptr(), rows, n,
+                      _stream(ak))
+    return out
+
+
+def _linrec_summaries_cuda(ak, bk, nb, block_len):
+    rows, n = ak.shape
+    prods = torch.empty((rows, nb), dtype=torch.float32, device=ak.device)
+    lasts = torch.empty_like(prods)
+    with torch.cuda.device(ak.device):
+        _build.launch("linrec_summaries", ak.data_ptr(), bk.data_ptr(), prods.data_ptr(),
+                      lasts.data_ptr(), rows, n, nb, block_len, _stream(ak))
+    return prods, lasts
+
+
+def _linrec_carry_cuda(prods, lasts):
+    rows, nb = prods.shape
+    carries = torch.empty_like(prods)
+    with torch.cuda.device(prods.device):
+        _build.launch("linrec_carry", prods.data_ptr(), lasts.data_ptr(), carries.data_ptr(),
+                      rows, nb, _stream(prods))
+    return carries
+
+
+def _linrec_block_scan_cuda(ak, bk, carries, nb, block_len):
+    rows, n = ak.shape
+    out = torch.empty_like(ak)
+    with torch.cuda.device(ak.device):
+        _build.launch("linrec_block_scan", ak.data_ptr(), bk.data_ptr(), carries.data_ptr(),
+                      out.data_ptr(), rows, n, nb, block_len, _stream(ak))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+def _acc_of(a: torch.Tensor, b: torch.Tensor, accum_dtype):
+    return accum_dtype if accum_dtype is not None else linrec_accum_dtype_for(
+        torch.promote_types(a.dtype, b.dtype))
+
+
+def _check_pair(op: str, a: torch.Tensor, b: torch.Tensor, ndim=None) -> None:
+    guards.validate_same_shape(a.shape, b.shape, op=op, a_name="a", b_name="b")
+    if a.dim() < 1 or (ndim is not None and a.dim() != ndim):
+        raise ValueError(f"{op}: unexpected operand shape {tuple(a.shape)}")
+
+
+def linrec_scan_tiles(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
+                      accum_dtype=None, precision: str = "highest") -> torch.Tensor:
+    """Linear recurrence of the last axis as one ordered walk per row.
+
+    Args:
+        a, b: ``(..., n)`` multipliers and additive inputs of one shape; CUDA
+            tensors launch B13, CPU tensors run the plain version.
+        s: Tile side of the plain version's ``s×s`` tiles (the kernel walks
+            elements and reads no tile side).
+        accum_dtype: Accumulation dtype; defaults to ``linrec_accum_dtype_for``.
+        precision: Only ``"highest"`` is ported.
+
+    Returns:
+        The inclusive recurrence from a zero state, in the accumulation dtype.
+
+    Example:
+        >>> linrec_scan_tiles(torch.tensor([2.0, 0.0, 3.0]), torch.ones(3), s=2).tolist()
+        [1.0, 1.0, 4.0]
+    """
+    _check_pair("linrec_scan_tiles", a, b)
+    s = guards.validate_positive(s, name="s", op="linrec_scan_tiles")
+    resolve_precision(precision)
+    acc = _acc_of(a, b, accum_dtype)
+    if a.numel() == 0:
+        return torch.zeros(a.shape, dtype=acc, device=a.device)
+    n = a.shape[-1]
+    ab, bb = a.reshape(-1, n), b.reshape(-1, n)
+    if not ab.is_cuda:
+        return linrec_scan_tiles_plain(ab, bb, s=s, acc=acc,
+                                       precision=precision).reshape(a.shape)
+    ak, bk = _kernel_rows(ab, bb, acc, op="linrec_scan_tiles")
+    return _linrec_scan_cuda(ak, bk).reshape(a.shape)
+
+
+def linrec_block_summaries(ablocks: torch.Tensor, bblocks: torch.Tensor, *,
+                           accum_dtype=None):
+    """Phase 1: ``(prods, lasts)``, each ``(rows, nb)``, of ``(rows, nb, m, s)`` blocks.
+
+    Block ``c`` maps an incoming state to ``prods[c]·y_in + lasts[c]``.
+    """
+    _check_pair("linrec_block_summaries", ablocks, bblocks, ndim=4)
+    rows, nb, m, s = ablocks.shape
+    acc = _acc_of(ablocks, bblocks, accum_dtype)
+    if not ablocks.is_cuda or ablocks.numel() == 0:
+        return linrec_block_summaries_plain(ablocks, bblocks, acc)
+    ak, bk = _kernel_rows(ablocks.reshape(rows, -1), bblocks.reshape(rows, -1), acc,
+                          op="linrec_block_summaries")
+    return _linrec_summaries_cuda(ak, bk, nb, m * s)
+
+
+def linrec_carry_scan(prods: torch.Tensor, lasts: torch.Tensor, *,
+                      precision: str = "highest") -> torch.Tensor:
+    """Phase 2: the state entering each block, ``(rows, nb)``.
+
+    ``carry[c] = Σ_{q<c} lasts[q] · Π_{r=q+1..c-1} prods[r]``, the exclusive
+    scan of the summaries under affine composition.
+    """
+    resolve_precision(precision)
+    _check_pair("linrec_carry_scan", prods, lasts, ndim=2)
+    if not prods.is_cuda or prods.numel() == 0:
+        return linrec_carry_scan_plain(prods, lasts, precision=precision)
+    pk, lk = _kernel_rows(prods, lasts, prods.dtype, op="linrec_carry_scan")
+    return _linrec_carry_cuda(pk, lk)
+
+
+def linrec_block_scan_carry(ablocks: torch.Tensor, bblocks: torch.Tensor,
+                            carries: torch.Tensor, *, accum_dtype=None,
+                            precision: str = "highest") -> torch.Tensor:
+    """Fused phases 1 and 3: each ``(m, s)`` block's recurrence seeded with its carry.
+
+    Args:
+        ablocks, bblocks: ``(rows, nb, m, s)`` row-major block views.
+        carries: ``(rows, nb)`` states entering the blocks.
+        accum_dtype: Accumulation dtype; defaults to ``linrec_accum_dtype_for``.
+        precision: Only ``"highest"`` is ported.
+
+    Returns:
+        ``(rows, nb, m, s)`` in the accumulation dtype.
+    """
+    resolve_precision(precision)
+    _check_pair("linrec_block_scan_carry", ablocks, bblocks, ndim=4)
+    rows, nb, m, s = ablocks.shape
+    guards.validate_same_shape((rows, nb), carries.shape, op="linrec_block_scan_carry",
+                               a_name="blocks (rows, nb)", b_name="carries")
+    acc = _acc_of(ablocks, bblocks, accum_dtype)
+    if not ablocks.is_cuda or ablocks.numel() == 0:
+        return linrec_block_scan_carry_plain(ablocks, bblocks, carries, acc, precision)
+    ak, bk = _kernel_rows(ablocks.reshape(rows, -1), bblocks.reshape(rows, -1), acc,
+                          op="linrec_block_scan_carry")
+    out = _linrec_block_scan_cuda(ak, bk, _f32(carries), nb, m * s)
+    return out.reshape(rows, nb, m, s)
+
+
+def linrec_blocked_scan(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
+                        block_tiles: int = 8, accum_dtype=None,
+                        precision: str = "highest") -> torch.Tensor:
+    """Linear recurrence of the last axis with the three-phase blocked pipeline.
+
+    Example:
+        >>> linrec_blocked_scan(torch.full((300,), 0.5), torch.ones(300), s=8,
+        ...                     block_tiles=1)[-1].item()
+        2.0
+    """
+    _check_pair("linrec_blocked_scan", a, b)
+    s = guards.validate_positive(s, name="s", op="linrec_blocked_scan")
+    block_tiles = guards.validate_positive(block_tiles, name="block_tiles",
+                                           op="linrec_blocked_scan")
+    resolve_precision(precision)
+    acc = _acc_of(a, b, accum_dtype)
+    if a.numel() == 0:
+        return torch.zeros(a.shape, dtype=acc, device=a.device)
+    n = a.shape[-1]
+    ab, bb = a.reshape(-1, n), b.reshape(-1, n)
+    if not ab.is_cuda:
+        return linrec_blocked_scan_plain(ab, bb, s=s, block_tiles=block_tiles, acc=acc,
+                                         precision=precision).reshape(a.shape)
+    _, block_len, nb = block_geometry(n, s, block_tiles)
+    ak, bk = _kernel_rows(ab, bb, acc, op="linrec_blocked_scan")
+    if nb == 1:
+        # one block: the carry is zero, so phases 1 and 2 are skipped
+        carries = torch.zeros((ab.shape[0], 1), dtype=torch.float32, device=a.device)
+    else:
+        carries = _linrec_carry_cuda(*_linrec_summaries_cuda(ak, bk, nb, block_len))
+    return _linrec_block_scan_cuda(ak, bk, carries, nb, block_len).reshape(a.shape)

@@ -1,12 +1,14 @@
 """Public kernel entry points, and the launch counters of the port's kernels.
 
 Port of ``repro/kernels/ops.py`` for the kernels ported so far (B1–B5,
-B7–B12).  The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
+B7–B16).  The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
 ``scan_pipeline.{block_partial_sums,carry_scan,block_scan_carry}`` (B2–B4),
 ``split_mm.split_tiles`` (B5), ``split_mm.radix_pass_multibit`` (B7),
 ``split_mm.topp_mask_sample_tiles`` (B8) and
 ``segscan_mm.{seg_scan_tiles,seg_block_summaries,seg_carry_scan,seg_block_scan_carry}``
-(B9–B12); each runs its CUDA kernel on CUDA
+(B9–B12) and
+``linrec_mm.{linrec_scan_tiles,linrec_block_summaries,linrec_carry_scan,linrec_block_scan_carry}``
+(B13–B16); each runs its CUDA kernel on CUDA
 tensors and the kernel's plain PyTorch version on CPU tensors.  PyTorch runs
 eagerly, so the entry points here are plain calls where the JAX package
 ``jit``s.  Every kernel launch adds one to its count;
@@ -39,6 +41,10 @@ KERNELS = {
     "seg_summaries": "B10 src/repro/kernels/segscan_mm.py:252 _seg_summary_kernel",
     "seg_carry": "B11 src/repro/kernels/segscan_mm.py:293 _seg_carry_kernel",
     "seg_block_scan": "B12 src/repro/kernels/segscan_mm.py:325 _seg_block_carry_kernel",
+    "linrec_scan": "B13 src/repro/kernels/linrec_mm.py:72 _tile_kernel",
+    "linrec_summaries": "B14 src/repro/kernels/linrec_mm.py:143 _summary_kernel",
+    "linrec_carry": "B15 src/repro/kernels/linrec_mm.py:183 _carry_kernel",
+    "linrec_block_scan": "B16 src/repro/kernels/linrec_mm.py:219 _block_carry_kernel",
 }
 
 

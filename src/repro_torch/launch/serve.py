@@ -7,7 +7,9 @@ Without ``--device`` it runs on the GPU (``--sampler topp_kernel`` then runs
 the B7/B8 kernels, ``--sampler topp_blocked`` the B4 block scan, and
 ``--sampler topp_segmented`` its segmented scans on the method that
 ``REPRO_SCAN_METHOD`` names: ``kernel`` for B9, ``blocked`` for B10–B12).
-Weights are random, made from ``--seed``.
+``--arch zamba2-1.2b`` serves the Mamba2 hybrid, whose SSD layers run on the
+method that ``REPRO_SCAN_METHOD`` names: ``kernel`` for B1 and B13,
+``blocked`` for B4 and B16.  Weights are random, made from ``--seed``.
 """
 from __future__ import annotations
 

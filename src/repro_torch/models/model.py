@@ -11,6 +11,7 @@ __all__ = ["ARCHS", "get_config", "build_model"]
 # the architectures ported so far (the JAX package registers ten)
 ARCHS = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
 }
 
 

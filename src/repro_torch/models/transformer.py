@@ -1,11 +1,19 @@
-"""The dense decoder LM: init, prefill and decode.
+"""The decoder LMs: init, prefill and decode.
 
-Port of the ``"dense"`` pattern of ``repro/models/transformer.py``.  Parameters
-keep the JAX pytree layout: ``{"embed": {"embed"}, "final_norm": {"g"},
-"stack": {"sub0": {...}}}`` with every ``stack`` leaf stacked over a leading
-``n_layers`` axis.  The layers run in a Python loop over that axis (the JAX
-package's ``lax.scan``).  Other layer kinds (MoE, MLA, SSM, xLSTM, enc-dec)
-raise ``NotImplementedError`` until they are ported.
+Port of the ``"dense"`` pattern and the ``"hybrid"`` family of
+``repro/models/transformer.py``.  Parameters keep the JAX pytree layout:
+
+* dense: ``{"embed": {"embed"}, "final_norm": {"g"}, "stack": {"sub0": {...}}}``
+  with every ``stack`` leaf stacked over a leading ``n_layers`` axis;
+* hybrid (zamba2): ``stack`` holds ``n_layers // iv`` groups of Mamba2 blocks
+  ``sub0 … sub{iv-1}`` (``iv = shared_attn_interval``), each leaf stacked over
+  the groups; ``shared`` is one dense block, unstacked, that runs after every
+  group with its own KV cache per invocation; ``tail`` holds the trailing
+  Mamba2 blocks (``{"sub0": ...}`` stacked over them).
+
+The layers run in Python loops over those axes (the JAX package's
+``lax.scan``).  Other layer kinds (MoE, MLA, xLSTM, enc-dec) raise
+``NotImplementedError`` until they are ported.
 
 Interface:
   init(seed, device=None, dtype=float32)        -> params
@@ -22,6 +30,7 @@ from repro_torch.core import guards
 from repro_torch.models import attention as att
 from repro_torch.models.layers import (ACTS, embed_lookup, mlp, ninit, rmsnorm,
                                        softcap, unembed)
+from repro_torch.models.mamba import mamba_full, mamba_init, mamba_step
 
 __all__ = ["TransformerLM"]
 
@@ -36,13 +45,24 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _stacked(caches):
+    """A list of cache dicts as one dict of tensors stacked on a new leading axis."""
+    if isinstance(caches[0], dict):
+        return {k: _stacked([c[k] for c in caches]) for k in caches[0]}
+    return torch.stack(caches)
+
+
 class TransformerLM:
     def __init__(self, cfg):
-        if cfg.family != "decoder" or cfg.moe or cfg.mla or cfg.ssm or cfg.xlstm \
+        dense = cfg.family == "decoder" and cfg.ssm is None
+        self.hybrid = (cfg.family == "hybrid" and cfg.ssm is not None
+                       and bool(cfg.shared_attn_interval))
+        if not (dense or self.hybrid) or cfg.moe or cfg.mla or cfg.xlstm \
                 or cfg.layer_pattern or cfg.qk_norm or cfg.local_window \
                 or cfg.act not in ACTS:
             raise NotImplementedError(
-                f"{cfg.name}: only the llama-style dense decoder is ported so far")
+                f"{cfg.name}: only the llama-style dense decoder and the zamba2-style "
+                "hybrid are ported so far")
         self.cfg = cfg
         self.cdt = _DTYPES[cfg.dtype]
 
@@ -58,20 +78,40 @@ class TransformerLM:
         cfg = self.cfg
         dev = guards.resolve_device(device, op="TransformerLM.init")
         gen = torch.Generator(device=dev).manual_seed(seed)
-        n, d = cfg.n_layers, cfg.d_model
         kw = dict(dtype=dtype, device=dev)
-        block = {
-            "norm1": {"g": torch.zeros((n, d), **kw)},
-            "norm2": {"g": torch.zeros((n, d), **kw)},
+        if self.hybrid:
+            iv = cfg.shared_attn_interval
+            n_groups = cfg.n_layers // iv
+            trailing = cfg.n_layers - n_groups * iv
+            body = {"stack": {f"sub{i}": self._mamba_init(gen, n_groups, kw)
+                              for i in range(iv)},
+                    "shared": self._dense_init(gen, None, kw)}
+            if trailing:
+                body["tail"] = {"sub0": self._mamba_init(gen, trailing, kw)}
+        else:
+            body = {"stack": {"sub0": self._dense_init(gen, cfg.n_layers, kw)}}
+        d = cfg.d_model
+        return {"embed": {"embed": ninit(gen, (cfg.padded_vocab, d),
+                                         scale=d ** -0.5, **kw)},
+                "final_norm": {"g": torch.zeros((d,), **kw)}, **body}
+
+    def _dense_init(self, gen, n, kw):
+        """A dense block's weights, stacked over ``n`` layers (unstacked for None)."""
+        cfg, d = self.cfg, self.cfg.d_model
+        lead = () if n is None else (n,)
+        return {
+            "norm1": {"g": torch.zeros((*lead, d), **kw)},
+            "norm2": {"g": torch.zeros((*lead, d), **kw)},
             "attn": att.attn_init(gen, cfg, n=n, **kw),
             "mlp": {"w_up": ninit(gen, (d, cfg.d_ff), n=n, **kw),
                     "w_down": ninit(gen, (cfg.d_ff, d), n=n, **kw),
                     "w_gate": ninit(gen, (d, cfg.d_ff), n=n, **kw)},
         }
-        return {"embed": {"embed": ninit(gen, (cfg.padded_vocab, d),
-                                         scale=d ** -0.5, **kw)},
-                "final_norm": {"g": torch.zeros((d,), **kw)},
-                "stack": {"sub0": block}}
+
+    def _mamba_init(self, gen, n, kw):
+        """A Mamba2 block's weights, stacked over ``n`` layers."""
+        return {"norm": {"g": torch.zeros((n, self.cfg.d_model), **kw)},
+                "mixer": mamba_init(gen, self.cfg, n=n, **kw)}
 
     # ---- one residual block ----
     def _block(self, p, h, *, mode, positions=None, cache=None, pos=None,
@@ -88,6 +128,56 @@ class TransformerLM:
         hin = rmsnorm(p["norm2"], h, cfg.norm_eps)
         return h + mlp(p["mlp"], hin, cdt, act=cfg.act), new_cache
 
+    def _mamba(self, p, h, *, mode, cache=None):
+        """One Mamba2 residual block; returns ``(h, cache)``."""
+        hin = rmsnorm(p["norm"], h, self.cfg.norm_eps)
+        if mode == "decode":
+            y, new_cache = mamba_step(p["mixer"], hin, self.cfg, cache, cdt=self.cdt)
+        else:
+            y, new_cache = mamba_full(p["mixer"], hin, self.cfg, cdt=self.cdt,
+                                      return_cache=True)
+        return h + y, new_cache
+
+    def _hybrid(self, params, h, *, mode, positions=None, caches=None, pos=None,
+                cache_len=None):
+        """The hybrid stack: each group of Mamba2 blocks, then the shared block,
+        then the tail.  Prefill returns the new caches; decode writes them in place."""
+        iv = self.cfg.shared_attn_interval
+        stack = params["stack"]
+        groups, shared, tails = [], [], []
+
+        def mamba(p, h, c, out):
+            h, nc = self._mamba(p, h, mode=mode, cache=c)
+            if c is None:
+                out.append(nc)
+            else:
+                c["conv"].copy_(nc["conv"])
+                c["ssm"].copy_(nc["ssm"])
+            return h
+
+        for g in range(stack["sub0"]["norm"]["g"].shape[0]):
+            subs = []
+            for i in range(iv):
+                c = None if caches is None else _layer(_layer(caches["stack"], g), i)
+                h = mamba(_layer(stack[f"sub{i}"], g), h, c, subs)
+            c = None if caches is None else _layer(caches["shared"], g)
+            h, nc = self._block(params["shared"], h, mode=mode, positions=positions,
+                                cache=c, pos=pos, cache_len=cache_len)
+            if caches is None:
+                groups.append(_stacked(subs))
+                shared.append(nc)
+        if "tail" in params:
+            tail = params["tail"]["sub0"]
+            for t in range(tail["norm"]["g"].shape[0]):
+                c = None if caches is None else _layer(caches["tail"]["sub0"], t)
+                h = mamba(_layer(tail, t), h, c, tails)
+        if caches is not None:
+            return h, caches
+        new = {"stack": _stacked(groups), "shared": _stacked(shared)}
+        if tails:
+            new["tail"] = {"sub0": _stacked(tails)}
+        return h, new
+
     def _logits(self, params, h):
         cfg = self.cfg
         h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
@@ -101,8 +191,11 @@ class TransformerLM:
     def prefill(self, params, batch, *, cache_len: Optional[int] = None):
         """Run the prompt ``batch["tokens"]`` (B, S); return the last logits and caches.
 
-        The caches are ``{"stack": {"sub0": {"k", "v"}}}`` stacked over layers,
-        each ``(n_layers, B, cache_len, K, D)``.
+        Dense caches are ``{"stack": {"sub0": {"k", "v"}}}`` stacked over
+        layers, each ``(n_layers, B, cache_len, K, D)``.  Hybrid caches are the
+        JAX package's: ``stack`` ``{"conv", "ssm"}`` of ``(groups, iv, B, ...)``,
+        ``shared`` ``{"k", "v"}`` of ``(groups, B, cache_len, K, D)`` and
+        ``tail`` ``{"sub0": {"conv", "ssm"}}`` of ``(trailing, B, ...)``.
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -111,6 +204,10 @@ class TransformerLM:
             h = h * cfg.d_model ** 0.5
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
+        if self.hybrid:
+            h, caches = self._hybrid(params, h, mode="prefill", positions=positions,
+                                     cache_len=cache_len)
+            return self._logits(params, h[:, -1:])[:, -1], caches
         stack = params["stack"]["sub0"]
         ks, vs = [], []
         for i in range(cfg.n_layers):
@@ -130,6 +227,9 @@ class TransformerLM:
         h = embed_lookup(params["embed"], tokens, self.cdt)
         if cfg.scale_embed:
             h = h * cfg.d_model ** 0.5
+        if self.hybrid:
+            h, _ = self._hybrid(params, h, mode="decode", caches=caches, pos=int(pos))
+            return self._logits(params, h)[:, -1], caches
         stack = params["stack"]["sub0"]
         cache = caches["stack"]["sub0"]
         for i in range(cfg.n_layers):

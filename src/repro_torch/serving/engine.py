@@ -9,7 +9,11 @@ packed as segments of one array and sampled by ``segment_top_p_sample``, whose
 runs B9, ``"blocked"`` B10–B12) and ``topp_xla`` (a stable ``torch.argsort``;
 the name matches the JAX package's baseline).  :meth:`ServeEngine.sample_packed`
 samples a ragged packed batch of logit rows without padding.  The engine runs
-on the card unless it is given ``device="cpu"``.
+on the card unless it is given ``device="cpu"``.  ``scan_method=`` overrides
+the model config's scan method, which the hybrid (zamba2) models' SSD layers
+run on: ``"kernel"`` puts their prefill on B1 and B13, ``"blocked"`` on the
+§4 pipelines (B4 and B16 at zamba2's shapes); decode's length-1 state
+updates launch no kernel on any method.
 
 ``generate(..., uniforms=)`` feeds the sampler's per-step uniforms from
 outside, as the operators' ``u=`` does: row ``i`` holds the draws of the
@@ -19,12 +23,13 @@ from ``jax.random`` bits that no torch generator reproduces.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core import guards
-from repro_torch.core.primitives import top_p_sample
+from repro_torch.core.primitives import METHODS, top_p_sample
 from repro_torch.core.segmented import SegmentedBatch, segment_top_p_sample
 from repro_torch.models.model import build_model
 
@@ -37,7 +42,7 @@ class ServeEngine:
 
     def __init__(self, cfg, params, *, max_len: int = 512, top_p: float = 0.9,
                  temperature: float = 1.0, sampler: str = "topp_scan",
-                 bits_per_pass: int = 4, device=None):
+                 bits_per_pass: int = 4, scan_method: Optional[str] = None, device=None):
         self.sampler = guards.validate_choice(sampler, self.SAMPLERS,
                                               name="sampler", op="ServeEngine")
         self.bits_per_pass = guards.validate_bits_per_pass(bits_per_pass,
@@ -47,6 +52,11 @@ class ServeEngine:
         self.max_len = guards.validate_positive(max_len, name="max_len",
                                                 op="ServeEngine")
         self.device = guards.resolve_device(device, op="ServeEngine")
+        if scan_method is not None:
+            if scan_method != "auto" and scan_method not in METHODS:
+                raise ValueError(f"unknown scan_method {scan_method!r}; "
+                                 f"expected one of {METHODS + ('auto',)}")
+            cfg = dataclasses.replace(cfg, scan_method=scan_method)
         self.cfg = cfg
         self.params = params
         self.top_p = top_p

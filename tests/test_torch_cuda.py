@@ -12,10 +12,13 @@ import pytest
 import torch
 
 from repro_torch.core.autotune import method_override
+from repro_torch.core.linrec import cummax, cumprod, linear_scan
 from repro_torch.core.primitives import compress, radix_sort, split, top_p_sample
 from repro_torch.core.scan import accum_dtype_for, scan
-from repro_torch.core.segmented import SegmentedBatch, segment_compress, segment_scan
-from repro_torch.kernels import ops, scan_mm, scan_pipeline, segscan_mm, split_mm
+from repro_torch.core.segmented import (SegmentedBatch, segment_compress,
+                                        segment_linear_scan, segment_scan)
+from repro_torch.core.ssd import ssd_scan, ssd_scan_ref
+from repro_torch.kernels import linrec_mm, ops, scan_mm, scan_pipeline, segscan_mm, split_mm
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
 
@@ -370,3 +373,168 @@ def test_engine_topp_segmented_launches_per_step(dev):
     with method_override("kernel"):
         got = eng.sample_packed(rows, u=torch.tensor([[0.5], [0.5], [0.5]], device=dev))
     assert got.tolist()[1:] == [0, 1]
+
+
+# ---- the linear recurrences (B13-B16) ----
+
+
+def _lin_pair(kind, shape, dev):
+    """Integer-valued pairs (exact on every path), or gated fp32 with some zeros."""
+    g = _gen(dev, 5)
+    if kind == "int":
+        return (torch.randint(-1, 2, shape, generator=g, device=dev).float(),
+                torch.randint(-3, 4, shape, generator=g, device=dev).float())
+    a = torch.exp(-torch.rand(shape, generator=g, device=dev) * 0.1)
+    a = torch.where(torch.rand(shape, generator=g, device=dev) < 0.001, 0.0, a)
+    return a, torch.randn(shape, generator=g, device=dev)
+
+
+def _lin_ref(a, b):
+    """The recurrence in fp64 by log-step doubling of the affine pairs."""
+    av, bv = a.double(), b.double()
+    d = 1
+    while d < a.shape[-1]:
+        bl = torch.nn.functional.pad(bv[..., :-d], (d, 0))
+        al = torch.nn.functional.pad(av[..., :-d], (d, 0), value=1.0)
+        bv, av = av * bl + bv, av * al
+        d *= 2
+    return bv
+
+
+def _lin_hold(kind, got, plain, ref):
+    if kind == "int":
+        assert torch.equal(got, plain) and torch.equal(got.double(), ref)
+    else:
+        assert torch.allclose(got.double(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 16, 100, 2048, 2049, 16387, 300001])
+@pytest.mark.parametrize("kind", ["int", "gated"])
+def test_linrec_scan_kernel_matches_plain(dev, kind, n):
+    """B13 on rows walked by one warp (n <= 2048) and by a whole CTA."""
+    a, b = _lin_pair(kind, (3, n), dev)
+    got = linrec_mm.linrec_scan_tiles(a, b, s=16)
+    plain = linrec_mm.linrec_scan_tiles_plain(a, b, s=16, acc=torch.float32)
+    _lin_hold(kind, got, plain, _lin_ref(a, b))
+
+
+@pytest.mark.parametrize("s,block_tiles", [(8, 1), (16, 4), (128, 2)])
+@pytest.mark.parametrize("kind", ["int", "gated"])
+def test_linrec_pipeline_kernels_match_plain(dev, kind, s, block_tiles):
+    """B14, B15 and B16 each against its plain version on the same block views."""
+    n = 300001
+    a, b = _lin_pair(kind, (2, n), dev)
+    m, block_len, nb = scan_pipeline.block_geometry(n, s, block_tiles)
+    pad = nb * block_len - n
+    ab = torch.nn.functional.pad(a, (0, pad), value=1.0).reshape(2, nb, m, s)
+    bb = torch.nn.functional.pad(b, (0, pad)).reshape(2, nb, m, s)
+    prods, lasts = linrec_mm.linrec_block_summaries(ab, bb)
+    pp, pl = linrec_mm.linrec_block_summaries_plain(ab, bb, torch.float32)
+    carries = linrec_mm.linrec_carry_scan(pp, pl)
+    pc = linrec_mm.linrec_carry_scan_plain(pp, pl)
+    out = linrec_mm.linrec_block_scan_carry(ab, bb, pc)
+    po = linrec_mm.linrec_block_scan_carry_plain(ab, bb, pc, torch.float32)
+    if kind == "int":
+        for got, want in ((prods, pp), (lasts, pl), (carries, pc), (out, po)):
+            assert torch.equal(got, want)
+    else:
+        for got, want in ((prods, pp), (lasts, pl), (carries, pc), (out, po)):
+            assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+    whole = linrec_mm.linrec_blocked_scan(a, b, s=s, block_tiles=block_tiles)
+    _lin_hold(kind, whole, po.reshape(2, -1)[:, :n], _lin_ref(a, b))
+
+
+@pytest.mark.parametrize("nb", [1, 7, 8192, 70001])
+def test_linrec_carry_kernel_many_rounds(dev, nb):
+    p, lv = _lin_pair("int", (3, nb), dev)
+    got = linrec_mm.linrec_carry_scan(p, lv)
+    ref = torch.nn.functional.pad(_lin_ref(p, lv), (1, 0))[..., :-1]
+    assert torch.equal(got.double(), ref)
+
+
+def test_linrec_edge_cases_hold_on_the_card(dev):
+    """Zeros reset exactly, deep decay stays finite, moderate decay stays accurate."""
+    a = torch.tensor([2.0, 0.0, 2.0, 2.0, 0.0, 1.0], device=dev)
+    b = torch.tensor([1.0, 3.0, 1.0, 1.0, 4.0, 1.0], device=dev)
+    for method in ("kernel", "blocked"):
+        got = linear_scan(a, b, method=method, tile_s=2, block_tiles=1)
+        assert got.tolist() == [1.0, 3.0, 7.0, 15.0, 4.0, 5.0]
+        deep = linear_scan(torch.full((4096,), 0.5, device=dev), torch.ones(4096, device=dev),
+                           method=method, tile_s=64)
+        assert bool(deep.isfinite().all())
+        assert torch.allclose(deep.double().cpu(), 2.0 - 0.5 ** torch.arange(4096.0).double(),
+                              rtol=1e-5)
+        for decay in (0.25, 0.05):
+            am = torch.full((512,), decay, device=dev)
+            bm = torch.randn(512, generator=_gen(dev), device=dev)
+            got = linear_scan(am, bm, method=method, tile_s=128)
+            assert torch.allclose(got.double(), _lin_ref(am, bm), rtol=3e-6, atol=3e-6)
+
+
+def test_linrec_launch_counts_and_operators(dev):
+    a, b = _lin_pair("int", (4, 100003), dev)
+    want = _lin_ref(a, b)
+    ops.reset_launch_counts()
+    k = linear_scan(a, b, method="kernel")
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(linrec_scan=1)
+    ops.reset_launch_counts()
+    bl = linear_scan(a, b, method="blocked", tile_s=16, block_tiles=8)     # 49 blocks
+    assert ops.launch_counts() == _counts(linrec_summaries=1, linrec_carry=1,
+                                          linrec_block_scan=1)
+    ops.reset_launch_counts()
+    b1 = linear_scan(a, b, method="blocked")                              # one block
+    assert ops.launch_counts() == _counts(linrec_block_scan=1)
+    assert torch.equal(k.double(), want) and torch.equal(bl, k) and torch.equal(b1, k)
+    ops.reset_launch_counts()
+    one = linear_scan(a[:, :1], b[:, :1], method="kernel", initial=2.0)
+    assert not any(ops.launch_counts().values())
+    assert torch.equal(one, b[:, :1] + a[:, :1] * 2.0)
+    x = torch.randint(-1, 3, (3, 500), generator=_gen(dev), device=dev).float()
+    for method in ("kernel", "blocked"):
+        assert torch.equal(cumprod(x, method=method), torch.cumprod(x, -1))
+        assert torch.equal(cummax(x, method=method), torch.cummax(x, -1).values)
+        off = torch.tensor([0, 7, 7, 300, 500], device=dev)
+        seg = segment_linear_scan(x, torch.ones_like(x), off, method=method, initial=1.0)
+        assert torch.equal(seg, segment_linear_scan(x, torch.ones_like(x), off,
+                                                    method="vector", initial=1.0))
+    with pytest.raises(TypeError):
+        linrec_mm.linrec_scan_tiles(a, b, accum_dtype=torch.float64)
+
+
+def test_ssd_scan_on_the_kernels(dev):
+    """ssd_scan on B1 + B13 and on B4 + B16 against "vector" and the fp64 oracle."""
+    g = _gen(dev, 6)
+    bsz, s, h, p, n = 2, 300, 4, 8, 16
+    x = torch.randn((bsz, s, h, p), generator=g, device=dev)
+    al = -torch.rand((bsz, s, h), generator=g, device=dev) * 0.2
+    bm = torch.randn((bsz, s, h, n), generator=g, device=dev) * 0.3
+    cm = torch.randn((bsz, s, h, n), generator=g, device=dev) * 0.3
+    ref = ssd_scan_ref(x.double(), al.double(), bm.double(), cm.double())
+    vec = ssd_scan(x, al, bm, cm, chunk=32, scan_method="vector")
+    for method, want in (("kernel", _counts(scan_mm=1, linrec_scan=1)),
+                         ("blocked", _counts(block_scan=1, linrec_block_scan=1))):
+        ops.reset_launch_counts()
+        y = ssd_scan(x, al, bm, cm, chunk=32, scan_method=method)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == want
+        assert torch.allclose(y, vec, rtol=1e-4, atol=1e-4)
+        assert torch.allclose(y.double(), ref, rtol=2e-3, atol=2e-3)
+
+
+def test_engine_zamba2_launches_in_prefill_only(dev):
+    """zamba2 SMOKE (5 Mamba2 layers, chunk 16, a 48-token prompt): one B1 and one B13
+    per layer in prefill under "kernel", one B4 and one B16 under "blocked", and no
+    linear-recurrence launch in decode; every method gives the "vector" stream."""
+    cfg = get_config("zamba2-1.2b", smoke=True)
+    params = build_model(cfg).init(0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=_gen(dev), device=dev)
+    want = ServeEngine(cfg, params, max_len=56, sampler="greedy",
+                       scan_method="vector").generate({"tokens": toks}, 5)
+    for method, prefill in (("kernel", _counts(scan_mm=5, linrec_scan=5)),
+                            ("blocked", _counts(block_scan=5, linrec_block_scan=5))):
+        eng = ServeEngine(cfg, params, max_len=56, sampler="greedy", scan_method=method)
+        ops.reset_launch_counts()
+        out = eng.generate({"tokens": toks}, 5)
+        assert ops.launch_counts() == prefill
+        assert torch.equal(out, want)

@@ -19,7 +19,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core import autotune, guards, precision
-from repro_torch.kernels import _build, ops, scan_mm, scan_pipeline, segscan_mm, split_mm
+from repro_torch.kernels import (_build, linrec_mm, ops, scan_mm, scan_pipeline, segscan_mm,
+                                 split_mm)
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
 
@@ -75,10 +76,18 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     segscan_mm.seg_scan_tiles(x, x % 7 == 0, s=8)
     segscan_mm.seg_blocked_scan(torch.ones((2, 5000)), torch.arange(5000) % 900 == 0, s=8,
                                 block_tiles=1)                              # nb > 1
+    a = torch.full((2, 5000), 0.5)
+    linrec_mm.linrec_scan_tiles(a, torch.ones((2, 5000)), s=8)
+    linrec_mm.linrec_blocked_scan(a, torch.ones((2, 5000)), s=8, block_tiles=1)  # nb > 1
+    blocks = a.reshape(2, 5, 1000, 1)
+    prods, lasts = linrec_mm.linrec_block_summaries(blocks, blocks)
+    linrec_mm.linrec_block_scan_carry(blocks, blocks, linrec_mm.linrec_carry_scan(prods, lasts))
     assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 0, "topp_tail": 0,
                                    "block_sums": 0, "carry_scan": 0, "block_scan": 0,
                                    "split": 0, "seg_scan": 0, "seg_summaries": 0,
-                                   "seg_carry": 0, "seg_block_scan": 0}
+                                   "seg_carry": 0, "seg_block_scan": 0, "linrec_scan": 0,
+                                   "linrec_summaries": 0, "linrec_carry": 0,
+                                   "linrec_block_scan": 0}
 
 
 def test_build_refuses_without_nvcc(monkeypatch, tmp_path):

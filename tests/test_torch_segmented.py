@@ -123,8 +123,10 @@ def test_validate_offsets_refuses_floats_and_keeps_good_offsets():
 
 def test_unported_options_raise():
     x, off = torch.ones(5), [0, 2, 5]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.segment_linear_scan(x, x, off)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        T.segment_linear_scan(x, x, off, method="matmul", precision="compensated")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        T.segment_linear_scan(x, x, off, nonfinite="sanitize")
     with pytest.raises(NotImplementedError, match="item 2"):
         T.segment_scan(x, off, method="matmul", precision="compensated")
     with pytest.raises(NotImplementedError, match="item 8"):
