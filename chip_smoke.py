@@ -42,7 +42,19 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 12. serve_zamba2 -- zamba2-1.2b at full width and depth (38 layers, bf16) serving
               batch 4, prompt 2048, 32 new tokens with ``topp_kernel`` under
               ``scan_method="kernel"`` and ``"blocked"``, exact launch counts;
-13. timing -- kernel, plain-version and library times beside each kernel's bound.
+13. b6     -- the multi-way split kernel against its plain version at (4, 2^24),
+              R = 16, exact; at R = 256 and R = 10 against a stable argsort and a
+              bincount; a ragged row, R = 1, empty buckets, out-of-range digits,
+              bf16 and int32 payloads;
+14. b17    -- the SSD chunk kernel against its plain version and the fp64 oracle at
+              zamba2's shapes: the ``ssd`` inputs, zamba2's init decays, a ragged S;
+15. main_multisplit -- ``multi_split(method="kernel")`` at (4, 2^24), R = 16: one
+              B6 launch and nothing else;
+16. forward_zamba2 -- zamba2-1.2b (38 layers, bf16) ``forward`` and ``loss`` on
+              4 x 2048 tokens under each ``scan_method``: 38 B17 launches a pass on
+              "kernel", 38 B4 + 38 B16 on "blocked", none on "vector"; the SMOKE
+              model's fp32 forward on the card against the CPU;
+17. timing -- kernel, plain-version and library times beside each kernel's bound.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run exits non-zero and prints no result.  Without a
@@ -51,6 +63,7 @@ exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -79,6 +92,12 @@ ZAMBA = dict(batch=4, prompt=2048, new=32, seed=0)
 # 4.0e-7 was read at zamba2's shapes, so 2e-6 keeps a 5x margin
 SSD_REL = 2e-6
 PACKED_ROWS = (VOCAB, 32000, 0, 50257)   # sample_packed: ragged logit rows, one empty
+B6_BUCKETS = 16                     # multi_split's radix-16 pass width
+SSD_RAGGED_S = 2000                 # B17 on a sequence whose last chunk is partial
+FORWARD = dict(batch=4, seq=2048, seed=0)
+# relative fp32 rounding allowed on top of the bound that the logits put on the
+# methods' ce (forward_zamba2): a few roundings of each ~10-nat term and a tree sum
+CE_SLACK = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -121,14 +140,16 @@ import numpy as np  # noqa: E402
 from repro_torch.analysis import ulp  # noqa: E402
 from repro_torch.core.autotune import method_override  # noqa: E402
 from repro_torch.core.linrec import cummax, cumprod, linear_scan  # noqa: E402
-from repro_torch.core.primitives import compress, radix_sort, top_p_sample  # noqa: E402
+from repro_torch.core.primitives import (compress, multi_split, radix_sort,  # noqa: E402
+                                         top_p_sample)
 from repro_torch.core.scan import accum_dtype_for, scan  # noqa: E402
 from repro_torch.core.segmented import (SegmentedBatch, boundary_flags,  # noqa: E402
                                         segment_compress, segment_linear_scan,
                                         segment_scan, segment_top_p_sample)
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels import (_build, linrec_mm, ops, scan_mm,  # noqa: E402
-                                 scan_pipeline, segscan_mm, split_mm)
+                                 scan_pipeline, segscan_mm, split_mm, ssd_chunk)
+from repro_torch.models import mamba as mamba_model  # noqa: E402
 from repro_torch.models.model import build_model, get_config  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
@@ -1099,19 +1120,24 @@ def phase_ssd(gen):
     return {k: runs["kernel"][k] + runs["blocked"][k] for k in ops.KERNELS}
 
 
+def zamba2_decay_inputs(gen):
+    """``ssd_inputs`` with the log decays of zamba2's init in place of ``-|0.01 g|``:
+    ``-exp(A_log)·softplus(dt)`` with ``A_log = log(linspace(1, 16, H))``."""
+    x, _, bm, cm = ssd_inputs(gen)
+    dt = torch.nn.functional.softplus(torch.randn(x.shape[:3], generator=gen, device=DEV))
+    return x, -torch.linspace(1.0, 16.0, x.shape[2], device=DEV) * dt, bm, cm
+
+
 def ssd_strong_decays(gen):
     """The same shapes with the decays of zamba2's init (``-exp(A_log)·softplus(dt)``,
     ``A_log = log(linspace(1, 16, H))``): the log-decay cumsum of a chunk reaches
     ~10^3, so the methods' cumsum orders differ by ulps of that, which ``exp(cs_i -
     cs_j)`` carries into the output.  Every method within 2e-3 of the fp64 oracle;
     the distance between methods is reported."""
-    x, _, bm, cm = ssd_inputs(gen)
-    h = SSD["heads"]
-    dt = torch.nn.functional.softplus(torch.randn(x.shape[:3], generator=gen, device=DEV))
-    al = -torch.linspace(1.0, 16.0, h, device=DEV) * dt
+    x, al, bm, cm = zamba2_decay_inputs(gen)
     ref = ssd_scan_ref(x.double(), al.double(), bm.double(), cm.double())
     ys, res = {}, {"max_abs_log_decay_cumsum_per_chunk": float(
-        al.reshape(al.shape[0], -1, SSD["chunk"], h).sum(2).abs().max())}
+        al.reshape(al.shape[0], -1, SSD["chunk"], al.shape[2]).sum(2).abs().max())}
     for method in ("vector", "kernel", "blocked"):
         ys[method] = ssd_scan(x, al, bm, cm, chunk=SSD["chunk"], scan_method=method)
         err = float(((ys[method].double() - ref).abs() - 2e-3 * ref.abs()).max())
@@ -1485,6 +1511,262 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# B6: the multi-way split
+# ---------------------------------------------------------------------------
+
+
+def _b6_hold(x, d, r, tag, plain: bool = True) -> int:
+    """B6 on ``(x, d)`` against a stable argsort of the digits (out-of-range ones last)
+    and their bincount and, where ``plain``, its plain version.  Returns the largest
+    difference from the plain version (``z`` as raw words, ``ind``, counts)."""
+    z, ind, cnt = split_mm.multi_split_tiles(x, d, num_buckets=r)
+    worst = 0
+    if plain:
+        pz, pind, pcnt = split_mm.multi_split_plain(x, d, r)
+        word = _WORD[z.element_size()]
+        worst = max(int((z.view(word).long() - pz.view(word).long()).abs().max()),
+                    int((ind.long() - pind.long()).abs().max()),
+                    int((cnt.long() - pcnt.long()).abs().max()))
+        check(torch.equal(z, pz) and torch.equal(ind, pind) and torch.equal(cnt, pcnt),
+              f"{tag}: kernel != plain")
+        del pz, pind, pcnt
+    key = torch.where((d >= 0) & (d < r), d, r).long()
+    order = torch.argsort(key, dim=-1, stable=True)
+    check(torch.equal(ind.long(), order) and torch.equal(z, torch.gather(x, -1, order)),
+          f"{tag}: != stable argsort of the digits")
+    want = torch.stack([torch.bincount(row, minlength=r + 1)[:r] for row in key])
+    check(torch.equal(cnt.long(), want), f"{tag}: counts != bincount of the digits")
+    return worst
+
+
+def phase_b6(gen):
+    """The multi-way split kernel, exact: at (4, 2^24) fp32 against its plain version
+    at R = 16 and against a stable argsort at R = 256 and R = 10 (the plain version's
+    (b, R + 1, n) one-hot would take 68 GB at R = 256); at (4, 128259) a ragged row,
+    R = 1, empty buckets, out-of-range digits, R = 5000 (10 warps), bf16 and int32."""
+    cases, worst = [], 0
+    x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
+    for r, plain in ((B6_BUCKETS, True), (256, False), (10, False)):
+        d = torch.randint(0, r, SCAN_SHAPE, generator=gen, device=DEV, dtype=torch.int32)
+        worst = max(worst, _b6_hold(x, d, r, f"B6 {list(SCAN_SHAPE)} R={r}", plain))
+        cases.append({"shape": list(SCAN_SHAPE), "buckets": r, "payload": "float32",
+                      "vs_plain": plain, "exact": True})
+    del x, d
+    shape = (SCAN_SHAPE[0], VOCAB + 3)                   # rows no multiple of 32
+    xs = {"float32": torch.randn(shape, generator=gen, device=DEV)}
+    xs["bfloat16"] = xs["float32"].to(torch.bfloat16)
+    xs["int32"] = torch.randint(-(1 << 30), 1 << 30, shape, generator=gen, device=DEV,
+                                dtype=torch.int32)
+    rand = torch.randint(0, B6_BUCKETS, shape, generator=gen, device=DEV, dtype=torch.int32)
+    sparse = torch.tensor([0, 7, 200], device=DEV)[rand % 3]          # 253 empty buckets
+    wild = torch.randint(-5, B6_BUCKETS + 5, shape, generator=gen, device=DEV,
+                         dtype=torch.int32)
+    rows = [("ragged", "float32", rand, B6_BUCKETS, True),
+            ("ragged", "bfloat16", rand, B6_BUCKETS, True),
+            ("ragged", "int32", rand, B6_BUCKETS, True),
+            ("one_bucket", "float32", torch.zeros_like(rand), 1, True),
+            ("empty_buckets", "float32", sparse, 256, True),
+            ("out_of_range_digits", "float32", wild, B6_BUCKETS, True),
+            ("r5000_ten_warps", "float32",
+             torch.randint(0, 5000, shape, generator=gen, device=DEV, dtype=torch.int32),
+             5000, False)]
+    for name, dt, d, r, plain in rows:
+        worst = max(worst, _b6_hold(xs[dt], d, r, f"B6 {name} {dt} R={r}", plain))
+        cases.append({"case": name, "shape": list(shape), "buckets": r, "payload": dt,
+                      "vs_plain": plain, "exact": True})
+    sync()
+    emit({"phase": "b6", "cases": cases, "max_abs_err_vs_plain": worst})
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# B17: the SSD chunk kernel
+# ---------------------------------------------------------------------------
+
+
+def phase_b17(gen):
+    """The SSD chunk kernel at zamba2's forward shapes against its plain version and
+    the fp64 sequential oracle: on the ``ssd`` inputs and on a ragged S (views of
+    them: the kernel reads through the strides) within ``SSD_REL``·max|y| of the plain
+    version; with zamba2's init decays (a chunk's log-decay cumsum near -2e3) the
+    distance to the plain version is reported; every case within the JAX package's
+    2e-3 of fp64 and finite.  Returns the largest kernel-plain difference held."""
+    q = SSD["chunk"]
+    res, worst = {}, 0.0
+    base = ssd_inputs(gen)
+    cases = (("ssd", base), ("zamba2_decays", zamba2_decay_inputs(gen)),
+             ("ragged", tuple(t[:, :SSD_RAGGED_S] for t in base)))
+    for name, args in cases:
+        y = ssd_chunk.ssd_chunk_scan(*args, chunk=q)
+        plain = ssd_chunk.ssd_chunk_plain(*args, chunk=q)
+        ref = ssd_scan_ref(*(t.double() for t in args))
+        check(bool(y.isfinite().all()) and bool(plain.isfinite().all()),
+              f"B17 {name}: NaN or inf in the output")
+        for who, out in (("kernel", y), ("plain", plain)):
+            err = float(((out.double() - ref).abs() - 2e-3 * ref.abs()).max())
+            check(err <= 2e-3, f"B17 {name}: {who} outside 2e-3 of the fp64 oracle ({err})")
+        ymax = float(plain.abs().max())
+        diff = float((y - plain).abs().max())
+        if name != "zamba2_decays":
+            check(diff <= SSD_REL * ymax, f"B17 {name}: kernel differs from plain by {diff} "
+                  f"> {SSD_REL} * {ymax}")
+            worst = max(worst, diff)
+        res[name] = {"seq": int(args[0].shape[1]), "max_abs_y": ymax,
+                     "max_abs_diff_vs_plain": diff, "rel_diff_vs_plain": diff / ymax,
+                     "kernel_max_abs_err_vs_fp64": float((y.double() - ref).abs().max()),
+                     "plain_max_abs_err_vs_fp64": float((plain.double() - ref).abs().max())}
+    res["zamba2_decays"]["max_abs_log_decay_cumsum_per_chunk"] = float(
+        cases[1][1][1].reshape(SSD["batch"], -1, q, SSD["heads"]).sum(2).abs().max())
+    sync()
+    emit({"phase": "b17", **SSD, "limit_rel_to_max_y": SSD_REL, **res})
+    return worst
+
+
+def main_multisplit(gen):
+    """``multi_split(method="kernel")`` at (4, 2^24), R = 16, counters zeroed just
+    before and read just after: exactly one B6 launch, and a stable split."""
+    x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
+    d = torch.randint(0, B6_BUCKETS, SCAN_SHAPE, generator=gen, device=DEV,
+                      dtype=torch.int32)
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    z, ind, cnt = multi_split(x, d, B6_BUCKETS, method="kernel")
+    sync()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    expect_counts(counts, "multi_split(method='kernel')", multi_split=1)
+    order = torch.argsort(d, dim=-1, stable=True)
+    check(torch.equal(ind.long(), order) and torch.equal(z, torch.gather(x, -1, order)),
+          "multi_split(method='kernel') != stable argsort")
+    want = torch.stack([torch.bincount(row.long(), minlength=B6_BUCKETS) for row in d])
+    check(torch.equal(cnt.long(), want), "multi_split(method='kernel'): counts != bincount")
+    emit({"phase": "main_multisplit", "shape": list(SCAN_SHAPE), "buckets": B6_BUCKETS,
+          "launches": counts, "host_ms": host_ms})
+    return counts
+
+
+def forward_zamba2(gen):
+    """zamba2-1.2b at full width and depth (38 layers, bf16 weights from seed 0):
+    ``forward`` and ``loss`` on 4 x 2048 tokens and a ``loss_mask`` from numpy seed 0
+    under each ``scan_method``, counters zeroed before each pass: 38 B17 launches on
+    "kernel", 38 B4 + 38 B16 on "blocked", none on "vector".
+
+    The ``ce`` of "kernel" and "blocked" is held to the one of "vector" by the bound
+    the logits give: ``logsumexp`` and a logit each move by at most the largest
+    change of a row, so ``|Δ nll_t| <= 2·max_v |Δ logit_{t,v}|`` and ``|Δ ce|`` is at
+    most twice the masked mean of those row maxima, plus ``CE_SLACK``·ce of fp32
+    rounding.
+
+    Then the fp32 SMOKE model under "kernel": its forward on the card is held within
+    2e-5 of the same forward on the card with B17's plain version in the kernel's
+    place, and against the same forward on the CPU (the plain versions everywhere)
+    it may differ by at most twice what the "vector" forward (no B17) differs
+    between the card and the CPU, plus 2e-5: cuBLAS and the CPU's BLAS round the
+    model's other fp32 products apart by 2e-5 to 7e-5 already."""
+    cfg = get_config("zamba2-1.2b")
+    b, s = FORWARD["batch"], FORWARD["seq"]
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(FORWARD["seed"], device=DEV, dtype=torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(FORWARD["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
+    mask = torch.from_numpy((rng.random((b, s)) < 0.9).astype(np.int32))
+    batch = {"tokens": toks.to(DEV), "loss_mask": mask.to(DEV)}
+    layers = cfg.n_layers
+    wants = {"kernel": {"ssd_chunk": layers},
+             "blocked": {"block_scan": layers, "linrec_block_scan": layers},
+             "vector": {}}
+    out, logits, launched = {}, {}, {k: 0 for k in ops.KERNELS}
+    torch.cuda.reset_peak_memory_stats(DEV)
+    for method, want in wants.items():
+        model = build_model(dataclasses.replace(cfg, scan_method=method))
+        model.forward(params, batch)                                       # warm-up
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        lg = model.forward(params, batch)
+        sync()
+        fwd_s = time.perf_counter() - t0
+        c_fwd = ops.launch_counts()
+        expect_counts(c_fwd, f"zamba2 forward under scan_method={method!r}", **want)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        total, parts = model.loss(params, batch)
+        sync()
+        loss_s = time.perf_counter() - t0
+        c_loss = ops.launch_counts()
+        expect_counts(c_loss, f"zamba2 loss under scan_method={method!r}", **want)
+        check(tuple(lg.shape) == (b, s, cfg.padded_vocab) and lg.dtype == torch.float32
+              and bool(lg.isfinite().all()), f"zamba2 forward {method}: logits of shape "
+              f"{tuple(lg.shape)} or not finite")
+        check(bool(torch.isfinite(total)) and float(total) == float(parts["ce"])
+              and float(parts["aux"]) == 0.0, f"zamba2 loss {method}: {total}, {parts}")
+        for k in ops.KERNELS:
+            launched[k] += c_fwd[k] + c_loss[k]
+        logits[method] = lg
+        out[method] = {"launches_per_pass": {k: v for k, v in c_fwd.items() if v},
+                       "forward_ms": fwd_s * 1e3, "loss_ms": loss_s * 1e3,
+                       "tokens_per_s": b * s / fwd_s, "ce": float(parts["ce"])}
+    peak_gb = torch.cuda.max_memory_allocated(DEV) / 1e9
+    keep = batch["loss_mask"][:, 1:].bool()
+    ce_v = out["vector"]["ce"]
+    for method in ("kernel", "blocked"):
+        row_max = (logits[method][:, :-1] - logits["vector"][:, :-1]).abs().amax(-1)
+        limit = 2 * float(row_max[keep].mean()) + CE_SLACK * abs(ce_v)
+        dce = abs(out[method]["ce"] - ce_v)
+        check(dce <= limit, f"zamba2 ce under {method}: {out[method]['ce']} is {dce} from "
+              f"vector's {ce_v}, beyond the bound {limit} its logits give")
+        out[method].update(ce_abs_diff_vs_vector=dce, ce_limit=limit,
+                           logits_max_abs_diff_vs_vector=float(row_max.max()))
+    del logits, params
+    smoke = smoke_forward()
+    emit({"phase": "forward_zamba2", "arch": cfg.name, "n_layers": layers, "dtype": "bfloat16",
+          "batch": b, "seq": s, "loss_mask_share": float(mask.float().mean()),
+          "init_s": init_s, "peak_mem_gb": peak_gb, **out, "smoke_fp32": smoke})
+    return launched
+
+
+def smoke_forward():
+    """The fp32 SMOKE zamba2 forward under "kernel" (5 B17 launches) on the card,
+    against B17's plain version on the card and against the CPU (see
+    ``forward_zamba2``)."""
+    scfg = get_config("zamba2-1.2b", smoke=True)
+    sparams = build_model(scfg).init(1, device="cpu")
+    gparams = _to(sparams, DEV)
+    stoks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, scfg.vocab_size, (2, 48)).astype(np.int32))
+    card, cpu = {}, {}
+    for method in ("kernel", "vector"):
+        smodel = build_model(dataclasses.replace(scfg, scan_method=method))
+        ops.reset_launch_counts()
+        card[method] = smodel.forward(gparams, {"tokens": stoks.to(DEV)})
+        sync()
+        expect_counts(ops.launch_counts(), f"SMOKE zamba2 forward under {method!r}",
+                      **({"ssd_chunk": scfg.n_layers} if method == "kernel" else {}))
+        cpu[method] = smodel.forward(sparams, {"tokens": stoks})
+    kernel_model = build_model(dataclasses.replace(scfg, scan_method="kernel"))
+    swapped = mamba_model.ssd_chunk_scan
+    mamba_model.ssd_chunk_scan = ssd_chunk.ssd_chunk_plain        # B17's plain version
+    try:
+        plain_card = kernel_model.forward(gparams, {"tokens": stoks.to(DEV)})
+    finally:
+        mamba_model.ssd_chunk_scan = swapped
+    res = {"kernel_vs_plain_on_card": float((card["kernel"] - plain_card).abs().max()),
+           **{f"{m}_card_vs_cpu": float((card[m].cpu() - cpu[m]).abs().max())
+              for m in card},
+           "max_abs_logit": float(cpu["vector"].abs().max())}
+    res["kernel_card_vs_cpu_limit"] = 2 * res["vector_card_vs_cpu"] + 2e-5
+    check(res["kernel_vs_plain_on_card"] <= 2e-5, f"SMOKE zamba2 forward: B17 on the card "
+          f"differs from its plain version by {res['kernel_vs_plain_on_card']}")
+    check(res["kernel_card_vs_cpu"] <= res["kernel_card_vs_cpu_limit"],
+          f"SMOKE zamba2 forward under 'kernel' on the card is {res['kernel_card_vs_cpu']} "
+          f"from the CPU, beyond {res['kernel_card_vs_cpu_limit']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -1543,12 +1825,15 @@ def phase_timing(gen):
     out.update(time_split(gen))
     out.update(time_seg(gen))
     out.update(time_linrec(gen))
+    out.update(time_b6_b17(gen))
     emit({"phase": "timing", "kernels": out, "top_p_sample_ms": sampler,
           "segment_top_p_sample_ms": out.pop("segment_top_p_sample_ms"),
           "shapes": {"B1": list(SCAN_SHAPE), "B2-B4": list(SCAN_SHAPE),
                      "B5": [[b, n], [VOCAB_ROWS, v]], "B7": [VOCAB_ROWS, v],
                      "B8": [VOCAB_ROWS, v], "B9-B12": list(SCAN_SHAPE),
                      "B13-B16": [list(SCAN_SHAPE), list(SSD_ROWS)],
+                     "B6": list(SCAN_SHAPE), "B17": [SSD[k] for k in (
+                         "batch", "seq", "heads", "head_dim", "state", "chunk")],
                      "segment_top_p_sample": [4 * VOCAB]}})
     return out
 
@@ -1746,6 +2031,43 @@ def time_linrec(gen):
     return out
 
 
+def time_b6_b17(gen):
+    """B6 at (4, 2^24) fp32, R = 16, and B17 at zamba2's forward shape, each in turns
+    with its plain version.  B6's ``library_ms`` is a stable argsort of the digits
+    plus a gather of the payload (two calls, as B5's).  No PyTorch call computes
+    B17's function, so its ``library_ms`` is None; beside it stands
+    ``ssd_scan(method="kernel")`` (B1 + B13 and fp32 einsums) as the yardstick.
+
+    B6's bound: payload and digits in, payload and index out, 16 B an element.
+    B17's: x, b, c and y once (4 B each) and a once, against 2·(Q²N/2 + Q²P/2 +
+    2QNP) fp32 operations a chunk (the causal half of C Bᵀ and of the scores' product
+    with X, C·state and Bᵀ X) at ``FP32_OPS_PER_S``."""
+    b, n = SCAN_SHAPE
+    x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
+    d = torch.randint(0, B6_BUCKETS, SCAN_SHAPE, generator=gen, device=DEV,
+                      dtype=torch.int32)
+    k, pl = paired_ms(lambda: split_mm.multi_split_tiles(x, d, num_buckets=B6_BUCKETS),
+                      lambda: split_mm.multi_split_plain(x, d, B6_BUCKETS), 2)
+    out = {"B6": dict(ms=k, plain_ms=pl, bound_ms=bound(b * n * 16)[0], bound_by="bytes",
+                      library_ms=cuda_ms(lambda: torch.gather(
+                          x, -1, torch.argsort(d, dim=-1, stable=True)), 2),
+                      with_digit_reread_bound_ms=bound(b * n * 24)[0])}
+    del x, d
+    args = ssd_inputs(gen)
+    bsz, s, h, p = args[0].shape
+    nst, q = args[2].shape[-1], SSD["chunk"]
+    macs = bsz * h * -(-s // q) * (q * q * nst / 2 + q * q * p / 2 + 2 * q * nst * p)
+    nbytes = 4 * (2 * bsz * s * h * p + 2 * bsz * s * h * nst + bsz * s * h)
+    bms, by = bound(nbytes, 2 * macs)
+    k, pl = paired_ms(lambda: ssd_chunk.ssd_chunk_scan(*args, chunk=q),
+                      lambda: ssd_chunk.ssd_chunk_plain(*args, chunk=q), 3)
+    out["B17"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by,
+                      bytes_bound_ms=bound(nbytes)[0], flops=2 * macs,
+                      ssd_scan_kernel_ms=cuda_ms(
+                          lambda: ssd_scan(*args, chunk=q, scan_method="kernel"), 3))
+    return out
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1780,9 +2102,14 @@ def main() -> int:
     serve_counts, serve_b_counts, serve_s_counts = main_serve(gen)
     phase_ssd(gen)
     zamba_counts = serve_zamba2(gen)
+    b6_err = phase_b6(gen)
+    b17_err = phase_b17(gen)
+    multisplit_counts = main_multisplit(gen)
+    forward_counts = forward_zamba2(gen)
     timing = phase_timing(gen)
     seg_launches = {k: segmented_counts[k] + serve_s_counts[k] for k in ops.KERNELS}
-    lin_launches = {k: linrec_counts[k] + zamba_counts[k] for k in ops.KERNELS}
+    lin_launches = {k: linrec_counts[k] + zamba_counts[k] + forward_counts[k]
+                    for k in ops.KERNELS}
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [
@@ -1796,12 +2123,17 @@ def main() -> int:
          "src/repro/kernels/scan_pipeline.py:105", blocked_counts["carry_scan"],
          b2b4_err["B3"], timing["B3"]),
         ("B4 block_scan_carry (block scan plus carry; launches include topp_blocked "
-         "serving and zamba2 serving under scan_method='blocked')", "block_scan.cu",
+         "serving, zamba2 serving and zamba2 forward and loss under "
+         "scan_method='blocked')", "block_scan.cu",
          "src/repro/kernels/scan_pipeline.py:143",
          blocked_counts["block_scan"] + serve_b_counts["block_scan"]
-         + zamba_counts["block_scan"], b2b4_err["B4"], timing["B4"]),
+         + zamba_counts["block_scan"] + forward_counts["block_scan"], b2b4_err["B4"],
+         timing["B4"]),
         ("B5 split_tiles (SplitInd)", "split.cu", "src/repro/kernels/split_mm.py:136",
          blocked_counts["split"], b5_err, timing["B5"]),
+        ("B6 multi_split_tiles (stable R-way split; launches: multi_split(method='kernel') "
+         "at (4, 2^24), R = 16)", "multi_split.cu", "src/repro/kernels/split_mm.py:194",
+         multisplit_counts["multi_split"], float(b6_err), timing["B6"]),
         ("B7 radix_pass_multibit (radix-16 pass; times are the 4-pass bf16 sort chain; "
          "launches: topp_kernel serving of llama3-8b and zamba2)", "radix_pass.cu",
          "src/repro/kernels/split_mm.py:262",
@@ -1834,9 +2166,14 @@ def main() -> int:
          "linrec_carry.cu", "src/repro/kernels/linrec_mm.py:183",
          lin_launches["linrec_carry"], lin_err["B15"], timing["B15"]),
         ("B16 linrec_block_scan_carry (block recurrence seeded with its carry; launches: "
-         "main_linrec and zamba2 prefill under scan_method='blocked')",
+         "main_linrec, zamba2 prefill and zamba2 forward and loss under "
+         "scan_method='blocked')",
          "linrec_block_scan.cu", "src/repro/kernels/linrec_mm.py:219",
          lin_launches["linrec_block_scan"], lin_err["B16"], timing["B16"]),
+        ("B17 ssd_chunk_scan (chunked SSD scan; launches: zamba2-1.2b forward and loss "
+         "under scan_method='kernel', 38 a pass)", "ssd_chunk.cu",
+         "src/repro/kernels/ssd_chunk.py:27", forward_counts["ssd_chunk"], b17_err,
+         timing["B17"]),
     ]
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep, launches=n,
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],

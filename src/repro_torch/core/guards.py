@@ -19,7 +19,7 @@ __all__ = [
     "NONFINITE", "validate_axis", "validate_bits_per_pass",
     "validate_positive", "validate_choice", "validate_probability",
     "validate_temperature", "validate_same_shape", "validate_broadcastable_to",
-    "validate_offsets", "resolve_nonfinite", "resolve_device",
+    "validate_offsets", "resolve_nonfinite", "resolve_device", "refuse_grad",
 ]
 
 NONFINITE = ("propagate", "raise", "sanitize")
@@ -154,6 +154,21 @@ def resolve_device(device, *, op: str):
         raise RuntimeError(f"{op}: no CUDA device is available; pass "
                            "device='cpu' to run on the CPU")
     return dev
+
+
+def refuse_grad(*xs, op: str) -> None:
+    """Raise when grad mode is on and a tensor among ``xs`` requires grad.
+
+    The port's linear recurrences and the SSD chunk kernel have no backward
+    pass yet (it comes with training); running them on such inputs would
+    silently drop the gradient.
+    """
+    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                       for x in xs):
+        raise NotImplementedError(
+            f"{op} has no gradient in the port yet: its backward pass comes with "
+            "training (ROADMAP Queue A item 11); run it under torch.no_grad() or on "
+            "inputs that do not require grad")
 
 
 def resolve_nonfinite(nonfinite: str, *, op: str = "op") -> str:

@@ -235,15 +235,6 @@ def _linrec_blocked(a, b, *, method, tile_s, block_tiles, accum_dtype, precision
 # ---------------------------------------------------------------------------
 
 
-def _refuse_grad(*xs) -> None:
-    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
-                                       for x in xs):
-        raise NotImplementedError(
-            "linear_scan has no gradient in the port yet: the analytic reverse-"
-            "recurrence adjoint comes with training (ROADMAP Queue A item 11); run "
-            "it under torch.no_grad() or on inputs that do not require grad")
-
-
 def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool = False,
                 method: str = "auto", precision: str = "highest", initial=None,
                 tile_s: int = 128, block_tiles: int = 8,
@@ -297,7 +288,7 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
     if not 2 <= tile_s <= MAX_TILE:
         raise ValueError(f"tile_s must be in [2, {MAX_TILE}] (the exponent-normalized "
                          f"window-product range), got {tile_s}")
-    _refuse_grad(a, b, initial)
+    guards.refuse_grad(a, b, initial, op="linear_scan")
     if not isinstance(a, torch.Tensor):
         a = torch.as_tensor(a, device=b.device if isinstance(b, torch.Tensor) else None)
     if not isinstance(b, torch.Tensor):

@@ -10,8 +10,8 @@ Every operator takes ``method=`` and routes through one dispatch table:
   (B2–B4), so ``split``, ``compress``, ``multi_split``, ``radix_sort``,
   ``sort``, ``topk``, ``weighted_sample`` and ``top_p_sample`` all run there;
 * ``"kernel"`` — the hand-written CUDA kernels of ``repro_torch.kernels``: B5
-  for ``split``/``compress``, B7 for each radix pass, B8 for the whole top-p
-  tail.  ``multi_split(method="kernel")`` waits for B6 and raises.
+  for ``split``/``compress``, B6 for ``multi_split``, B7 for each radix pass,
+  B8 for the whole top-p tail.
 
 Destination offsets are exact int32 mask scans for every method, so splits
 and sorts are bit-identical across methods in values and permutation.
@@ -198,10 +198,9 @@ def _multi_split_unfused(x, digits, num_buckets, *, method, tile_s):
 
 @_register("multi_split", "kernel")
 def _multi_split_fused(x, digits, num_buckets, *, method, tile_s):
-    raise NotImplementedError(
-        "multi_split(method='kernel') needs the multi-way split kernel B6 "
-        "(src/repro/kernels/split_mm.py:194 _multi_split_kernel), which the next "
-        "slice of the port brings; use method='matmul', 'vector' or 'blocked'")
+    """Multi-way SplitInd as one B6 launch (the kernel takes no tile side)."""
+    from repro_torch.kernels.split_mm import multi_split_tiles
+    return multi_split_tiles(x, digits, num_buckets=num_buckets)
 
 
 def multi_split(x: torch.Tensor, digits: torch.Tensor, num_buckets: int, *,

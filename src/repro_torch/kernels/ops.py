@@ -1,14 +1,15 @@
 """Public kernel entry points, and the launch counters of the port's kernels.
 
-Port of ``repro/kernels/ops.py`` for the kernels ported so far (B1–B5,
-B7–B16).  The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
+Port of ``repro/kernels/ops.py`` for the kernels ported so far (B1–B17
+but B7h).  The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
 ``scan_pipeline.{block_partial_sums,carry_scan,block_scan_carry}`` (B2–B4),
-``split_mm.split_tiles`` (B5), ``split_mm.radix_pass_multibit`` (B7),
-``split_mm.topp_mask_sample_tiles`` (B8) and
+``split_mm.split_tiles`` (B5), ``split_mm.multi_split_tiles`` (B6),
+``split_mm.radix_pass_multibit`` (B7),
+``split_mm.topp_mask_sample_tiles`` (B8),
 ``segscan_mm.{seg_scan_tiles,seg_block_summaries,seg_carry_scan,seg_block_scan_carry}``
-(B9–B12) and
+(B9–B12),
 ``linrec_mm.{linrec_scan_tiles,linrec_block_summaries,linrec_carry_scan,linrec_block_scan_carry}``
-(B13–B16); each runs its CUDA kernel on CUDA
+(B13–B16) and ``ssd_chunk.ssd_chunk_scan`` (B17); each runs its CUDA kernel on CUDA
 tensors and the kernel's plain PyTorch version on CPU tensors.  PyTorch runs
 eagerly, so the entry points here are plain calls where the JAX package
 ``jit``s.  Every kernel launch adds one to its count;
@@ -45,6 +46,8 @@ KERNELS = {
     "linrec_summaries": "B14 src/repro/kernels/linrec_mm.py:143 _summary_kernel",
     "linrec_carry": "B15 src/repro/kernels/linrec_mm.py:183 _carry_kernel",
     "linrec_block_scan": "B16 src/repro/kernels/linrec_mm.py:219 _block_carry_kernel",
+    "multi_split": "B6 src/repro/kernels/split_mm.py:194 _multi_split_kernel",
+    "ssd_chunk": "B17 src/repro/kernels/ssd_chunk.py:27 _kernel",
 }
 
 

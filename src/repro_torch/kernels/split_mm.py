@@ -1,10 +1,14 @@
-"""B5 (SplitInd), B7 (one radix-2^k pass) and B8 (the fused top-p tail).
+"""B5 (SplitInd), B6 (the multi-way split), B7 (one radix-2^k pass) and B8
+(the fused top-p tail).
 
-Port of three kernels of ``repro/kernels/split_mm.py``:
+Port of four kernels of ``repro/kernels/split_mm.py``:
 
 * :func:`split_tiles` (``csrc/split.cu``): SplitInd — the mask scan, stable
   destinations (flagged elements first) and the scatter of the payload and
   its original index, with the number of flagged elements.
+* :func:`multi_split_tiles` (``csrc/multi_split.cu``): the stable ``R``-way
+  split by int32 digits — bucket counts, bucket bases, stable ranks, and the
+  scatter of the payload and its original index.
 * :func:`radix_pass_multibit` (``csrc/radix_pass.cu``): one stable LSB
   radix-2^k pass — digit extraction, the one-hot mask scans that rank each key
   within its bucket, and the scatter of keys and permutation.
@@ -27,10 +31,15 @@ import torch
 from repro_torch.core import guards
 from repro_torch.kernels import _build
 
-__all__ = ["split_tiles", "split_plain", "radix_pass_multibit", "radix_pass_plain",
-           "topp_mask_sample_tiles", "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND"]
+__all__ = ["split_tiles", "split_plain", "multi_split_tiles", "multi_split_plain",
+           "radix_pass_multibit", "radix_pass_plain", "topp_mask_sample_tiles",
+           "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND", "MULTI_SPLIT_MAX_BUCKETS"]
 
 KEY_DTYPES = {torch.uint8: 8, torch.int16: 16, torch.int32: 32}
+
+# the most buckets B6 takes: one warp's R + 1 counters and the R + 1 totals
+# fill the card's 227 KB of shared memory (csrc/multi_split.cu)
+MULTI_SPLIT_MAX_BUCKETS = 232448 // 8 - 1
 
 # fp32 summation-order band of the fused top-p tail, relative to the row's
 # probability mass (derivation in csrc/topp_tail.cu)
@@ -98,6 +107,87 @@ def split_tiles(x: torch.Tensor, flags: torch.Tensor):
             _build.launch("split", xb.data_ptr(), fb.data_ptr(), z.data_ptr(),
                           ind.data_ptr(), cnt.data_ptr(), b, n, xb.element_size(), stream)
     return z.reshape(x.shape), ind.reshape(x.shape), cnt.reshape(lead)
+
+
+def multi_split_plain(x: torch.Tensor, digits: torch.Tensor, num_buckets: int):
+    """Plain version of the multi-way split on ``(b, n)`` payloads and int32 digits.
+
+    Bucket ranks are exclusive scans of the ``(b, R + 1, n)`` one-hot digit
+    masks, destinations the bucket bases plus those ranks.  A digit outside
+    ``[0, R)`` goes to the extra bucket ``R``, after every other, uncounted,
+    as in the kernel.  Returns ``(z, ind, counts)`` with counts ``(b, R)``.
+    """
+    d = digits.to(torch.int64)
+    d = torch.where((d >= 0) & (d < num_buckets), d, num_buckets)
+    buckets = torch.arange(num_buckets + 1, device=digits.device)
+    oh = (d[:, None, :] == buckets[None, :, None]).to(torch.int32)
+    ex = torch.cumsum(oh, dim=-1, dtype=torch.int32) - oh          # exclusive, exact
+    counts = ex[..., -1] + oh[..., -1]
+    base = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
+    rank = torch.gather(ex, 1, d[:, None, :])[:, 0]
+    dest = (torch.gather(base, 1, d) + rank).to(torch.int64)
+    iota = torch.arange(x.shape[-1], dtype=torch.int32, device=x.device).expand(dest.shape)
+    return (torch.empty_like(x).scatter_(1, dest, x),
+            torch.empty(dest.shape, dtype=torch.int32, device=x.device).scatter_(1, dest, iota),
+            counts[:, :num_buckets].contiguous())
+
+
+def multi_split_tiles(x: torch.Tensor, digits: torch.Tensor, *, num_buckets: int):
+    """Stable ``num_buckets``-way split over the last axis: ``(z, indices, counts)``.
+
+    Args:
+        x: ``(..., n)`` payload of any dtype with 1-, 2-, 4- or 8-byte
+            elements; a CUDA tensor launches the kernel, a CPU tensor runs
+            :func:`multi_split_plain`.
+        digits: Same shape, bucket ids in ``[0, num_buckets)``, cast to int32
+            as the Pallas wrapper casts them.  A digit outside that range goes
+            after every bucket, in order, and is not counted (the Pallas kernel
+            puts its element on index 0).
+        num_buckets: ``R``, from 1 to ``MULTI_SPLIT_MAX_BUCKETS``.  The Pallas
+            kernel's tile side ``s`` has no counterpart: the CUDA kernel ranks
+            32 keys at a time and masks the ragged row end, so nothing is padded.
+
+    Returns:
+        ``z`` shaped like ``x``, ``indices`` (int32) shaped like ``x`` and
+        ``counts`` (int32) of shape ``(..., num_buckets)``.
+    """
+    guards.validate_same_shape(x.shape, digits.shape, op="multi_split_tiles",
+                               b_name="digits")
+    num_buckets = guards.validate_positive(num_buckets, name="num_buckets",
+                                           op="multi_split_tiles")
+    if num_buckets > MULTI_SPLIT_MAX_BUCKETS:
+        raise ValueError(f"multi_split_tiles: num_buckets {num_buckets} exceeds "
+                         f"{MULTI_SPLIT_MAX_BUCKETS}, the most whose counters fit the "
+                         "card's 227 KB of shared memory")
+    if x.device != digits.device:
+        raise ValueError("multi_split_tiles: x and digits live on different devices")
+    *lead, n = x.shape
+    if x.numel() == 0:
+        return (x.clone(), torch.zeros(x.shape, dtype=torch.int32, device=x.device),
+                torch.zeros((*lead, num_buckets), dtype=torch.int32, device=x.device))
+    xb = x.reshape(-1, n)
+    db = digits.reshape(-1, n).to(torch.int32)
+    b = xb.shape[0]
+    if not xb.is_cuda:
+        z, ind, cnt = multi_split_plain(xb, db, num_buckets)
+    else:
+        if xb.element_size() not in (1, 2, 4, 8):
+            raise TypeError(f"multi_split_tiles: the CUDA kernel moves 1-, 2-, 4- or 8-byte "
+                            f"elements, got {xb.dtype}")
+        if n >= 1 << 31:
+            raise ValueError(f"multi_split_tiles: rows of {n} elements overflow the int32 "
+                             "index")
+        xb, db = xb.contiguous(), db.contiguous()
+        z = torch.empty_like(xb)
+        ind = torch.empty((b, n), dtype=torch.int32, device=xb.device)
+        cnt = torch.empty((b, num_buckets), dtype=torch.int32, device=xb.device)
+        with torch.cuda.device(xb.device):
+            stream = torch.cuda.current_stream(xb.device).cuda_stream
+            _build.launch("multi_split", xb.data_ptr(), db.data_ptr(), z.data_ptr(),
+                          ind.data_ptr(), cnt.data_ptr(), b, n, num_buckets,
+                          xb.element_size(), stream)
+    return (z.reshape(x.shape), ind.reshape(x.shape),
+            cnt.reshape(*lead, num_buckets))
 
 
 def radix_pass_plain(work: torch.Tensor, perm: torch.Tensor, *, shift: int,

@@ -3,11 +3,13 @@ mixing runs through the chunked SSD scan.
 
 Port of ``repro/models/mamba.py``.  Parameters keep the JAX layout
 (``in_proj`` packs ``[z, x, B, C, dt]`` along its output axis); the compute
-dtype ``cdt`` is passed in explicitly.  Prefill (:func:`mamba_full`) runs
-:func:`~repro_torch.core.ssd.ssd_scan` under ``cfg.scan_method``; decode
+dtype ``cdt`` is passed in explicitly.  The full-sequence mixer
+(:func:`mamba_full`) runs :func:`~repro_torch.core.ssd.ssd_scan` under
+``cfg.scan_method``, or with ``use_kernel=True`` under ``"kernel"`` the
+chunk kernel B17 (:func:`~repro_torch.kernels.ssd_chunk.ssd_chunk_scan`,
+the forward pass of ``TransformerLM.forward``/``loss``); decode
 (:func:`mamba_step`) updates the state with a length-1 ``linear_scan``, which
-is one fused step with no kernel launch on every method.  The Pallas chunk
-kernel of ``use_kernel=True`` (B17) is not ported yet.
+is one fused step with no kernel launch on every method.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.linrec import linear_scan
 from repro_torch.core.ssd import ssd_scan
+from repro_torch.kernels.ssd_chunk import ssd_chunk_scan
 from repro_torch.models.layers import linear, ninit, rmsnorm
 
 __all__ = ["mamba_init", "mamba_full", "mamba_step"]
@@ -103,26 +106,26 @@ def mamba_full(p, x: torch.Tensor, cfg, *, cdt, return_cache: bool = False,
                use_kernel: bool = False):
     """Full-sequence Mamba2 mixer.  ``x``: (B, S, D).
 
+    With ``use_kernel`` and ``cfg.scan_method == "kernel"`` the SSD runs on the
+    chunk kernel B17, which keeps no final state (as in JAX, the prefill path
+    never asks for ``return_cache`` there); otherwise on ``ssd_scan``.
+
     Returns the mixer output, and with ``return_cache`` the decode cache
     ``{"conv": (B, K-1, C), "ssm": (B, H, N, P) fp32}``.
-
-    Raises:
-        NotImplementedError: ``use_kernel`` with ``cfg.scan_method == "kernel"``,
-            the path of the Pallas chunk kernel B17, which is not ported yet.
     """
     s = cfg.ssm
-    if use_kernel and cfg.scan_method == "kernel":
-        raise NotImplementedError(
-            "mamba_full(use_kernel=True) runs the SSD chunk kernel B17 "
-            "(src/repro/kernels/ssd_chunk.py), which the next slice of the port brings")
     b, seq, _ = x.shape
     z, xin, bmat, cmat, dt, a_log, conv_cache = _mix_in(p, x, cfg, cdt)
     xh = xin.reshape(b, seq, s.n_heads, s.head_dim) * dt[..., None]   # dt folded in
     rep = s.n_heads // s.n_groups
     bm = torch.repeat_interleave(bmat.reshape(b, seq, s.n_groups, s.d_state), rep, dim=2)
     cm = torch.repeat_interleave(cmat.reshape(b, seq, s.n_groups, s.d_state), rep, dim=2)
-    y, state = ssd_scan(xh.to(F32), a_log, bm.to(F32), cm.to(F32), chunk=s.chunk,
-                        scan_method=cfg.scan_method, return_final_state=True)
+    if use_kernel and cfg.scan_method == "kernel":
+        y = ssd_chunk_scan(xh.to(F32), a_log, bm.to(F32), cm.to(F32), chunk=s.chunk)
+        state = None
+    else:
+        y, state = ssd_scan(xh.to(F32), a_log, bm.to(F32), cm.to(F32), chunk=s.chunk,
+                            scan_method=cfg.scan_method, return_final_state=True)
     y = y + xh * p["d_skip"].to(F32)[:, None]
     out = _mix_out(p, y.reshape(b, seq, -1), z, x, cfg, cdt)
     if return_cache:

@@ -17,8 +17,15 @@ The layers run in Python loops over those axes (the JAX package's
 
 Interface:
   init(seed, device=None, dtype=float32)        -> params
+  forward(params, batch)                        -> logits of every position
+  loss(params, batch)                           -> (total, {"ce", "aux"})
   prefill(params, batch, cache_len=None)        -> (last-position logits, caches)
   decode_step(params, tokens, caches, pos)      -> (logits, caches)
+
+``forward`` and ``loss`` are the JAX package's ``mode="train"`` pass: no
+caches, and the hybrid's Mamba2 layers on the SSD chunk kernel B17 under
+``scan_method="kernel"``.  They run under ``torch.no_grad()``: the port has no
+gradients yet (training is ROADMAP Queue A item 11).
 """
 from __future__ import annotations
 
@@ -116,43 +123,53 @@ class TransformerLM:
     # ---- one residual block ----
     def _block(self, p, h, *, mode, positions=None, cache=None, pos=None,
                cache_len=None):
+        """One dense residual block; returns ``(h, cache)`` (no cache in ``"train"``)."""
         cfg, cdt = self.cfg, self.cdt
         hin = rmsnorm(p["norm1"], h, cfg.norm_eps)
         if mode == "decode":
             y, new_cache = att.attn_decode(p["attn"], hin, cfg, cache, pos, cdt=cdt)
-        else:
+        elif mode == "prefill":
             y, new_cache = att.attn_full(p["attn"], hin, cfg, positions=positions,
                                          cdt=cdt, return_cache=True,
                                          cache_len=cache_len)
+        else:
+            y, new_cache = att.attn_full(p["attn"], hin, cfg, positions=positions,
+                                         cdt=cdt), None
         h = h + y
         hin = rmsnorm(p["norm2"], h, cfg.norm_eps)
         return h + mlp(p["mlp"], hin, cdt, act=cfg.act), new_cache
 
     def _mamba(self, p, h, *, mode, cache=None):
-        """One Mamba2 residual block; returns ``(h, cache)``."""
-        hin = rmsnorm(p["norm"], h, self.cfg.norm_eps)
+        """One Mamba2 residual block; returns ``(h, cache)`` (no cache in ``"train"``,
+        where the SSD runs on B17 under ``scan_method="kernel"``)."""
+        cfg = self.cfg
+        hin = rmsnorm(p["norm"], h, cfg.norm_eps)
         if mode == "decode":
-            y, new_cache = mamba_step(p["mixer"], hin, self.cfg, cache, cdt=self.cdt)
-        else:
-            y, new_cache = mamba_full(p["mixer"], hin, self.cfg, cdt=self.cdt,
+            y, new_cache = mamba_step(p["mixer"], hin, cfg, cache, cdt=self.cdt)
+        elif mode == "prefill":
+            y, new_cache = mamba_full(p["mixer"], hin, cfg, cdt=self.cdt,
                                       return_cache=True)
+        else:
+            y, new_cache = mamba_full(p["mixer"], hin, cfg, cdt=self.cdt,
+                                      use_kernel=cfg.scan_method == "kernel"), None
         return h + y, new_cache
 
     def _hybrid(self, params, h, *, mode, positions=None, caches=None, pos=None,
                 cache_len=None):
         """The hybrid stack: each group of Mamba2 blocks, then the shared block,
-        then the tail.  Prefill returns the new caches; decode writes them in place."""
+        then the tail.  Prefill returns the new caches; decode writes them in
+        place; ``"train"`` builds none and returns ``None``."""
         iv = self.cfg.shared_attn_interval
         stack = params["stack"]
         groups, shared, tails = [], [], []
 
         def mamba(p, h, c, out):
             h, nc = self._mamba(p, h, mode=mode, cache=c)
-            if c is None:
-                out.append(nc)
-            else:
+            if c is not None:
                 c["conv"].copy_(nc["conv"])
                 c["ssm"].copy_(nc["ssm"])
+            elif nc is not None:
+                out.append(nc)
             return h
 
         for g in range(stack["sub0"]["norm"]["g"].shape[0]):
@@ -163,7 +180,7 @@ class TransformerLM:
             c = None if caches is None else _layer(caches["shared"], g)
             h, nc = self._block(params["shared"], h, mode=mode, positions=positions,
                                 cache=c, pos=pos, cache_len=cache_len)
-            if caches is None:
+            if nc is not None and caches is None:
                 groups.append(_stacked(subs))
                 shared.append(nc)
         if "tail" in params:
@@ -173,10 +190,18 @@ class TransformerLM:
                 h = mamba(_layer(tail, t), h, c, tails)
         if caches is not None:
             return h, caches
+        if mode == "train":
+            return h, None
         new = {"stack": _stacked(groups), "shared": _stacked(shared)}
         if tails:
             new["tail"] = {"sub0": _stacked(tails)}
         return h, new
+
+    def _embed(self, params, tokens):
+        h = embed_lookup(params["embed"], tokens, self.cdt)
+        if self.cfg.scale_embed:
+            h = h * self.cfg.d_model ** 0.5
+        return h
 
     def _logits(self, params, h):
         cfg = self.cfg
@@ -188,6 +213,49 @@ class TransformerLM:
         return logits
 
     # ---- public API ----
+    @torch.no_grad()
+    def forward(self, params, batch) -> torch.Tensor:
+        """fp32 logits ``(B, S, V)`` of every position of ``batch["tokens"]`` (B, S).
+
+        The JAX package's ``mode="train"`` pass: no caches; under
+        ``scan_method="kernel"`` each Mamba2 layer runs the SSD chunk kernel
+        B17 once.  Runs under ``torch.no_grad()`` (no gradients yet).
+        """
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        h = self._embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=h.device)[None, :]
+        if self.hybrid:
+            h, _ = self._hybrid(params, h, mode="train", positions=positions)
+        else:
+            stack = params["stack"]["sub0"]
+            for i in range(cfg.n_layers):
+                h, _ = self._block(_layer(stack, i), h, mode="train", positions=positions)
+        return self._logits(params, h)
+
+    @torch.no_grad()
+    def loss(self, params, batch):
+        """Next-token cross-entropy of ``batch["tokens"]``: ``(total, {"ce", "aux"})``.
+
+        ``ce`` is ``logsumexp`` minus the target logit, in fp32, averaged over
+        the positions where ``batch["loss_mask"]`` (optional, ``(B, S)``) is
+        set at the target; ``aux`` is 0 (no MoE layer is ported) and
+        ``total = ce + 0.01·aux``.  Runs under ``torch.no_grad()``.
+        """
+        logits = self.forward(params, batch)
+        targets = batch["tokens"][:, 1:].to(torch.int64)
+        lg = logits[:, :-1].to(torch.float32)
+        nll = torch.logsumexp(lg, dim=-1) - torch.gather(lg, -1, targets[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            m = mask[:, 1:].to(torch.float32)
+            ce = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+        else:
+            ce = torch.mean(nll)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
     def prefill(self, params, batch, *, cache_len: Optional[int] = None):
         """Run the prompt ``batch["tokens"]`` (B, S); return the last logits and caches.
 
@@ -199,9 +267,7 @@ class TransformerLM:
         """
         cfg = self.cfg
         tokens = batch["tokens"]
-        h = embed_lookup(params["embed"], tokens, self.cdt)
-        if cfg.scale_embed:
-            h = h * cfg.d_model ** 0.5
+        h = self._embed(params, tokens)
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
         if self.hybrid:
@@ -224,9 +290,7 @@ class TransformerLM:
         Updates ``caches`` in place and returns ``(logits (B, V), caches)``.
         """
         cfg = self.cfg
-        h = embed_lookup(params["embed"], tokens, self.cdt)
-        if cfg.scale_embed:
-            h = h * cfg.d_model ** 0.5
+        h = self._embed(params, tokens)
         if self.hybrid:
             h, _ = self._hybrid(params, h, mode="decode", caches=caches, pos=int(pos))
             return self._logits(params, h)[:, -1], caches

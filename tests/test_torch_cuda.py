@@ -8,17 +8,22 @@ neither JAX nor the JAX package: the machine with the card need not have them.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch.core.autotune import method_override
 from repro_torch.core.linrec import cummax, cumprod, linear_scan
-from repro_torch.core.primitives import compress, radix_sort, split, top_p_sample
+from repro_torch.core.primitives import (compress, multi_split, radix_sort, split,
+                                         top_p_sample)
 from repro_torch.core.scan import accum_dtype_for, scan
 from repro_torch.core.segmented import (SegmentedBatch, segment_compress,
                                         segment_linear_scan, segment_scan)
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref
-from repro_torch.kernels import linrec_mm, ops, scan_mm, scan_pipeline, segscan_mm, split_mm
+from repro_torch.kernels import (linrec_mm, ops, scan_mm, scan_pipeline, segscan_mm, split_mm,
+                                 ssd_chunk)
+from repro_torch.models import mamba
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
 
@@ -538,3 +543,136 @@ def test_engine_zamba2_launches_in_prefill_only(dev):
         out = eng.generate({"tokens": toks}, 5)
         assert ops.launch_counts() == prefill
         assert torch.equal(out, want)
+
+
+# ---- the multi-way split (B6) and the SSD chunk kernel (B17) ----
+
+
+@pytest.mark.parametrize("n", [1, 33, 5000, 300001])
+@pytest.mark.parametrize("r", [1, 3, 16, 256, 2000, 29055])
+@pytest.mark.parametrize("dtype", [torch.bool, torch.bfloat16, torch.float32, torch.int64])
+def test_multi_split_kernel_matches_plain(dev, dtype, r, n):
+    """Every payload width, R from 1 to the largest taken (2000 and 29055 run fewer
+    than 32 warps), ragged rows; against a stable argsort of the digits and their
+    bincount, and against the plain version where its (3, R + 1, n) one-hot fits."""
+    x = _int_payload(torch.int32, (3, n), dev).to(dtype)
+    d = torch.randint(0, r, (3, n), generator=_gen(dev, 1), device=dev, dtype=torch.int32)
+    d[1] = r - 1                                               # one full bucket
+    z, ind, cnt = split_mm.multi_split_tiles(x, d, num_buckets=r)
+    if (r + 1) * n <= 1 << 26:
+        pz, pind, pcnt = split_mm.multi_split_plain(x, d, r)
+        assert torch.equal(z, pz) and torch.equal(ind, pind) and torch.equal(cnt, pcnt)
+    order = torch.argsort(d, dim=-1, stable=True)
+    assert torch.equal(ind.long(), order) and torch.equal(z, torch.gather(x, -1, order))
+    for row in range(3):
+        assert torch.equal(cnt[row].long(), torch.bincount(d[row].long(), minlength=r))
+
+
+def test_multi_split_kernel_out_of_range_digits(dev):
+    """Digits outside [0, R) go last, in order, uncounted; nothing is written out of
+    bounds (a synchronize would report a fault)."""
+    d = torch.randint(-40, 40, (2, 70001), generator=_gen(dev, 2), device=dev,
+                      dtype=torch.int32)
+    x = torch.arange(2 * 70001, device=dev, dtype=torch.int32).reshape(2, 70001)
+    z, ind, cnt = split_mm.multi_split_tiles(x, d, num_buckets=10)
+    torch.cuda.synchronize()
+    pz, pind, pcnt = split_mm.multi_split_plain(x, d, 10)
+    assert torch.equal(z, pz) and torch.equal(ind, pind) and torch.equal(cnt, pcnt)
+    assert int(cnt.sum()) == int(((d >= 0) & (d < 10)).sum())
+
+
+def test_multi_split_kernel_launch_count(dev):
+    x = torch.randn((4, 1 << 16), generator=_gen(dev), device=dev)
+    d = torch.randint(0, 16, x.shape, generator=_gen(dev, 3), device=dev)
+    ops.reset_launch_counts()
+    z, ind, cnt = multi_split(x, d, 16, method="kernel")
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(multi_split=1)
+    zv, iv, cv = multi_split(x, d, 16, method="vector")
+    assert torch.equal(z, zv) and torch.equal(ind, iv) and torch.equal(cnt, cv)
+    with pytest.raises(ValueError, match="shared memory"):
+        split_mm.multi_split_tiles(x, d, num_buckets=split_mm.MULTI_SPLIT_MAX_BUCKETS + 1)
+
+
+def _ssd_args(dev, shape, seed, decays="mild"):
+    b, s, h, p, n = shape
+    g = _gen(dev, seed)
+    x = torch.randn((b, s, h, p), generator=g, device=dev)
+    if decays == "mild":
+        al = -(torch.randn((b, s, h), generator=g, device=dev) * 0.1).abs()
+    else:                                        # zamba2's init decays
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g, device=dev))
+        al = -torch.linspace(1.0, 16.0, h, device=dev) * dt
+    bm = torch.randn((b, s, h, n), generator=g, device=dev) * 0.3
+    cm = torch.randn((b, s, h, n), generator=g, device=dev) * 0.3
+    return x, al, bm, cm
+
+
+@pytest.mark.parametrize("shape,chunk", [((1, 64, 1, 4, 2), 32), ((2, 96, 3, 8, 4), 32),
+                                         ((1, 250, 2, 16, 8), 32), ((2, 48, 8, 16, 8), 16),
+                                         ((2, 20, 3, 8, 4), 32), ((1, 1, 2, 5, 3), 8),
+                                         ((2, 300, 4, 64, 64), 128), ((1, 200, 2, 7, 9), 50)])
+@pytest.mark.parametrize("decays", ["mild", "zamba2"])
+def test_ssd_chunk_kernel_matches_plain(dev, shape, chunk, decays):
+    """B17 against its plain version within 2e-6·max|y| (mild decays) and against the
+    fp64 oracle within the JAX package's 2e-3; finite under zamba2's decays."""
+    args = _ssd_args(dev, shape, 4, decays)
+    y = ssd_chunk.ssd_chunk_scan(*args, chunk=chunk)
+    plain = ssd_chunk.ssd_chunk_plain(*args, chunk=chunk)
+    ref = ssd_scan_ref(*(t.double() for t in args))
+    assert bool(y.isfinite().all())
+    assert torch.allclose(y.double(), ref, rtol=2e-3, atol=2e-3)
+    if decays == "mild":
+        assert float((y - plain).abs().max()) <= 2e-6 * float(plain.abs().max())
+
+
+def test_ssd_chunk_kernel_reads_strides_and_checks_limits(dev):
+    args = _ssd_args(dev, (2, 100, 3, 8, 4), 5)
+    want = ssd_chunk.ssd_chunk_scan(*args, chunk=32)
+    views = [torch.movedim(torch.movedim(t, 2, 0).contiguous(), 0, 2) for t in args]
+    assert torch.equal(ssd_chunk.ssd_chunk_scan(*views, chunk=32), want)
+    x, al, bm, cm = _ssd_args(dev, (1, 300, 1, 64, 64), 6)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_chunk.ssd_chunk_scan(x, al, bm, cm, chunk=256)
+    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+        ssd_chunk.ssd_chunk_scan(x.requires_grad_(), al, bm, cm)
+
+
+def test_forward_launches_b17_once_per_mamba_layer(dev, monkeypatch):
+    """zamba2 SMOKE forward/loss: 5 B17 launches under "kernel" (one per Mamba2 layer),
+    5 B4 + 5 B16 under "blocked", none under "vector".  Under "kernel" the logits are
+    within 2e-5 of the same forward with B17's plain version on the card; against the
+    CPU every method is held to twice the "vector" forward's card-to-CPU distance
+    plus 2e-5 (cuBLAS and the CPU's BLAS round the other fp32 products apart by
+    2e-5 to 7e-5 on this model, B17 or not)."""
+    cfg = get_config("zamba2-1.2b", smoke=True)
+    params = build_model(cfg).init(0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks.to(dev), "loss_mask": (toks % 3 > 0).to(dev)}
+    gparams = _to_device(params, dev)
+    card, cpu = {}, {}
+    for method, want in (("kernel", _counts(ssd_chunk=5)),
+                         ("blocked", _counts(block_scan=5, linrec_block_scan=5)),
+                         ("vector", _counts())):
+        model = build_model(dataclasses.replace(cfg, scan_method=method))
+        ops.reset_launch_counts()
+        card[method] = model.forward(gparams, batch).cpu()
+        assert ops.launch_counts() == want
+        ops.reset_launch_counts()
+        total, parts = model.loss(gparams, batch)
+        assert ops.launch_counts() == want
+        assert float(total) == float(parts["ce"]) and bool(torch.isfinite(total))
+        cpu[method] = model.forward(params, {"tokens": toks})
+    floor = float((card["vector"] - cpu["vector"]).abs().max())
+    for method in ("kernel", "blocked"):
+        assert float((card[method] - cpu[method]).abs().max()) <= 2 * floor + 2e-5
+    monkeypatch.setattr(mamba, "ssd_chunk_scan", ssd_chunk.ssd_chunk_plain)
+    plain = build_model(dataclasses.replace(cfg, scan_method="kernel")).forward(gparams, batch)
+    assert float((card["kernel"] - plain.cpu()).abs().max()) <= 2e-5
+
+
+def _to_device(tree, dev):
+    """A parameter tree moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

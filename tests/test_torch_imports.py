@@ -20,7 +20,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core import autotune, guards, precision
 from repro_torch.kernels import (_build, linrec_mm, ops, scan_mm, scan_pipeline, segscan_mm,
-                                 split_mm)
+                                 split_mm, ssd_chunk)
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
 
@@ -82,12 +82,15 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     blocks = a.reshape(2, 5, 1000, 1)
     prods, lasts = linrec_mm.linrec_block_summaries(blocks, blocks)
     linrec_mm.linrec_block_scan_carry(blocks, blocks, linrec_mm.linrec_carry_scan(prods, lasts))
+    split_mm.multi_split_tiles(x, x % 5, num_buckets=5)
+    ssd_chunk.ssd_chunk_scan(torch.ones((1, 40, 2, 4)), -torch.ones((1, 40, 2)),
+                             torch.ones((1, 40, 2, 3)), torch.ones((1, 40, 2, 3)), chunk=16)
     assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 0, "topp_tail": 0,
                                    "block_sums": 0, "carry_scan": 0, "block_scan": 0,
                                    "split": 0, "seg_scan": 0, "seg_summaries": 0,
                                    "seg_carry": 0, "seg_block_scan": 0, "linrec_scan": 0,
                                    "linrec_summaries": 0, "linrec_carry": 0,
-                                   "linrec_block_scan": 0}
+                                   "linrec_block_scan": 0, "multi_split": 0, "ssd_chunk": 0}
 
 
 def test_build_refuses_without_nvcc(monkeypatch, tmp_path):

@@ -117,8 +117,10 @@ def test_multi_split_matches_jax(method):
                             method=method, tile_s=8)
     for got, want in ((z, jz), (i, ji), (c, jc)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="B6"):
-        P.multi_split(torch.from_numpy(x), torch.from_numpy(d), 6, method="kernel")
+    # the kernel method (B6; its plain version on the CPU) gives the same split
+    kz, ki, kc = P.multi_split(torch.from_numpy(x), torch.from_numpy(d), 6, method="kernel")
+    for got, want in ((kz, jz), (ki, ji), (kc, jc)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("pass_bits,shift", [(1, 0), (4, 4), (4, 12), (8, 8)])

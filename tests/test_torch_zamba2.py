@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.models.layers import use_compute_dtype
+from repro.models.mamba import mamba_full as jax_mamba_full
 from repro.models.model import build_model as jax_build_model
 from repro.models.model import get_config as jax_get_config
 from repro.serving.engine import ServeEngine as JaxServeEngine
@@ -115,16 +117,22 @@ def test_streams_match_jax_engine(sampler, method):
 
 
 def test_scan_method_is_validated_and_b17_waits():
+    """scan_method is validated; mamba_full(use_kernel=True) under "kernel" (the SSD
+    chunk kernel B17, once a refusal) matches the JAX mixer on the same layer."""
     cfg = get_config(ARCH, smoke=True)
     with pytest.raises(ValueError, match="scan_method"):
         ServeEngine(cfg, None, device="cpu", scan_method="cube")
     assert ServeEngine(cfg, None, device="cpu", scan_method="auto").cfg.scan_method == "auto"
     assert ServeEngine(cfg, None, device="cpu").cfg is cfg
     p = jax.tree.map(lambda t: t[0], _port_params()["stack"]["sub0"]["mixer"])
+    jp = jax.tree.map(lambda t: t[0], _jax_params()["stack"]["sub0"]["mixer"])
     kcfg = dataclasses.replace(cfg, scan_method="kernel")
-    with pytest.raises(NotImplementedError, match="B17"):
-        mamba.mamba_full(p, torch.zeros((1, 16, cfg.d_model)), kcfg, cdt=torch.float32,
-                         use_kernel=True)
+    x = np.random.default_rng(1).standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    got = mamba.mamba_full(p, torch.from_numpy(x), kcfg, cdt=torch.float32, use_kernel=True)
+    with use_compute_dtype(jnp.float32):                   # the fp32 SMOKE model's dtype
+        want = jax_mamba_full(jp, jnp.asarray(x), dataclasses.replace(
+            jax_get_config(ARCH, smoke=True), scan_method="kernel"), use_kernel=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
 
 
 def test_serve_cli_runs_zamba2_on_the_cpu(capsys, monkeypatch):
