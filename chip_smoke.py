@@ -54,7 +54,33 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               4 x 2048 tokens under each ``scan_method``: 38 B17 launches a pass on
               "kernel", 38 B4 + 38 B16 on "blocked", none on "vector"; the SMOKE
               model's fp32 forward on the card against the CPU;
-17. timing -- kernel, plain-version and library times beside each kernel's bound.
+17. b7h    -- the radix pass that exports its histogram against its plain version at
+              (4, 2^22) int32 keys (one shard of a 2^24 row at D = 4): every shift of
+              the 8 radix-16 passes, chained into a stable sort; a ragged row and
+              16-bit keys; keys, permutation and counts exact, counts equal to a
+              bincount of the digits;
+18. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
+              card (a process a rank): dist_sort / dist_topk (method="kernel") of
+              (4, 2^24) fp32 and bf16 keys bit-equal to the local kernel sort, exactly
+              8 (fp32) or 4 (bf16) B7h launches a rank and no B7; dist_top_p_sample
+              (method="kernel") on (4, 128256) logits, exactly 4 B7h + 4 B6 + 2 B1 a
+              rank, every token inside the band's window; mcscan, dist_linear_scan
+              and dist_segment_scan on "kernel" and "blocked" at (4, 2^24) under the
+              single-device phases' limits; every call's collective calls and bytes
+              equal to modeled_dist_traffic;
+19. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
+              and depth (bf16, random weights from seed 0), batch 4, prompt 128, 32
+              new tokens, in a world of 2 ranks on the card: the same stream on both
+              ranks, every token inside the window of the solo sampler, the decode
+              step's ms and collectives;
+20. timing -- kernel, plain-version and library times beside each kernel's bound, and
+              dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
+              not NCCL's).
+
+The ranks of the worlds start as fresh interpreters (``repro_torch.launch.world``)
+after the parent has built every kernel; each rank zeroes its counters just before
+each call it checks and sends its counts back.  NCCL refuses two ranks on one GPU,
+so the worlds run on gloo, which stages the card's operands through host memory.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run exits non-zero and prints no result.  Without a
@@ -63,9 +89,12 @@ exits non-zero at once.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -95,6 +124,12 @@ PACKED_ROWS = (VOCAB, 32000, 0, 50257)   # sample_packed: ragged logit rows, one
 B6_BUCKETS = 16                     # multi_split's radix-16 pass width
 SSD_RAGGED_S = 2000                 # B17 on a sequence whose last chunk is partial
 FORWARD = dict(batch=4, seq=2048, seed=0)
+B7H_SHAPE = (4, 1 << 22)            # one shard of a (4, 2^24) sort at D = 4
+DIST_SHAPE = (4, 1 << 24)           # the distributed operators' global rows
+DIST_WORLDS = (4, 2)
+DIST_SEED = 21
+DIST_TIMEOUT = 420                  # seconds for one world, startup included
+SERVE_SHARDED = dict(ranks=2, **SERVE)
 # relative fp32 rounding allowed on top of the bound that the logits put on the
 # methods' ce (forward_zamba2): a few roundings of each ~10-nat term and a tree sum
 CE_SLACK = 1e-5
@@ -137,8 +172,15 @@ def _startup():
 torch = _startup()
 import numpy as np  # noqa: E402
 
+import torch.distributed as dist  # noqa: E402
+
 from repro_torch.analysis import ulp  # noqa: E402
+from repro_torch.analysis.collectives import modeled_dist_traffic  # noqa: E402
+from repro_torch.core import comm  # noqa: E402
 from repro_torch.core.autotune import method_override  # noqa: E402
+from repro_torch.core.dist_ops import (dist_linear_scan, dist_segment_scan,  # noqa: E402
+                                       dist_sort, dist_top_p_sample, dist_topk)
+from repro_torch.core.distributed import mcscan  # noqa: E402
 from repro_torch.core.linrec import cummax, cumprod, linear_scan  # noqa: E402
 from repro_torch.core.primitives import (compress, multi_split, radix_sort,  # noqa: E402
                                          top_p_sample)
@@ -149,6 +191,7 @@ from repro_torch.core.segmented import (SegmentedBatch, boundary_flags,  # noqa:
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels import (_build, linrec_mm, ops, scan_mm,  # noqa: E402
                                  scan_pipeline, segscan_mm, split_mm, ssd_chunk)
+from repro_torch.launch.world import run_world  # noqa: E402
 from repro_torch.models import mamba as mamba_model  # noqa: E402
 from repro_torch.models.model import build_model, get_config  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -1267,8 +1310,7 @@ def _to(tree, dev):
 
 def check_sampled(eng, batch, uniforms, toks, new):
     """Rerun ``eng`` on the same batch and uniforms, recording each step, and hold
-    every sampled token to the ``topp_window`` of its row: inside it on every row,
-    and equal to the plain sampler's token where the window has one index."""
+    every sampled token to its row's ``topp_window`` (:func:`hold_steps`)."""
     steps = []
     orig = eng._sample
 
@@ -1281,23 +1323,29 @@ def check_sampled(eng, batch, uniforms, toks, new):
     toks2 = eng.generate(batch, new, uniforms=uniforms)
     eng._sample = orig
     check(torch.equal(toks2, toks), f"the {eng.sampler} run is not repeatable")
+    return hold_steps(steps, eng.top_p, eng.sampler)
+
+
+def hold_steps(steps, top_p, name):
+    """Hold each ``(logits, u, tok)`` step's tokens to the ``topp_window`` of their
+    rows: inside it on every row, and equal to the plain sampler's token where the
+    window has one index."""
     agree = total = one_answer = plain_in = widest = 0
     for logits, u, tok in steps:
         check(bool(logits.isfinite().all()), "non-finite logits on the decode path")
-        plain = top_p_sample(logits, p=eng.top_p, method="vector", u=u)
+        plain = top_p_sample(logits, p=top_p, method="vector", u=u)
         probs = torch.softmax(logits.float(), -1)
         _, order = radix_sort(probs.to(torch.bfloat16), descending=True, method="vector")
         sp = torch.gather(probs, -1, order.long())
-        _, lo, hi = topp_window(sp, u, eng.top_p)
+        _, lo, hi = topp_window(sp, u, top_p)
         # the sampled token's place in the sorted order
         jk = (order == tok[:, None]).int().argmax(-1).cpu().numpy()
         jp = (order == plain[:, None]).int().argmax(-1).cpu().numpy()
         check(((lo <= jk) & (jk <= hi)).all(),
-              f"{eng.sampler} token outside the band's window: {jk.tolist()} not in "
+              f"{name} token outside the band's window: {jk.tolist()} not in "
               f"{lo.tolist()}..{hi.tolist()}")
         same = (tok == plain).cpu().numpy()
-        check(same[lo == hi].all(),
-              f"{eng.sampler} != plain sampler on a row outside the band")
+        check(same[lo == hi].all(), f"{name} != plain sampler on a row outside the band")
         agree += int(same.sum())
         total += same.size
         one_answer += int((lo == hi).sum())
@@ -1767,11 +1815,346 @@ def smoke_forward():
 
 
 # ---------------------------------------------------------------------------
+# B7h: the radix pass that exports its histogram
+# ---------------------------------------------------------------------------
+
+
+def _b7h_hold(work, perm, shift, bits, tag) -> int:
+    """One B7h pass against its plain version and a bincount of the digits."""
+    kw, kp, kc = split_mm.radix_pass_multibit(work, perm, shift=shift, pass_bits=bits,
+                                              with_counts=True)
+    pw, pp, pc = split_mm.radix_pass_plain(work, perm, shift=shift, pass_bits=bits,
+                                           with_counts=True)
+    check(torch.equal(kw, pw) and torch.equal(kp, pp) and torch.equal(kc, pc),
+          f"B7h {tag} shift={shift}: != plain version")
+    digits = (work.long() >> shift) & ((1 << bits) - 1)
+    rows = torch.arange(work.shape[0], device=DEV)[:, None] << bits
+    hist = torch.bincount((digits + rows).reshape(-1), minlength=work.shape[0] << bits)
+    check(torch.equal(kc.long(), hist.reshape(work.shape[0], -1)),
+          f"B7h {tag} shift={shift}: counts != bincount of the digits")
+    return max(int((kw.long() - pw.long()).abs().max()), int((kp - pp).abs().max()),
+               int((kc - pc).abs().max()))
+
+
+def phase_b7h(gen):
+    """B7h at (4, 2^22) int32 keys: every shift of the 8 radix-16 passes, chained into
+    a sort held against a stable ``torch.sort``; a ragged row, whose counts must be
+    its own keys' (the kernel masks the row's end, nothing is padded); 16-bit keys."""
+    b, n = B7H_SHAPE
+    keys = torch.randint(-(1 << 31), (1 << 31) - 1, B7H_SHAPE, generator=gen, device=DEV,
+                         dtype=torch.int64).to(torch.int32)
+    keys[:, 1000:2000] = keys[:, :1000]                       # duplicate keys: stability
+    perm = torch.arange(n, dtype=torch.int32, device=DEV).expand(b, n).contiguous()
+    worst, work, p = 0, keys, perm
+    for shift in range(0, 32, 4):
+        worst = max(worst, _b7h_hold(work, p, shift, 4, "int32"))
+        work, p, _ = split_mm.radix_pass_multibit(work, p, shift=shift, pass_bits=4,
+                                                  with_counts=True)
+    lib_v, lib_i = torch.sort(keys.long() & 0xFFFFFFFF, dim=-1, stable=True)
+    check(torch.equal(work.long() & 0xFFFFFFFF, lib_v) and torch.equal(p.long(), lib_i),
+          "B7h: the 8-pass chain is not a stable sort of the unsigned keys")
+    m = n - 12345                                              # a ragged row end
+    rag = keys[:, :m].contiguous()
+    rperm = perm[:, :m].contiguous()
+    for shift in (0, 28):
+        worst = max(worst, _b7h_hold(rag, rperm, shift, 4, "ragged"))
+        _, _, c = split_mm.radix_pass_multibit(rag, rperm, shift=shift, pass_bits=4,
+                                               with_counts=True)
+        check(bool((c.sum(-1) == m).all()), "B7h ragged: counts != the row's own keys")
+    k16 = (keys & 0xFFFF).to(torch.int16)
+    for shift in range(0, 16, 4):
+        worst = max(worst, _b7h_hold(k16, perm, shift, 4, "int16"))
+    sync()
+    emit({"phase": "b7h", "shape": list(B7H_SHAPE), "passes_int32": 8, "ragged_n": m,
+          "passes_int16": 4, "exact": True, "max_abs_err_vs_plain": worst})
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# dist: the distributed operators in gloo worlds on the one card
+# ---------------------------------------------------------------------------
+
+
+def _nonzero(d):
+    return {k: v for k, v in d.items() if v}
+
+
+def dist_rank(shape, vocab, seed, time_reps):
+    """One rank of the ``dist`` phase (run by ``repro_torch.launch.world``).
+
+    Every rank draws the same global inputs from ``seed`` on the card and takes its
+    shard; each checked call runs with the launch and collective counters zeroed
+    just before and read just after, and its launches and collectives must be
+    exact.  The references are the single-device operators on the whole input, on
+    this rank."""
+    d, me = comm.axis_size(), comm.axis_index()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    b, n = shape
+    L = comm.shard_len(n, d)
+    lo, hi = me * L, min((me + 1) * L, n)
+    res = {"rank": me, "world": d, "transport": comm.transport(None, DEV), "calls": {},
+           "tokens": [], "max_ulp": {}}
+
+    def main_call(name, fn, want, model):
+        sync()
+        ops.reset_launch_counts()
+        comm.reset_comm_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, coll = ops.launch_counts(), comm.comm_counts()
+        expect_counts(launches, f"{name} on rank {me} of {d}", **want)
+        check(_nonzero(coll["calls"]) == model["counts_by_kind"]
+              and _nonzero(coll["bytes"]) == model["bytes_by_kind"],
+              f"{name} on rank {me} of {d}: collectives {coll} != the model {model}")
+        res["calls"][name] = {"launches": launches, "collectives": coll, "ms": ms}
+        return out
+
+    # --- sorts and top-k: bit-equal to the local kernel sort of the whole rows ---
+    x = torch.randn(shape, generator=gen, device=DEV)
+    x[:, 1000:2000] = x[:, :1000]                          # ties inside a shard
+    x[:, L - 500:L + 500] = x[:, 3000:4000]                # and across a shard boundary
+    xb = x.to(torch.bfloat16)
+    sort_model = {dt: modeled_dist_traffic("dist_sort", d=d, n=n, batch=b, dtype=dt)
+                  for dt in ("float32", "bfloat16")}
+    v, i = main_call("dist_sort_f32", lambda: dist_sort(x[:, lo:hi], n, method="kernel"),
+                     {"radix_pass_hist": 8}, sort_model["float32"])
+    rv, ri = radix_sort(x, method="kernel")
+    check(torch.equal(v, rv[:, lo:hi]) and torch.equal(i, ri[:, lo:hi]),
+          f"dist_sort fp32 on rank {me} of {d} != the local kernel sort")
+    k = 1000
+    v, i = main_call("dist_topk_f32", lambda: dist_topk(x[:, lo:hi], k, n, method="kernel"),
+                     {"radix_pass_hist": 8}, sort_model["float32"])
+    rv, ri = radix_sort(x, descending=True, method="kernel")
+    keep = max(0, min(hi - lo, k - lo))
+    check(torch.equal(v, rv[:, lo:lo + keep]) and torch.equal(i, ri[:, lo:lo + keep]),
+          f"dist_topk on rank {me} of {d} != the local kernel sort's top {k}")
+    v, i = main_call("dist_sort_bf16_desc",
+                     lambda: dist_sort(xb[:, lo:hi], n, descending=True, method="kernel"),
+                     {"radix_pass_hist": 4}, sort_model["bfloat16"])
+    rv, ri = radix_sort(xb, descending=True, method="kernel")
+    check(torch.equal(v, rv[:, lo:hi]) and torch.equal(i, ri[:, lo:hi]),
+          f"dist_sort bf16 on rank {me} of {d} != the local kernel sort")
+    del rv, ri, v, i, xb
+    times = []
+    for _ in range(time_reps):
+        sync()
+        t0 = time.perf_counter()
+        dist_sort(x[:, lo:hi], n, method="kernel")
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["dist_sort_f32_ms"] = times
+
+    # --- top-p over the vocab shards: every token inside its row's window ---
+    vl = comm.shard_len(vocab, d)
+    vlo, vhi = me * vl, min((me + 1) * vl, vocab)
+    topp_model = modeled_dist_traffic("dist_top_p_sample", d=d, n=vocab, batch=b)
+    steps = []
+    for sigma in (2.0, 8.0):
+        logits = torch.randn((b, vocab), generator=gen, device=DEV) * sigma
+        u = torch.rand((b, 1), generator=gen, device=DEV)
+        tok = main_call(f"dist_top_p_sample_sigma{sigma:g}",
+                        lambda: dist_top_p_sample(logits[:, vlo:vhi], vocab, p=0.9,
+                                                  method="kernel", u=u),
+                        {"radix_pass_hist": 4, "multi_split": 4, "scan_mm": 2}, topp_model)
+        steps.append((logits, u, tok))
+        res["tokens"].append(tok.cpu())
+    res["top_p"] = hold_steps(steps, 0.9, "dist_top_p_sample")
+
+    # --- mcscan: int8 exact, fp32 within the ulp limit of the fp64 scan ---
+    xf = torch.randn(shape, generator=gen, device=DEV)
+    x8 = torch.randint(-128, 128, shape, generator=gen, device=DEV).to(torch.int8)
+    ref, scale = xf.double().cumsum(-1), xf.double().abs().cumsum(-1)
+    ref8 = x8.long().cumsum(-1)
+    scan_model = modeled_dist_traffic("mcscan", d=d, n=n, batch=b, itemsize=4)
+    for method, want in (("kernel", {"scan_mm": 1}),
+                         ("blocked", {"block_sums": 1, "carry_scan": 1, "block_scan": 1})):
+        y = main_call(f"mcscan_f32_{method}", lambda: mcscan(xf[:, lo:hi], method=method),
+                      want, scan_model)
+        res["max_ulp"][f"mcscan_{method}"] = e = max_ulp_dev(y, ref[:, lo:hi],
+                                                             scale[:, lo:hi])
+        check(e <= B1_F32_ULP, f"mcscan({method}) on rank {me}: {e} ulp > {B1_F32_ULP}")
+        y8 = main_call(f"mcscan_int8_{method}", lambda: mcscan(x8[:, lo:hi], method=method),
+                       want, scan_model)
+        check(torch.equal(y8.long(), ref8[:, lo:hi]), f"mcscan({method}) int8 not exact")
+    del xf, x8, ref, scale, ref8
+
+    # --- dist_linear_scan: integer-valued rows exact, random within the ulp limit ---
+    rows = lin_inputs(gen, shape)
+    a, bb = rows["random"]
+    ref, scale = lin_ref64(a, bb), lin_ref64(a.abs(), bb.abs())
+    ai, bi = rows["int"]
+    refi = lin_ref64(ai, bi)
+    lin_model = modeled_dist_traffic("dist_linear_scan", d=d, n=n, batch=b, itemsize=4)
+    for method, want in (("kernel", {"linrec_scan": 2}),
+                         ("blocked", {"linrec_summaries": 2, "linrec_carry": 2,
+                                      "linrec_block_scan": 2})):
+        y = main_call(f"dist_linear_scan_{method}",
+                      lambda: dist_linear_scan(a[:, lo:hi], bb[:, lo:hi], n, method=method),
+                      want, lin_model)
+        res["max_ulp"][f"dist_linear_scan_{method}"] = e = max_ulp_dev(
+            y, ref[:, lo:hi], scale[:, lo:hi])
+        check(e <= B1_F32_ULP, f"dist_linear_scan({method}) on rank {me}: {e} ulp")
+        yi = main_call(f"dist_linear_scan_int_{method}",
+                       lambda: dist_linear_scan(ai[:, lo:hi], bi[:, lo:hi], n, method=method),
+                       want, lin_model)
+        check(torch.equal(yi.double(), refi[:, lo:hi]),
+              f"dist_linear_scan({method}) integer-valued rows not exact")
+    del rows, a, bb, ai, bi, ref, scale, refi
+
+    # --- dist_segment_scan: int8 exact, fp32 within the ulp limit per segment ---
+    off = seg_offsets(np.random.default_rng(SEG_SEED + 2), n)
+    flags = boundary_flags(off, n)
+    xs = _seg_inputs(gen, shape)
+    refi, _ = seg_ref64(xs["int8"], flags)
+    ref, scale = seg_ref64(xs["f32rand"], flags)
+    seg_model = modeled_dist_traffic("dist_segment_scan", d=d, n=n, batch=b, itemsize=4)
+    for method, want in (("kernel", {"seg_scan": 1}),
+                         ("blocked", {"seg_summaries": 1, "seg_carry": 1,
+                                      "seg_block_scan": 1})):
+        y = main_call(f"dist_segment_scan_f32_{method}",
+                      lambda: dist_segment_scan(xs["f32rand"][:, lo:hi], off, n,
+                                                method=method),
+                      want, seg_model)
+        res["max_ulp"][f"dist_segment_scan_{method}"] = e = max_ulp_dev(
+            y, ref[:, lo:hi], scale[:, lo:hi])
+        check(e <= B1_F32_ULP, f"dist_segment_scan({method}) on rank {me}: {e} ulp")
+        yi = main_call(f"dist_segment_scan_int8_{method}",
+                       lambda: dist_segment_scan(xs["int8"][:, lo:hi], off, n, method=method),
+                       want, seg_model)
+        check(torch.equal(yi.double(), refi[:, lo:hi]),
+              f"dist_segment_scan({method}) int8 not exact")
+    res["segments"] = int(off.numel() - 1)
+    return res
+
+
+def _world_dir(name):
+    path = os.path.join(ROOT, "build", "chip_smoke_worlds", name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def _free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dist():
+    """The ``dist`` phase's worlds of 4 and of 2 ranks on the card.  Returns the
+    kernels' launches summed over every rank's checked calls, and dist_sort's ms."""
+    _free_card()
+    launches, summary, sort_ms = collections.Counter(), {}, {}
+    for d in DIST_WORLDS:
+        t0 = time.perf_counter()
+        ranks = run_world("chip_smoke:dist_rank", d,
+                          dict(shape=DIST_SHAPE, vocab=VOCAB, seed=DIST_SEED, time_reps=2),
+                          workdir=_world_dir(f"dist{d}"), timeout=DIST_TIMEOUT,
+                          pythonpath=[ROOT])
+        for r in ranks[1:]:
+            check(all(torch.equal(a, t) for a, t in zip(ranks[0]["tokens"], r["tokens"])),
+                  f"dist_top_p_sample: rank {r['rank']} of {d} drew other tokens than rank 0")
+        for r in ranks:
+            for call in r["calls"].values():
+                launches.update(call["launches"])
+        sort_ms[d] = min(min(r["dist_sort_f32_ms"]) for r in ranks)
+        summary[d] = {
+            "transport": ranks[0]["transport"], "seconds": time.perf_counter() - t0,
+            "calls": {name: {"launches": _nonzero(c["launches"]),
+                             "collectives": {k: _nonzero(v) for k, v in
+                                             c["collectives"].items()},
+                             "ms_rank0": c["ms"]}
+                      for name, c in ranks[0]["calls"].items()},
+            "max_ulp": {k: max(r["max_ulp"][k] for r in ranks) for k in ranks[0]["max_ulp"]},
+            "top_p": ranks[0]["top_p"], "segments": ranks[0]["segments"],
+            "dist_sort_f32_ms_per_rank": [r["dist_sort_f32_ms"] for r in ranks]}
+    emit({"phase": "dist", "global_shape": list(DIST_SHAPE), "vocab": VOCAB,
+          "worlds": summary})
+    return {k: launches[k] for k in ops.KERNELS}, sort_ms
+
+
+# ---------------------------------------------------------------------------
+# serve_sharded: ServeEngine topp_sharded on llama3-8b, two ranks on the card
+# ---------------------------------------------------------------------------
+
+
+def serve_sharded_rank(seed, batch, prompt, new):
+    """One rank of ``serve_sharded``: the whole model on this rank, the vocab's
+    half sampled here (``dist_top_p_sample``, ``method="matmul"``)."""
+    me = comm.axis_index()
+    cfg = get_config("llama3-8b")
+    params = build_model(cfg).init(seed, device=DEV, dtype=torch.bfloat16)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)      # the same on every rank
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=DEV)
+    uniforms = torch.rand((new, batch), generator=gen, device=DEV)
+    inputs = {"tokens": prompts}
+    eng = ServeEngine(cfg, params, mesh=dist.group.WORLD, max_len=prompt + new,
+                      sampler="topp_sharded")
+    eng.generate(inputs, 2, uniforms=uniforms[:2])                 # warm-up
+    sync()
+    ops.reset_launch_counts()
+    comm.reset_comm_counts()
+    toks, t_full = _timed_generate(eng, inputs, new, uniforms=uniforms)
+    launches, coll = ops.launch_counts(), comm.comm_counts()
+    expect_counts(launches, f"topp_sharded serving on rank {me}")  # matmul: no kernel
+    step = modeled_dist_traffic("dist_top_p_sample", d=comm.axis_size(), n=cfg.padded_vocab,
+                                batch=batch)
+    check(_nonzero(coll["calls"]) == {k: new * v for k, v in step["counts_by_kind"].items()}
+          and _nonzero(coll["bytes"]) == {k: new * v for k, v in
+                                          step["bytes_by_kind"].items()},
+          f"topp_sharded serving on rank {me}: collectives {coll} != {new} x {step}")
+    _, t_one = _timed_generate(eng, inputs, 1, uniforms=uniforms[:1])
+    sampled = check_sampled(eng, inputs, uniforms, toks, new)
+    solo = ServeEngine(cfg, params, max_len=prompt + new, sampler="topp_scan")
+    solo_toks = solo.generate(inputs, new, uniforms=uniforms)
+    return {"rank": me, "tokens": toks.cpu(), "solo_tokens": solo_toks.cpu(),
+            "launches": launches, "collectives": coll, "step_model": step,
+            "generate_s": t_full, "prefill_plus_first_sample_ms": t_one * 1e3,
+            "decode_step_ms": (t_full - t_one) / (new - 1) * 1e3, **sampled,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(DEV) / 1e9,
+            "transport": comm.transport(None, DEV)}
+
+
+def phase_serve_sharded():
+    """``serve_sharded``: both ranks return one stream, inside the solo windows."""
+    _free_card()
+    cfg = SERVE_SHARDED
+    t0 = time.perf_counter()
+    ranks = run_world("chip_smoke:serve_sharded_rank", cfg["ranks"],
+                      dict(seed=cfg["seed"], batch=cfg["batch"], prompt=cfg["prompt"],
+                           new=cfg["new"]),
+                      workdir=_world_dir("serve_sharded"), timeout=DIST_TIMEOUT,
+                      pythonpath=[ROOT])
+    toks = ranks[0]["tokens"]
+    check(tuple(toks.shape) == (cfg["batch"], cfg["new"]) and toks.dtype == torch.int32,
+          f"topp_sharded tokens have shape {tuple(toks.shape)}")
+    for r in ranks[1:]:
+        check(torch.equal(r["tokens"], toks), f"topp_sharded: rank {r['rank']}'s stream "
+              "differs from rank 0's")
+    r0 = ranks[0]
+    emit({"phase": "serve_sharded", "arch": "llama3-8b", "ranks": cfg["ranks"],
+          "dtype": "bfloat16", "batch": cfg["batch"], "prompt": cfg["prompt"],
+          "new_tokens": cfg["new"], "transport": r0["transport"],
+          "seconds": time.perf_counter() - t0,
+          "decode_step_ms": [r["decode_step_ms"] for r in ranks],
+          "prefill_plus_first_sample_ms": [r["prefill_plus_first_sample_ms"] for r in ranks],
+          "collectives_per_step": r0["step_model"]["counts_by_kind"],
+          "collective_bytes_per_step": r0["step_model"]["bytes_by_kind"],
+          "collectives_of_the_run": {k: _nonzero(v) for k, v in r0["collectives"].items()},
+          "stream_agreement_with_topp_scan": float((toks == r0["solo_tokens"]).float().mean()),
+          "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+          **{k: r0[k] for k in ("steps_checked", "token_agreement_with_plain_sampler",
+                                "rows_with_one_answer", "widest_window",
+                                "plain_sampler_rows_in_window")}})
+    return {k: sum(r["launches"][k] for r in ranks) for k in ops.KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
 
-def phase_timing(gen):
+def phase_timing(gen, dist_sort_ms):
     out = {}
     b, n = SCAN_SHAPE
     x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
@@ -1826,13 +2209,17 @@ def phase_timing(gen):
     out.update(time_seg(gen))
     out.update(time_linrec(gen))
     out.update(time_b6_b17(gen))
+    out.update(time_b7h(gen))
     emit({"phase": "timing", "kernels": out, "top_p_sample_ms": sampler,
+          "dist_sort_f32_ms": {f"D{d}": ms for d, ms in dist_sort_ms.items()},
+          "dist_sort_transport": "gloo over loopback, operands staged through host memory",
           "segment_top_p_sample_ms": out.pop("segment_top_p_sample_ms"),
           "shapes": {"B1": list(SCAN_SHAPE), "B2-B4": list(SCAN_SHAPE),
                      "B5": [[b, n], [VOCAB_ROWS, v]], "B7": [VOCAB_ROWS, v],
                      "B8": [VOCAB_ROWS, v], "B9-B12": list(SCAN_SHAPE),
                      "B13-B16": [list(SCAN_SHAPE), list(SSD_ROWS)],
-                     "B6": list(SCAN_SHAPE), "B17": [SSD[k] for k in (
+                     "B6": list(SCAN_SHAPE), "B7h": list(B7H_SHAPE),
+                     "dist_sort": list(DIST_SHAPE), "B17": [SSD[k] for k in (
                          "batch", "seq", "heads", "head_dim", "state", "chunk")],
                      "segment_top_p_sample": [4 * VOCAB]}})
     return out
@@ -2068,6 +2455,31 @@ def time_b6_b17(gen):
     return out
 
 
+def time_b7h(gen):
+    """One B7h pass (radix 16) at (4, 2^22) int32 keys, the dist sort's shard at D = 4,
+    in turns with its plain version.  Its bound: a 4-byte key and a 4-byte index in
+    and out, 16 B an element.  ``library_ms`` is a stable ``torch.sort`` of the
+    digits plus a ``bincount`` of them (two calls; the digits are taken beforehand
+    and the payloads' gathers are left out)."""
+    b, n = B7H_SHAPE
+    keys = torch.randint(-(1 << 31), (1 << 31) - 1, B7H_SHAPE, generator=gen, device=DEV,
+                         dtype=torch.int64).to(torch.int32)
+    perm = torch.arange(n, dtype=torch.int32, device=DEV).expand(b, n).contiguous()
+    k, pl = paired_ms(lambda: split_mm.radix_pass_multibit(keys, perm, shift=28, pass_bits=4,
+                                                           with_counts=True),
+                      lambda: split_mm.radix_pass_plain(keys, perm, shift=28, pass_bits=4,
+                                                        with_counts=True), 5)
+    digits = (keys.long() >> 28) & 15
+    flat = (digits + (torch.arange(b, device=DEV)[:, None] << 4)).reshape(-1)
+
+    def lib():
+        torch.sort(digits, dim=-1, stable=True)
+        torch.bincount(flat, minlength=b << 4)
+
+    return {"B7h": dict(ms=k, plain_ms=pl, library_ms=cuda_ms(lib, 5),
+                        bound_ms=bound(b * n * 16)[0], bound_by="bytes")}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2106,7 +2518,10 @@ def main() -> int:
     b17_err = phase_b17(gen)
     multisplit_counts = main_multisplit(gen)
     forward_counts = forward_zamba2(gen)
-    timing = phase_timing(gen)
+    b7h_err = phase_b7h(gen)
+    dist_counts, dist_sort_ms = phase_dist()
+    sharded_counts = phase_serve_sharded()
+    timing = phase_timing(gen, dist_sort_ms)
     seg_launches = {k: segmented_counts[k] + serve_s_counts[k] for k in ops.KERNELS}
     lin_launches = {k: linrec_counts[k] + zamba_counts[k] + forward_counts[k]
                     for k in ops.KERNELS}
@@ -2138,6 +2553,10 @@ def main() -> int:
          "launches: topp_kernel serving of llama3-8b and zamba2)", "radix_pass.cu",
          "src/repro/kernels/split_mm.py:262",
          serve_counts["radix_pass"] + zamba_counts["radix_pass"], float(b7_err), timing["B7"]),
+        ("B7h radix_pass_multibit(with_counts=True) (radix-16 pass exporting its digit "
+         "histogram; launches: the dist phase's sorts and samplers, summed over the ranks "
+         "of both worlds)", "radix_pass_hist.cu", "src/repro/kernels/split_mm.py:273", 0,
+         float(b7h_err), timing["B7h"]),
         ("B8 topp_mask_sample_tiles (fused top-p tail)", "topp_tail.cu",
          "src/repro/kernels/split_mm.py:360",
          serve_counts["topp_tail"] + zamba_counts["topp_tail"], float(b8_err), timing["B8"]),
@@ -2175,11 +2594,17 @@ def main() -> int:
          "src/repro/kernels/ssd_chunk.py:27", forward_counts["ssd_chunk"], b17_err,
          timing["B17"]),
     ]
-    kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep, launches=n,
+    # every row also counts the dist phase's checked calls on every rank (the kernel
+    # methods' scans, splits and passes) and the topp_sharded run (none: "matmul")
+    kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
+                    launches=n + dist_counts[f[:-3]] + sharded_counts[f[:-3]],
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
                for name, f, rep, n, err, t in rows]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"kernels launched no time on their main paths: "
+          f"{[k['name'] for k in kernels if not k['launches']]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,12 @@
 from repro_torch.core.autotune import (
     AutotuneFallbackWarning, maybe_resolve, method_override, resolve_method,
 )
+from repro_torch.core.comm import gather_last, grid_groups, shard_last
+from repro_torch.core.dist_ops import (
+    dist_linear_scan, dist_radix_sort, dist_segment_scan, dist_sort, dist_top_p_sample,
+    dist_topk,
+)
+from repro_torch.core.distributed import mcscan, mcscan_local
 from repro_torch.core.linrec import cummax, cumprod, linear_scan, linrec_accum_dtype_for
 from repro_torch.core.precision import PRECISIONS, pdot, resolve_precision
 from repro_torch.core.primitives import (

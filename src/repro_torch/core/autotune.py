@@ -58,6 +58,12 @@ OP_ALIASES: Dict[str, str] = {
     "segment_top_p_sample": "segment_scan",
     "segment_linear_scan": "segment_scan",
     "segment_ids": "segment_scan",
+    # the distributed siblings resolve on the per-shard length, with the local
+    # family's crossovers (each shard runs the same mask and prefix scans)
+    "dist_sort": "sort",
+    "dist_top_p_sample": "top_p_sample",
+    "dist_linear_scan": "linear_scan",
+    "dist_segment_scan": "segment_scan",
 }
 
 

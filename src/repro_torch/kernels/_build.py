@@ -37,6 +37,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SOURCES: Dict[str, tuple] = {
     "scan_mm": ("repro_scan_tiles", [_P, _P, _I, _L, _I, _I, _I, _P]),
     "radix_pass": ("repro_radix_pass", [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
+    "radix_pass_hist": ("repro_radix_pass_hist", [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
     "topp_tail": ("repro_topp_tail", [_P, _P, _P, _I, _L, _F, _P]),
     "block_sums": ("repro_block_sums", [_P, _P, _I, _L, _I, _L, _I, _P]),
     "carry_scan": ("repro_carry_scan", [_P, _P, _I, _L, _I, _P]),

@@ -1,10 +1,10 @@
 """Public kernel entry points, and the launch counters of the port's kernels.
 
-Port of ``repro/kernels/ops.py`` for the kernels ported so far (B1–B17
-but B7h).  The kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
+Port of ``repro/kernels/ops.py`` for every kernel (B1–B17 and B7h).  The
+kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
 ``scan_pipeline.{block_partial_sums,carry_scan,block_scan_carry}`` (B2–B4),
 ``split_mm.split_tiles`` (B5), ``split_mm.multi_split_tiles`` (B6),
-``split_mm.radix_pass_multibit`` (B7),
+``split_mm.radix_pass_multibit`` (B7; with ``with_counts`` B7h),
 ``split_mm.topp_mask_sample_tiles`` (B8),
 ``segscan_mm.{seg_scan_tiles,seg_block_summaries,seg_carry_scan,seg_block_scan_carry}``
 (B9–B12),
@@ -32,6 +32,8 @@ __all__ = ["radix_sort_enc_kernel",
 KERNELS = {
     "scan_mm": "B1 src/repro/kernels/scan_mm.py:36 _kernel",
     "radix_pass": "B7 src/repro/kernels/split_mm.py:262 _radix_pass_multibit_kernel",
+    "radix_pass_hist": "B7h src/repro/kernels/split_mm.py:273 "
+                       "_radix_pass_multibit_hist_kernel",
     "topp_tail": "B8 src/repro/kernels/split_mm.py:360 _topp_kernel",
     "block_sums": "B2 src/repro/kernels/scan_pipeline.py:71 _block_sums_kernel",
     "carry_scan": "B3 src/repro/kernels/scan_pipeline.py:105 _carry_scan_kernel",

@@ -1,7 +1,7 @@
-"""B5 (SplitInd), B6 (the multi-way split), B7 (one radix-2^k pass) and B8
-(the fused top-p tail).
+"""B5 (SplitInd), B6 (the multi-way split), B7 and B7h (one radix-2^k pass,
+without and with its histogram) and B8 (the fused top-p tail).
 
-Port of four kernels of ``repro/kernels/split_mm.py``:
+Port of five kernels of ``repro/kernels/split_mm.py``:
 
 * :func:`split_tiles` (``csrc/split.cu``): SplitInd — the mask scan, stable
   destinations (flagged elements first) and the scatter of the payload and
@@ -11,7 +11,9 @@ Port of four kernels of ``repro/kernels/split_mm.py``:
   scatter of the payload and its original index.
 * :func:`radix_pass_multibit` (``csrc/radix_pass.cu``): one stable LSB
   radix-2^k pass — digit extraction, the one-hot mask scans that rank each key
-  within its bucket, and the scatter of keys and permutation.
+  within its bucket, and the scatter of keys and permutation; with
+  ``with_counts`` it is B7h (``csrc/radix_pass_hist.cu``), which also exports
+  the row's digit histogram for the distributed sort.
 * :func:`topp_mask_sample_tiles` (``csrc/topp_tail.cu``): prefix sum of the
   sorted probabilities, the llama3 cut ``(cum - sp) > p``, the masked CDF and
   the inverse-transform sample, one int32 per row.
@@ -191,11 +193,13 @@ def multi_split_tiles(x: torch.Tensor, digits: torch.Tensor, *, num_buckets: int
 
 
 def radix_pass_plain(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
-                     pass_bits: int):
+                     pass_bits: int, with_counts: bool = False):
     """Plain version of one radix pass on ``(b, n)`` raw-word keys.
 
     Bucket ranks are exclusive scans of the ``(b, 2^k, n)`` one-hot digit
-    masks; destinations are the bucket bases plus those ranks.
+    masks; destinations are the bucket bases plus those ranks.  With
+    ``with_counts`` the ``(b, 2^k)`` int32 bucket totals come out as well
+    (the plain version of B7h).
     """
     radix = 1 << pass_bits
     digits = ((work >> shift) & (radix - 1)).to(torch.int64)
@@ -206,12 +210,13 @@ def radix_pass_plain(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
     base = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
     rank = torch.gather(ex, 1, digits[:, None, :])[:, 0]
     dest = (torch.gather(base, 1, digits) + rank).to(torch.int64)
-    return (torch.empty_like(work).scatter_(1, dest, work),
-            torch.empty_like(perm).scatter_(1, dest, perm))
+    out = (torch.empty_like(work).scatter_(1, dest, work),
+           torch.empty_like(perm).scatter_(1, dest, perm))
+    return out + (counts,) if with_counts else out
 
 
 def radix_pass_multibit(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
-                        pass_bits: int):
+                        pass_bits: int, with_counts: bool = False):
     """One stable radix-2^k pass: ``(keys, perm)`` regrouped by digit ``shift``.
 
     Args:
@@ -219,9 +224,14 @@ def radix_pass_multibit(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
         perm: ``(b, n)`` int32 permutation carried along with the keys.
         shift: Lowest bit of the digit.
         pass_bits: Digit width ``k`` in ``[1, 8]``.
+        with_counts: Also return the row's ``(b, 2^k)`` int32 digit
+            histogram: on CUDA tensors that launches B7h
+            (``csrc/radix_pass_hist.cu``) instead of B7.  Both kernels mask
+            the ragged end of a row, so, unlike the Pallas wrapper, nothing is
+            padded and the histogram counts only the row's own keys.
 
     Returns:
-        ``(keys, perm)`` after the pass.
+        ``(keys, perm)`` after the pass, and ``counts`` with ``with_counts``.
     """
     if work.dtype not in KEY_DTYPES:
         raise TypeError(f"radix_pass_multibit: keys must be one of "
@@ -239,17 +249,25 @@ def radix_pass_multibit(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
     if work.device != perm.device:
         raise ValueError("radix_pass_multibit: keys and perm live on different devices")
     if not work.is_cuda:
-        return radix_pass_plain(work, perm, shift=shift, pass_bits=pass_bits)
+        return radix_pass_plain(work, perm, shift=shift, pass_bits=pass_bits,
+                                with_counts=with_counts)
     work, perm = work.contiguous(), perm.contiguous()
     b, n = work.shape
     keys_out = torch.empty_like(work)
     perm_out = torch.empty_like(perm)
     with torch.cuda.device(work.device):
         stream = torch.cuda.current_stream(work.device).cuda_stream
-        _build.launch("radix_pass", work.data_ptr(), perm.data_ptr(),
-                      keys_out.data_ptr(), perm_out.data_ptr(), b, n, shift,
-                      pass_bits, work.element_size(), stream)
-    return keys_out, perm_out
+        if not with_counts:
+            _build.launch("radix_pass", work.data_ptr(), perm.data_ptr(),
+                          keys_out.data_ptr(), perm_out.data_ptr(), b, n, shift,
+                          pass_bits, work.element_size(), stream)
+            return keys_out, perm_out
+        # zeros: for rows of no keys the entry point launches nothing
+        counts = torch.zeros((b, 1 << pass_bits), dtype=torch.int32, device=work.device)
+        _build.launch("radix_pass_hist", work.data_ptr(), perm.data_ptr(),
+                      keys_out.data_ptr(), perm_out.data_ptr(), counts.data_ptr(), b, n,
+                      shift, pass_bits, work.element_size(), stream)
+    return keys_out, perm_out, counts
 
 
 def topp_tail_plain(sp: torch.Tensor, u: torch.Tensor, *, p: float) -> torch.Tensor:

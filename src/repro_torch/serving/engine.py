@@ -6,8 +6,14 @@ radix passes + the B8 tail), ``topp_blocked`` (every scan of the sampler on
 the §4 blocked pipeline, B2–B4), ``topp_segmented`` (the batch's logit rows
 packed as segments of one array and sampled by ``segment_top_p_sample``, whose
 ``method="auto"`` the caller steers with ``method_override``: ``"kernel"``
-runs B9, ``"blocked"`` B10–B12) and ``topp_xla`` (a stable ``torch.argsort``;
-the name matches the JAX package's baseline).  :meth:`ServeEngine.sample_packed`
+runs B9, ``"blocked"`` B10–B12), ``topp_sharded`` (the vocab sharded over the
+ranks of ``mesh=``, a process group, and sampled by ``dist_top_p_sample``
+with ``method="matmul"``; with no group, or a group of one rank, it is the
+local matmul sampler that ``topp_scan`` runs) and ``topp_xla`` (a stable
+``torch.argsort``; the name matches the JAX package's baseline).  Under
+``topp_sharded`` the model runs whole on every rank, and each rank samples its
+slice of the vocab: the JAX engine's ``use_mesh`` weight sharding comes with
+training and sharding (ROADMAP Queue A item 11).  :meth:`ServeEngine.sample_packed`
 samples a ragged packed batch of logit rows without padding.  The engine runs
 on the card unless it is given ``device="cpu"``.  ``scan_method=`` overrides
 the model config's scan method, which the hybrid (zamba2) models' SSD layers
@@ -28,7 +34,8 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core import guards
+from repro_torch.core import comm, guards
+from repro_torch.core.dist_ops import dist_top_p_sample
 from repro_torch.core.primitives import METHODS, top_p_sample
 from repro_torch.core.segmented import SegmentedBatch, segment_top_p_sample
 from repro_torch.models.model import build_model
@@ -38,9 +45,9 @@ __all__ = ["ServeEngine"]
 
 class ServeEngine:
     SAMPLERS = ("greedy", "topp_auto", "topp_scan", "topp_kernel", "topp_blocked",
-                "topp_segmented", "topp_xla")
+                "topp_segmented", "topp_sharded", "topp_xla")
 
-    def __init__(self, cfg, params, *, max_len: int = 512, top_p: float = 0.9,
+    def __init__(self, cfg, params, *, mesh=None, max_len: int = 512, top_p: float = 0.9,
                  temperature: float = 1.0, sampler: str = "topp_scan",
                  bits_per_pass: int = 4, scan_method: Optional[str] = None, device=None):
         self.sampler = guards.validate_choice(sampler, self.SAMPLERS,
@@ -59,6 +66,7 @@ class ServeEngine:
             cfg = dataclasses.replace(cfg, scan_method=scan_method)
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh
         self.top_p = top_p
         self.temperature = temperature
         self.model = build_model(cfg)
@@ -66,6 +74,14 @@ class ServeEngine:
     def _sample(self, logits: torch.Tensor, generator, u) -> torch.Tensor:
         if self.sampler == "greedy":
             return torch.argmax(logits, dim=-1).to(torch.int32)
+        if (self.sampler == "topp_sharded" and self.mesh is not None
+                and comm.axis_size(self.mesh) > 1):
+            v = logits.shape[-1]
+            shard = comm.shard_last(logits, comm.axis_size(self.mesh),
+                                    comm.axis_index(self.mesh))
+            return dist_top_p_sample(shard, v, self.mesh, generator=generator, p=self.top_p,
+                                     temperature=self.temperature, method="matmul",
+                                     bits_per_pass=self.bits_per_pass, u=u)
         if self.sampler == "topp_segmented":
             b, v = logits.shape
             offsets = torch.arange(b + 1, dtype=torch.int32, device=logits.device) * v

@@ -74,6 +74,59 @@ def test_radix_pass_kernel_matches_plain(dev, word, k, n):
         assert torch.equal(kw, pw) and torch.equal(kp, pp)
 
 
+@pytest.mark.parametrize("n", [1, 33, 5000, 70001])
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("word", [torch.uint8, torch.int16, torch.int32])
+def test_radix_pass_hist_kernel_matches_plain(dev, word, k, n):
+    """B7h: keys, permutation and histogram exact; the histogram counts the row's
+    own keys (the ragged end is masked, nothing padded) and equals a bincount."""
+    bits = split_mm.KEY_DTYPES[word]
+    w = torch.randint(-(1 << 31), (1 << 31) - 1, (3, n), generator=_gen(dev), device=dev,
+                      dtype=torch.int64).to(word)
+    perm = torch.arange(n, dtype=torch.int32, device=dev).expand(3, n).contiguous()
+    for shift in sorted({0, (bits - k) // 2, bits - k}):
+        ops.reset_launch_counts()
+        kw, kp, kc = split_mm.radix_pass_multibit(w, perm, shift=shift, pass_bits=k,
+                                                  with_counts=True)
+        assert ops.launch_counts() == _counts(radix_pass_hist=1)
+        pw, pp, pc = split_mm.radix_pass_plain(w, perm, shift=shift, pass_bits=k,
+                                               with_counts=True)
+        assert torch.equal(kw, pw) and torch.equal(kp, pp) and torch.equal(kc, pc)
+        digits = ((w.to(torch.int64) >> shift) & ((1 << k) - 1))
+        for r in range(3):
+            assert torch.equal(kc[r], torch.bincount(digits[r], minlength=1 << k).int())
+
+
+def test_radix_pass_hist_chain_sorts_int32_keys(dev):
+    """The eight radix-16 passes of a 32-bit key sort, each on B7h."""
+    x = torch.randint(-(1 << 31), (1 << 31) - 1, (4, 100003), generator=_gen(dev),
+                      device=dev, dtype=torch.int64).to(torch.int32)
+    work = x ^ -(1 << 31)                                   # the sortable encoding
+    perm = torch.arange(x.shape[-1], dtype=torch.int32, device=dev).expand(x.shape)
+    perm = perm.contiguous()
+    for shift in range(0, 32, 4):
+        work, perm, counts = split_mm.radix_pass_multibit(work, perm, shift=shift,
+                                                          pass_bits=4, with_counts=True)
+        assert bool((counts.sum(-1) == x.shape[-1]).all())
+    lv, li = torch.sort(x, dim=-1, stable=True)
+    assert torch.equal(work ^ -(1 << 31), lv) and torch.equal(perm.long(), li)
+
+
+def test_dist_sort_on_the_card_in_a_gloo_world(dev, tmp_path):
+    """dist_sort(method="kernel") in a world of 2 ranks sharing the card: bit-equal
+    to the local kernel sort, 8 B7h launches a rank and no B7."""
+    import os
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.world import run_world
+
+    _build.build_all()
+    res = run_world("torch_dist_worlds:run_cuda_sort", 2, dict(n=100003, seed=3),
+                    workdir=tmp_path, timeout=300, pythonpath=[os.path.dirname(__file__)])
+    for r in res:
+        assert r["equal"] and r["launches"] == _counts(radix_pass_hist=8)
+
+
 def test_radix_sort_kernel_is_a_stable_sort(dev):
     x = torch.randn((3, 70001), generator=_gen(dev), device=dev).to(torch.bfloat16)
     v, i = radix_sort(x, descending=True, method="kernel")

@@ -1,7 +1,9 @@
 """Guards of the PyTorch port: import boundary, device defaults, CPU fallbacks.
 
-The port (``src/repro_torch``) and ``chip_smoke.py`` import neither JAX nor
-the JAX package; its entry points default to the GPU and refuse to carry on
+The port (``src/repro_torch``, the rank entry point of its distributed
+worlds ``launch/world.py`` included), ``chip_smoke.py`` and the rank-side
+cases of the distributed tests (``tests/torch_dist_worlds.py``) import
+neither JAX nor the JAX package; its entry points default to the GPU and refuse to carry on
 quietly without one; its kernel wrappers take the plain path only for CPU
 tensors, and then count no launch.
 """
@@ -25,7 +27,8 @@ from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worlds.py"]
 
 
 def _imported_modules(path: pathlib.Path):
@@ -70,6 +73,7 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     x = torch.arange(300, dtype=torch.int32).reshape(3, 100)
     scan_mm.scan_tiles(x, s=8)
     ops.radix_sort_enc_kernel(x.to(torch.int16), bits=16, bits_per_pass=4)
+    split_mm.radix_pass_multibit(x, x, shift=4, pass_bits=4, with_counts=True)
     split_mm.topp_mask_sample_tiles(torch.full((2, 5), 0.2), torch.full((2, 1), 0.5), p=0.9)
     scan_pipeline.blocked_scan(torch.ones((2, 5000)), s=8, block_tiles=1)   # nb > 1
     split_mm.split_tiles(x, x % 3 == 0)
@@ -85,7 +89,8 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     split_mm.multi_split_tiles(x, x % 5, num_buckets=5)
     ssd_chunk.ssd_chunk_scan(torch.ones((1, 40, 2, 4)), -torch.ones((1, 40, 2)),
                              torch.ones((1, 40, 2, 3)), torch.ones((1, 40, 2, 3)), chunk=16)
-    assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 0, "topp_tail": 0,
+    assert ops.launch_counts() == {"scan_mm": 0, "radix_pass": 0, "radix_pass_hist": 0,
+                                   "topp_tail": 0,
                                    "block_sums": 0, "carry_scan": 0, "block_scan": 0,
                                    "split": 0, "seg_scan": 0, "seg_summaries": 0,
                                    "seg_carry": 0, "seg_block_scan": 0, "linrec_scan": 0,
