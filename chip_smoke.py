@@ -8,7 +8,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 1. build   -- compile the port's CUDA kernels with nvcc (one process per source);
 2. device  -- the card's name and power limit, as nvidia-smi reports them;
 3. b1      -- the ScanU/ScanUL1 tile-scan kernel against its plain version at (4, 2^24);
-4. b7      -- the radix-16 pass chain on (4, 128256) bf16 and fp32 keys, exact;
+4. b7      -- the radix-16 pass chain on (4, 128256) bf16 and fp32 keys, exact; one
+              pass at and around the tile split's edge (rows of 1, TILE - 1, TILE,
+              TILE + 1 and 3 TILE + 17 keys, batches of 1 and 64, 1-, 4- and 8-bit
+              digits of 8-, 16- and 32-bit keys), exact and one launch a pass;
 5. b8      -- the fused top-p tail at (4, 128256): on every row within the window
               of indices that the stated band allows, and exact where that
               window holds one index;
@@ -57,8 +60,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 17. b7h    -- the radix pass that exports its histogram against its plain version at
               (4, 2^22) int32 keys (one shard of a 2^24 row at D = 4): every shift of
               the 8 radix-16 passes, chained into a stable sort; a ragged row and
-              16-bit keys; keys, permutation and counts exact, counts equal to a
-              bincount of the digits;
+              16-bit keys; the tile-edge cases of ``b7``; keys, permutation and counts
+              exact, counts equal to a bincount of the digits;
 18. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
               card (a process a rank): dist_sort / dist_topk (method="kernel") of
               (4, 2^24) fp32 and bf16 keys bit-equal to the local kernel sort, exactly
@@ -75,7 +78,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               step's ms and collectives;
 20. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
-              not NCCL's).
+              not NCCL's).  The B7 chain, a pass and the torch.sort beside them are
+              timed as eager calls, as every other row, and as CUDA graph replays
+              (their device time, under names of their own).
 
 The ranks of the worlds start as fresh interpreters (``repro_torch.launch.world``)
 after the parent has built every kernel; each rank zeroes its counters just before
@@ -216,6 +221,22 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` captured once in a CUDA graph and replayed ``reps``
+    times: the kernels back to back with no host work between them.  For calls whose
+    host time (Python, allocation, launches) exceeds their device time."""
+    side = torch.cuda.Stream(DEV)
+    side.wait_stream(torch.cuda.current_stream(DEV))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream(DEV).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
 def paired_ms(kernel, plain, reps: int):
     """Kernel and plain times taken in turns (plain, kernel, kernel, plain)."""
     p0 = cuda_ms(plain, reps)
@@ -301,6 +322,42 @@ def _enc16_desc(keys16):
     return ~torch.where(u < 0, ~u, u | -(1 << 15))
 
 
+def _b7_hold(work, perm, shift, bits, tag) -> int:
+    """One B7 pass against its plain version."""
+    kw, kp = split_mm.radix_pass_multibit(work, perm, shift=shift, pass_bits=bits)
+    pw, pp = split_mm.radix_pass_plain(work, perm, shift=shift, pass_bits=bits)
+    check(torch.equal(kw, pw) and torch.equal(kp, pp), f"B7 {tag} shift={shift}: != plain")
+    return max(int((kw.long() - pw.long()).abs().max()), int((kp - pp).abs().max()))
+
+
+def radix_tile_edges(gen, with_counts: bool) -> dict:
+    """One pass of B7 (``with_counts``: B7h) per case at and around the edge of the
+    tile split, each exactly one launch and exact against its plain version (B7h's
+    counts also against a bincount): rows of 1, TILE - 1, TILE, TILE + 1 and
+    3 TILE + 17 keys with runs of equal keys across every tile edge, batches of 1
+    and 64, 1-, 4- and 8-bit digits (the top digit) of 8-, 16- and 32-bit keys."""
+    tile = split_mm.RADIX_TILE
+    name = "radix_pass_hist" if with_counts else "radix_pass"
+    worst, cases = 0, 0
+    for word, key_bits in split_mm.KEY_DTYPES.items():
+        for b in (1, 64):
+            for n in (1, tile - 1, tile, tile + 1, 3 * tile + 17):
+                w = torch.randint(-(1 << 31), (1 << 31) - 1, (b, n), generator=gen, device=DEV,
+                                  dtype=torch.int64).to(word)
+                for edge in range(tile, n, tile):
+                    w[:, edge - 5:edge + 5] = w[:, edge - 5:edge - 4]
+                perm = torch.randperm(n, generator=gen, device=DEV).to(torch.int32)
+                perm = perm.expand(b, n).contiguous()
+                for k in (1, 4, 8):
+                    tag = f"{word} b={b} n={n} k={k}"
+                    ops.reset_launch_counts()
+                    hold = _b7h_hold if with_counts else _b7_hold
+                    worst = max(worst, hold(w, perm, key_bits - k, k, f"tile edge {tag}"))
+                    expect_counts(ops.launch_counts(), f"{name} {tag}", **{name: 1})
+                    cases += 1
+    return {"tile": tile, "tile_edge_cases": cases, "tile_edge_max_abs_err": worst}
+
+
 def phase_b7(gen):
     n = 128256
     probs = torch.softmax(torch.randn((VOCAB_ROWS, n), generator=gen, device=DEV) * 2, -1)
@@ -329,8 +386,10 @@ def phase_b7(gen):
             check(torch.equal(i.long(), lib_i) and torch.equal(v, lib_v),
                   f"B7 {name} bits_per_pass={bpp}: != stable torch.sort")
             results.append({"keys": name, "bits_per_pass": bpp, "exact": True})
+    edges = radix_tile_edges(gen, with_counts=False)
+    worst = max(worst, edges["tile_edge_max_abs_err"])
     sync()
-    emit({"phase": "b7", "shape": [VOCAB_ROWS, n], "cases": results,
+    emit({"phase": "b7", "shape": [VOCAB_ROWS, n], "cases": results, **edges,
           "max_abs_err_per_pass_vs_plain": worst})
     return worst
 
@@ -1864,9 +1923,11 @@ def phase_b7h(gen):
     k16 = (keys & 0xFFFF).to(torch.int16)
     for shift in range(0, 16, 4):
         worst = max(worst, _b7h_hold(k16, perm, shift, 4, "int16"))
+    edges = radix_tile_edges(gen, with_counts=True)
+    worst = max(worst, edges["tile_edge_max_abs_err"])
     sync()
     emit({"phase": "b7h", "shape": list(B7H_SHAPE), "passes_int32": 8, "ragged_n": m,
-          "passes_int16": 4, "exact": True, "max_abs_err_vs_plain": worst})
+          "passes_int16": 4, **edges, "exact": True, "max_abs_err_vs_plain": worst})
     return worst
 
 
@@ -2181,14 +2242,27 @@ def phase_timing(gen, dist_sort_ms):
             w, pm = split_mm.radix_pass_plain(w, pm, shift=sh, pass_bits=4)
         return w, pm
 
-    k, pl = paired_ms(lambda: ops.radix_sort_enc_kernel(work, bits=16, bits_per_pass=4),
-                      plain_chain, 50)
-    one = cuda_ms(lambda: split_mm.radix_pass_multibit(work, perm, shift=0, pass_bits=4), 50)
-    lib = cuda_ms(lambda: torch.sort(keys16, dim=-1, descending=True, stable=True), 50)
+    def chain(bpp):
+        return lambda: ops.radix_sort_enc_kernel(work, bits=16, bits_per_pass=bpp)
+
+    def one():
+        split_mm.radix_pass_multibit(work, perm, shift=0, pass_bits=4)
+
+    def lib():
+        torch.sort(keys16, dim=-1, descending=True, stable=True)
+
+    # ms: back-to-back eager calls, as every row is timed (host in the loop);
+    # device_ms: the same calls replayed as a CUDA graph, the kernels' device time
+    # alone (a pass is a few microseconds of device work under tens of Python,
+    # allocation and launch)
+    k, pl = paired_ms(chain(4), plain_chain, 50)
     # the chain's function: 2-byte keys in, 2-byte keys and 4-byte perm out
-    out["B7"] = dict(ms=k, plain_ms=pl, library_ms=lib,
+    out["B7"] = dict(ms=k, plain_ms=pl, library_ms=cuda_ms(lib, 50),
                      bound_ms=bound(VOCAB_ROWS * v * 8)[0], bound_by="bytes",
-                     ms_per_pass=one, pass_bound_ms=bound(VOCAB_ROWS * v * 12)[0])
+                     device_ms=graph_ms(chain(4), 200), library_device_ms=graph_ms(lib, 200),
+                     ms_per_pass=cuda_ms(one, 50), device_ms_per_pass=graph_ms(one, 200),
+                     pass_bound_ms=bound(VOCAB_ROWS * v * 12)[0],
+                     bits8_ms=cuda_ms(chain(8), 50), bits8_device_ms=graph_ms(chain(8), 200))
 
     sp = torch.sort(torch.softmax(torch.randn((VOCAB_ROWS, v), generator=gen, device=DEV) * 4,
                                   -1), -1, descending=True).values
@@ -2218,7 +2292,8 @@ def phase_timing(gen, dist_sort_ms):
                      "B5": [[b, n], [VOCAB_ROWS, v]], "B7": [VOCAB_ROWS, v],
                      "B8": [VOCAB_ROWS, v], "B9-B12": list(SCAN_SHAPE),
                      "B13-B16": [list(SCAN_SHAPE), list(SSD_ROWS)],
-                     "B6": list(SCAN_SHAPE), "B7h": list(B7H_SHAPE),
+                     "B6": list(SCAN_SHAPE), "B7h": [list(B7H_SHAPE), [B7H_SHAPE[0],
+                                                                         2 * B7H_SHAPE[1]]],
                      "dist_sort": list(DIST_SHAPE), "B17": [SSD[k] for k in (
                          "batch", "seq", "heads", "head_dim", "state", "chunk")],
                      "segment_top_p_sample": [4 * VOCAB]}})
@@ -2457,10 +2532,11 @@ def time_b6_b17(gen):
 
 def time_b7h(gen):
     """One B7h pass (radix 16) at (4, 2^22) int32 keys, the dist sort's shard at D = 4,
-    in turns with its plain version.  Its bound: a 4-byte key and a 4-byte index in
-    and out, 16 B an element.  ``library_ms`` is a stable ``torch.sort`` of the
-    digits plus a ``bincount`` of them (two calls; the digits are taken beforehand
-    and the payloads' gathers are left out)."""
+    in turns with its plain version, and at (4, 2^23), the shard at D = 2.  Its
+    bound: a 4-byte key and a 4-byte index in and out, 16 B an element.
+    ``library_ms`` is a stable ``torch.sort`` of the digits plus a ``bincount`` of
+    them (two calls; the digits are taken beforehand and the payloads' gathers are
+    left out)."""
     b, n = B7H_SHAPE
     keys = torch.randint(-(1 << 31), (1 << 31) - 1, B7H_SHAPE, generator=gen, device=DEV,
                          dtype=torch.int64).to(torch.int32)
@@ -2476,8 +2552,15 @@ def time_b7h(gen):
         torch.sort(digits, dim=-1, stable=True)
         torch.bincount(flat, minlength=b << 4)
 
+    # the D = 2 shard, (4, 2^23)
+    keys2 = torch.randint(-(1 << 31), (1 << 31) - 1, (b, 2 * n), generator=gen, device=DEV,
+                          dtype=torch.int64).to(torch.int32)
+    perm2 = torch.arange(2 * n, dtype=torch.int32, device=DEV).expand(b, 2 * n).contiguous()
+    d2 = cuda_ms(lambda: split_mm.radix_pass_multibit(keys2, perm2, shift=28, pass_bits=4,
+                                                      with_counts=True), 5)
     return {"B7h": dict(ms=k, plain_ms=pl, library_ms=cuda_ms(lib, 5),
-                        bound_ms=bound(b * n * 16)[0], bound_by="bytes")}
+                        bound_ms=bound(b * n * 16)[0], bound_by="bytes",
+                        d2_shard_ms=d2, d2_shard_bound_ms=bound(b * 2 * n * 16)[0])}
 
 
 def main() -> int:
@@ -2549,8 +2632,9 @@ def main() -> int:
         ("B6 multi_split_tiles (stable R-way split; launches: multi_split(method='kernel') "
          "at (4, 2^24), R = 16)", "multi_split.cu", "src/repro/kernels/split_mm.py:194",
          multisplit_counts["multi_split"], float(b6_err), timing["B6"]),
-        ("B7 radix_pass_multibit (radix-16 pass; times are the 4-pass bf16 sort chain; "
-         "launches: topp_kernel serving of llama3-8b and zamba2)", "radix_pass.cu",
+        ("B7 radix_pass_multibit (radix-16 pass; times are the 4-pass bf16 sort chain and "
+         "a stable torch.sort, eager; launches: topp_kernel "
+         "serving of llama3-8b and zamba2)", "radix_pass.cu",
          "src/repro/kernels/split_mm.py:262",
          serve_counts["radix_pass"] + zamba_counts["radix_pass"], float(b7_err), timing["B7"]),
         ("B7h radix_pass_multibit(with_counts=True) (radix-16 pass exporting its digit "

@@ -10,8 +10,9 @@ Port of five kernels of ``repro/kernels/split_mm.py``:
   split by int32 digits — bucket counts, bucket bases, stable ranks, and the
   scatter of the payload and its original index.
 * :func:`radix_pass_multibit` (``csrc/radix_pass.cu``): one stable LSB
-  radix-2^k pass — digit extraction, the one-hot mask scans that rank each key
-  within its bucket, and the scatter of keys and permutation; with
+  radix-2^k pass as a tile split over many CTAs a row — tile digit counts,
+  their bucket-major scan, then each key's in-tile rank (the one-hot mask
+  scans) plus its tile's base, and the scatter of keys and permutation; with
   ``with_counts`` it is B7h (``csrc/radix_pass_hist.cu``), which also exports
   the row's digit histogram for the distributed sort.
 * :func:`topp_mask_sample_tiles` (``csrc/topp_tail.cu``): prefix sum of the
@@ -35,13 +36,17 @@ from repro_torch.kernels import _build
 
 __all__ = ["split_tiles", "split_plain", "multi_split_tiles", "multi_split_plain",
            "radix_pass_multibit", "radix_pass_plain", "topp_mask_sample_tiles",
-           "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND", "MULTI_SPLIT_MAX_BUCKETS"]
+           "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND", "MULTI_SPLIT_MAX_BUCKETS", "RADIX_TILE"]
 
 KEY_DTYPES = {torch.uint8: 8, torch.int16: 16, torch.int32: 32}
 
 # the most buckets B6 takes: one warp's R + 1 counters and the R + 1 totals
 # fill the card's 227 KB of shared memory (csrc/multi_split.cu)
 MULTI_SPLIT_MAX_BUCKETS = 232448 // 8 - 1
+
+# keys a tile of the B7/B7h tile split: kTile in csrc/radix_pass.cuh, which the
+# entry points check it against; the plain version's default tile
+RADIX_TILE = 4096
 
 # fp32 summation-order band of the fused top-p tail, relative to the row's
 # probability mass (derivation in csrc/topp_tail.cu)
@@ -192,24 +197,78 @@ def multi_split_tiles(x: torch.Tensor, digits: torch.Tensor, *, num_buckets: int
             cnt.reshape(*lead, num_buckets))
 
 
+def _radix_tile_hist(digits: torch.Tensor, radix: int, tile: int = RADIX_TILE):
+    """Phase 1 of the tile split (the upsweep): each tile's digit counts.
+
+    ``digits``: ``(b, n)`` int64 digits in ``[0, radix)``.  Returns the
+    ``(b, R, T)`` int32 counts, bucket-major, of the ``T = ceil(n / tile)``
+    tiles of ``tile`` keys; the ragged last tile counts only its own keys.
+    """
+    return _tile_one_hot(digits, radix, tile).sum(-1, dtype=torch.int32).transpose(1, 2)
+
+
+def _radix_tile_scan(tile_counts: torch.Tensor):
+    """Phase 2 (the bucket-major scan): ``(b, R, T)`` counts in, ``(tile_base,
+    totals)`` out, the exclusive scan of each bucket's counts over the tiles and
+    the ``(b, R)`` bucket totals (B7h's histogram)."""
+    inc = torch.cumsum(tile_counts, dim=-1, dtype=torch.int32)
+    return inc - tile_counts, tile_counts.sum(-1, dtype=torch.int32)
+
+
+def _radix_tile_dest(digits: torch.Tensor, tile_base: torch.Tensor, totals: torch.Tensor,
+                     tile: int = RADIX_TILE) -> torch.Tensor:
+    """Phase 3 (the downsweep): each key's destination in its row, ``(b, n)`` int64.
+
+    A key of digit ``d`` at in-tile position ``j`` of tile ``t`` goes to the
+    row's base of bucket ``d`` (the exclusive scan of ``totals``), plus
+    ``tile_base[d, t]``, plus its in-tile rank: the exclusive scan of the
+    tile's one-hot mask of ``d`` at ``j``.
+    """
+    b, n = digits.shape
+    radix = totals.shape[-1]
+    oh = _tile_one_hot(digits, radix, tile)                      # (b, T, R, tile)
+    rank = torch.cumsum(oh, dim=-1, dtype=torch.int32) - oh      # exclusive, exact
+    row_base = torch.cumsum(totals, dim=-1, dtype=torch.int32) - totals
+    base = (row_base[:, :, None] + tile_base).transpose(1, 2)    # (b, T, R)
+    d = _tiled(digits, tile, radix - 1)                          # pads read bucket R-1
+    dest = torch.gather(base, 2, d) + torch.gather(rank, 2, d[:, :, None, :])[:, :, 0]
+    return dest.flatten(1)[:, :n].to(torch.int64)
+
+
+def _tiled(digits: torch.Tensor, tile: int, pad: int) -> torch.Tensor:
+    """``(b, n)`` digits as ``(b, T, tile)``, the last tile padded with ``pad``."""
+    b, n = digits.shape
+    tiles = -(-n // tile)
+    return torch.nn.functional.pad(digits, (0, tiles * tile - n), value=pad).view(
+        b, tiles, tile)
+
+
+def _tile_one_hot(digits: torch.Tensor, radix: int, tile: int) -> torch.Tensor:
+    """``(b, T, R, tile)`` int32 one-hot digit masks; the pad of the last tile
+    (digit ``R``) is in no bucket."""
+    d = _tiled(digits, tile, radix)
+    buckets = torch.arange(radix, device=digits.device)
+    return (d[:, :, None, :] == buckets[None, None, :, None]).to(torch.int32)
+
+
 def radix_pass_plain(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
-                     pass_bits: int, with_counts: bool = False):
+                     pass_bits: int, with_counts: bool = False, tile: int = RADIX_TILE):
     """Plain version of one radix pass on ``(b, n)`` raw-word keys.
 
-    Bucket ranks are exclusive scans of the ``(b, 2^k, n)`` one-hot digit
-    masks; destinations are the bucket bases plus those ranks.  With
-    ``with_counts`` the ``(b, 2^k)`` int32 bucket totals come out as well
+    The kernel's three phases on tiles of ``tile`` keys: the tiles' digit
+    counts (:func:`_radix_tile_hist`), their bucket-major exclusive scan
+    (:func:`_radix_tile_scan`), and each key's in-tile rank plus its tile's
+    base (:func:`_radix_tile_dest`).  The result is the same for every tile;
+    a tile of the whole row is the untiled form, the exclusive scans of the
+    row's one-hot digit masks.
+    With ``with_counts`` the ``(b, 2^k)`` int32 bucket totals come out as well
     (the plain version of B7h).
     """
     radix = 1 << pass_bits
     digits = ((work >> shift) & (radix - 1)).to(torch.int64)
-    buckets = torch.arange(radix, device=work.device)
-    oh = (digits[:, None, :] == buckets[None, :, None]).to(torch.int32)
-    ex = torch.cumsum(oh, dim=-1, dtype=torch.int32) - oh      # exclusive, exact
-    counts = ex[..., -1] + oh[..., -1]
-    base = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
-    rank = torch.gather(ex, 1, digits[:, None, :])[:, 0]
-    dest = (torch.gather(base, 1, digits) + rank).to(torch.int64)
+    tile = min(tile, max(work.shape[-1], 1))       # a short row is one tile, unpadded
+    tile_base, counts = _radix_tile_scan(_radix_tile_hist(digits, radix, tile))
+    dest = _radix_tile_dest(digits, tile_base, counts, tile)
     out = (torch.empty_like(work).scatter_(1, dest, work),
            torch.empty_like(perm).scatter_(1, dest, perm))
     return out + (counts,) if with_counts else out
@@ -251,22 +310,31 @@ def radix_pass_multibit(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
     if not work.is_cuda:
         return radix_pass_plain(work, perm, shift=shift, pass_bits=pass_bits,
                                 with_counts=with_counts)
-    work, perm = work.contiguous(), perm.contiguous()
     b, n = work.shape
+    if n >= 1 << 31:
+        raise ValueError(f"radix_pass_multibit: rows of {n} keys overflow the int32 "
+                         "permutation")
+    work, perm = work.contiguous(), perm.contiguous()
+    radix = 1 << pass_bits
     keys_out = torch.empty_like(work)
     perm_out = torch.empty_like(perm)
+    # the tile counts (b, R, T), then the bucket totals when B7 exports none
+    scratch = torch.empty(b * radix * (-(-n // RADIX_TILE) + 1), dtype=torch.int32,
+                          device=work.device)
     with torch.cuda.device(work.device):
         stream = torch.cuda.current_stream(work.device).cuda_stream
         if not with_counts:
             _build.launch("radix_pass", work.data_ptr(), perm.data_ptr(),
-                          keys_out.data_ptr(), perm_out.data_ptr(), b, n, shift,
-                          pass_bits, work.element_size(), stream)
+                          keys_out.data_ptr(), perm_out.data_ptr(), scratch.data_ptr(), b, n,
+                          shift, pass_bits, work.element_size(), RADIX_TILE, stream)
             return keys_out, perm_out
-        # zeros: for rows of no keys the entry point launches nothing
-        counts = torch.zeros((b, 1 << pass_bits), dtype=torch.int32, device=work.device)
+        # rows of no keys launch nothing, so their counts start at zero
+        counts = (torch.zeros if n == 0 else torch.empty)(
+            (b, radix), dtype=torch.int32, device=work.device)
         _build.launch("radix_pass_hist", work.data_ptr(), perm.data_ptr(),
-                      keys_out.data_ptr(), perm_out.data_ptr(), counts.data_ptr(), b, n,
-                      shift, pass_bits, work.element_size(), stream)
+                      keys_out.data_ptr(), perm_out.data_ptr(), counts.data_ptr(),
+                      scratch.data_ptr(), b, n, shift, pass_bits, work.element_size(),
+                      RADIX_TILE, stream)
     return keys_out, perm_out, counts
 
 

@@ -59,31 +59,47 @@ def test_scan_tiles_kernel_matches_plain(dev, dtype, s, n):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n", [1, 33, 5000])
+# rows around the tile edge of the B7/B7h tile split, and several tiles
+RADIX_ROWS = [1, 33, 5000, split_mm.RADIX_TILE - 1, split_mm.RADIX_TILE,
+              split_mm.RADIX_TILE + 1, 3 * split_mm.RADIX_TILE + 17]
+
+
+def _radix_keys(dev, word, b, n):
+    """(b, n) random keys with runs of equal keys across every tile edge."""
+    w = torch.randint(-(1 << 31), (1 << 31) - 1, (b, n), generator=_gen(dev), device=dev,
+                      dtype=torch.int64).to(word)
+    for edge in range(split_mm.RADIX_TILE, n, split_mm.RADIX_TILE):
+        w[:, edge - 5:edge + 5] = w[:, edge - 5:edge - 4]
+    return w
+
+
+@pytest.mark.parametrize("b", [1, 2, 64])
+@pytest.mark.parametrize("n", RADIX_ROWS)
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
 @pytest.mark.parametrize("word", [torch.uint8, torch.int16, torch.int32])
-def test_radix_pass_kernel_matches_plain(dev, word, k, n):
+def test_radix_pass_kernel_matches_plain(dev, word, k, n, b):
     bits = split_mm.KEY_DTYPES[word]
-    w = torch.randint(-(1 << 31), (1 << 31) - 1, (2, n), generator=_gen(dev), device=dev,
-                      dtype=torch.int64).to(word)
+    w = _radix_keys(dev, word, b, n)
     perm = torch.randperm(n, generator=_gen(dev), device=dev).to(torch.int32)
-    perm = perm.expand(2, n).contiguous()
+    perm = perm.expand(b, n).contiguous()
     for shift in (0, bits - k):
+        ops.reset_launch_counts()
         kw, kp = split_mm.radix_pass_multibit(w, perm, shift=shift, pass_bits=k)
+        assert ops.launch_counts() == _counts(radix_pass=1)
         pw, pp = split_mm.radix_pass_plain(w, perm, shift=shift, pass_bits=k)
         assert torch.equal(kw, pw) and torch.equal(kp, pp)
 
 
-@pytest.mark.parametrize("n", [1, 33, 5000, 70001])
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("n", RADIX_ROWS + [70001])
 @pytest.mark.parametrize("k", [1, 4, 8])
 @pytest.mark.parametrize("word", [torch.uint8, torch.int16, torch.int32])
-def test_radix_pass_hist_kernel_matches_plain(dev, word, k, n):
+def test_radix_pass_hist_kernel_matches_plain(dev, word, k, n, b):
     """B7h: keys, permutation and histogram exact; the histogram counts the row's
     own keys (the ragged end is masked, nothing padded) and equals a bincount."""
     bits = split_mm.KEY_DTYPES[word]
-    w = torch.randint(-(1 << 31), (1 << 31) - 1, (3, n), generator=_gen(dev), device=dev,
-                      dtype=torch.int64).to(word)
-    perm = torch.arange(n, dtype=torch.int32, device=dev).expand(3, n).contiguous()
+    w = _radix_keys(dev, word, b, n)
+    perm = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n).contiguous()
     for shift in sorted({0, (bits - k) // 2, bits - k}):
         ops.reset_launch_counts()
         kw, kp, kc = split_mm.radix_pass_multibit(w, perm, shift=shift, pass_bits=k,
@@ -93,8 +109,60 @@ def test_radix_pass_hist_kernel_matches_plain(dev, word, k, n):
                                                with_counts=True)
         assert torch.equal(kw, pw) and torch.equal(kp, pp) and torch.equal(kc, pc)
         digits = ((w.to(torch.int64) >> shift) & ((1 << k) - 1))
-        for r in range(3):
-            assert torch.equal(kc[r], torch.bincount(digits[r], minlength=1 << k).int())
+        rows = torch.arange(b, device=dev)[:, None] << k
+        hist = torch.bincount((digits + rows).reshape(-1), minlength=b << k)
+        assert torch.equal(kc.long(), hist.reshape(b, 1 << k))
+
+
+@pytest.mark.parametrize("n,k", [(300007, 8), (300007, 4), ((1 << 21) + 3, 4)])
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_radix_pass_kernel_many_tiles(dev, n, k, with_counts):
+    """Rows of many tiles: 74 a row, and 513 past 2^21 keys, more than the
+    bucket-major scan's 256 threads take in one round."""
+    w = _radix_keys(dev, torch.int32, 2, n)
+    perm = torch.arange(n, dtype=torch.int32, device=dev).expand(2, n).contiguous()
+    ops.reset_launch_counts()
+    got = split_mm.radix_pass_multibit(w, perm, shift=8, pass_bits=k, with_counts=with_counts)
+    assert ops.launch_counts() == _counts(**{"radix_pass_hist" if with_counts
+                                             else "radix_pass": 1})
+    want = split_mm.radix_pass_plain(w, perm, shift=8, pass_bits=k, with_counts=with_counts)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_radix_pass_kernel_more_rows_than_a_grid(dev, with_counts):
+    """More rows than a grid's y extent (65535): the entry point launches the rows
+    in chunks; every row is a stable split of its own keys."""
+    b, n, k = 70001, 7, 4
+    w = torch.randint(0, 1 << 15, (b, n), generator=_gen(dev), device=dev).to(torch.int16)
+    perm = torch.randperm(n, generator=_gen(dev), device=dev).to(torch.int32)
+    perm = perm.expand(b, n).contiguous()
+    ops.reset_launch_counts()
+    got = split_mm.radix_pass_multibit(w, perm, shift=4, pass_bits=k, with_counts=with_counts)
+    assert ops.launch_counts() == _counts(**{"radix_pass_hist" if with_counts
+                                             else "radix_pass": 1})
+    digits = (w.long() >> 4) & 15
+    order = torch.sort(digits, dim=-1, stable=True).indices
+    assert torch.equal(got[0], w.gather(1, order)) and torch.equal(got[1], perm.gather(1, order))
+    if with_counts:
+        rows = torch.arange(b, device=dev)[:, None] << k
+        hist = torch.bincount((digits + rows).reshape(-1), minlength=b << k)
+        assert torch.equal(got[2].long(), hist.reshape(b, 1 << k))
+
+
+def test_radix_pass_kernel_unaligned_rows_and_repeats(dev):
+    """Rows that start off a 16-byte boundary (an odd row length, a slice from the
+    second row) take the element-wise loads; a second run gives the same bits."""
+    base = _radix_keys(dev, torch.int16, 5, 3 * split_mm.RADIX_TILE + 17)
+    for w in (base, base[1:]):
+        n = w.shape[-1]
+        perm = torch.arange(n, dtype=torch.int32, device=dev).expand(w.shape).contiguous()
+        kw, kp, kc = split_mm.radix_pass_multibit(w, perm, shift=4, pass_bits=8,
+                                                  with_counts=True)
+        pw, pp, pc = split_mm.radix_pass_plain(w, perm, shift=4, pass_bits=8, with_counts=True)
+        assert torch.equal(kw, pw) and torch.equal(kp, pp) and torch.equal(kc, pc)
+        again = split_mm.radix_pass_multibit(w, perm, shift=4, pass_bits=8, with_counts=True)
+        assert all(torch.equal(a, c) for a, c in zip(again, (kw, kp, kc)))
 
 
 def test_radix_pass_hist_chain_sorts_int32_keys(dev):
