@@ -8,6 +8,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 1. build   -- compile the port's CUDA kernels with nvcc (one process per source);
 2. device  -- the card's name and power limit, as nvidia-smi reports them;
 3. b1      -- the ScanU/ScanUL1 tile-scan kernel against its plain version at (4, 2^24);
+              one launch at and around the edge of its CTA groups (rows of 1, G - 1,
+              G, G + 1 and 3 G + 17, batches of 1 and 64, s = 8, 16 and 128),
+              exact; five repeated fp32 calls bit-equal; the CTAs a launch ran;
 4. b7      -- the radix-16 pass chain on (4, 128256) bf16 and fp32 keys, exact; one
               pass at and around the tile split's edge (rows of 1, TILE - 1, TILE,
               TILE + 1 and 3 TILE + 17 keys, batches of 1 and 64, 1-, 4- and 8-bit
@@ -23,7 +26,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (4, 2^24) on rows cut into segments of log-uniform length (empty
               ones included), then the segmented scans on a ragged row, a
               one-block row (where B10 and B11 must not launch) and the
-              sampler's (16, 513024) one-hot rows over one row of flags;
+              sampler's (16, 513024) one-hot rows over one row of flags; B9 at and
+              around the edge of its tiles (as b1's rows, flags spanning tiles,
+              on each tile's first element, none, all, random and one row shared),
+              exact and one launch each; five repeated fp32 calls bit-equal; the
+              sampler's single (1, 513024) scan; the CTAs a launch ran;
 9. linrec -- the linear-recurrence kernels (B13-B16) each against its plain version
               at (4, 2^24) on random, integer-valued and a = 1 rows (ints exact and
               equal to an fp64 reference; random fp32 within 16 ulp of the fp64
@@ -78,9 +85,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               step's ms and collectives;
 20. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
-              not NCCL's).  The B7 chain, a pass and the torch.sort beside them are
-              timed as eager calls, as every other row, and as CUDA graph replays
-              (their device time, under names of their own).
+              not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
+              B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
+              other row, and as CUDA graph replays (their device time, under names of
+              their own); B1 and B9 beside their three-launch pipelines.
 
 The ranks of the worlds start as fresh interpreters (``repro_torch.launch.world``)
 after the parent has built every kernel; each rank zeroes its counters just before
@@ -194,8 +202,8 @@ from repro_torch.core.segmented import (SegmentedBatch, boundary_flags,  # noqa:
                                         segment_compress, segment_linear_scan,
                                         segment_scan, segment_top_p_sample)
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref  # noqa: E402
-from repro_torch.kernels import (_build, linrec_mm, ops, scan_mm,  # noqa: E402
-                                 scan_pipeline, segscan_mm, split_mm, ssd_chunk)
+from repro_torch.kernels import (_build, linrec_mm, lookback, ops,  # noqa: E402
+                                 scan_mm, scan_pipeline, segscan_mm, split_mm, ssd_chunk)
 from repro_torch.launch.world import run_world  # noqa: E402
 from repro_torch.models import mamba as mamba_model  # noqa: E402
 from repro_torch.models.model import build_model, get_config  # noqa: E402
@@ -305,10 +313,63 @@ def phase_b1(gen):
         got = scan_mm.scan_tiles(xg, s=s)
         check(torch.equal(got, torch.cumsum(xg, -1, dtype=torch.int32)),
               f"B1 ragged int32 s={s}: kernel != cumsum")
+    # the single pass: the look-back's fold is the same chain on every run, and a
+    # launch at (4, 2^24) runs one CTA a group, many a row
+    for s in (16, 128):
+        first = scan_mm.scan_tiles(xr, s=s)
+        check(all(torch.equal(scan_mm.scan_tiles(xr, s=s), first) for _ in range(5)),
+              f"B1 fp32 s={s}: five repeated calls differ")
+    ctas = launched_ctas(lambda ws: scan_mm._scan_tiles_cuda(xr, s=128, variant="scanul1",
+                                                            acc=torch.float32, ws=ws),
+                         b * scan_mm.group_geometry(128, n)[2])
+    check(ctas == b * scan_mm.group_geometry(128, n)[2] and ctas > b,
+          f"B1 at {list(SCAN_SHAPE)}: {ctas} CTAs")
+    edges = scan_tile_edges(gen)
     sync()
     emit({"phase": "b1", "shape": list(SCAN_SHAPE), "cases": cases,
-          "controls_max_ulp": controls, "max_abs_err_f32rand_vs_plain": worst})
+          "controls_max_ulp": controls, "max_abs_err_f32rand_vs_plain": worst,
+          "repeats_bit_equal": 5, "ctas": ctas, "ctas_per_row": ctas // b, **edges})
     return worst
+
+
+def launched_ctas(call, tiles: int) -> int:
+    """The CTAs one launch of B1 or B9 ran: ``call(ws)`` launches with the look-back
+    workspace ``ws`` for ``tiles`` tiles, whose last word is the tile counter."""
+    ws = lookback.workspace(tiles, DEV)
+    call(ws)
+    sync()
+    return int(ws[-1])
+
+
+def tile_edge_rows(tile: int):
+    return (1, tile - 1, tile, tile + 1, 3 * tile + 17)
+
+
+def scan_tile_edges(gen) -> dict:
+    """One B1 launch per case at and around the edge of its CTA groups (G elements
+    of ``group_geometry``: one 128 x 128 tile, 64 tiles of 16 x 16, 256 of 8 x 8),
+    both variants, batches of 1 and 64: exact against the plain version and an
+    int32 cumsum."""
+    cases = 0
+    for s in (8, 16, 128):
+        group = scan_mm.group_geometry(s, SCAN_SHAPE[1])[1]
+        for b in (1, 64):
+            for n in tile_edge_rows(group):
+                x = torch.randint(-100, 100, (b, n), generator=gen, device=DEV,
+                                  dtype=torch.int32)
+                for variant in ("scanu", "scanul1"):
+                    tag = f"B1 tile edge s={s} b={b} n={n} {variant}"
+                    ops.reset_launch_counts()
+                    got = scan_mm.scan_tiles(x, s=s, variant=variant)
+                    sync()
+                    expect_counts(ops.launch_counts(), tag, scan_mm=1)
+                    check(torch.equal(got, torch.cumsum(x, -1, dtype=torch.int32)) and
+                          torch.equal(got, scan_mm.scan_tiles_plain(x, s=s, variant=variant,
+                                                                    acc=torch.int32)),
+                          f"{tag}: kernel != cumsum or plain")
+                    cases += 1
+    return {"tile_edge_cases": cases, "tile_edge_groups": {
+        str(s): scan_mm.group_geometry(s, SCAN_SHAPE[1])[1] for s in (8, 16, 128)}}
 
 
 # ---------------------------------------------------------------------------
@@ -800,11 +861,76 @@ def phase_seg(gen):
         row["B9_max_ulp"] = hold("B9", name, segscan_mm.seg_scan_tiles(x, f),
                                  plain.reshape(x.shape), ref, scale, exact)
         rows.append(row)
+    # the single pass: five repeated fp32 calls, the CTAs a launch ran, the
+    # sampler's single scan and the tile edges
+    xr = inputs["f32rand"]
+    first = segscan_mm.seg_scan_tiles(xr, flags)
+    check(all(torch.equal(segscan_mm.seg_scan_tiles(xr, flags), first) for _ in range(5)),
+          "B9 fp32: five repeated calls differ")
+    tiles = b * -(-n // segscan_mm.seg_scan_tile(n))
+    ctas = launched_ctas(lambda ws: segscan_mm._seg_scan_cuda(
+        xr, 0, flags, n, torch.float32, ws=ws), tiles)
+    check(ctas == tiles and ctas > b, f"B9 at {list(SCAN_SHAPE)}: {ctas} CTAs")
+    x1, f1 = sampler_scan_inputs(gen)
+    ops.reset_launch_counts()
+    got = segscan_mm.seg_scan_tiles(x1, f1)
+    sync()
+    expect_counts(ops.launch_counts(), "B9 sampler scan", seg_scan=1)
+    ref1, _ = seg_ref64(x1, f1)
+    check(torch.equal(got.double(), ref1), "B9 sampler scan (1, 513024): != exact reference")
+    hold("B9", "sampler scan", got, segscan_mm.seg_scan_tiles_plain(
+        x1, f1.expand(x1.shape) != 0, s=128, acc=torch.int32), ref1)
+    edges = seg_tile_edges(gen, hold)
     sync()
     emit({"phase": "seg", "shape": list(SCAN_SHAPE), "segments_per_row": [
         int(o.numel() - 1) for o in offs], "ulp_limit": limit, "cases": cases, "rows": rows,
-        "max_abs_err_vs_plain": worst})
+        "repeats_bit_equal": 5, "ctas": ctas, "ctas_per_row": ctas // b,
+        "sampler_scan": {"shape": list(x1.shape), "tiles": -(-x1.shape[-1] // segscan_mm.
+                                                              seg_scan_tile(x1.shape[-1]))},
+        **edges, "max_abs_err_vs_plain": worst})
     return worst
+
+
+def sampler_scan_inputs(gen):
+    """One segmented scan of the ``topp_segmented`` sampler: a (1, 4 x 128256) int8
+    one-hot row over one row of flags at each vocabulary row's start."""
+    x = (torch.randint(0, 16, (1, 4 * VOCAB), generator=gen, device=DEV) == 3).to(torch.int8)
+    f = torch.zeros(4 * VOCAB, dtype=torch.int8, device=DEV)
+    f[::VOCAB] = 1
+    return x, f
+
+
+def seg_tile_edges(gen, hold) -> dict:
+    """One B9 launch per case at and around the edge of its tiles (``seg_scan_tile``:
+    8192 elements for these rows), batches of 1 and 64, int32 values under flags
+    that start segments spanning several tiles, on each tile's first element, nowhere,
+    everywhere, at random, and in one row shared by the rows: exact against the plain
+    version and the fp64 reference."""
+    cases = 0
+    tile = segscan_mm.seg_scan_tile(1 << 20)
+    for b in (1, 64):
+        for n in tile_edge_rows(tile):
+            x = torch.randint(-1000, 1000, (b, n), generator=gen, device=DEV,
+                              dtype=torch.int32)
+            pos = torch.arange(n, device=DEV)
+            layouts = {"spanning": (pos % 20000 == 0).expand(b, n),
+                       "tile_first": (pos % tile == 0).expand(b, n),
+                       "none": torch.zeros((b, n), dtype=torch.bool, device=DEV),
+                       "all": torch.ones((b, n), dtype=torch.bool, device=DEV),
+                       "random": torch.rand((b, n), generator=gen, device=DEV) < 1e-3,
+                       "shared": torch.rand((n,), generator=gen, device=DEV) < 1e-3}
+            for name, f in layouts.items():
+                f = f.to(torch.int8)
+                tag = f"B9 tile edge b={b} n={n} {name}"
+                ops.reset_launch_counts()
+                got = segscan_mm.seg_scan_tiles(x, f)
+                sync()
+                expect_counts(ops.launch_counts(), tag, seg_scan=1)
+                ref, _ = seg_ref64(x, f)
+                hold("B9", tag, got, segscan_mm.seg_scan_tiles_plain(
+                    x, f.expand(x.shape) != 0, s=128, acc=torch.int32), ref)
+                cases += 1
+    return {"tile_edge_cases": cases, "tile": tile}
 
 
 # ---------------------------------------------------------------------------
@@ -2221,14 +2347,16 @@ def phase_timing(gen, dist_sort_ms):
     x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
     k, pl = paired_ms(lambda: scan_mm.scan_tiles(x, s=128, variant="scanul1"),
                       lambda: scan_mm.scan_tiles_plain(x, s=128, variant="scanul1",
-                                                       acc=torch.float32), 5)
+                                                       acc=torch.float32), 10)
     lib = cuda_ms(lambda: torch.cumsum(x, -1), 5)
     bms, by = bound(b * n * 8, b * n)
     x8 = x.to(torch.int8)
-    k8 = cuda_ms(lambda: scan_mm.scan_tiles(x8, s=128), 5)
-    k16 = cuda_ms(lambda: scan_mm.scan_tiles(x, s=16), 5)
+    k8 = cuda_ms(lambda: scan_mm.scan_tiles(x8, s=128), 10)
+    k16 = cuda_ms(lambda: scan_mm.scan_tiles(x, s=16), 10)
     out["B1"] = dict(ms=k, plain_ms=pl, library_ms=lib, bound_ms=bms, bound_by=by,
-                     int8_ms=k8, int8_bound_ms=bound(b * n * 5)[0], s16_ms=k16)
+                     int8_ms=k8, int8_bound_ms=bound(b * n * 5)[0], s16_ms=k16,
+                     device_ms=graph_ms(lambda: scan_mm.scan_tiles(x, s=128), 10),
+                     s16_device_ms=graph_ms(lambda: scan_mm.scan_tiles(x, s=16), 10))
 
     v = 128256
     keys16 = torch.softmax(torch.randn((VOCAB_ROWS, v), generator=gen, device=DEV) * 2,
@@ -2279,6 +2407,8 @@ def phase_timing(gen, dist_sort_ms):
     sampler["xla_argsort"] = cuda_ms(
         lambda: top_p_sample(logits, method="vector", sort_method="xla", u=uu), 20)
     out.update(time_pipeline(x, x8))
+    out["B1"].update(pipeline_ms=out["pipeline"]["ms"],
+                     faster_than_pipeline=out["B1"]["ms"] < out["pipeline"]["ms"])
     out.update(time_split(gen))
     out.update(time_seg(gen))
     out.update(time_linrec(gen))
@@ -2336,7 +2466,7 @@ def time_pipeline(x, x8):
         k, pl = paired_ms(
             lambda: scan(xx, method="blocked"),
             lambda: scan_pipeline.blocked_scan_plain(xx, s=128, block_tiles=8,
-                                                     variant="scanul1", acc=acc), 5)
+                                                     variant="scanul1", acc=acc), 10)
         out["pipeline"].update({
             name + "ms": k, name + "plain_ms": pl,
             name + "library_ms": cuda_ms(lambda: torch.cumsum(xx, -1, dtype=acc), 5),
@@ -2386,9 +2516,15 @@ def time_seg(gen):
     out = {}
     k, pl = paired_ms(lambda: segscan_mm.seg_scan_tiles(x, flags),
                       lambda: segscan_mm.seg_scan_tiles_plain(x, flags != 0, s=128, acc=f32),
-                      2)
+                      10)
     bms, by = bound(b * n * 9, b * n)                  # 4 B in, 1 B of flags, 4 B out
-    out["B9"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by)
+    x1, f1 = sampler_scan_inputs(gen)
+    n1 = x1.shape[-1]
+    out["B9"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by,
+                     device_ms=graph_ms(lambda: segscan_mm.seg_scan_tiles(x, flags), 10),
+                     sampler_ms=cuda_ms(lambda: segscan_mm.seg_scan_tiles(x1, f1), 50),
+                     sampler_device_ms=graph_ms(lambda: segscan_mm.seg_scan_tiles(x1, f1), 200),
+                     sampler_bound_ms=bound(n1 * 6)[0])     # 1 B in, 1 B of flags, 4 B out
     m, block_len, nb = scan_pipeline.block_geometry(n, 128, 8)
     blocks, fblocks = x.reshape(b, nb, m, 128), flags.reshape(b, nb, m, 128)
     k, pl = paired_ms(lambda: segscan_mm.seg_block_summaries(blocks, fblocks),
@@ -2414,8 +2550,9 @@ def time_seg(gen):
     out["B12"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by)
     k, pl = paired_ms(lambda: segscan_mm.seg_blocked_scan(x, flags),
                       lambda: segscan_mm.seg_blocked_scan_plain(x, flags != 0, s=128,
-                                                                block_tiles=8, acc=f32), 3)
+                                                                block_tiles=8, acc=f32), 10)
     off = seg_offsets(rng, n)
+    out["B9"].update(pipeline_ms=k, faster_than_pipeline=out["B9"]["ms"] < k)
     out["seg_pipeline"] = dict(
         ms=k, plain_ms=pl, library_ms=None, bound_ms=bound(b * n * 9)[0],
         segment_scan_shared_offsets_ms={m_: cuda_ms(lambda m_=m_: segment_scan(

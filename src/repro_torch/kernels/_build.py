@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # library -> (C entry point, argtypes)
 SOURCES: Dict[str, tuple] = {
-    "scan_mm": ("repro_scan_tiles", [_P, _P, _I, _L, _I, _I, _I, _P]),
+    "scan_mm": ("repro_scan_tiles", [_P, _P, _I, _L, _I, _I, _I, _P, _L, _P]),
     "radix_pass": ("repro_radix_pass", [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P]),
     "radix_pass_hist": ("repro_radix_pass_hist",
                         [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P]),
@@ -44,7 +44,7 @@ SOURCES: Dict[str, tuple] = {
     "carry_scan": ("repro_carry_scan", [_P, _P, _I, _L, _I, _P]),
     "block_scan": ("repro_block_scan", [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P]),
     "split": ("repro_split", [_P, _P, _P, _P, _P, _I, _L, _I, _P]),
-    "seg_scan": ("repro_seg_scan", [_P, _P, _L, _P, _I, _L, _I, _P]),
+    "seg_scan": ("repro_seg_scan", [_P, _P, _L, _P, _I, _L, _I, _P, _L, _P]),
     "seg_summaries": ("repro_seg_summaries", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
     "seg_carry": ("repro_seg_carry", [_P, _P, _P, _I, _L, _I, _P]),
     "seg_block_scan": ("repro_seg_block_scan", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),

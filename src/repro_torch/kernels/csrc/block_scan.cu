@@ -11,14 +11,15 @@
 //
 // Design.  One CTA per (row, block) on a flat grid.x of b * nb CTAs, so a
 // batch of four 2^24-element rows at the default block of 8 tiles of 128 x 128
-// gives 512 CTAs, enough to fill the card (B1 runs one CTA per row).  A block
-// of m x s = 1024 x 128 fp32 is 512 KB, more than one SM's 227 KB of shared
-// memory, so the CTA walks the block's tiles in order with B1's tile walk
-// (scan_tile.cuh), seeded with the block's carry instead of zero.  Its row
-// prefix therefore runs per tile plus the tile carry, where the JAX kernel
-// takes it over the block's m rows: the same sums in another fp32 order,
-// still ScanU's cumsum of the row sums or ScanUL1's L⁻ @ (A @ 1_s) within a
-// tile.  The ragged end of a row is masked here, so the wrapper pads nothing.
+// gives 512 CTAs, enough to fill the card.  A block of m x s = 1024 x 128 fp32
+// is 512 KB, more than one SM's 227 KB of shared memory, so the CTA walks the
+// block's groups of tiles in order with B1's group walk (scan_tile.cuh),
+// seeded with the block's carry instead of zero: each group's tiles get
+// carry + E_i, and the carry moves on by the group's total.  Its row prefix
+// therefore runs per tile plus the tile carry, where the JAX kernel takes it
+// over the block's m rows: the same sums in another fp32 order, still ScanU's
+// cumsum of the row sums or ScanUL1's L⁻ @ (A @ 1_s) within a tile.  The
+// ragged end of a row is masked here, so the wrapper pads nothing.
 //
 // Bound.  Each element is read once and written once (8 B per fp32 element,
 // 5 B per int8 element), so it is bound by bytes.  The triangle products run
@@ -27,34 +28,50 @@
 
 namespace {
 
+// The running carry of a block as scan_group's carry-in.
+template <typename A>
+struct RunningCarry {
+    A* carry;
+    __device__ A operator()(A total, int lane) const {
+        const A c = *carry;
+        __syncwarp();
+        if (lane == 0) *carry = c + total;
+        return c;
+    }
+};
+
 template <typename T, typename A, bool kUL1>
-__global__ void __launch_bounds__(repro::kScanThreads)
+__global__ void __launch_bounds__(repro::kScanThreads, 2)
 block_scan_kernel(const T* __restrict__ x, const A* __restrict__ carries,
-                  A* __restrict__ out, long long n, int nb, long long block_len, int s,
-                  int g) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
+                  A* __restrict__ out, long long n, int nb, long long block_len,
+                  repro::ScanGeom G) {
+    extern __shared__ __align__(16) unsigned char stage[];
+    __shared__ repro::ScanSmem<A> sm;
     __shared__ A carry_sh;
     const long long cta = blockIdx.x;
     const long long row = cta / nb;
     const long long lo = (cta - row * nb) * block_len;
     const long long hi = min(n, lo + block_len);
-    repro::scan_tiles_range<T, A, kUL1>(x + row * n, out + row * n, lo, hi, s, g,
-                                        carries[cta], smem_raw, carry_sh);
+    if (threadIdx.x == 0) carry_sh = carries[cta];
+    for (long long base = lo; base < hi; base += G.elems) {
+        repro::scan_group<T, A, kUL1>(x + row * n, out + row * n, base, hi, G, sm, stage,
+                                      RunningCarry<A>{&carry_sh});
+    }
 }
 
 template <typename T, typename A>
 int launch(const void* x, const void* carries, void* out, int b, long long n, int nb,
            long long block_len, int s, int variant, cudaStream_t stream) {
     const long long ell = static_cast<long long>(s) * s;
-    const int g = repro::super_tiles(s, block_len / ell);
-    const size_t smem = repro::scan_smem_bytes<A>(s, g);
+    const repro::ScanGeom G = repro::scan_geom(s, block_len / ell);
     auto kern = variant == 1 ? block_scan_kernel<T, A, true> : block_scan_kernel<T, A, false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const size_t stage = repro::scan_stage_bytes(G);
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(stage));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<static_cast<unsigned>(b) * nb, repro::scan_threads(g * ell), smem, stream>>>(
+    kern<<<static_cast<unsigned>(b) * nb, G.threads, stage, stream>>>(
         static_cast<const T*>(x), static_cast<const A*>(carries), static_cast<A*>(out), n, nb,
-        block_len, s, g);
+        block_len, G);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,9 +11,10 @@
 // subtracts two partial sums.
 //
 // Design.  One CTA per (row, block) on a flat grid.x of b * nb CTAs (nb can
-// pass grid.y's 65535).  The CTA walks its block in order with B9's segmented
-// walk (seg_tile.cuh), seeded with the block's carry, so the seed stops at the
-// block's first flag without a separate `seen` mask.  The walk sums each
+// pass grid.y's 65535).  The CTA walks its block in order, round after round
+// of seg_tile.cuh's segmented scan (B9's round), seeded with the block's
+// carry, so the seed stops at the block's first flag without a separate
+// `seen` mask.  The walk sums each
 // segment's own terms directly, with no subtraction, so random fp32 results
 // round differently from the gather form's (and closer to the fp64 scan).
 // The ragged end of a row is masked here, so the wrapper pads nothing.
@@ -31,20 +32,22 @@ __global__ void __launch_bounds__(repro::kSegMaxThreads)
 seg_block_scan_kernel(const T* __restrict__ x, const uint8_t* __restrict__ f,
                       long long fstride, const A* __restrict__ carries,
                       A* __restrict__ out, long long n, int nb, long long block_len) {
+    extern __shared__ __align__(16) unsigned char stage[];
     __shared__ repro::SegScratch<A> sc;
     const long long cta = blockIdx.x;
     const long long row = cta / nb;
     const long long lo = (cta - row * nb) * block_len;
     const long long hi = min(n, lo + block_len);
     repro::seg_scan_range<T, A>(x + row * n, f + row * fstride, out + row * n, lo, hi,
-                                carries[cta], sc);
+                                carries[cta], sc, stage);
 }
 
 template <typename T, typename A>
 int launch(const void* x, const void* f, long long fstride, const void* carries, void* out,
            int b, long long n, int nb, long long block_len, cudaStream_t stream) {
+    const int threads = repro::seg_threads(block_len, kThreads);
     seg_block_scan_kernel<T, A>
-        <<<static_cast<unsigned>(b) * nb, repro::seg_threads(block_len, kThreads), 0, stream>>>(
+        <<<static_cast<unsigned>(b) * nb, threads, repro::seg_stage_bytes(threads), stream>>>(
             static_cast<const T*>(x), static_cast<const uint8_t*>(f), fstride,
             static_cast<const A*>(carries), static_cast<A*>(out), n, nb, block_len);
     return static_cast<int>(cudaGetLastError());

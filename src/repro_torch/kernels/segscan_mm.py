@@ -4,7 +4,8 @@ Port of ``repro/kernels/segscan_mm.py``.  A packed batch is a row of values
 plus flags, nonzero where an element starts a new segment.  Four kernels:
 
 * :func:`seg_scan_tiles` (B9, ``csrc/seg_scan.cu``) — the segmented scan of
-  each row, walked in order with a running carry that never crosses a flag;
+  each row in one pass over many CTAs a row, each tile's carry-in from the
+  decoupled look-back (:mod:`.lookback`), a carry that never crosses a flag;
 * :func:`seg_block_summaries` (B10, ``csrc/seg_summaries.cu``) — phase 1 of
   the segmented §4 pipeline: per block, the sum of the elements at or after
   its last flag (all of them if it has none) and whether it has a flag;
@@ -41,16 +42,20 @@ import torch
 from repro_torch.core import guards
 from repro_torch.core.precision import pdot, resolve_precision
 from repro_torch.core.scan import _operand_dtype, accum_dtype_for
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, lookback
 from repro_torch.kernels.scan_mm import kernel_operand
 from repro_torch.kernels.scan_pipeline import block_geometry
 
 __all__ = ["seg_scan_tiles", "seg_block_summaries", "seg_carry_scan",
            "seg_block_scan_carry", "seg_blocked_scan", "seg_scan_tiles_plain",
            "seg_block_summaries_plain", "seg_carry_scan_plain",
-           "seg_block_scan_carry_plain", "seg_blocked_scan_plain"]
+           "seg_block_scan_carry_plain", "seg_blocked_scan_plain", "seg_scan_tile",
+           "SEG_SCAN_THREADS", "SEG_SCAN_ITEMS"]
 
 _CARRY_CODES = {torch.float32: 0, torch.int32: 1}
+# csrc/seg_scan.cu: B9's threads a CTA at most, and the elements a thread scans
+SEG_SCAN_THREADS = 512
+SEG_SCAN_ITEMS = 16
 # elements of the largest intermediate a plain version builds at once
 _CHUNK_ELEMS = 1 << 26
 
@@ -159,15 +164,43 @@ def _seg_pair_exclusive(v: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def seg_scan_tile(n: int) -> int:
+    """Elements of B9's tile, one CTA's round, for rows of ``n``: ``seg_threads(n,
+    512, 16)`` threads (``csrc/seg_tile.cuh``) times ``SEG_SCAN_ITEMS``."""
+    threads = min(max((n // SEG_SCAN_ITEMS + 31) // 32 * 32, 32), SEG_SCAN_THREADS)
+    return threads * SEG_SCAN_ITEMS
+
+
 def seg_scan_tiles_plain(xb: torch.Tensor, fb: torch.Tensor, *, s: int,
-                         acc: torch.dtype) -> torch.Tensor:
+                         acc: torch.dtype, tile: int | None = None) -> torch.Tensor:
     """Plain version of B9 on ``(b, n)`` values and ``(b, n)`` bool flags.
 
     Each ``s×s`` tile is scanned with the flag-masked contraction, its rows
     linked by the masked row carries; the tiles are then linked in order, the
     carry into a tile being the segmented-pair scan of the tile totals.
+
+    ``tile`` (a multiple of ``s²``) models the kernel's split: the row is cut
+    into tiles of ``tile`` elements, each scanned as above with no carry; a
+    tile's aggregate is its last element and whether it holds a flag, and its
+    carry-in, the look-back's strict fold of the earlier aggregates under
+    ``c ⊕ a = a.h ? a.v : c + a.v`` (:func:`.lookback.fold_exclusive`),
+    reaches its elements before its first flag.
     """
     b, n = xb.shape
+    if tile is not None:
+        if tile % (s * s):
+            raise ValueError(f"seg_scan_tiles_plain: tile={tile} is not a multiple of "
+                             f"s*s={s * s}")
+        pad = (-n) % tile
+        xt = torch.nn.functional.pad(xb.to(acc), (0, pad)).reshape(-1, tile)
+        ft = torch.nn.functional.pad(fb, (0, pad)).reshape(-1, tile)
+        local = seg_scan_tiles_plain(xt, ft, s=s, acc=acc).reshape(b, -1, tile)
+        ft = ft.reshape(b, -1, tile)
+        cin = lookback.fold_exclusive(local[..., -1], ft.any(dim=-1))
+        seen = torch.cummax(ft.to(torch.int32), dim=-1).values > 0
+        out = local + torch.where(seen, torch.zeros((), dtype=acc, device=xb.device),
+                                  cin[..., None])
+        return out.reshape(b, -1)[:, :n]
     pad = (-n) % (s * s)
     tiles = torch.nn.functional.pad(xb.to(acc), (0, pad)).reshape(b, -1, s, s)
     # padding joins the last segment
@@ -240,12 +273,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _seg_scan_cuda(xk, code, fk, fstride, acc):
+def _seg_scan_cuda(xk, code, fk, fstride, acc, ws=None):
+    """One launch of B9; ``ws`` (the look-back's workspace, allocated here if
+    None) ends with the count of CTAs that ran, one a tile."""
     b, n = xk.shape
     out = torch.empty((b, n), dtype=acc, device=xk.device)
+    if ws is None:
+        ws = lookback.workspace(b * -(-n // seg_scan_tile(n)), xk.device)
     with torch.cuda.device(xk.device):
         _build.launch("seg_scan", xk.data_ptr(), fk.data_ptr(), fstride, out.data_ptr(),
-                      b, n, code, _stream(xk))
+                      b, n, code, ws.data_ptr(), ws.numel() * ws.element_size(),
+                      _stream(xk))
     return out
 
 
@@ -292,15 +330,15 @@ def _check_blocks(op: str, blocks: torch.Tensor, fblocks: torch.Tensor) -> None:
 
 def seg_scan_tiles(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
                    accum_dtype=None, precision: str = "highest") -> torch.Tensor:
-    """Segmented scan of the last axis of ``x`` as one ordered walk per row.
+    """Segmented scan of the last axis of ``x``, each row's tiles linked in order.
 
     Args:
         x: ``(..., n)`` packed values; a CUDA tensor launches B9, a CPU tensor
             runs the plain version.
         flags: Broadcastable to ``x``; nonzero where an element starts a new
             segment.  ``(n,)`` flags are shared by every row.
-        s: Tile side of the plain version's ``s×s`` tiles (the kernel walks
-            elements and reads no tile side).
+        s: Tile side of the plain version's ``s×s`` tiles (the kernel cuts a
+            row into tiles of ``seg_scan_tile(n)`` elements and reads no side).
         accum_dtype: Accumulation dtype; defaults to ``accum_dtype_for``.
         precision: Only ``"highest"`` is ported.
 

@@ -21,8 +21,8 @@ from repro_torch.core.scan import accum_dtype_for, scan
 from repro_torch.core.segmented import (SegmentedBatch, segment_compress,
                                         segment_linear_scan, segment_scan)
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref
-from repro_torch.kernels import (linrec_mm, ops, scan_mm, scan_pipeline, segscan_mm, split_mm,
-                                 ssd_chunk)
+from repro_torch.kernels import (linrec_mm, lookback, ops, scan_mm, scan_pipeline, segscan_mm,
+                                 split_mm, ssd_chunk)
 from repro_torch.models import mamba
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
@@ -450,6 +450,187 @@ def test_seg_random_fp32_close_to_fp64(dev):
                 segscan_mm.seg_blocked_scan(x, f, s=128, block_tiles=8),
                 segscan_mm.seg_blocked_scan(x, f, s=16, block_tiles=1)):
         assert float(((got.double() - ref).abs() / ulp.double()).max()) <= 16.0
+
+
+# ---- B1 and B9 as single passes over many CTAs a row (csrc/lookback.cuh) ----
+
+
+def _edge_rows(tile):
+    return [1, tile - 1, tile, tile + 1, 3 * tile + 17]
+
+
+def _ctas(call, tiles, dev):
+    """The CTAs one launch ran: the tile counter at the end of its workspace."""
+    ws = lookback.workspace(tiles, dev)
+    call(ws)
+    torch.cuda.synchronize()
+    return int(ws[-1])
+
+
+def _edge_flags(layout, b, n, dev):
+    """Segments spanning tiles, a flag on each tile's first element, none, all,
+    random, or one (n,) row of flags shared by the rows."""
+    pos = torch.arange(n, device=dev)
+    tile = segscan_mm.seg_scan_tile(1 << 20)
+    f = {"spanning": lambda: (pos % 20000 == 0).expand(b, n),
+         "tile_first": lambda: (pos % tile == 0).expand(b, n),
+         "none": lambda: torch.zeros((b, n), dtype=torch.bool, device=dev),
+         "all": lambda: torch.ones((b, n), dtype=torch.bool, device=dev),
+         "random": lambda: torch.rand((b, n), generator=_gen(dev, 5), device=dev) < 1e-3,
+         "shared": lambda: torch.rand((n,), generator=_gen(dev, 6), device=dev) < 1e-3}[layout]
+    return f().to(torch.int8)
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("row", range(5))
+@pytest.mark.parametrize("s", [8, 16, 128])
+def test_scan_tiles_kernel_at_its_group_edges(dev, s, row, b):
+    """Rows of 1, G - 1, G, G + 1 and 3 G + 17 elements, G = one CTA's group
+    (16384 elements: one 128×128 tile, 64 of 16×16, 256 of 8×8), both variants,
+    one launch each: exact against an int32 cumsum and the plain version."""
+    n = _edge_rows(scan_mm.group_geometry(s, 1 << 24)[1])[row]
+    x = torch.randint(-100, 100, (b, n), generator=_gen(dev), device=dev, dtype=torch.int32)
+    for variant in ("scanu", "scanul1"):
+        ops.reset_launch_counts()
+        got = scan_mm.scan_tiles(x, s=s, variant=variant)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == _counts(scan_mm=1)
+        assert torch.equal(got, torch.cumsum(x, -1, dtype=torch.int32))
+        assert torch.equal(got, scan_mm.scan_tiles_plain(x, s=s, variant=variant,
+                                                         acc=torch.int32))
+
+
+@pytest.mark.parametrize("n", [300001, 1000003])
+@pytest.mark.parametrize("s", [1, 8, 16, 128])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32, torch.bfloat16])
+def test_scan_tiles_kernel_ragged_rows_many_groups(dev, dtype, s, n):
+    x = _int_payload(dtype, (3, n), dev)
+    for variant in ("scanu", "scanul1"):
+        got = scan_mm.scan_tiles(x, s=s, variant=variant)
+        assert torch.equal(got, scan_mm.scan_tiles_plain(x, s=s, variant=variant,
+                                                         acc=got.dtype))
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("row", range(5))
+@pytest.mark.parametrize("layout", ["spanning", "tile_first", "none", "all", "random",
+                                    "shared"])
+def test_seg_scan_kernel_at_its_tile_edges(dev, layout, row, b):
+    """Rows of 1, T - 1, T, T + 1 and 3 T + 17 elements, T = B9's tile (8192),
+    one launch each: exact against an int64 segmented scan and the plain version;
+    ``shared`` reads one row of flags with a row stride of 0."""
+    n = _edge_rows(segscan_mm.seg_scan_tile(1 << 20))[row]
+    x = torch.randint(-1000, 1000, (b, n), generator=_gen(dev), device=dev,
+                      dtype=torch.int32)
+    f = _edge_flags(layout, b, n, dev)
+    ops.reset_launch_counts()
+    got = segscan_mm.seg_scan_tiles(x, f)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(seg_scan=1)
+    assert torch.equal(got.to(torch.int64), _seg_reference(x, f))
+    assert torch.equal(got, segscan_mm.seg_scan_tiles_plain(x, f.expand(x.shape) != 0, s=16,
+                                                            acc=torch.int32))
+
+
+@pytest.mark.parametrize("rows", [1, 16])
+def test_seg_scan_kernel_sampler_rows(dev, rows):
+    """The topp_segmented sampler's one-hot scans: (rows, 4 × 128256) int8 over one
+    row of flags at each vocabulary row's start (63 tiles a row)."""
+    n = 4 * 128256
+    x = (torch.randint(0, 16, (rows, n), generator=_gen(dev), device=dev) == 3).to(torch.int8)
+    f = torch.zeros(n, dtype=torch.int8, device=dev)
+    f[::128256] = 1
+    got = segscan_mm.seg_scan_tiles(x, f)
+    assert torch.equal(got, segscan_mm.seg_scan_tiles(x, f.expand(rows, n).contiguous()))
+    assert torch.equal(got.to(torch.int64), _seg_reference(x, f))
+
+
+def _ulp_err(got, ref64, scale64):
+    sc = scale64.float()
+    spacing = (torch.nextafter(sc, torch.full_like(sc, float("inf"))) - sc).double()
+    return float(((got.double() - ref64).abs() / spacing).max())
+
+
+@pytest.mark.parametrize("kernel", ["scan_mm s=128", "scan_mm s=16", "scan_mm s=8 scanu",
+                                    "seg_scan"])
+def test_single_pass_fp32_is_deterministic(dev, kernel):
+    """Random fp32, five more calls bit-equal to the first (the look-back's fold
+    does not depend on timing), within 16 ulp of the fp64 scan."""
+    x = torch.randn((4, 1 << 22), generator=_gen(dev), device=dev)
+    if kernel == "seg_scan":
+        f = _seg_flags("random", x.shape, dev)
+        call = lambda: segscan_mm.seg_scan_tiles(x, f)  # noqa: E731
+        pos = torch.arange(x.shape[-1], device=dev).expand(x.shape)
+        start = torch.cummax(torch.where(f != 0, pos, 0), -1).values
+        full = torch.cumsum(x.double(), -1)
+        ref = full - torch.gather(full - x.double(), -1, start)
+        absf = torch.cumsum(x.double().abs(), -1)
+        scale = absf - torch.gather(absf - x.double().abs(), -1, start)
+    else:
+        parts = kernel.split()
+        s = int(parts[1][2:])
+        variant = parts[2] if len(parts) > 2 else "scanul1"
+        call = lambda: scan_mm.scan_tiles(x, s=s, variant=variant)  # noqa: E731
+        ref, scale = torch.cumsum(x.double(), -1), torch.cumsum(x.double().abs(), -1)
+    first = call()
+    for _ in range(5):
+        assert torch.equal(call(), first)
+    assert _ulp_err(first, ref, scale) <= 16.0
+
+
+@pytest.mark.parametrize("shape", [(1, 1 << 26), (64, 1 << 20)])
+def test_single_pass_forward_progress(dev, shape):
+    """Far more tiles than CTAs fit on the card at once (8192 of B9, 4096 of B1,
+    against 528 and 264 resident): every launch ends, exact, one CTA a tile."""
+    b, n = shape
+    x = torch.randint(-3, 4, shape, generator=_gen(dev), device=dev, dtype=torch.int32)
+    f = (torch.rand(shape, generator=_gen(dev, 1), device=dev) < 1e-6).to(torch.int8)
+    for s in (16, 128):
+        groups = b * scan_mm.group_geometry(s, n)[2]
+        got = {}
+        assert _ctas(lambda ws: got.setdefault("x", scan_mm._scan_tiles_cuda(
+            x, s=s, variant="scanul1", acc=torch.int32, ws=ws)), groups, dev) == groups
+        assert torch.equal(got["x"], torch.cumsum(x, -1, dtype=torch.int32))
+    tiles = b * -(-n // segscan_mm.seg_scan_tile(n))
+    got = {}
+    assert _ctas(lambda ws: got.setdefault("x", segscan_mm._seg_scan_cuda(
+        x, 6, f, n, torch.int32, ws=ws)), tiles, dev) == tiles
+    assert torch.equal(got["x"].to(torch.int64), _seg_reference(x, f))
+
+
+def test_single_pass_launch_geometry(dev):
+    """At (4, 2^24) one launch of B1 runs 1024 CTAs a row and B9 2048."""
+    x = torch.randn((4, 1 << 24), generator=_gen(dev), device=dev)
+    f = _seg_flags("random", x.shape, dev)
+    assert _ctas(lambda ws: scan_mm._scan_tiles_cuda(x, s=128, variant="scanul1",
+                                                     acc=torch.float32, ws=ws),
+                 4 * 1024, dev) == 4 * 1024
+    assert _ctas(lambda ws: segscan_mm._seg_scan_cuda(x, 0, f, 1 << 24, torch.float32, ws=ws),
+                 4 * 2048, dev) == 4 * 2048
+
+
+def test_single_pass_under_cuda_graph(dev):
+    """B1 and B9 captured in a CUDA graph (their workspace memset included) and
+    replayed on new inputs give the eager results."""
+    x = torch.randn((4, 1 << 20), generator=_gen(dev), device=dev)
+    f = _seg_flags("random", x.shape, dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            scan_mm.scan_tiles(x, s=128)
+            segscan_mm.seg_scan_tiles(x, f)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o1 = scan_mm.scan_tiles(x, s=128)
+        o2 = segscan_mm.seg_scan_tiles(x, f)
+    for seed in range(3):
+        x.copy_(torch.randn(x.shape, generator=_gen(dev, 10 + seed), device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(o1, scan_mm.scan_tiles(x, s=128))
+        assert torch.equal(o2, segscan_mm.seg_scan_tiles(x, f))
 
 
 def test_seg_launch_counts(dev):
