@@ -37,7 +37,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               recurrence, a bf16-operand control failing that limit), then a
               ragged row, a one-block row (where B14 and B15 must not launch), the
               SSD's (4, 16, 64, 64, 64) shape along axis 1, and cumprod,
-              segment_linear_scan and cummax on the kernel methods;
+              segment_linear_scan and cummax on the kernel methods; B13's single
+              pass at and around the edge of its tiles (as b1's rows), exact and one
+              launch each, at (1, 2^26) and (64, 2^20) (one CTA a tile, exact), and
+              five repeated fp32 calls bit-equal;
 10. main   -- the main paths with the launch counters zeroed before and read
               after each: ``scan(method="kernel")`` and ``scan(method="blocked")``
               at (4, 2^24), ``compress`` with ``method="kernel"`` and
@@ -55,7 +58,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 13. b6     -- the multi-way split kernel against its plain version at (4, 2^24),
               R = 16, exact; at R = 256 and R = 10 against a stable argsort and a
               bincount; a ragged row, R = 1, empty buckets, out-of-range digits,
-              bf16 and int32 payloads;
+              bf16, int32 and int64 payloads, R = 511 and 512 on either side of the
+              tile split's ceiling, R = 5000; the dist phase's vocab shards; one
+              launch at and around the edge of its tiles, exact;
 14. b17    -- the SSD chunk kernel against its plain version and the fp64 oracle at
               zamba2's shapes: the ``ssd`` inputs, zamba2's init decays, a ragged S;
 15. main_multisplit -- ``multi_split(method="kernel")`` at (4, 2^24), R = 16: one
@@ -88,7 +93,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
               other row, and as CUDA graph replays (their device time, under names of
-              their own); B1 and B9 beside their three-launch pipelines.
+              their own); B1 and B9 beside their three-launch pipelines; B6 at
+              R = 10, 16 and 256 and at the vocab shards (eager and graph), B13 at
+              (4, 2^24) (eager and graph), its dist shards and the SSD rows, B16 at
+              the shards; then, after the kernels line's checks, one
+              ``launches_by_shape`` line: B6's, B13's, B16's and B17's launches by
+              the shape they ran at, beside their ms and bound there.
 
 The ranks of the worlds start as fresh interpreters (``repro_torch.launch.world``)
 after the parent has built every kernel; each rank zeroes its counters just before
@@ -138,6 +148,7 @@ B6_BUCKETS = 16                     # multi_split's radix-16 pass width
 SSD_RAGGED_S = 2000                 # B17 on a sequence whose last chunk is partial
 FORWARD = dict(batch=4, seq=2048, seed=0)
 B7H_SHAPE = (4, 1 << 22)            # one shard of a (4, 2^24) sort at D = 4
+LINREC_PROGRESS_SHAPES = ((1, 1 << 26), (64, 1 << 20))   # 8192 B13 tiles each
 DIST_SHAPE = (4, 1 << 24)           # the distributed operators' global rows
 DIST_WORLDS = (4, 2)
 DIST_SEED = 21
@@ -245,11 +256,14 @@ def graph_ms(fn, reps: int) -> float:
     return cuda_ms(graph.replay, reps)
 
 
-def paired_ms(kernel, plain, reps: int):
-    """Kernel and plain times taken in turns (plain, kernel, kernel, plain)."""
+def paired_ms(kernel, plain, reps: int, kernel_reps=None):
+    """Kernel and plain times taken in turns (plain, kernel, kernel, plain); the
+    kernel over ``kernel_reps`` calls where the plain version is too slow for as
+    many."""
+    kreps = kernel_reps or reps
     p0 = cuda_ms(plain, reps)
-    k0 = cuda_ms(kernel, reps)
-    k1 = cuda_ms(kernel, reps)
+    k0 = cuda_ms(kernel, kreps)
+    k1 = cuda_ms(kernel, kreps)
     p1 = cuda_ms(plain, reps)
     return (k0 + k1) / 2, (p0 + p1) / 2
 
@@ -1069,10 +1083,62 @@ def phase_linrec(gen):
     del inputs, ref, scale
     rows_out = [linrec_rows(gen, limit), linrec_ssd_rows(gen, limit)]
     rows_out.append(linrec_operators(gen))
+    single = linrec_single_pass(gen, limit)
     sync()
     emit({"phase": "linrec", "shape": list(SCAN_SHAPE), "ulp_limit": limit, "cases": cases,
-          "controls_max_ulp": controls, "rows": rows_out, "max_abs_err_vs_plain": worst})
+          "controls_max_ulp": controls, "rows": rows_out, "single_pass": single,
+          "max_abs_err_vs_plain": worst})
     return worst
+
+
+def linrec_single_pass(gen, limit) -> dict:
+    """B13's single pass over tiles of ``linrec_scan_tile`` pairs linked by the
+    look-back: one launch per case at and around the edge of its tiles (rows of 1,
+    T - 1, T, T + 1 and 3 T + 17, batches of 1 and 64, integer-valued pairs with a
+    zero of a on each tile's first pair), exact against the plain version and the
+    fp64 recurrence; far more tiles than resident CTAs at (1, 2^26) and (64, 2^20),
+    one CTA a tile, exact; five more fp32 calls at (4, 2^24) bit-equal to the first,
+    within the ulp limit."""
+    tile = linrec_mm.linrec_scan_tile(SCAN_SHAPE[1])
+    cases = 0
+    for b in (1, 64):
+        for n in tile_edge_rows(tile):
+            a = torch.randint(-1, 2, (b, n), generator=gen, device=DEV).float()
+            bb = torch.randint(-3, 4, (b, n), generator=gen, device=DEV).float()
+            a[:, tile::tile] = 0.0
+            tag = f"B13 tile edge b={b} n={n}"
+            ops.reset_launch_counts()
+            got = linrec_mm.linrec_scan_tiles(a, bb)
+            sync()
+            expect_counts(ops.launch_counts(), tag, linrec_scan=1)
+            check(torch.equal(got, linrec_mm.linrec_scan_tiles_plain(a, bb, s=16,
+                                                                     acc=torch.float32))
+                  and torch.equal(got.double(), lin_ref64(a, bb)),
+                  f"{tag}: != plain or the fp64 recurrence")
+            cases += 1
+    progress = {}
+    for shape in LINREC_PROGRESS_SHAPES:
+        a = torch.randint(-1, 2, shape, generator=gen, device=DEV).float()
+        bb = torch.randint(-3, 4, shape, generator=gen, device=DEV).float()
+        tiles = shape[0] * -(-shape[1] // linrec_mm.linrec_scan_tile(shape[1]))
+        ws = lookback.workspace(tiles, DEV, words=2)
+        got = linrec_mm._linrec_scan_cuda(a, bb, ws=ws)
+        sync()
+        ctas = int(ws[-1])
+        check(ctas == tiles, f"B13 at {shape}: {ctas} CTAs ran for {tiles} tiles")
+        check(torch.equal(got.double(), lin_ref64(a, bb)), f"B13 at {shape}: not exact")
+        progress[str(list(shape))] = {"tiles": tiles, "ctas": ctas}
+        del a, bb, got
+    a, bb = lin_inputs(gen, SCAN_SHAPE)["random"]
+    first = linrec_mm.linrec_scan_tiles(a, bb)
+    for i in range(5):
+        check(torch.equal(linrec_mm.linrec_scan_tiles(a, bb), first),
+              f"B13 fp32 call {i + 2} differs from the first")
+    e = max_ulp_dev(first, lin_ref64(a, bb), lin_ref64(a.abs(), bb.abs()))
+    check(e <= limit, f"B13 repeated calls: {e} ulp > {limit}")
+    return {"tile": tile, "tile_edge_cases": cases, "forward_progress": progress,
+            "repeat_calls_bit_equal": 5, "max_ulp": e,
+            "ctas_a_row": -(-SCAN_SHAPE[1] // tile)}
 
 
 def linrec_rows(gen, limit):
@@ -1772,11 +1838,35 @@ def _b6_hold(x, d, r, tag, plain: bool = True) -> int:
     return worst
 
 
+def b6_tile_edges(gen) -> dict:
+    """One B6 launch per case at and around the edge of its tile split (rows of 1,
+    TILE - 1, TILE, TILE + 1 and 3 TILE + 17 digits, runs of one digit across every
+    tile edge, batches of 1 and 64, R = 2, 16 and 256), exact against the plain
+    version, a stable argsort and a bincount."""
+    tile, cases, worst = split_mm.RADIX_TILE, 0, 0
+    for b in (1, 64):
+        for n in tile_edge_rows(tile):
+            x = torch.randn((b, n), generator=gen, device=DEV)
+            for r in (2, B6_BUCKETS, 256):
+                d = torch.randint(0, r, (b, n), generator=gen, device=DEV, dtype=torch.int32)
+                for edge in range(tile, n, tile):
+                    d[:, edge - 5:edge + 5] = d[:, edge - 5:edge - 4]
+                tag = f"B6 tile edge b={b} n={n} R={r}"
+                ops.reset_launch_counts()
+                worst = max(worst, _b6_hold(x, d, r, tag))
+                sync()
+                expect_counts(ops.launch_counts(), tag, multi_split=1)
+                cases += 1
+    return {"tile": tile, "tile_edge_cases": cases, "tile_edge_max_abs_err": worst}
+
+
 def phase_b6(gen):
     """The multi-way split kernel, exact: at (4, 2^24) fp32 against its plain version
     at R = 16 and against a stable argsort at R = 256 and R = 10 (the plain version's
     (b, R + 1, n) one-hot would take 68 GB at R = 256); at (4, 128259) a ragged row,
-    R = 1, empty buckets, out-of-range digits, R = 5000 (10 warps), bf16 and int32."""
+    R = 1, empty buckets, out-of-range digits, R = 511 and 512 on either side of the
+    tile split's ceiling with 8-byte payloads, R = 5000 (the row kernel's 10 warps),
+    bf16 and int32; the dist phase's vocab shards at R = 16; the tile edges."""
     cases, worst = [], 0
     x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
     for r, plain in ((B6_BUCKETS, True), (256, False), (10, False)):
@@ -1803,12 +1893,28 @@ def phase_b6(gen):
             ("r5000_ten_warps", "float32",
              torch.randint(0, 5000, shape, generator=gen, device=DEV, dtype=torch.int32),
              5000, False)]
+    xs["int64"] = xs["int32"].to(torch.int64) << 20
+    top = split_mm.MULTI_SPLIT_TILE_MAX_BUCKETS
+    for r, name in ((top, "r511_tile_ceiling"), (top + 1, "r512_above_tile_ceiling")):
+        d = torch.randint(-3, r + 3, shape, generator=gen, device=DEV, dtype=torch.int32)
+        rows += [(name, "int64", d, r, True), (name, "float32", d, r, True)]
     for name, dt, d, r, plain in rows:
         worst = max(worst, _b6_hold(xs[dt], d, r, f"B6 {name} {dt} R={r}", plain))
         cases.append({"case": name, "shape": list(shape), "buckets": r, "payload": dt,
-                      "vs_plain": plain, "exact": True})
+                      "vs_plain": plain, "exact": True,
+                      "kernel": "tile split" if r <= top else "one CTA a row"})
+    del xs
+    for dd in DIST_WORLDS:                               # the dist phase's vocab shards
+        sh = (VOCAB_ROWS, VOCAB // dd)
+        x = torch.randn(sh, generator=gen, device=DEV)
+        d = torch.randint(0, B6_BUCKETS, sh, generator=gen, device=DEV, dtype=torch.int32)
+        worst = max(worst, _b6_hold(x, d, B6_BUCKETS, f"B6 shard D={dd}"))
+        cases.append({"case": f"dist_shard_D{dd}", "shape": list(sh), "buckets": B6_BUCKETS,
+                      "payload": "float32", "vs_plain": True, "exact": True})
+    edges = b6_tile_edges(gen)
+    worst = max(worst, edges["tile_edge_max_abs_err"])
     sync()
-    emit({"phase": "b6", "cases": cases, "max_abs_err_vs_plain": worst})
+    emit({"phase": "b6", "cases": cases, **edges, "max_abs_err_vs_plain": worst})
     return worst
 
 
@@ -2229,9 +2335,11 @@ def _free_card():
 
 def phase_dist():
     """The ``dist`` phase's worlds of 4 and of 2 ranks on the card.  Returns the
-    kernels' launches summed over every rank's checked calls, and dist_sort's ms."""
+    kernels' launches summed over every rank's checked calls, dist_sort's ms, and
+    the launches of each world (summed over its ranks)."""
     _free_card()
     launches, summary, sort_ms = collections.Counter(), {}, {}
+    by_world = {}
     for d in DIST_WORLDS:
         t0 = time.perf_counter()
         ranks = run_world("chip_smoke:dist_rank", d,
@@ -2241,9 +2349,11 @@ def phase_dist():
         for r in ranks[1:]:
             check(all(torch.equal(a, t) for a, t in zip(ranks[0]["tokens"], r["tokens"])),
                   f"dist_top_p_sample: rank {r['rank']} of {d} drew other tokens than rank 0")
+        by_world[d] = collections.Counter()
         for r in ranks:
             for call in r["calls"].values():
-                launches.update(call["launches"])
+                by_world[d].update(call["launches"])
+        launches.update(by_world[d])
         sort_ms[d] = min(min(r["dist_sort_f32_ms"]) for r in ranks)
         summary[d] = {
             "transport": ranks[0]["transport"], "seconds": time.perf_counter() - t0,
@@ -2257,7 +2367,7 @@ def phase_dist():
             "dist_sort_f32_ms_per_rank": [r["dist_sort_f32_ms"] for r in ranks]}
     emit({"phase": "dist", "global_shape": list(DIST_SHAPE), "vocab": VOCAB,
           "worlds": summary})
-    return {k: launches[k] for k in ops.KERNELS}, sort_ms
+    return {k: launches[k] for k in ops.KERNELS}, sort_ms, by_world
 
 
 # ---------------------------------------------------------------------------
@@ -2422,7 +2532,8 @@ def phase_timing(gen, dist_sort_ms):
                      "B5": [[b, n], [VOCAB_ROWS, v]], "B7": [VOCAB_ROWS, v],
                      "B8": [VOCAB_ROWS, v], "B9-B12": list(SCAN_SHAPE),
                      "B13-B16": [list(SCAN_SHAPE), list(SSD_ROWS)],
-                     "B6": list(SCAN_SHAPE), "B7h": [list(B7H_SHAPE), [B7H_SHAPE[0],
+                     "B6": [list(SCAN_SHAPE)] + [[VOCAB_ROWS, VOCAB // dd]
+                                                  for dd in DIST_WORLDS], "B7h": [list(B7H_SHAPE), [B7H_SHAPE[0],
                                                                          2 * B7H_SHAPE[1]]],
                      "dist_sort": list(DIST_SHAPE), "B17": [SSD[k] for k in (
                          "batch", "seq", "heads", "head_dim", "state", "chunk")],
@@ -2578,9 +2689,23 @@ def time_linrec(gen):
     ab, bb, nb, block_len = block_views(a, b, 128, 8)
     f32 = torch.float32
     k, pl = paired_ms(lambda: linrec_mm.linrec_scan_tiles(a, b),
-                      lambda: linrec_mm.linrec_scan_tiles_plain(a, b, s=128, acc=f32), 1)
+                      lambda: linrec_mm.linrec_scan_tiles_plain(a, b, s=128, acc=f32), 1,
+                      kernel_reps=10)
     out["B13"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bound(rows * n * 12)[0],
-                      bound_by="bytes", cumsum_a1_ms=cuda_ms(lambda: torch.cumsum(b, -1), 5))
+                      bound_by="bytes", cumsum_a1_ms=cuda_ms(lambda: torch.cumsum(b, -1), 5),
+                      device_ms=graph_ms(lambda: linrec_mm.linrec_scan_tiles(a, b), 10))
+    # the dist phase's shards of dist_linear_scan: (4, 2^22) at D = 4, (4, 2^23) at D = 2
+    for dd in DIST_WORLDS:
+        w = n // dd
+        sa, sb = a[:, :w].contiguous(), b[:, :w].contiguous()
+        sab, sbb, snb, sbl = block_views(sa, sb, 128, 8)
+        scin = torch.zeros((rows, snb), device=DEV)
+        out["B13"][f"d{dd}_shard_ms"] = cuda_ms(lambda: linrec_mm.linrec_scan_tiles(sa, sb), 10)
+        out["B13"][f"d{dd}_shard_bound_ms"] = bound(rows * w * 12)[0]
+        out[f"B16_d{dd}_shard"] = dict(
+            ms=cuda_ms(lambda: linrec_mm.linrec_block_scan_carry(sab, sbb, scin), 10),
+            bound_ms=bound(rows * w * 12 + rows * snb * 4)[0], shape=[rows, w])
+        del sa, sb, sab, sbb
     k, pl = paired_ms(lambda: linrec_mm.linrec_block_summaries(ab, bb),
                       lambda: linrec_mm.linrec_block_summaries_plain(ab, bb, f32), 5)
     out["B14"] = dict(ms=k, plain_ms=pl, library_ms=None,
@@ -2592,12 +2717,13 @@ def time_linrec(gen):
     out["B15"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by, nb=nb)
     cin = linrec_mm.linrec_carry_scan_plain(pp, pl_)
     k, pl = paired_ms(lambda: linrec_mm.linrec_block_scan_carry(ab, bb, cin),
-                      lambda: linrec_mm.linrec_block_scan_carry_plain(ab, bb, cin, f32), 1)
+                      lambda: linrec_mm.linrec_block_scan_carry_plain(ab, bb, cin, f32), 1,
+                      kernel_reps=10)
     out["B16"] = dict(ms=k, plain_ms=pl, library_ms=None,
                       bound_ms=bound(rows * n * 12 + rows * nb * 4)[0], bound_by="bytes")
     k, pl = paired_ms(lambda: linear_scan(a, b, method="blocked"),
                       lambda: linrec_mm.linrec_blocked_scan_plain(a, b, s=128, block_tiles=8,
-                                                                  acc=f32), 1)
+                                                                  acc=f32), 1, kernel_reps=10)
     out["linrec_pipeline"] = dict(ms=k, plain_ms=pl, library_ms=None,
                                   bound_ms=bound(rows * n * 20)[0],     # B14's and B16's reads
                                   recurrence_bound_ms=bound(rows * n * 12)[0],
@@ -2645,13 +2771,34 @@ def time_b6_b17(gen):
     x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
     d = torch.randint(0, B6_BUCKETS, SCAN_SHAPE, generator=gen, device=DEV,
                       dtype=torch.int32)
-    k, pl = paired_ms(lambda: split_mm.multi_split_tiles(x, d, num_buckets=B6_BUCKETS),
-                      lambda: split_mm.multi_split_plain(x, d, B6_BUCKETS), 2)
+
+    def split(x, d, r):
+        return lambda: split_mm.multi_split_tiles(x, d, num_buckets=r)
+
+    def lib(x, d):
+        return lambda: torch.gather(x, -1, torch.argsort(d, dim=-1, stable=True))
+
+    k, pl = paired_ms(split(x, d, B6_BUCKETS),
+                      lambda: split_mm.multi_split_plain(x, d, B6_BUCKETS), 2, kernel_reps=10)
     out = {"B6": dict(ms=k, plain_ms=pl, bound_ms=bound(b * n * 16)[0], bound_by="bytes",
-                      library_ms=cuda_ms(lambda: torch.gather(
-                          x, -1, torch.argsort(d, dim=-1, stable=True)), 2),
-                      with_digit_reread_bound_ms=bound(b * n * 24)[0])}
+                      library_ms=cuda_ms(lib(x, d), 5),
+                      with_digit_reread_bound_ms=bound(b * n * 20)[0],
+                      device_ms=graph_ms(split(x, d, B6_BUCKETS), 10))}
+    for r in (10, 256):                                  # the other R of phase b6
+        dr = torch.randint(0, r, SCAN_SHAPE, generator=gen, device=DEV, dtype=torch.int32)
+        out["B6"][f"r{r}_ms"] = cuda_ms(split(x, dr, r), 10)
+        out["B6"][f"r{r}_device_ms"] = graph_ms(split(x, dr, r), 10)
+        out["B6"][f"r{r}_library_ms"] = cuda_ms(lib(x, dr), 2)
+        del dr
     del x, d
+    for dd in DIST_WORLDS:                               # dist_top_p_sample's vocab shards
+        sh = (VOCAB_ROWS, VOCAB // dd)
+        x = torch.randn(sh, generator=gen, device=DEV)
+        d = torch.randint(0, B6_BUCKETS, sh, generator=gen, device=DEV, dtype=torch.int32)
+        out["B6"][f"d{dd}_shard"] = dict(
+            shape=list(sh), ms=cuda_ms(split(x, d, B6_BUCKETS), 50),
+            device_ms=graph_ms(split(x, d, B6_BUCKETS), 200),
+            bound_ms=bound(sh[0] * sh[1] * 16)[0], library_ms=cuda_ms(lib(x, d), 50))
     args = ssd_inputs(gen)
     bsz, s, h, p = args[0].shape
     nst, q = args[2].shape[-1], SSD["chunk"]
@@ -2700,6 +2847,53 @@ def time_b7h(gen):
                         d2_shard_ms=d2, d2_shard_bound_ms=bound(b * 2 * n * 16)[0])}
 
 
+def launches_by_shape(multisplit, linrec, zamba, forward, worlds, timing) -> dict:
+    """B6's, B13's, B16's and B17's launches on the main paths by the shape they ran
+    at, each beside the kernel's ms and bound there (timing): the launches of the
+    kernels line, split by path.  The SSD rows are zamba2's cross-chunk states at
+    prefill and in the forward, 2^20 rows of 16 (one warp a row)."""
+    t, ssd = timing, timing["ssd_shape"]
+    shard = {dd: [VOCAB_ROWS, VOCAB // dd] for dd in DIST_WORLDS}
+    rows = {dd: [DIST_SHAPE[0], DIST_SHAPE[1] // dd] for dd in DIST_WORLDS}
+    ssd_rows_ = [SSD_ROWS[0] * SSD_ROWS[2] * SSD_ROWS[3] * SSD_ROWS[4], SSD_ROWS[1]]
+
+    def at(launches, shape, ms, bound_ms, path):
+        return {"launches": launches, "shape": shape, "ms": ms, "bound_ms": bound_ms,
+                "path": path}
+
+    out = {
+        "B6": [at(multisplit["multi_split"], list(SCAN_SHAPE), t["B6"]["ms"],
+                  t["B6"]["bound_ms"], "main_multisplit, R = 16")]
+        + [at(worlds[dd]["multi_split"], shard[dd], t["B6"][f"d{dd}_shard"]["ms"],
+              t["B6"][f"d{dd}_shard"]["bound_ms"],
+              f"dist_top_p_sample, R = 16, world of {dd}") for dd in DIST_WORLDS],
+        "B13": [at(linrec["linrec_scan"], list(SCAN_SHAPE), t["B13"]["ms"],
+                   t["B13"]["bound_ms"], "main_linrec"),
+                at(zamba["linrec_scan"], ssd_rows_, ssd["B13"]["ms"], ssd["B13"]["bound_ms"],
+                   "serve_zamba2 prefill, scan_method='kernel'")]
+        + [at(worlds[dd]["linrec_scan"], rows[dd], t["B13"][f"d{dd}_shard_ms"],
+              t["B13"][f"d{dd}_shard_bound_ms"], f"dist_linear_scan, world of {dd}")
+           for dd in DIST_WORLDS],
+        "B16": [at(linrec["linrec_block_scan"], list(SCAN_SHAPE), t["B16"]["ms"],
+                   t["B16"]["bound_ms"], "main_linrec"),
+                at(zamba["linrec_block_scan"] + forward["linrec_block_scan"], ssd_rows_,
+                   ssd["B16"]["ms"], ssd["B16"]["bound_ms"],
+                   "serve_zamba2 prefill and forward_zamba2, scan_method='blocked'")]
+        + [at(worlds[dd]["linrec_block_scan"], rows[dd], t[f"B16_d{dd}_shard"]["ms"],
+              t[f"B16_d{dd}_shard"]["bound_ms"], f"dist_linear_scan, world of {dd}")
+           for dd in DIST_WORLDS],
+        "B17": [at(forward["ssd_chunk"], [SSD[k] for k in ("batch", "seq", "heads",
+                                                            "head_dim", "state")],
+                   t["B17"]["ms"], t["B17"]["bound_ms"], "forward_zamba2, scan_method='kernel'")],
+    }
+    for name, rows_ in out.items():
+        total = sum(r["launches"] for r in rows_)
+        check(total > 0, f"{name}: no launch on a main path")
+        for r in rows_:
+            r["launches_x_ms_over_bound"] = r["launches"] * (r["ms"] - r["bound_ms"])
+    return {"phase": "launches_by_shape", **out}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2739,7 +2933,7 @@ def main() -> int:
     multisplit_counts = main_multisplit(gen)
     forward_counts = forward_zamba2(gen)
     b7h_err = phase_b7h(gen)
-    dist_counts, dist_sort_ms = phase_dist()
+    dist_counts, dist_sort_ms, dist_worlds = phase_dist()
     sharded_counts = phase_serve_sharded()
     timing = phase_timing(gen, dist_sort_ms)
     seg_launches = {k: segmented_counts[k] + serve_s_counts[k] for k in ops.KERNELS}
@@ -2766,8 +2960,10 @@ def main() -> int:
          timing["B4"]),
         ("B5 split_tiles (SplitInd)", "split.cu", "src/repro/kernels/split_mm.py:136",
          blocked_counts["split"], b5_err, timing["B5"]),
-        ("B6 multi_split_tiles (stable R-way split; launches: multi_split(method='kernel') "
-         "at (4, 2^24), R = 16)", "multi_split.cu", "src/repro/kernels/split_mm.py:194",
+        ("B6 multi_split_tiles (stable R-way split, the tile split for R <= 511; times at "
+         "(4, 2^24), R = 16; launches: multi_split(method='kernel') at (4, 2^24) and "
+         "dist_top_p_sample's vocab shards at R = 16, (4, 32064) in the world of 4 and "
+         "(4, 64128) in the world of 2)", "multi_split.cu", "src/repro/kernels/split_mm.py:194",
          multisplit_counts["multi_split"], float(b6_err), timing["B6"]),
         ("B7 radix_pass_multibit (radix-16 pass; times are the 4-pass bf16 sort chain and "
          "a stable torch.sort, eager; launches: topp_kernel "
@@ -2795,8 +2991,9 @@ def main() -> int:
         ("B12 seg_block_scan_carry (segmented block scan plus gated carry)",
          "seg_block_scan.cu", "src/repro/kernels/segscan_mm.py:325",
          seg_launches["seg_block_scan"], seg_err["B12"], timing["B12"]),
-        ("B13 linrec_scan_tiles (linear-recurrence tile scan; launches: main_linrec and "
-         "zamba2 prefill under scan_method='kernel')", "linrec_scan.cu",
+        ("B13 linrec_scan_tiles (linear-recurrence scan, a single pass with the affine "
+         "look-back; times at (4, 2^24); launches: main_linrec, zamba2 prefill's rows of 16 "
+         "under scan_method='kernel' and dist_linear_scan's shards)", "linrec_scan.cu",
          "src/repro/kernels/linrec_mm.py:72", lin_launches["linrec_scan"], lin_err["B13"],
          timing["B13"]),
         ("B14 linrec_block_summaries ((prod a, trailing sum) per block)",
@@ -2826,6 +3023,8 @@ def main() -> int:
     check(all(k["launches"] > 0 for k in kernels),
           f"kernels launched no time on their main paths: "
           f"{[k['name'] for k in kernels if not k['launches']]}")
+    emit(launches_by_shape(multisplit_counts, linrec_counts, zamba_counts, forward_counts,
+                           dist_worlds, timing))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,11 +48,11 @@ SOURCES: Dict[str, tuple] = {
     "seg_summaries": ("repro_seg_summaries", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
     "seg_carry": ("repro_seg_carry", [_P, _P, _P, _I, _L, _I, _P]),
     "seg_block_scan": ("repro_seg_block_scan", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
-    "linrec_scan": ("repro_linrec_scan", [_P, _P, _P, _I, _L, _P]),
+    "linrec_scan": ("repro_linrec_scan", [_P, _P, _P, _I, _L, _P, _L, _P]),
     "linrec_summaries": ("repro_linrec_summaries", [_P, _P, _P, _P, _I, _L, _I, _L, _P]),
     "linrec_carry": ("repro_linrec_carry", [_P, _P, _P, _I, _L, _P]),
     "linrec_block_scan": ("repro_linrec_block_scan", [_P, _P, _P, _P, _I, _L, _I, _L, _P]),
-    "multi_split": ("repro_multi_split", [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P]),
+    "multi_split": ("repro_multi_split", [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
     "ssd_chunk": ("repro_ssd_chunk", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
 }
 

@@ -13,7 +13,13 @@
 // warp aggregates, and a running state y links the rounds of a range in order.
 // The state entering a thread's first element is A_ex * y_in + B_ex, where
 // (A_ex, B_ex) composes every earlier element of the round; from there the
-// thread walks its own elements with y = fma(a, y, b).
+// thread walks its own elements with y = fma(a, y, b).  A CTA-wide round
+// (affine_round_scan / affine_round_store: B13's tiles, and B15's and B16's
+// ranges through block_linrec_range) moves its pairs and its results through
+// shared memory, each warp's in address order (16-byte cp.async copies in,
+// warp_store_staged out), so its global accesses are whole 16-byte words side
+// by side; the warp walk (rows of at most kLinWarpMax) and B14 load straight
+// from global memory.
 //
 // What this does about the Pallas design.  The TPU kernels build a weighted
 // triangle W[i, j] = p_i / p_j from exponent-normalized cumulative products
@@ -28,6 +34,8 @@
 // kept (no -ftz), so deep decays flush to zero gradually, never to NaN.
 #pragma once
 
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
 
 namespace repro {
@@ -40,10 +48,10 @@ constexpr int kLinItems = 8;
 constexpr long long kLinWarpMax = 2048;
 constexpr int kLinRowsPerCta = 8;
 
-// Threads for a CTA whose range holds `elems` elements: enough warps for one
-// round, at least one and at most `cap`.
-inline int lin_threads(long long elems, int cap) {
-    long long t = (elems / kLinItems + 31) / 32 * 32;
+// Threads for a CTA whose range holds `elems` elements, `items` a thread:
+// enough warps for one round, at least one and at most `cap`.
+inline int lin_threads(long long elems, int cap, int items = kLinItems) {
+    long long t = (elems / items + 31) / 32 * 32;
     if (t < 32) t = 32;
     if (t > cap) t = cap;
     return static_cast<int>(t);
@@ -155,23 +163,117 @@ __device__ __forceinline__ void walk_store(const float (&av)[kLinItems],
     }
 }
 
-// The recurrence over [lo, hi) of one row, walked by the whole CTA and seeded
-// with the state y; returns the state leaving hi.
+// Shared memory a CTA of `threads` stages its rounds in, N pairs a thread:
+// a's lane rows, then b's.
+template <int N = kLinItems>
+inline size_t affine_stage_bytes(int threads) {
+    return 2 * static_cast<size_t>(threads) * stage_stride<N>();
+}
+
+// Starts copying a warp's 32·N consecutive fp32 elements at p into its lane
+// rows in `stage` (lane l's row holds p[l·N .. l·N + N)): 16-byte cp.async
+// copies in address order when the range is whole and aligned, else element
+// by element, zero at or past `avail`.  The caller commits, waits and syncs,
+// so a's and b's copies are all in flight at once (common.cuh's warp_stage_in
+// waits for each load before its store to shared memory).
+template <int N>
+__device__ __forceinline__ void warp_stage_async(const float* __restrict__ p, long long avail,
+                                                 unsigned char* stage, int lane) {
+    static_assert(N % 4 == 0, "16-byte lane rows");
+    constexpr int kStride = stage_stride<N>();
+    if (avail >= 32 * N && (reinterpret_cast<uintptr_t>(p) % 16) == 0) {
+#pragma unroll
+        for (int i = 0; i < N / 4; ++i) {
+            const int first = 4 * (lane + 32 * i);
+            __pipeline_memcpy_async(stage + (first / N) * kStride + (first % N) * 4, p + first,
+                                    16);
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+            const int e = lane + 32 * i;
+            reinterpret_cast<float*>(stage + (e / N) * kStride)[e % N] = e < avail ? p[e] : 0.f;
+        }
+    }
+}
+
+// A CTA-wide round as a thread holds it: the composite of the round's earlier
+// elements and of the whole round.  Its pairs stay in the staging area.
+struct AffineRound {
+    float exA, exB, totA, totB;
+};
+
+// Load and scan the round of blockDim.x·N pairs that starts at base: this
+// thread's are [i0, i0 + N), i0 = base + threadIdx.x·N, and it folds those
+// below hi in order (the rest are the identity).  The pairs come in through
+// `stage` (affine_stage_bytes<N>(blockDim.x) bytes) and stay there for
+// affine_round_store.  Ends with a barrier.
+template <int N>
+__device__ __forceinline__ void affine_round_scan(const float* __restrict__ a,
+                                                  const float* __restrict__ b, long long base,
+                                                  long long hi, AffineRound& r,
+                                                  AffineScratch& sc, unsigned char* stage) {
+    const int lane = threadIdx.x & 31;
+    const long long wbase = base + static_cast<long long>(threadIdx.x - lane) * N;
+    unsigned char* sa = stage + (threadIdx.x - lane) * stage_stride<N>();
+    unsigned char* sb = sa + blockDim.x * stage_stride<N>();
+    warp_stage_async<N>(a + wbase, hi - wbase, sa, lane);
+    warp_stage_async<N>(b + wbase, hi - wbase, sb, lane);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    float av[N], bv[N];
+    stage_row(sa, lane, av);
+    stage_row(sb, lane, bv);
+    const long long i0 = wbase + lane * N;
+    float A = 1.f, B = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+        if (i0 + k < hi) {
+            B = fmaf(av[k], B, bv[k]);
+            A = A * av[k];
+        }
+    }
+    block_affine_exclusive_scan(A, B, sc, r.exA, r.exB, r.totA, r.totB);
+}
+
+// Write the round that starts at base below hi, from the state y entering it:
+// each element's inclusive (or, kExclusive, entering) state.
+template <bool kExclusive, int N>
+__device__ __forceinline__ void affine_round_store(float* __restrict__ out, long long base,
+                                                   long long hi, const AffineRound& r, float y,
+                                                   unsigned char* stage) {
+    const int lane = threadIdx.x & 31;
+    const long long wbase = base + static_cast<long long>(threadIdx.x - lane) * N;
+    unsigned char* sa = stage + (threadIdx.x - lane) * stage_stride<N>();
+    float av[N], bv[N], v[N];
+    stage_row(sa, lane, av);
+    stage_row(sa + blockDim.x * stage_stride<N>(), lane, bv);
+    float s = fmaf(r.exA, y, r.exB);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+        if (kExclusive) v[k] = s;
+        s = fmaf(av[k], s, bv[k]);
+        if (!kExclusive) v[k] = s;
+    }
+    warp_store_staged<float, N>(out + wbase, hi - wbase, sa, lane, v);
+}
+
+// The recurrence over [lo, hi) of one row, walked by the whole CTA round after
+// round and seeded with the state y; returns the state leaving hi.  `stage`
+// holds affine_stage_bytes(blockDim.x) bytes.
 template <bool kExclusive>
 __device__ __forceinline__ float block_linrec_range(const float* __restrict__ a,
                                                     const float* __restrict__ b,
                                                     float* __restrict__ out, long long lo,
-                                                    long long hi, float y,
-                                                    AffineScratch& sc) {
+                                                    long long hi, float y, AffineScratch& sc,
+                                                    unsigned char* stage) {
     const long long round = static_cast<long long>(blockDim.x) * kLinItems;
     for (long long base = lo; base < hi; base += round) {
-        const long long i0 = base + static_cast<long long>(threadIdx.x) * kLinItems;
-        float av[kLinItems], bv[kLinItems], A, B;
-        load_fold(a, b, i0, hi, av, bv, A, B);
-        float exA, exB, totA, totB;
-        block_affine_exclusive_scan(A, B, sc, exA, exB, totA, totB);
-        walk_store<kExclusive>(av, bv, fmaf(exA, y, exB), out, i0, hi);
-        y = fmaf(totA, y, totB);
+        AffineRound r;
+        affine_round_scan<kLinItems>(a, b, base, hi, r, sc, stage);
+        affine_round_store<kExclusive, kLinItems>(out, base, hi, r, y, stage);
+        y = fmaf(r.totA, y, r.totB);
     }
     return y;
 }

@@ -10,9 +10,11 @@
 // out + mult * carry, mult being the block's cumulative products.
 //
 // Design.  One CTA per (row, block) on a flat grid.x of rows * nb CTAs (nb can
-// pass grid.y's 65535), walking its block in order with B13's affine-pair walk
-// (affine_tile.cuh) seeded with the block's carry, so the carry reaches each
-// element through the recurrence itself and stops exactly at a zero of a.
+// pass grid.y's 65535), walking its block in order with the affine-pair walk
+// of affine_tile.cuh (block_linrec_range: rounds of 512 threads x 8 pairs, each
+// staged through shared memory in address order) seeded with the block's
+// carry, so the carry reaches each element through the recurrence itself and
+// stops exactly at a zero of a.
 // Blocks of at most kLinWarpMax elements are walked by one warp each, eight to
 // a CTA: the SSD's cross-chunk rows are one 16-long block each.  The ragged
 // end of a row is masked here, so the wrapper pads nothing.
@@ -30,13 +32,14 @@ __global__ void __launch_bounds__(kThreads)
 linrec_block_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
                          const float* __restrict__ carries, float* __restrict__ out,
                          long long n, int nb, long long block_len) {
+    extern __shared__ __align__(16) unsigned char stage[];
     __shared__ repro::AffineScratch sc;
     const long long cta = blockIdx.x;
     const long long row = cta / nb;
     const long long lo = (cta - row * nb) * block_len;
     const long long hi = min(n, lo + block_len);
     repro::block_linrec_range<false>(a + row * n, b + row * n, out + row * n, lo, hi,
-                                     carries[cta], sc);
+                                     carries[cta], sc, stage);
 }
 
 __global__ void __launch_bounds__(32 * repro::kLinRowsPerCta)
@@ -76,8 +79,13 @@ extern "C" int repro_linrec_block_scan(const void* a, const void* b, const void*
         linrec_block_scan_warp_kernel<<<ctas, 32 * repro::kLinRowsPerCta, 0, st>>>(
             af, bf, cf, of, n, nb, block_len, blocks);
     } else {
-        linrec_block_scan_kernel<<<static_cast<unsigned>(blocks),
-                                   repro::lin_threads(block_len, kThreads), 0, st>>>(
+        const int threads = repro::lin_threads(block_len, kThreads);
+        const size_t stage = repro::affine_stage_bytes(threads);
+        const cudaError_t err = cudaFuncSetAttribute(
+            linrec_block_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(stage));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        linrec_block_scan_kernel<<<static_cast<unsigned>(blocks), threads, stage, st>>>(
             af, bf, cf, of, n, nb, block_len);
     }
     return static_cast<int>(cudaGetLastError());

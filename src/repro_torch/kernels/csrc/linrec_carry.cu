@@ -10,8 +10,9 @@
 //
 // Design.  As B3 (carry_scan.cu) and B11 (seg_carry.cu): one CTA per row walks
 // its nb summaries in rounds of 1024 threads x 8 with the affine-pair walk of
-// affine_tile.cuh, storing the state before each element (exclusive); a
-// running state links the rounds in order.
+// affine_tile.cuh (block_linrec_range, staged through shared memory), storing
+// the state before each element (exclusive); a running state links the rounds
+// in order.
 //
 // Bound.  It moves 12 B per block (a few KB at the pipeline's usual nb), so
 // it is bound by its launch and its one CTA per row, not by bytes.
@@ -22,9 +23,11 @@ namespace {
 __global__ void __launch_bounds__(repro::kLinMaxThreads)
 linrec_carry_kernel(const float* __restrict__ prods, const float* __restrict__ lasts,
                     float* __restrict__ carries, long long nb) {
+    extern __shared__ __align__(16) unsigned char stage[];
     __shared__ repro::AffineScratch sc;
     const long long off = static_cast<long long>(blockIdx.x) * nb;
-    repro::block_linrec_range<true>(prods + off, lasts + off, carries + off, 0, nb, 0.f, sc);
+    repro::block_linrec_range<true>(prods + off, lasts + off, carries + off, 0, nb, 0.f, sc,
+                                    stage);
 }
 
 }  // namespace
@@ -33,8 +36,13 @@ linrec_carry_kernel(const float* __restrict__ prods, const float* __restrict__ l
 extern "C" int repro_linrec_carry(const void* prods, const void* lasts, void* carries, int rows,
                                   long long nb, void* stream) {
     if (rows <= 0 || nb <= 0) return 0;
-    linrec_carry_kernel<<<rows, repro::lin_threads(nb, repro::kLinMaxThreads), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    const int threads = repro::lin_threads(nb, repro::kLinMaxThreads);
+    const size_t stage = repro::affine_stage_bytes(threads);
+    const cudaError_t err = cudaFuncSetAttribute(
+        linrec_carry_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(stage));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    linrec_carry_kernel<<<rows, threads, stage, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(prods), static_cast<const float*>(lasts),
         static_cast<float*>(carries), nb);
     return static_cast<int>(cudaGetLastError());

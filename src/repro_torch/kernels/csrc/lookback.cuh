@@ -1,5 +1,6 @@
-// The single-pass decoupled look-back shared by B1 (scan_mm.cu) and B9
-// (seg_scan.cu): one launch scans every row, cut into tiles, one CTA a tile.
+// The single-pass decoupled look-back shared by B1 (scan_mm.cu), B9
+// (seg_scan.cu) and B13 (linrec_scan.cu): one launch scans every row, cut into
+// tiles, one CTA a tile.
 //
 // Order.  A CTA takes its tile from a global atomic counter, not from
 // blockIdx, and tiles are numbered row by row, so a CTA only ever waits on
@@ -16,6 +17,18 @@
 //
 // The words of all rows and, after them, the counter form the workspace,
 // which the C entry point zeroes on the caller's stream (8 B a tile + 8 B).
+//
+// Pairs.  B13's aggregate is an affine map y -> A*y + B, 64 bits of value, and
+// its prefix the scalar state y.  It takes two words a tile, in two arrays
+// (all rows' first words, then all rows' second words, then the counter: 16 B
+// a tile + 8 B): the first publishes status 1 | A, the second status 1 | B,
+// and later the first becomes status 2 | P.  Each word still carries its
+// value and is written once with each status, so a reader takes the pair as
+// an aggregate only when both words show status 1, and then the two halves are
+// the ones written together; a first word with status 2 needs no second word.
+// The relaxed loads and stores stay enough.  (A 128-bit word would need the
+// PTX ISA to promise single-copy atomicity for 128-bit accesses; two
+// self-describing words do not.)
 // A word carries its value, and no reader uses anything else its writer
 // wrote, so relaxed 64-bit atomic stores and loads at device scope are all
 // the ordering the look-back needs: a reader sees a whole word, old or new.
@@ -70,26 +83,55 @@ __device__ __forceinline__ unsigned long long tile_word(unsigned long long statu
     return status | (flag ? kTileFlag : 0ull) | bits_of(v);
 }
 
+// An operator of the look-back: kPair (two words a tile), ready (the tile has
+// published something usable), closes (the fold may start from it) and fold.
 // The plain sum: a predecessor closes once it has published its prefix.
 template <typename A>
 struct SumFold {
+    static constexpr bool kPair = false;
+    static __device__ bool ready(unsigned long long w, unsigned long long) {
+        return (w & kTileStatus) != 0;
+    }
     static __device__ bool closes(unsigned long long w) {
         return (w & kTileStatus) == kTileInclusive;
     }
-    static __device__ A fold(A c, unsigned long long w) { return c + value_of(w, A(0)); }
+    static __device__ A fold(A c, unsigned long long w, unsigned long long) {
+        return c + value_of(w, A(0));
+    }
 };
 
 // The segmented-pair operator (c ⊕ a) = a.h ? a.v : c + a.v: a predecessor
 // also closes when its aggregate holds a flag, since nothing before it counts.
 template <typename A>
 struct SegFold {
+    static constexpr bool kPair = false;
+    static __device__ bool ready(unsigned long long w, unsigned long long) {
+        return (w & kTileStatus) != 0;
+    }
     static __device__ bool closes(unsigned long long w) {
         return (w & kTileStatus) == kTileInclusive ||
                ((w & kTileStatus) == kTileAggregate && (w & kTileFlag));
     }
-    static __device__ A fold(A c, unsigned long long w) {
+    static __device__ A fold(A c, unsigned long long w, unsigned long long) {
         const A v = value_of(w, A(0));
         return (w & kTileFlag) ? v : c + v;
+    }
+};
+
+// The affine operator of B13 on the state: c -> fmaf(A, c, B), the aggregate's
+// A in the first word, B in the second.  An aggregate is ready once both words
+// show it.
+struct AffineFold {
+    static constexpr bool kPair = true;
+    static __device__ bool ready(unsigned long long w, unsigned long long w2) {
+        return (w & kTileStatus) == kTileInclusive ||
+               ((w & kTileStatus) == kTileAggregate && (w2 & kTileStatus) == kTileAggregate);
+    }
+    static __device__ bool closes(unsigned long long w) {
+        return (w & kTileStatus) == kTileInclusive;
+    }
+    static __device__ float fold(float c, unsigned long long w, unsigned long long w2) {
+        return fmaf(value_of(w, 0.f), c, value_of(w2, 0.f));
     }
 };
 
@@ -103,28 +145,32 @@ __device__ __forceinline__ long long take_tile(unsigned long long* counter,
 }
 
 // The exclusive prefix of tile j > 0 of a row whose status words start at
-// `row`, by one full warp; every lane returns it.  A word before the row's
-// first tile reads as the prefix 0.  Spins until a predecessor within reach
-// closes and every tile between has published its aggregate; a wait of more
-// than kLookbackPolls polls can only be a fault (a workspace that does not
-// match the grid), so it traps, and the launch fails instead of hanging.
+// `row` (and, for a pair operator, whose second words start at `row2`), by one
+// full warp; every lane returns it.  A word before the row's first tile reads
+// as the prefix 0.  Spins until a predecessor within reach closes and every
+// tile between has published its aggregate; a wait of more than
+// kLookbackPolls polls can only be a fault (a workspace that does not match
+// the grid), so it traps, and the launch fails instead of hanging.
 template <typename A, typename Op>
-__device__ __forceinline__ A lookback_exclusive(const unsigned long long* row, long long j,
+__device__ __forceinline__ A lookback_exclusive(const unsigned long long* row,
+                                                const unsigned long long* row2, long long j,
                                                 int lane) {
-    unsigned long long w[kLookbackWindows];
+    unsigned long long w[kLookbackWindows], w2[kLookbackWindows];
     for (long long polls = 0;; ++polls) {
         if (polls > kLookbackPolls) __trap();
 #pragma unroll
         for (int k = 0; k < kLookbackWindows; ++k) {
             const long long idx = j - 1 - 32LL * k - lane;
             w[k] = idx >= 0 ? ld_relaxed(row + idx) : kTileInclusive;
+            if constexpr (Op::kPair) w2[k] = idx >= 0 ? ld_relaxed(row2 + idx) : 0ull;
+            else w2[k] = 0ull;
         }
         int stop = -1, win = 0;
         bool wait = false;
 #pragma unroll
         for (int k = 0; k < kLookbackWindows; ++k) {
             if (stop < 0 && !wait) {
-                const unsigned valid = __ballot_sync(kFullMask, (w[k] & kTileStatus) != 0);
+                const unsigned valid = __ballot_sync(kFullMask, Op::ready(w[k], w2[k]));
                 const unsigned close = __ballot_sync(kFullMask, Op::closes(w[k]));
                 const unsigned nearer = close ? (close & (0u - close)) - 1u : kFullMask;
                 if ((valid & nearer) != nearer) {
@@ -141,7 +187,12 @@ __device__ __forceinline__ A lookback_exclusive(const unsigned long long* row, l
             for (int k = kLookbackWindows - 1; k >= 0; --k) {
                 if (k <= win) {
                     for (int i = (k == win ? stop : 32) - 1; i >= 0; --i) {
-                        c = Op::fold(c, __shfl_sync(kFullMask, w[k], i));
+                        const unsigned long long wi = __shfl_sync(kFullMask, w[k], i);
+                        if constexpr (Op::kPair) {
+                            c = Op::fold(c, wi, __shfl_sync(kFullMask, w2[k], i));
+                        } else {
+                            c = Op::fold(c, wi, 0ull);
+                        }
                     }
                 }
             }
@@ -158,17 +209,38 @@ __device__ __forceinline__ A lookback_carry(unsigned long long* row, long long j
                                             bool agg_flag, int lane) {
     if (j == 0) {
         if (lane == 0) {
-            const A p = Op::fold(A(0), tile_word(kTileAggregate, agg, agg_flag));
+            const A p = Op::fold(A(0), tile_word(kTileAggregate, agg, agg_flag), 0ull);
             st_relaxed(row, tile_word(kTileInclusive, p));
         }
         return A(0);
     }
     if (lane == 0) st_relaxed(row + j, tile_word(kTileAggregate, agg, agg_flag));
-    const A c = lookback_exclusive<A, Op>(row, j, lane);
+    const A c = lookback_exclusive<A, Op>(row, nullptr, j, lane);
     if (lane == 0) {
-        const A p = Op::fold(c, tile_word(kTileAggregate, agg, agg_flag));
+        const A p = Op::fold(c, tile_word(kTileAggregate, agg, agg_flag), 0ull);
         st_relaxed(row + j, tile_word(kTileInclusive, p));
     }
+    return c;
+}
+
+// The same for B13's affine aggregate (A, B): `row` and `row2` are the row's
+// first and second words.  Tile j's state on entry is the strict fold
+// y <- fmaf(A_i, y, B_i) from the nearest published P_k over k < i < j, and
+// its prefix P_j = fmaf(A, y, B): the chain of links a walk of the row's
+// tiles in order makes, whichever k the look-back stopped at.
+__device__ __forceinline__ float lookback_affine_carry(unsigned long long* row,
+                                                       unsigned long long* row2, long long j,
+                                                       float A, float B, int lane) {
+    if (j == 0) {
+        if (lane == 0) st_relaxed(row, tile_word(kTileInclusive, fmaf(A, 0.f, B)));
+        return 0.f;
+    }
+    if (lane == 0) {
+        st_relaxed(row + j, tile_word(kTileAggregate, A));
+        st_relaxed(row2 + j, tile_word(kTileAggregate, B));
+    }
+    const float c = lookback_exclusive<float, AffineFold>(row, row2, j, lane);
+    if (lane == 0) st_relaxed(row + j, tile_word(kTileInclusive, fmaf(A, c, B)));
     return c;
 }
 

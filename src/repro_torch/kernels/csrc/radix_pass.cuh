@@ -56,9 +56,10 @@
 // sampler's (4, 128256) a pass is one wave of CTAs and three launches, so
 // latency bounds it (PERF.md has both).
 //
-// The tile machinery (tile_load, warp_rank, warp_offsets, scan_kernel) does
-// not depend on how a digit is made, so the other one-CTA-per-row splits
-// (split.cu, multi_split.cu) can be put on it.
+// The tile machinery (tile_load, warp_rank, warp_offsets, scan_kernel) and the
+// upsweep do not depend on how a digit is made: the upsweep takes the digit as
+// a functor (RadixDigit here).  B6 (multi_split.cu) runs the upsweep and the
+// scan as they are on its slot digits, with a downsweep of its own.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -184,29 +185,32 @@ scan_kernel(int* __restrict__ tile_counts, int* __restrict__ totals, int tiles, 
     if (threadIdx.x == 0) totals[slot] = carry;
 }
 
-// ---------------------------------------------------------------------------
-// the radix pass
-// ---------------------------------------------------------------------------
-
-template <typename W>
-__device__ __forceinline__ void tile_digits(const W* stage, int tile_n, int shift,
-                                            unsigned dmask, unsigned (&digit)[kItems]) {
+// digit[j]: the digit of this lane's key of round j, kNoDigit past the tile's end.
+template <typename W, typename Digit>
+__device__ __forceinline__ void tile_digits(const W* stage, int tile_n, Digit digit_of,
+                                            unsigned (&digit)[kItems]) {
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
         const int i = item_index(j);
-        digit[j] = i < tile_n ? (static_cast<unsigned>(stage[i]) >> shift) & dmask : kNoDigit;
+        digit[j] = i < tile_n ? digit_of(stage[i]) : kNoDigit;
     }
 }
 
-// Phase 1: CTA (t, row) writes its tile's digit counts to tile_counts[row][d][t].
+// Shared memory of the upsweep: the tile's words, then the per-warp counters.
 template <typename W>
+inline size_t upsweep_smem(int radix) {
+    return kTile * sizeof(W) + static_cast<size_t>(kWarps) * radix * sizeof(int);
+}
+
+// Phase 1: CTA (t, row) writes its tile's digit counts to tile_counts[row][d][t],
+// d < radix; digit_of(w) gives a word's digit, in [0, radix).
+template <typename W, typename Digit>
 __global__ void __launch_bounds__(kThreads)
 upsweep_kernel(const W* __restrict__ keys, int* __restrict__ tile_counts, long long n,
-               int tiles, int shift, int bits) {
+               int tiles, Digit digit_of, int radix) {
     extern __shared__ __align__(16) unsigned char smem[];
     W* stage = reinterpret_cast<W*>(smem);                       // [kTile] keys
     int* cnt = reinterpret_cast<int*>(smem + kTile * sizeof(W)); // [kWarps][R]
-    const int radix = 1 << bits;
     const long long row = blockIdx.y;
     const long long lo = static_cast<long long>(blockIdx.x) * kTile;
     const int tile_n = static_cast<int>(min(static_cast<long long>(kTile), n - lo));
@@ -218,19 +222,32 @@ upsweep_kernel(const W* __restrict__ keys, int* __restrict__ tile_counts, long l
     // counts need no order: one shared-memory atomic a key into the warp's
     // counters (integer adds, so the counts do not depend on their order)
     int* my = cnt + (threadIdx.x >> 5) * radix;
-    const unsigned dmask = (1u << bits) - 1u;
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
         const int i = item_index(j);
-        if (i < tile_n) atomicAdd(my + ((static_cast<unsigned>(stage[i]) >> shift) & dmask), 1);
+        if (i < tile_n) atomicAdd(my + digit_of(stage[i]), 1);
     }
     __syncthreads();
-    if (static_cast<int>(threadIdx.x) < radix) {
+    for (int d = threadIdx.x; d < radix; d += kThreads) {
         int c = 0;
-        for (int w = 0; w < kWarps; ++w) c += cnt[w * radix + threadIdx.x];
-        tile_counts[(row * radix + threadIdx.x) * tiles + blockIdx.x] = c;
+        for (int w = 0; w < kWarps; ++w) c += cnt[w * radix + d];
+        tile_counts[(row * radix + d) * tiles + blockIdx.x] = c;
     }
 }
+
+// ---------------------------------------------------------------------------
+// the radix pass
+// ---------------------------------------------------------------------------
+
+// Bits [shift, shift + k) of a raw key word.
+template <typename W>
+struct RadixDigit {
+    int shift;
+    unsigned mask;
+    __device__ __forceinline__ unsigned operator()(W w) const {
+        return (static_cast<unsigned>(w) >> shift) & mask;
+    }
+};
 
 // Phase 3: CTA (t, row) ranks its tile stably, stages it in digit order and
 // writes each bucket's run at the run's start in the row.  tile_counts holds
@@ -249,7 +266,7 @@ downsweep_kernel(const W* __restrict__ keys, const int* __restrict__ perm,
     const int radix = 1 << bits;
     int* gbase = cnt + kWarps * radix;                                      // [R]
     long long* scratch = reinterpret_cast<long long*>(gbase + radix);      // [2·kWarps+1]
-    const unsigned dmask = (1u << bits) - 1u;
+    const RadixDigit<W> digit_of{shift, (1u << bits) - 1u};
     const int warp = threadIdx.x >> 5;
     const long long row = blockIdx.y;
     const long long lo = static_cast<long long>(blockIdx.x) * kTile;
@@ -265,7 +282,7 @@ downsweep_kernel(const W* __restrict__ keys, const int* __restrict__ perm,
     int rank[kItems];
     {
         unsigned digit[kItems];
-        tile_digits(in_k, tile_n, shift, dmask, digit);
+        tile_digits(in_k, tile_n, digit_of, digit);
         warp_rank(digit, bits, cnt + warp * radix, rank);
     }
     int p[kItems];
@@ -308,7 +325,7 @@ downsweep_kernel(const W* __restrict__ keys, const int* __restrict__ perm,
         const int i = item_index(j);
         if (i < tile_n) {
             const W w = in_k[i];
-            const int s = my[(static_cast<unsigned>(w) >> shift) & dmask] + rank[j];
+            const int s = my[digit_of(w)] + rank[j];
             stage_k[s] = w;
             stage_p[s] = p[j];
         }
@@ -320,7 +337,7 @@ downsweep_kernel(const W* __restrict__ keys, const int* __restrict__ perm,
     perm_out += row * n;
     for (int i = threadIdx.x; i < tile_n; i += kThreads) {
         const W w = stage_k[i];
-        const int dest = gbase[(static_cast<unsigned>(w) >> shift) & dmask] + i;
+        const int dest = gbase[digit_of(w)] + i;
         keys_out[dest] = w;
         perm_out[dest] = stage_p[i];
     }
@@ -334,7 +351,7 @@ int launch_typed(const void* keys, const void* perm, void* keys_out, void* perm_
     const int tiles = static_cast<int>((n + kTile - 1) / kTile);
     const long long per_row = static_cast<long long>(radix) * tiles;
     int* totals = counts != nullptr ? counts : scratch + b * per_row;
-    const size_t up_smem = kTile * sizeof(W) + kWarps * radix * sizeof(int);
+    const size_t up_smem = upsweep_smem<W>(radix);
     const size_t down_smem = kTile * (2 * sizeof(W) + sizeof(int))
                              + (kWarps * radix + radix) * sizeof(int)
                              + (2 * kWarps + 1) * sizeof(long long);
@@ -353,8 +370,8 @@ int launch_typed(const void* keys, const void* perm, void* keys_out, void* perm_
         const long long off = r0 * n;
         int* tc = scratch + r0 * per_row;
         int* tot = totals + r0 * radix;
-        upsweep_kernel<W><<<dim3(tiles, rows), kThreads, up_smem, stream>>>(
-            k + off, tc, n, tiles, shift, bits);
+        upsweep_kernel<W, RadixDigit<W>><<<dim3(tiles, rows), kThreads, up_smem, stream>>>(
+            k + off, tc, n, tiles, RadixDigit<W>{shift, (1u << bits) - 1u}, radix);
         cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return static_cast<int>(e);
         scan_kernel<<<dim3(radix, rows), kScanThreads, 0, stream>>>(tc, tot, tiles, radix);

@@ -4,7 +4,9 @@ Port of ``repro/kernels/linrec_mm.py``.  Four kernels, one CUDA source each,
 sharing the affine-pair walk of ``csrc/affine_tile.cuh``:
 
 * :func:`linrec_scan_tiles` (B13, ``csrc/linrec_scan.cu``) — the recurrence of
-  each row, walked in order with a running state;
+  each row as a single pass over tiles of ``linrec_scan_tile(n)`` pairs, one
+  CTA a tile, linked by the decoupled look-back under the affine operator
+  (rows of at most ``LINREC_WARP_MAX`` pairs: one warp a row);
 * :func:`linrec_block_summaries` (B14, ``csrc/linrec_summaries.cu``) — phase 1
   of the §4 pipeline: each block's affine map ``y_out = p·y_in + l`` as the
   pair ``(Π a, trailing sum)``;
@@ -36,18 +38,32 @@ import torch.nn.functional as F
 from repro_torch.core import guards
 from repro_torch.core.linrec import _linrec_block, _linrec_matmul, linrec_accum_dtype_for
 from repro_torch.core.precision import resolve_precision
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, lookback
 from repro_torch.kernels.scan_pipeline import block_geometry
 
 __all__ = ["linrec_scan_tiles", "linrec_block_summaries", "linrec_carry_scan",
            "linrec_block_scan_carry", "linrec_blocked_scan", "linrec_scan_tiles_plain",
            "linrec_block_summaries_plain", "linrec_carry_scan_plain",
-           "linrec_block_scan_carry_plain", "linrec_blocked_scan_plain"]
+           "linrec_block_scan_carry_plain", "linrec_blocked_scan_plain", "linrec_scan_tile",
+           "LINREC_SCAN_THREADS", "LINREC_SCAN_ITEMS", "LINREC_WARP_MAX"]
 
 # elements of the largest triangle stack a plain version builds at once
 _CHUNK_ELEMS = 1 << 26
 # row counts reach the kernels as a C int
 _MAX_ROWS = (1 << 31) - 1
+# csrc/linrec_scan.cu: B13's threads a CTA at most and the pairs a thread
+# scans; csrc/affine_tile.cuh: the longest row one warp walks (no look-back)
+LINREC_SCAN_THREADS = 512
+LINREC_SCAN_ITEMS = 16
+LINREC_WARP_MAX = 2048
+
+
+def linrec_scan_tile(n: int) -> int:
+    """Pairs of B13's tile, one CTA's round, for rows of ``n > LINREC_WARP_MAX``:
+    ``lin_threads(n, 512, 16)`` threads (``csrc/affine_tile.cuh``) times
+    ``LINREC_SCAN_ITEMS``: 8192 for rows of 8192 or more."""
+    threads = min(max((n // LINREC_SCAN_ITEMS + 31) // 32 * 32, 32), LINREC_SCAN_THREADS)
+    return threads * LINREC_SCAN_ITEMS
 
 
 # ---------------------------------------------------------------------------
@@ -74,13 +90,23 @@ def _identity_pad(ab: torch.Tensor, bb: torch.Tensor, length: int, acc):
 
 
 def linrec_scan_tiles_plain(ab: torch.Tensor, bb: torch.Tensor, *, s: int,
-                            acc: torch.dtype, precision: str = "highest") -> torch.Tensor:
+                            acc: torch.dtype, precision: str = "highest",
+                            tile: int | None = None) -> torch.Tensor:
     """Plain version of B13 on ``(rows, n)`` pairs.
 
     Each ``s×s`` tile runs the block algebra; the tiles are then linked in
     order as the Pallas kernel links them, the running state ``y`` entering a
     tile as ``out + mult·y`` and leaving as that tile's last value.
+
+    ``tile`` models the kernel's single pass: the row is cut into tiles of
+    ``tile`` pairs (identity-padded), each scanned as above from a zero state;
+    a tile's aggregate is its map ``(Π a, last value)``, and the state entering
+    it the look-back's fold of the earlier tiles' maps in index order
+    (:func:`lookback.fold_exclusive` under the affine operator), which then
+    seeds the tile's first pair, ``b₀ ← a₀·y + b₀``, for a second scan.
     """
+    if tile is not None:
+        return _linrec_lookback_plain(ab, bb, s=s, acc=acc, precision=precision, tile=tile)
     rows, n = ab.shape
     ell = s * s
     a, b = _identity_pad(ab, bb, -(-n // ell) * ell, acc)
@@ -94,6 +120,20 @@ def linrec_scan_tiles_plain(ab: torch.Tensor, bb: torch.Tensor, *, s: int,
         y = last_out[:, t] + last_mult[:, t] * y
     out = out + mult * torch.stack(ins, dim=-1)[..., None, None]
     return out.reshape(rows, nt * ell)[:, :n]
+
+
+def _linrec_lookback_plain(ab, bb, *, s, acc, precision, tile):
+    rows, n = ab.shape
+    nt = max(-(-n // tile), 1)
+    a, b = _identity_pad(ab, bb, nt * tile, acc)
+    at, bt = a.reshape(rows * nt, tile), b.reshape(rows * nt, tile)
+    local = linrec_scan_tiles_plain(at, bt, s=s, acc=acc, precision=precision)
+    entering = lookback.fold_exclusive(local[:, -1].reshape(rows, nt),
+                                       mults=torch.prod(at, dim=-1).reshape(rows, nt))
+    bt = bt.clone()
+    bt[:, 0] = at[:, 0] * entering.reshape(-1) + bt[:, 0]
+    out = linrec_scan_tiles_plain(at, bt, s=s, acc=acc, precision=precision)
+    return out.reshape(rows, nt * tile)[:, :n]
 
 
 def _suffix_prods_excl(a: torch.Tensor) -> torch.Tensor:
@@ -167,12 +207,18 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _linrec_scan_cuda(ak, bk):
+def _linrec_scan_cuda(ak, bk, ws=None):
+    """One launch of B13.  Rows longer than ``LINREC_WARP_MAX`` take the
+    look-back's workspace ``ws`` (two words a tile; allocated here if None),
+    which ends with the count of CTAs that ran, one a tile."""
     rows, n = ak.shape
     out = torch.empty_like(ak)
+    if ws is None and n > LINREC_WARP_MAX:
+        ws = lookback.workspace(rows * -(-n // linrec_scan_tile(n)), ak.device, words=2)
     with torch.cuda.device(ak.device):
         _build.launch("linrec_scan", ak.data_ptr(), bk.data_ptr(), out.data_ptr(), rows, n,
-                      _stream(ak))
+                      None if ws is None else ws.data_ptr(),
+                      0 if ws is None else ws.numel() * ws.element_size(), _stream(ak))
     return out
 
 
@@ -222,11 +268,14 @@ def _check_pair(op: str, a: torch.Tensor, b: torch.Tensor, ndim=None) -> None:
 
 def linrec_scan_tiles(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
                       accum_dtype=None, precision: str = "highest") -> torch.Tensor:
-    """Linear recurrence of the last axis as one ordered walk per row.
+    """Linear recurrence of the last axis, each row's tiles linked in order.
 
     Args:
         a, b: ``(..., n)`` multipliers and additive inputs of one shape; CUDA
-            tensors launch B13, CPU tensors run the plain version.
+            tensors launch B13 (one launch: a single pass over tiles of
+            ``linrec_scan_tile(n)`` pairs linked by the look-back, or one warp
+            a row for rows of at most ``LINREC_WARP_MAX``), CPU tensors run the
+            plain version.
         s: Tile side of the plain version's ``s×s`` tiles (the kernel walks
             elements and reads no tile side).
         accum_dtype: Accumulation dtype; defaults to ``linrec_accum_dtype_for``.

@@ -7,8 +7,10 @@ Port of five kernels of ``repro/kernels/split_mm.py``:
   destinations (flagged elements first) and the scatter of the payload and
   its original index, with the number of flagged elements.
 * :func:`multi_split_tiles` (``csrc/multi_split.cu``): the stable ``R``-way
-  split by int32 digits — bucket counts, bucket bases, stable ranks, and the
-  scatter of the payload and its original index.
+  split by int32 digits — up to ``MULTI_SPLIT_TILE_MAX_BUCKETS`` buckets as
+  B7's tile split on ``R + 1`` slots (tile slot counts, their bucket-major
+  scan, each element's in-tile rank plus its tile's base, and the scatter of
+  the payload and its original index), above that one CTA a row.
 * :func:`radix_pass_multibit` (``csrc/radix_pass.cu``): one stable LSB
   radix-2^k pass as a tile split over many CTAs a row — tile digit counts,
   their bucket-major scan, then each key's in-tile rank (the one-hot mask
@@ -36,13 +38,19 @@ from repro_torch.kernels import _build
 
 __all__ = ["split_tiles", "split_plain", "multi_split_tiles", "multi_split_plain",
            "radix_pass_multibit", "radix_pass_plain", "topp_mask_sample_tiles",
-           "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND", "MULTI_SPLIT_MAX_BUCKETS", "RADIX_TILE"]
+           "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND", "MULTI_SPLIT_MAX_BUCKETS",
+           "MULTI_SPLIT_TILE_MAX_BUCKETS", "RADIX_TILE"]
 
 KEY_DTYPES = {torch.uint8: 8, torch.int16: 16, torch.int32: 32}
 
 # the most buckets B6 takes: one warp's R + 1 counters and the R + 1 totals
 # fill the card's 227 KB of shared memory (csrc/multi_split.cu)
 MULTI_SPLIT_MAX_BUCKETS = 232448 // 8 - 1
+
+# the most buckets B6's tile split takes (kTileMaxBuckets in csrc/multi_split.cu:
+# its downsweep scans the R + 1 slots one thread a slot, 512 threads); above it
+# B6 runs one CTA a row
+MULTI_SPLIT_TILE_MAX_BUCKETS = 511
 
 # keys a tile of the B7/B7h tile split: kTile in csrc/radix_pass.cuh, which the
 # entry points check it against; the plain version's default tile
@@ -116,27 +124,30 @@ def split_tiles(x: torch.Tensor, flags: torch.Tensor):
     return z.reshape(x.shape), ind.reshape(x.shape), cnt.reshape(lead)
 
 
-def multi_split_plain(x: torch.Tensor, digits: torch.Tensor, num_buckets: int):
+def multi_split_plain(x: torch.Tensor, digits: torch.Tensor, num_buckets: int, *,
+                      tile=None):
     """Plain version of the multi-way split on ``(b, n)`` payloads and int32 digits.
 
-    Bucket ranks are exclusive scans of the ``(b, R + 1, n)`` one-hot digit
-    masks, destinations the bucket bases plus those ranks.  A digit outside
-    ``[0, R)`` goes to the extra bucket ``R``, after every other, uncounted,
-    as in the kernel.  Returns ``(z, ind, counts)`` with counts ``(b, R)``.
+    A digit outside ``[0, R)`` goes to the extra slot ``R``, after every
+    bucket, uncounted, as in the kernel.  The tile split's three phases on the
+    ``R + 1`` slots, on tiles of ``tile`` elements: the tiles' slot counts
+    (:func:`_radix_tile_hist`), their slot-major exclusive scan
+    (:func:`_radix_tile_scan`) and each element's in-tile rank plus its tile's
+    base (:func:`_radix_tile_dest`).  A stable split has one answer, so every
+    ``tile`` gives the same bits; ``None`` takes the whole row as one tile, the
+    exclusive scans of the row's ``(b, R + 1, n)`` one-hot slot masks.
+    Returns ``(z, ind, counts)`` with counts ``(b, R)``.
     """
+    n = x.shape[-1]
     d = digits.to(torch.int64)
     d = torch.where((d >= 0) & (d < num_buckets), d, num_buckets)
-    buckets = torch.arange(num_buckets + 1, device=digits.device)
-    oh = (d[:, None, :] == buckets[None, :, None]).to(torch.int32)
-    ex = torch.cumsum(oh, dim=-1, dtype=torch.int32) - oh          # exclusive, exact
-    counts = ex[..., -1] + oh[..., -1]
-    base = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
-    rank = torch.gather(ex, 1, d[:, None, :])[:, 0]
-    dest = (torch.gather(base, 1, d) + rank).to(torch.int64)
-    iota = torch.arange(x.shape[-1], dtype=torch.int32, device=x.device).expand(dest.shape)
+    tile = max(min(tile or n, n), 1)               # a short row is one tile, unpadded
+    tile_base, totals = _radix_tile_scan(_radix_tile_hist(d, num_buckets + 1, tile))
+    dest = _radix_tile_dest(d, tile_base, totals, tile)
+    iota = torch.arange(n, dtype=torch.int32, device=x.device).expand(dest.shape)
     return (torch.empty_like(x).scatter_(1, dest, x),
             torch.empty(dest.shape, dtype=torch.int32, device=x.device).scatter_(1, dest, iota),
-            counts[:, :num_buckets].contiguous())
+            totals[:, :num_buckets].contiguous())
 
 
 def multi_split_tiles(x: torch.Tensor, digits: torch.Tensor, *, num_buckets: int):
@@ -150,9 +161,14 @@ def multi_split_tiles(x: torch.Tensor, digits: torch.Tensor, *, num_buckets: int
             as the Pallas wrapper casts them.  A digit outside that range goes
             after every bucket, in order, and is not counted (the Pallas kernel
             puts its element on index 0).
-        num_buckets: ``R``, from 1 to ``MULTI_SPLIT_MAX_BUCKETS``.  The Pallas
-            kernel's tile side ``s`` has no counterpart: the CUDA kernel ranks
-            32 keys at a time and masks the ragged row end, so nothing is padded.
+        num_buckets: ``R``, from 1 to ``MULTI_SPLIT_MAX_BUCKETS``.  On a CUDA
+            tensor ``R`` alone chooses the kernel: up to
+            ``MULTI_SPLIT_TILE_MAX_BUCKETS`` the tile split (three kernels on
+            tiles of ``RADIX_TILE`` elements, many CTAs a row, with an int32
+            scratch of ``b·(R + 1)·(T + 1)``), above it one CTA a row (its
+            counters fill shared memory).  Both rank 32 elements at a time and
+            mask the ragged row end, so nothing is padded; the Pallas kernel's
+            tile side ``s`` has no counterpart.
 
     Returns:
         ``z`` shaped like ``x``, ``indices`` (int32) shaped like ``x`` and
@@ -188,11 +204,16 @@ def multi_split_tiles(x: torch.Tensor, digits: torch.Tensor, *, num_buckets: int
         z = torch.empty_like(xb)
         ind = torch.empty((b, n), dtype=torch.int32, device=xb.device)
         cnt = torch.empty((b, num_buckets), dtype=torch.int32, device=xb.device)
+        # the tile split's slot counts (b, R + 1, T), then its slot totals
+        scratch = (torch.empty(b * (num_buckets + 1) * (-(-n // RADIX_TILE) + 1),
+                               dtype=torch.int32, device=xb.device)
+                   if num_buckets <= MULTI_SPLIT_TILE_MAX_BUCKETS else None)
         with torch.cuda.device(xb.device):
             stream = torch.cuda.current_stream(xb.device).cuda_stream
             _build.launch("multi_split", xb.data_ptr(), db.data_ptr(), z.data_ptr(),
-                          ind.data_ptr(), cnt.data_ptr(), b, n, num_buckets,
-                          xb.element_size(), stream)
+                          ind.data_ptr(), cnt.data_ptr(),
+                          None if scratch is None else scratch.data_ptr(), b, n, num_buckets,
+                          xb.element_size(), RADIX_TILE, stream)
     return (z.reshape(x.shape), ind.reshape(x.shape),
             cnt.reshape(*lead, num_buckets))
 

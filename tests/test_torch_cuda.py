@@ -896,6 +896,154 @@ def test_multi_split_kernel_launch_count(dev):
         split_mm.multi_split_tiles(x, d, num_buckets=split_mm.MULTI_SPLIT_MAX_BUCKETS + 1)
 
 
+# rows around the tile edge of B6's tile split (tiles of split_mm.RADIX_TILE digits)
+B6_EDGE_ROWS = [1, split_mm.RADIX_TILE - 1, split_mm.RADIX_TILE, split_mm.RADIX_TILE + 1,
+                3 * split_mm.RADIX_TILE + 17]
+
+
+def _b6_hold(x, d, r, plain=True):
+    """One B6 launch, exact against its plain version (where asked), a stable
+    argsort of the slot digits (out-of-range digits last) and their bincount."""
+    ops.reset_launch_counts()
+    z, ind, cnt = split_mm.multi_split_tiles(x, d, num_buckets=r)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(multi_split=1)
+    if plain:
+        pz, pind, pcnt = split_mm.multi_split_plain(x, d, r)
+        assert torch.equal(z, pz) and torch.equal(ind, pind) and torch.equal(cnt, pcnt)
+    key = torch.where((d >= 0) & (d < r), d, r).long()
+    order = torch.argsort(key, dim=-1, stable=True)
+    assert torch.equal(ind.long(), order) and torch.equal(z, torch.gather(x, -1, order))
+    want = torch.stack([torch.bincount(row, minlength=r + 1)[:r] for row in key])
+    assert torch.equal(cnt.long(), want)
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("n", B6_EDGE_ROWS)
+@pytest.mark.parametrize("r", [2, 16, 256])
+def test_multi_split_tile_split_at_its_tile_edges(dev, r, n, b):
+    """Rows ending before, at and after a tile edge, with runs of one digit across
+    every edge: one launch, exact."""
+    x = torch.randn((b, n), generator=_gen(dev), device=dev)
+    d = torch.randint(0, r, (b, n), generator=_gen(dev, 1), device=dev, dtype=torch.int32)
+    for edge in range(split_mm.RADIX_TILE, n, split_mm.RADIX_TILE):
+        d[:, edge - 5:edge + 5] = d[:, edge - 5:edge - 4]
+    _b6_hold(x, d, r)
+
+
+@pytest.mark.parametrize("r", [split_mm.MULTI_SPLIT_TILE_MAX_BUCKETS,
+                               split_mm.MULTI_SPLIT_TILE_MAX_BUCKETS + 1])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float64, torch.float32, torch.uint8])
+def test_multi_split_around_the_tile_ceiling(dev, dtype, r):
+    """R = 511, the tile split's most (its downsweep's largest shared memory with
+    8-byte payloads), and R = 512, the row kernel: both exact, one launch each;
+    the tile split takes scratch exactly up to its ceiling."""
+    x = _int_payload(torch.int32, (3, 70001), dev).to(dtype)
+    d = torch.randint(-3, r + 3, x.shape, generator=_gen(dev, 2), device=dev,
+                      dtype=torch.int32)
+    _b6_hold(x, d, r, plain=dtype != torch.uint8)
+
+
+@pytest.mark.parametrize("r", [16, split_mm.MULTI_SPLIT_TILE_MAX_BUCKETS, 5000])
+def test_multi_split_out_of_range_digits_on_each_kernel(dev, r):
+    """Digits below 0 and at or above R go last, in order, uncounted, on the tile
+    split and the row kernel, with 8-byte payloads; nothing is written out of
+    bounds (the synchronize would report a fault)."""
+    d = torch.randint(-2 * r, 2 * r, (4, 3 * split_mm.RADIX_TILE + 17),
+                      generator=_gen(dev, 3), device=dev, dtype=torch.int32)
+    x = torch.arange(d.numel(), device=dev, dtype=torch.int64).reshape(d.shape)
+    _b6_hold(x, d, r, plain=r < 1000)
+
+
+# rows around the edge of B13's tiles (linrec_scan_tile: 8192 pairs for these rows)
+B13_TILE = linrec_mm.linrec_scan_tile(1 << 20)
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("n", [1, B13_TILE - 1, B13_TILE, B13_TILE + 1, 3 * B13_TILE + 17])
+def test_linrec_scan_kernel_at_its_tile_edges(dev, n, b):
+    """One launch of B13 over all rows; integer-valued pairs with a zero of a on a
+    tile's first pair and none for a tile and more: exact against the plain version
+    and the fp64 recurrence."""
+    a, bb = _lin_pair("int", (b, n), dev)
+    a[:, B13_TILE::B13_TILE] = 0.0
+    a[:, 1:B13_TILE + 100] = torch.where(a[:, 1:B13_TILE + 100] == 0, 1.0,
+                                         a[:, 1:B13_TILE + 100])
+    ops.reset_launch_counts()
+    got = linrec_mm.linrec_scan_tiles(a, bb)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(linrec_scan=1)
+    assert torch.equal(got, linrec_mm.linrec_scan_tiles_plain(a, bb, s=16, acc=torch.float32))
+    assert torch.equal(got.double(), _lin_ref(a, bb))
+
+
+def _lin_ctas(a, b, dev):
+    """The CTAs one B13 launch ran, from the counter after its two words a tile."""
+    rows, n = a.shape
+    tiles = rows * -(-n // linrec_mm.linrec_scan_tile(n))
+    ws = lookback.workspace(tiles, dev, words=2)
+    out = linrec_mm._linrec_scan_cuda(a, b, ws=ws)
+    torch.cuda.synchronize()
+    return int(ws[-1]), tiles, out
+
+
+@pytest.mark.parametrize("shape", [(1, 1 << 26), (64, 1 << 20)])
+def test_linrec_scan_forward_progress(dev, shape):
+    """8192 tiles against the 264 CTAs resident at once: the launch ends, exact,
+    one CTA a tile."""
+    a, b = _lin_pair("int", shape, dev)
+    ctas, tiles, out = _lin_ctas(a, b, dev)
+    assert ctas == tiles == 8192
+    assert torch.equal(out.double(), _lin_ref(a, b))
+
+
+def test_linrec_scan_warp_path_and_tiles_either_side_of_2048(dev):
+    """Rows of 2048 take the warp walk (no workspace, no look-back), rows of 2049
+    two tiles of 1024 on the look-back; both exact and equal to the plain version."""
+    for n in (linrec_mm.LINREC_WARP_MAX, linrec_mm.LINREC_WARP_MAX + 1):
+        a, b = _lin_pair("int", (5, n), dev)
+        want = linrec_mm.linrec_scan_tiles_plain(a, b, s=16, acc=torch.float32)
+        if n <= linrec_mm.LINREC_WARP_MAX:
+            got = linrec_mm._linrec_scan_cuda(a, b)
+        else:
+            ctas, tiles, got = _lin_ctas(a, b, dev)
+            assert ctas == tiles == 5 * 2
+        assert torch.equal(got, want) and torch.equal(got.double(), _lin_ref(a, b))
+
+
+def test_linrec_scan_fp32_is_deterministic(dev):
+    """Random fp32 (a in [0.9, 1) with zeros): five more calls bit-equal to the
+    first, within 16 ulp of the fp64 recurrence at the scale of |a|, |b|."""
+    shape = (4, 1 << 22)
+    a = 0.9 + 0.1 * torch.rand(shape, generator=_gen(dev, 7), device=dev)
+    a = torch.where(torch.rand(shape, generator=_gen(dev, 8), device=dev) < 1e-4, 0.0, a)
+    b = torch.randn(shape, generator=_gen(dev, 9), device=dev)
+    first = linrec_mm.linrec_scan_tiles(a, b)
+    for _ in range(5):
+        assert torch.equal(linrec_mm.linrec_scan_tiles(a, b), first)
+    assert _ulp_err(first, _lin_ref(a, b), _lin_ref(a.abs(), b.abs())) <= 16.0
+
+
+def test_linrec_scan_under_cuda_graph(dev):
+    """B13 captured in a CUDA graph (its workspace memset included) and replayed on
+    new inputs gives the eager results."""
+    a, b = _lin_pair("gated", (4, 1 << 20), dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            linrec_mm.linrec_scan_tiles(a, b)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = linrec_mm.linrec_scan_tiles(a, b)
+    for seed in range(3):
+        b.copy_(torch.randn(b.shape, generator=_gen(dev, 20 + seed), device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, linrec_mm.linrec_scan_tiles(a, b))
+
+
 def _ssd_args(dev, shape, seed, decays="mild"):
     b, s, h, p, n = shape
     g = _gen(dev, seed)
