@@ -36,11 +36,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               equal to an fp64 reference; random fp32 within 16 ulp of the fp64
               recurrence, a bf16-operand control failing that limit), then a
               ragged row, a one-block row (where B14 and B15 must not launch), the
-              SSD's (4, 16, 64, 64, 64) shape along axis 1, and cumprod,
-              segment_linear_scan and cummax on the kernel methods; B13's single
-              pass at and around the edge of its tiles (as b1's rows), exact and one
-              launch each, at (1, 2^26) and (64, 2^20) (one CTA a tile, exact), and
-              five repeated fp32 calls bit-equal;
+              SSD's (4, 16, 64, 64, 64) shape along axis 1 (the column walk of B13
+              and B16: one launch, exact on integer values against its plain
+              version and fp64, random fp32 within 16 ulp, five repeated calls
+              bit-equal; the same pairs as 2^20 rows of 16 on B13's and B16's
+              warp walks, within the same limits), and cumprod,
+              segment_linear_scan and cummax on the kernel
+              methods; B13's single pass at and around the edge of its tiles (as
+              b1's rows), exact and one launch each, at (1, 2^26) and (64, 2^20)
+              (one CTA a tile, exact), and five repeated fp32 calls bit-equal;
 10. main   -- the main paths with the launch counters zeroed before and read
               after each: ``scan(method="kernel")`` and ``scan(method="blocked")``
               at (4, 2^24), ``compress`` with ``method="kernel"`` and
@@ -63,12 +67,16 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               launch at and around the edge of its tiles, exact;
 14. b17    -- the SSD chunk kernel against its plain version and the fp64 oracle at
               zamba2's shapes: the ``ssd`` inputs, zamba2's init decays, a ragged S;
+              its chunk-parallel pass: five repeated calls bit-equal, a CUDA-graph
+              replay equal to the eager call, S of 1, Q - 1, Q, Q + 1 and 3Q + 17
+              (one CTA a chunk), a chain of 256 chunks;
 15. main_multisplit -- ``multi_split(method="kernel")`` at (4, 2^24), R = 16: one
               B6 launch and nothing else;
 16. forward_zamba2 -- zamba2-1.2b (38 layers, bf16) ``forward`` and ``loss`` on
               4 x 2048 tokens under each ``scan_method``: 38 B17 launches a pass on
               "kernel", 38 B4 + 38 B16 on "blocked", none on "vector"; the SMOKE
-              model's fp32 forward on the card against the CPU;
+              model's fp32 forward on the card against the CPU, and against B17's
+              plain version on two inputs (one the card tests');
 17. b7h    -- the radix pass that exports its histogram against its plain version at
               (4, 2^22) int32 keys (one shard of a 2^24 row at D = 4): every shift of
               the 8 radix-16 passes, chained into a stable sort; a ragged row and
@@ -95,8 +103,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               other row, and as CUDA graph replays (their device time, under names of
               their own); B1 and B9 beside their three-launch pipelines; B6 at
               R = 10, 16 and 256 and at the vocab shards (eager and graph), B13 at
-              (4, 2^24) (eager and graph), its dist shards and the SSD rows, B16 at
-              the shards; then, after the kernels line's checks, one
+              (4, 2^24) (eager and graph), its dist shards, B13 and B16 on the SSD's
+              column walk beside the row path before it and the whole axis-1
+              ``linear_scan`` call, B16 at the shards, B17 beside its bytes,
+              tensor-core and fp32 bounds; then, after the
+              kernels line's checks, one
               ``launches_by_shape`` line: B6's, B13's, B16's and B17's launches by
               the shape they ran at, beside their ms and bound there.
 
@@ -125,6 +136,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12            # H100 SXM TF32 on the tensor cores, dense
 SCAN_SHAPE = (4, 1 << 24)
 VOCAB_ROWS = 4
 SERVE = dict(batch=4, prompt=128, new=32, seed=0)
@@ -1189,31 +1201,59 @@ def ssd_rows(gen, kind):
 
 
 def linrec_ssd_rows(gen, limit):
-    """B13 and B16 (one 16-long block a row) at the SSD shape, through ``linear_scan``
-    along axis 1 as ``ssd_scan`` calls it, and through the wrappers on the rows."""
+    """B13 and B16 at the SSD shape, through ``linear_scan`` along axis 1 as
+    ``ssd_scan`` calls it: the column walk, one launch, against its plain version
+    (``linrec_columns_plain``) and the fp64 recurrence of the same pairs as rows;
+    integer values exact, random fp32 within the ulp limit, five more calls
+    bit-equal.  Beside it the row path on the same pairs as ``(2^20, 16)`` rows
+    (B13's and B16's warp walks, which rows of at most ``LINREC_WARP_MAX`` still
+    take), against their plain versions and fp64 within the same limits."""
     res = {"case": "ssd shape", "shape": list(SSD_ROWS)}
     for kind in ("int", "random"):
         a, b, ar, br = ssd_rows(gen, kind)
         ref, scale = lin_ref64(ar, br), lin_ref64(ar.abs(), br.abs())
-        for method, key, plain in (
-                ("kernel", "linrec_scan",
+        nr, nn = ar.shape
+        a4, b4 = ar.reshape(nr, 1, 1, nn), br.reshape(nr, 1, 1, nn)
+        z = torch.zeros((nr, 1), device=DEV)
+        for key, call, plain_rows in (
+                ("linrec_scan", lambda: linrec_mm.linrec_scan_tiles(ar, br, s=16),
                  linrec_mm.linrec_scan_tiles_plain(ar, br, s=16, acc=torch.float32)),
-                ("blocked", "linrec_block_scan",
-                 linrec_mm.linrec_blocked_scan_plain(ar, br, s=16, block_tiles=8,
-                                                     acc=torch.float32))):
+                ("linrec_block_scan",
+                 lambda: linrec_mm.linrec_block_scan_carry(a4, b4, z).reshape(nr, nn),
+                 linrec_mm.linrec_block_scan_carry_plain(a4, b4, z, torch.float32)
+                 .reshape(nr, nn))):
+            ops.reset_launch_counts()
+            got = call()
+            sync()
+            expect_counts(ops.launch_counts(), f"ssd rows {kind} {key} warp walk", **{key: 1})
+            if kind == "int":
+                check(torch.equal(got, plain_rows) and torch.equal(got.double(), ref),
+                      f"ssd rows int {key} warp walk: != plain or the fp64 recurrence")
+            else:
+                e = res[f"rows_{key}_max_ulp"] = max_ulp_dev(got, ref, scale)
+                res[f"rows_{key}_plain_max_ulp"] = max_ulp_dev(plain_rows, ref, scale)
+                res[f"rows_{key}_max_abs_err_vs_plain"] = float((got - plain_rows).abs().max())
+                check(e <= limit, f"ssd rows {key} warp walk: {e} ulp > {limit}")
+        del a4, b4, z, got, plain_rows
+        plain = linrec_mm.linrec_columns_plain(a, b, 1)
+        prows = torch.movedim(plain, 1, -1).reshape(-1, SSD_ROWS[1])
+        for method, key in (("kernel", "linrec_scan"), ("blocked", "linrec_block_scan")):
             ops.reset_launch_counts()
             got = linear_scan(a, b, axis=1, method=method, tile_s=16)
             sync()
             expect_counts(ops.launch_counts(), f"linear_scan ssd {kind} {method}", **{key: 1})
             rows = torch.movedim(got, 1, -1).reshape(-1, SSD_ROWS[1])
             if kind == "int":
-                check(torch.equal(rows, plain) and torch.equal(rows.double(), ref),
+                check(torch.equal(got, plain) and torch.equal(rows.double(), ref),
                       f"ssd rows int {method}: != plain or the fp64 recurrence")
             else:
                 e = res[f"{method}_max_ulp"] = max_ulp_dev(rows, ref, scale)
-                res[f"{method}_plain_max_ulp"] = max_ulp_dev(plain, ref, scale)
-                res[f"{method}_max_abs_err_vs_plain"] = float((rows - plain).abs().max())
+                res[f"{method}_plain_max_ulp"] = max_ulp_dev(prows, ref, scale)
+                res[f"{method}_max_abs_err_vs_plain"] = float((got - plain).abs().max())
                 check(e <= limit, f"ssd rows {method}: {e} ulp > {limit}")
+                for i in range(5):
+                    check(torch.equal(linear_scan(a, b, axis=1, method=method, tile_s=16), got),
+                          f"ssd rows {method}: call {i + 2} differs from the first")
     return res
 
 
@@ -1929,7 +1969,12 @@ def phase_b17(gen):
     them: the kernel reads through the strides) within ``SSD_REL``·max|y| of the plain
     version; with zamba2's init decays (a chunk's log-decay cumsum near -2e3) the
     distance to the plain version is reported; every case within the JAX package's
-    2e-3 of fp64 and finite.  Returns the largest kernel-plain difference held."""
+    2e-3 of fp64 and finite.  Then the chunk-parallel pass itself (``b17_pass``):
+    five more calls bit-equal to the first on both decays, a CUDA-graph replay equal
+    to the eager call, S of 1, Q - 1, Q, Q + 1 and 3Q + 17 (one launch, one CTA a
+    chunk) and one (batch, head) of 256 chunks (every CTA waiting on the one before
+    it), each within the same limits.
+    Returns the largest kernel-plain difference held."""
     q = SSD["chunk"]
     res, worst = {}, 0.0
     base = ssd_inputs(gen)
@@ -1954,11 +1999,84 @@ def phase_b17(gen):
                      "max_abs_diff_vs_plain": diff, "rel_diff_vs_plain": diff / ymax,
                      "kernel_max_abs_err_vs_fp64": float((y.double() - ref).abs().max()),
                      "plain_max_abs_err_vs_fp64": float((plain.double() - ref).abs().max())}
+        if name != "ragged":
+            for i in range(5):
+                check(torch.equal(ssd_chunk.ssd_chunk_scan(*args, chunk=q), y),
+                      f"B17 {name}: call {i + 2} differs from the first")
+            res[name]["repeat_calls_bit_equal"] = 5
     res["zamba2_decays"]["max_abs_log_decay_cumsum_per_chunk"] = float(
         cases[1][1][1].reshape(SSD["batch"], -1, q, SSD["heads"]).sum(2).abs().max())
+    res["pass"] = b17_pass(gen, base)
     sync()
     emit({"phase": "b17", **SSD, "limit_rel_to_max_y": SSD_REL, **res})
     return worst
+
+
+def _b17_hold(args, q, y, tag) -> float:
+    """``y`` within ``SSD_REL``·max|y| of B17's plain version and 2e-3 of fp64, finite;
+    returns its distance from the plain version over max|y|."""
+    plain = ssd_chunk.ssd_chunk_plain(*args, chunk=q)
+    ref = ssd_scan_ref(*(t.double() for t in args))
+    err = float(((y.double() - ref).abs() - 2e-3 * ref.abs()).max())
+    check(bool(y.isfinite().all()) and err <= 2e-3, f"{tag}: outside 2e-3 of fp64 ({err})")
+    ymax = float(plain.abs().max())
+    diff = float((y - plain).abs().max())
+    check(diff <= SSD_REL * ymax, f"{tag}: kernel differs from plain by {diff} > "
+          f"{SSD_REL} * {ymax}")
+    return diff / ymax if ymax else 0.0
+
+
+def _b17_launch(args, q):
+    """One launch of B17 with its workspace; returns y and the CTAs that ran."""
+    x, _, bm, _ = args
+    bsz, s, h, p = x.shape
+    nbytes = ssd_chunk.ssd_workspace_bytes(bsz * h, -(-s // q), bm.shape[-1], p)
+    ws = torch.empty(-(-nbytes // 8), dtype=torch.int64, device=DEV)
+    y = ssd_chunk._ssd_chunk_cuda(*args, q, ws=ws)
+    sync()
+    return y, int(ws[0])
+
+
+def b17_pass(gen, base) -> dict:
+    """B17's chunk-parallel pass: a graph replay, the sequence edges and a 256-chunk
+    chain (see ``phase_b17``)."""
+    q = SSD["chunk"]
+    out = {}
+    x, al, bm, cm = (t[:, :1000].clone() for t in base)
+    side = torch.cuda.Stream(DEV)
+    side.wait_stream(torch.cuda.current_stream(DEV))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            ssd_chunk.ssd_chunk_scan(x, al, bm, cm, chunk=q)
+    torch.cuda.current_stream(DEV).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gy = ssd_chunk.ssd_chunk_scan(x, al, bm, cm, chunk=q)
+    for i in range(3):
+        x.copy_(torch.randn(x.shape, generator=gen, device=DEV))
+        graph.replay()
+        sync()
+        check(torch.equal(gy, ssd_chunk.ssd_chunk_scan(x, al, bm, cm, chunk=q)),
+              f"B17 graph replay {i} != the eager call")
+    out["graph_replays_equal"] = 3
+    del graph, gy, x, al, bm, cm
+    edges = {}
+    for s_ in (1, q - 1, q, q + 1, 3 * q + 17):
+        args = tuple(t[:, :s_] for t in base)
+        ops.reset_launch_counts()
+        y, ctas = _b17_launch(args, min(q, s_))
+        expect_counts(ops.launch_counts(), f"B17 S={s_}", ssd_chunk=1)
+        want = SSD["batch"] * SSD["heads"] * -(-s_ // q)
+        check(ctas == want, f"B17 S={s_}: {ctas} CTAs ran for {want} chunks")
+        edges[str(s_)] = _b17_hold(args, q, y, f"B17 S={s_}")
+    out["seq_edges_rel_diff_vs_plain"] = edges
+    chain = tuple(t[:1, :, :1].repeat(1, 256 * q // t.shape[1] + 1, *([1] * (t.dim() - 2)))
+                  [:, :256 * q].contiguous() for t in base)
+    y, ctas = _b17_launch(chain, q)
+    check(ctas == 256, f"B17 chain of 256 chunks: {ctas} CTAs ran")
+    out["chain_256_chunks"] = {"ctas": ctas, "rel_diff_vs_plain": _b17_hold(chain, q, y,
+                                                                            "B17 chain")}
+    return out
 
 
 def main_multisplit(gen):
@@ -2070,7 +2188,10 @@ def forward_zamba2(gen):
 def smoke_forward():
     """The fp32 SMOKE zamba2 forward under "kernel" (5 B17 launches) on the card,
     against B17's plain version on the card and against the CPU (see
-    ``forward_zamba2``)."""
+    ``forward_zamba2``); and on the inputs of ``tests/test_torch_cuda.py``'s
+    ``test_forward_launches_b17_once_per_mamba_layer`` (weights from seed 0, tokens
+    from torch's seed 0), the tightest case of B17's 2e-5 logit limit in the card
+    tests, against B17's plain version on the card."""
     scfg = get_config("zamba2-1.2b", smoke=True)
     sparams = build_model(scfg).init(1, device="cpu")
     gparams = _to(sparams, DEV)
@@ -2092,13 +2213,24 @@ def smoke_forward():
         plain_card = kernel_model.forward(gparams, {"tokens": stoks.to(DEV)})
     finally:
         mamba_model.ssd_chunk_scan = swapped
+    tparams = _to(build_model(scfg).init(0, device="cpu"), DEV)
+    ttoks = torch.randint(0, scfg.vocab_size, (2, 48),
+                          generator=torch.Generator().manual_seed(0)).to(DEV)
+    tk = kernel_model.forward(tparams, {"tokens": ttoks})
+    mamba_model.ssd_chunk_scan = ssd_chunk.ssd_chunk_plain
+    try:
+        tp = kernel_model.forward(tparams, {"tokens": ttoks})
+    finally:
+        mamba_model.ssd_chunk_scan = swapped
     res = {"kernel_vs_plain_on_card": float((card["kernel"] - plain_card).abs().max()),
+           "card_test_inputs_kernel_vs_plain_on_card": float((tk - tp).abs().max()),
            **{f"{m}_card_vs_cpu": float((card[m].cpu() - cpu[m]).abs().max())
               for m in card},
            "max_abs_logit": float(cpu["vector"].abs().max())}
     res["kernel_card_vs_cpu_limit"] = 2 * res["vector_card_vs_cpu"] + 2e-5
-    check(res["kernel_vs_plain_on_card"] <= 2e-5, f"SMOKE zamba2 forward: B17 on the card "
-          f"differs from its plain version by {res['kernel_vs_plain_on_card']}")
+    for key in ("kernel_vs_plain_on_card", "card_test_inputs_kernel_vs_plain_on_card"):
+        check(res[key] <= 2e-5, f"SMOKE zamba2 forward ({key}): B17 on the card differs "
+              f"from its plain version by {res[key]}")
     check(res["kernel_card_vs_cpu"] <= res["kernel_card_vs_cpu_limit"],
           f"SMOKE zamba2 forward under 'kernel' on the card is {res['kernel_card_vs_cpu']} "
           f"from the CPU, beyond {res['kernel_card_vs_cpu_limit']}")
@@ -2730,25 +2862,26 @@ def time_linrec(gen):
                                   vector_ms=cuda_ms(lambda: linear_scan(a, b, method="vector"),
                                                     2))
     del a, b, ab, bb
-    # the SSD shape: the rows as the kernel methods of linear_scan hand them over
+    # the SSD shape, (4, 16, 64, 64, 64) along axis 1 with the decay shared by each
+    # (64, 64) state: the column walk that B13's and B16's launches there run, each
+    # in turns with its plain version; beside it the path before it (the axis moved
+    # last and the decay broadcast, copied to 2^20 rows of 16, one warp a row, and
+    # moved back), and the whole linear_scan call as ssd_scan makes it
     sa, sb, ar, br = ssd_rows(gen, "random")
     nr, nn = ar.shape
-    ssd = {}
-    k, pl = paired_ms(lambda: linrec_mm.linrec_scan_tiles(ar, br, s=16),
-                      lambda: linrec_mm.linrec_scan_tiles_plain(ar, br, s=16, acc=f32), 5)
-    ssd["B13"] = dict(ms=k, plain_ms=pl, bound_ms=bound(nr * nn * 12)[0])
+    ssd = {"rows_bound_ms": bound(nr * nn * 12)[0]}
+    for key, blocked in (("B13", False), ("B16", True)):
+        k, pl = paired_ms(lambda bl=blocked: linrec_mm.linrec_columns(sa, sb, 1, blocked=bl),
+                          lambda: linrec_mm.linrec_columns_plain(sa, sb, 1), 5)
+        ssd[key] = dict(ms=k, plain_ms=pl, bound_ms=bound(sb.numel() * 8 + sa.numel() * 4)[0],
+                        device_ms=graph_ms(lambda bl=blocked: linrec_mm.linrec_columns(
+                            sa, sb, 1, blocked=bl), 20))
+    ssd["B13"]["rows_ms"] = cuda_ms(lambda: linrec_mm.linrec_scan_tiles(ar, br, s=16), 5)
     a4, b4 = ar.reshape(nr, 1, 1, nn), br.reshape(nr, 1, 1, nn)
-    k, pl = paired_ms(lambda: linrec_mm.linrec_block_summaries(a4, b4),
-                      lambda: linrec_mm.linrec_block_summaries_plain(a4, b4, f32), 5)
-    ssd["B14"] = dict(ms=k, plain_ms=pl, bound_ms=bound(nr * nn * 8 + nr * 8)[0])
-    p1, l1 = linrec_mm.linrec_block_summaries_plain(a4, b4, f32)
-    k, pl = paired_ms(lambda: linrec_mm.linrec_carry_scan(p1, l1),
-                      lambda: linrec_mm.linrec_carry_scan_plain(p1, l1), 5)
-    ssd["B15"] = dict(ms=k, plain_ms=pl, bound_ms=bound(nr * 12)[0])
     z = torch.zeros((nr, 1), device=DEV)
-    k, pl = paired_ms(lambda: linrec_mm.linrec_block_scan_carry(a4, b4, z),
-                      lambda: linrec_mm.linrec_block_scan_carry_plain(a4, b4, z, f32), 5)
-    ssd["B16"] = dict(ms=k, plain_ms=pl, bound_ms=bound(nr * nn * 12 + nr * 4)[0])
+    ssd["B16"]["rows_ms"] = cuda_ms(lambda: linrec_mm.linrec_block_scan_carry(a4, b4, z), 5)
+    ssd["rows_path_kernel_ms"] = cuda_ms(lambda: torch.movedim(linrec_mm.linrec_scan_tiles(
+        torch.movedim(sa.expand(sb.shape), 1, -1), torch.movedim(sb, 1, -1), s=16), -1, 1), 5)
     for method in ("kernel", "blocked", "vector", "matmul"):
         ssd[f"linear_scan_{method}_ms"] = cuda_ms(
             lambda m=method: linear_scan(sa, sb, axis=1, method=m, tile_s=16), 5)
@@ -2764,9 +2897,12 @@ def time_b6_b17(gen):
     ``ssd_scan(method="kernel")`` (B1 + B13 and fp32 einsums) as the yardstick.
 
     B6's bound: payload and digits in, payload and index out, 16 B an element.
-    B17's: x, b, c and y once (4 B each) and a once, against 2·(Q²N/2 + Q²P/2 +
-    2QNP) fp32 operations a chunk (the causal half of C Bᵀ and of the scores' product
-    with X, C·state and Bᵀ X) at ``FP32_OPS_PER_S``."""
+    B17's: x, b, c and y once (4 B each) and a once, against the operations the
+    kernel issues for 2·(Q²N/2 + Q²P/2 + 2QNP) fp32 operations a chunk (the causal
+    half of C Bᵀ and of the scores' product with X, C·state and Bᵀ X): three TF32
+    products on the tensor cores for each fp32 one, at ``TF32_OPS_PER_S``.  Beside
+    it the bytes with the handed-on states written and read once, and the same
+    fp32 operations on the CUDA cores at ``FP32_OPS_PER_S``."""
     b, n = SCAN_SHAPE
     x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
     d = torch.randint(0, B6_BUCKETS, SCAN_SHAPE, generator=gen, device=DEV,
@@ -2802,13 +2938,18 @@ def time_b6_b17(gen):
     args = ssd_inputs(gen)
     bsz, s, h, p = args[0].shape
     nst, q = args[2].shape[-1], SSD["chunk"]
-    macs = bsz * h * -(-s // q) * (q * q * nst / 2 + q * q * p / 2 + 2 * q * nst * p)
+    nc = -(-s // q)
+    macs = bsz * h * nc * (q * q * nst / 2 + q * q * p / 2 + 2 * q * nst * p)
     nbytes = 4 * (2 * bsz * s * h * p + 2 * bsz * s * h * nst + bsz * s * h)
-    bms, by = bound(nbytes, 2 * macs)
+    handed_on = 2 * 4 * bsz * h * (nc - 1) * nst * p      # the workspace's states, out and in
+    bms, by = bound(nbytes, 3 * 2 * macs, TF32_OPS_PER_S)
     k, pl = paired_ms(lambda: ssd_chunk.ssd_chunk_scan(*args, chunk=q),
-                      lambda: ssd_chunk.ssd_chunk_plain(*args, chunk=q), 3)
+                      lambda: ssd_chunk.ssd_chunk_plain(*args, chunk=q), 3, kernel_reps=10)
     out["B17"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by,
-                      bytes_bound_ms=bound(nbytes)[0], flops=2 * macs,
+                      bytes_bound_ms=bound(nbytes)[0],
+                      bytes_with_workspace_bound_ms=bound(nbytes + handed_on)[0],
+                      tensor_core_bound_ms=bound(0, 3 * 2 * macs, TF32_OPS_PER_S)[0],
+                      fp32_ops_bound_ms=bound(0, 2 * macs)[0], flops=2 * macs,
                       ssd_scan_kernel_ms=cuda_ms(
                           lambda: ssd_scan(*args, chunk=q, scan_method="kernel"), 3))
     return out
@@ -2850,12 +2991,13 @@ def time_b7h(gen):
 def launches_by_shape(multisplit, linrec, zamba, forward, worlds, timing) -> dict:
     """B6's, B13's, B16's and B17's launches on the main paths by the shape they ran
     at, each beside the kernel's ms and bound there (timing): the launches of the
-    kernels line, split by path.  The SSD rows are zamba2's cross-chunk states at
-    prefill and in the forward, 2^20 rows of 16 (one warp a row)."""
+    kernels line, split by path.  The SSD shape is zamba2's cross-chunk states at
+    prefill and in the forward, (4, 16, 64, 64, 64) along axis 1 (the column
+    walk)."""
     t, ssd = timing, timing["ssd_shape"]
     shard = {dd: [VOCAB_ROWS, VOCAB // dd] for dd in DIST_WORLDS}
     rows = {dd: [DIST_SHAPE[0], DIST_SHAPE[1] // dd] for dd in DIST_WORLDS}
-    ssd_rows_ = [SSD_ROWS[0] * SSD_ROWS[2] * SSD_ROWS[3] * SSD_ROWS[4], SSD_ROWS[1]]
+    ssd_rows_ = list(SSD_ROWS)
 
     def at(launches, shape, ms, bound_ms, path):
         return {"launches": launches, "shape": shape, "ms": ms, "bound_ms": bound_ms,
@@ -2992,8 +3134,9 @@ def main() -> int:
          "seg_block_scan.cu", "src/repro/kernels/segscan_mm.py:325",
          seg_launches["seg_block_scan"], seg_err["B12"], timing["B12"]),
         ("B13 linrec_scan_tiles (linear-recurrence scan, a single pass with the affine "
-         "look-back; times at (4, 2^24); launches: main_linrec, zamba2 prefill's rows of 16 "
-         "under scan_method='kernel' and dist_linear_scan's shards)", "linrec_scan.cu",
+         "look-back; times at (4, 2^24); launches: main_linrec, zamba2 prefill's "
+         "(4, 16, 64, 64, 64) cross-chunk states on the column walk under "
+         "scan_method='kernel' and dist_linear_scan's shards)", "linrec_scan.cu",
          "src/repro/kernels/linrec_mm.py:72", lin_launches["linrec_scan"], lin_err["B13"],
          timing["B13"]),
         ("B14 linrec_block_summaries ((prod a, trailing sum) per block)",
@@ -3004,10 +3147,11 @@ def main() -> int:
          lin_launches["linrec_carry"], lin_err["B15"], timing["B15"]),
         ("B16 linrec_block_scan_carry (block recurrence seeded with its carry; launches: "
          "main_linrec, zamba2 prefill and zamba2 forward and loss under "
-         "scan_method='blocked')",
+         "scan_method='blocked', their cross-chunk states on the column walk)",
          "linrec_block_scan.cu", "src/repro/kernels/linrec_mm.py:219",
          lin_launches["linrec_block_scan"], lin_err["B16"], timing["B16"]),
-        ("B17 ssd_chunk_scan (chunked SSD scan; launches: zamba2-1.2b forward and loss "
+        ("B17 ssd_chunk_scan (chunked SSD scan, one CTA a chunk with the state handed "
+         "on, 3xTF32 tensor-core products; launches: zamba2-1.2b forward and loss "
          "under scan_method='kernel', 38 a pass)", "ssd_chunk.cu",
          "src/repro/kernels/ssd_chunk.py:27", forward_counts["ssd_chunk"], b17_err,
          timing["B17"]),

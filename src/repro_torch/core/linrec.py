@@ -20,6 +20,11 @@ table:
 * ``"blocked"`` — B14–B16, the §4 pipeline over ``(Π a, trailing sum)`` block
   summaries (``linrec_mm.linrec_blocked_scan``).
 
+On both kernel methods a short scan axis that is not the last (at most
+``linrec_mm.LINREC_COLUMN_MAX`` pairs; on ``"blocked"`` one block long) is
+walked where it lies, one launch of B13's or B16's column walk
+(``linrec_mm.linrec_columns``), with no copy of the operands.
+
 The two kernel methods run their plain PyTorch versions on CPU tensors.
 Integer and bool inputs accumulate in fp32 (:func:`linrec_accum_dtype_for`).
 Only ``precision="highest"`` and ``nonfinite="propagate"`` are ported.
@@ -301,16 +306,24 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
     dtype = torch.promote_types(a.dtype, b.dtype)
     acc = accum_dtype if accum_dtype is not None else linrec_accum_dtype_for(dtype)
     axis = guards.validate_axis(axis, nd, op="linear_scan")
-    moved = axis != nd - 1
-    if moved:
-        a, b = torch.movedim(a, axis, -1), torch.movedim(b, axis, -1)
-    n = max(a.shape[-1], b.shape[-1])
-    a = a.expand(*a.shape[:-1], n)                     # the scan axis is real on both
-    b = b.expand(*b.shape[:-1], n)
+    n = max(a.shape[axis], b.shape[axis])
     explicit_method = method != "auto"
     method = maybe_resolve(method, "linear_scan", n, dtype, device=b.device)
     resolve_precision(precision, method=method, explicit_method=explicit_method)
     guards.resolve_nonfinite(nonfinite, op="linear_scan")
+    from repro_torch.kernels import linrec_mm  # no import cycle
+    if linrec_mm.column_walk_applies(method, nd, axis, n, tile_s, block_tiles):
+        # a short axis that is not the last: walked where it lies, nothing moved
+        init = None if initial is None else torch.as_tensor(initial, dtype=acc,
+                                                            device=b.device)
+        return linrec_mm.linrec_columns(a.to(acc), b.to(acc), axis, exclusive=exclusive,
+                                        reverse=reverse, initial=init,
+                                        blocked=method == "blocked")
+    moved = axis != nd - 1
+    if moved:
+        a, b = torch.movedim(a, axis, -1), torch.movedim(b, axis, -1)
+    a = a.expand(*a.shape[:-1], n)                     # the scan axis is real on both
+    b = b.expand(*b.shape[:-1], n)
     full = torch.broadcast_shapes(a.shape, b.shape)
     b = b.expand(full)                                 # b is output-sized anyway
     if reverse:

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List
 
-__all__ = ["SOURCES", "BUILD_DIR", "LAUNCHES", "build_all", "load", "launch",
+__all__ = ["SOURCES", "ENTRIES", "BUILD_DIR", "LAUNCHES", "build_all", "load", "launch",
            "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -53,7 +53,15 @@ SOURCES: Dict[str, tuple] = {
     "linrec_carry": ("repro_linrec_carry", [_P, _P, _P, _I, _L, _P]),
     "linrec_block_scan": ("repro_linrec_block_scan", [_P, _P, _P, _P, _I, _L, _I, _L, _P]),
     "multi_split": ("repro_multi_split", [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P]),
-    "ssd_chunk": ("repro_ssd_chunk", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "ssd_chunk": ("repro_ssd_chunk",
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _L, _P]),
+}
+
+# second entry points of a library: (library, C entry point) -> argtypes; a
+# launch through one counts as its library's
+ENTRIES: Dict[tuple, list] = {
+    ("linrec_scan", "repro_linrec_scan_columns"): [_P, _P, _P, _P, _P, _P],
+    ("linrec_block_scan", "repro_linrec_block_scan_columns"): [_P, _P, _P, _P, _P, _P],
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -129,6 +137,10 @@ def _load_locked(name: str) -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        for (lib_name, entry), types in ENTRIES.items():
+            if lib_name == name:
+                getattr(lib, entry).argtypes = types
+                getattr(lib, entry).restype = ctypes.c_int
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
@@ -144,10 +156,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry point; raise on a CUDA error, else count it."""
+def launch(name: str, *args, entry: str | None = None) -> None:
+    """Call kernel ``name``'s C entry point (or its second one, ``entry``, from
+    :data:`ENTRIES`); raise on a CUDA error, else count a launch of ``name``."""
     lib = load(name)
-    rc = getattr(lib, SOURCES[name][0])(*args)
+    rc = getattr(lib, entry or SOURCES[name][0])(*args)
     if rc != 0:
         msg = lib.repro_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} ({msg})")

@@ -16,13 +16,16 @@
 // carry, so the carry reaches each element through the recurrence itself and
 // stops exactly at a zero of a.
 // Blocks of at most kLinWarpMax elements are walked by one warp each, eight to
-// a CTA: the SSD's cross-chunk rows are one 16-long block each.  The ragged
+// a CTA.  A short axis that is not the last and is one block (the SSD's
+// cross-chunk states) is walked where it lies, one thread a column, with a
+// zero carry (linrec_columns.cuh, repro_linrec_block_scan_columns).  The ragged
 // end of a row is masked here, so the wrapper pads nothing.
 //
 // Bound.  Each element is read once (a and b) and written once, plus 4 B of
 // carry per block: 12 B per element, bound by bytes (0.240 ms at (4, 2^24) at
 // 3.35 TB/s).
 #include "affine_tile.cuh"
+#include "linrec_columns.cuh"
 
 namespace {
 
@@ -89,4 +92,12 @@ extern "C" int repro_linrec_block_scan(const void* a, const void* b, const void*
             af, bf, cf, of, n, nb, block_len);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// The column walk of linrec_columns.cuh (launch_columns' geometry): one launch
+// of B16 for a short scan axis that is not the last, one block long.
+extern "C" int repro_linrec_block_scan_columns(const void* a, const void* b, const void* init,
+                                               void* out, const long long* geom,
+                                               void* stream) {
+    return repro::launch_columns(a, b, init, out, geom, stream);
 }

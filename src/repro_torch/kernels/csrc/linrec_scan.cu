@@ -33,9 +33,11 @@
 // wrapper passes that workspace (16 B a tile and 8 B for the counter), which
 // this entry point zeroes on the stream.  No triangle, no quotient and no zero mask: a zero of a
 // resets the state exactly under composition.  Rows of at most kLinWarpMax
-// elements (the SSD's cross-chunk rows are 16 long, a million of them at
-// zamba2's prefill) are walked by one warp each, eight rows to a CTA, with no
-// look-back.  The ragged end of a row is masked here, so nothing is padded: a
+// elements are walked by one warp each, eight rows to a CTA, with no
+// look-back.  A short axis that is not the last (at most LINREC_COLUMN_MAX
+// pairs: the SSD's cross-chunk states) is walked where it lies, one thread a
+// column (linrec_columns.cuh, repro_linrec_scan_columns).  The ragged end of a
+// row is masked here, so nothing is padded: a
 // 16-long row stays 16 long where the Pallas kernel pads it to 256.  The tile
 // side s of the Pallas kernel and the plain version is not read.
 //
@@ -45,6 +47,7 @@
 // cost: the ticket, the barriers of the block scan and the look-back's round
 // trips to L2.
 #include "affine_tile.cuh"
+#include "linrec_columns.cuh"
 #include "lookback.cuh"
 
 namespace {
@@ -130,4 +133,11 @@ extern "C" int repro_linrec_scan(const void* a, const void* b, void* out, int ro
     linrec_scan_kernel<<<static_cast<unsigned>(total), threads, stage, st>>>(
         af, bf, of, n, tiles, w, w + total, w + 2 * total);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The column walk of linrec_columns.cuh (launch_columns' geometry): one launch
+// of B13 for a short scan axis that is not the last.
+extern "C" int repro_linrec_scan_columns(const void* a, const void* b, const void* init,
+                                         void* out, const long long* geom, void* stream) {
+    return repro::launch_columns(a, b, init, out, geom, stream);
 }

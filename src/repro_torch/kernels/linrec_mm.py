@@ -20,6 +20,14 @@ sharing the affine-pair walk of ``csrc/affine_tile.cuh``:
 ``t = min(block_tiles, ⌈n/s²⌉)`` tiles, ``m = t·s`` rows of ``s``; with one
 block per row the carry is zero and B14 and B15 are not launched.
 
+:func:`linrec_columns` walks a short scan axis that is not the last where it
+lies (``csrc/linrec_columns.cuh``: one thread a column of an ``(outer, n,
+inner)`` view, a decay shared by trailing axes read unbroadcast, ``y`` written
+in the caller's layout): ``linear_scan`` hands such axes of at most
+``LINREC_COLUMN_MAX`` pairs to it on ``"kernel"`` (one launch of B13) and, when
+they are one block, on ``"blocked"`` (one launch of B16), in place of the
+moved, broadcast and copied rows.
+
 On CUDA tensors the wrappers launch the kernels, which read and write fp32
 only (operands are cast to fp32; any other accumulation dtype raises on the
 card) and mask the ragged row end themselves.  On CPU tensors they run the
@@ -31,6 +39,9 @@ across ordered tiles.  They build ``(…, s, s)`` triangles per row of ``s``, so
 they work a bounded number of tiles or blocks at a time.
 """
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +56,8 @@ __all__ = ["linrec_scan_tiles", "linrec_block_summaries", "linrec_carry_scan",
            "linrec_block_scan_carry", "linrec_blocked_scan", "linrec_scan_tiles_plain",
            "linrec_block_summaries_plain", "linrec_carry_scan_plain",
            "linrec_block_scan_carry_plain", "linrec_blocked_scan_plain", "linrec_scan_tile",
-           "LINREC_SCAN_THREADS", "LINREC_SCAN_ITEMS", "LINREC_WARP_MAX"]
+           "linrec_columns", "linrec_columns_plain", "column_walk_applies",
+           "LINREC_SCAN_THREADS", "LINREC_SCAN_ITEMS", "LINREC_WARP_MAX", "LINREC_COLUMN_MAX"]
 
 # elements of the largest triangle stack a plain version builds at once
 _CHUNK_ELEMS = 1 << 26
@@ -56,6 +68,12 @@ _MAX_ROWS = (1 << 31) - 1
 LINREC_SCAN_THREADS = 512
 LINREC_SCAN_ITEMS = 16
 LINREC_WARP_MAX = 2048
+# the longest scan axis, not the last, that linear_scan's kernel methods walk
+# where it lies, one thread a column: the SSD's cross-chunk axis is S/Q (16 at
+# zamba2's prefill); a column walk is sequential in n, and an axis of 64 steps
+# still keeps every thread's loads of 8 steps in flight while the columns fill
+# the card
+LINREC_COLUMN_MAX = 64
 
 
 def linrec_scan_tile(n: int) -> int:
@@ -120,6 +138,39 @@ def linrec_scan_tiles_plain(ab: torch.Tensor, bb: torch.Tensor, *, s: int,
         y = last_out[:, t] + last_mult[:, t] * y
     out = out + mult * torch.stack(ins, dim=-1)[..., None, None]
     return out.reshape(rows, nt * ell)[:, :n]
+
+
+def linrec_columns_plain(a: torch.Tensor, b: torch.Tensor, axis: int, *,
+                         exclusive: bool = False, reverse: bool = False,
+                         initial: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the column walk: the recurrence along ``axis`` step by step.
+
+    ``a`` and ``b`` are rank-aligned and broadcast against each other; the
+    result has their broadcast shape and dtype.  Each step is
+    ``y = a_t·y + b_t`` with one rounding (formed in fp64, as the kernel's
+    ``fmaf``, up to a rare double rounding); a zero state enters the first step,
+    or ``initial`` (broadcast against the shape without ``axis``) folded in as
+    ``b_0 + a_0·initial`` with two roundings, as ``linear_scan`` folds it.
+    ``exclusive`` gives the state entering each step, ``reverse`` walks from the
+    end.
+    """
+    full = torch.broadcast_shapes(a.shape, b.shape)
+    ae, be = a.expand(full), b.expand(full)
+    n = full[axis]
+    out = torch.empty(full, dtype=be.dtype, device=be.device)
+    rest = full[:axis] + full[axis + 1:]
+    y = (torch.zeros(rest, dtype=be.dtype, device=be.device) if initial is None
+         else initial.to(be.dtype).expand(rest))
+    for step in range(n):
+        t = n - 1 - step if reverse else step
+        at, bt = ae.select(axis, t), be.select(axis, t)
+        if step == 0 and initial is not None:
+            nxt = bt + at * y
+        else:
+            nxt = (at.double() * y.double() + bt.double()).to(be.dtype)
+        out.select(axis, t).copy_(y if exclusive else nxt)
+        y = nxt
+    return out
 
 
 def _linrec_lookback_plain(ab, bb, *, s, acc, precision, tile):
@@ -250,9 +301,126 @@ def _linrec_block_scan_cuda(ak, bk, carries, nb, block_len):
     return out
 
 
+def _collapse(sizes, strides):
+    """The stride ``s`` for which the dims (row-major) sit at ``flat index · s``, or
+    None; dims of size 1 do not count, and no dims give 0."""
+    dims = [(z, st) for z, st in zip(sizes, strides) if z != 1]
+    if not dims:
+        return 0
+    s, span = dims[-1][1], 1
+    for z, st in reversed(dims):
+        if st != s * span:
+            return None
+        span *= z
+    return s
+
+
+def _a_view(ae, full, k):
+    """``(a_so, a_sg, group)`` of the expanded multipliers, or None: the trailing
+    inner axes ``ae`` is broadcast over are its group."""
+    j = len(full)
+    while j > k + 1 and (full[j - 1] == 1 or ae.stride(j - 1) == 0):
+        j -= 1
+    a_so = _collapse(full[:k], ae.stride()[:k])
+    a_sg = _collapse(full[k + 1:j], ae.stride()[k + 1:j])
+    if a_so is None or a_sg is None:
+        return None
+    return a_so, a_sg, math.prod(full[j:])
+
+
+def _column_geometry(a, b, initial, axis):
+    """The ``(outer, n, inner)`` views of ``csrc/linrec_columns.cuh``: the operands
+    (copied only where their strides do not fit it) and its 11 geometry values."""
+    full = tuple(torch.broadcast_shapes(a.shape, b.shape))
+    k = axis
+    outer, n, inner = math.prod(full[:k]), full[k], math.prod(full[k + 1:])
+    ae = a.expand(full)
+    view = _a_view(ae, full, k)
+    if view is None:
+        ae = ae.contiguous()
+        view = _a_view(ae, full, k)
+    a_so, a_sg, group = view
+    be = b.expand(full)
+    if _collapse(full[:k], be.stride()[:k]) is None or \
+            (inner > 1 and _collapse(full[k + 1:], be.stride()[k + 1:]) != 1):
+        be = be.contiguous()
+    i_so = i_si = 0
+    if initial is not None:
+        rest = full[:k] + full[k + 1:]
+        initial = initial.expand(rest)
+        i_so = _collapse(full[:k], initial.stride()[:k])
+        i_si = _collapse(full[k + 1:], initial.stride()[k:])
+        if i_so is None or i_si is None:
+            initial = initial.contiguous()
+            i_so = _collapse(full[:k], initial.stride()[:k])
+            i_si = _collapse(full[k + 1:], initial.stride()[k:])
+    geom = [outer, n, inner, group, a_so, ae.stride(k), a_sg,
+            _collapse(full[:k], be.stride()[:k]), be.stride(k), i_so, i_si]
+    return ae, be, initial, full, geom
+
+
+def _linrec_columns_cuda(a, b, initial, axis, *, exclusive, reverse, blocked):
+    ae, be, init, full, geom = _column_geometry(a, b, initial, axis)
+    out = torch.empty(full, dtype=torch.float32, device=b.device)
+    g = (ctypes.c_longlong * 13)(*geom, int(reverse), int(exclusive))
+    name = "linrec_block_scan" if blocked else "linrec_scan"
+    with torch.cuda.device(b.device):
+        _build.launch(name, ae.data_ptr(), be.data_ptr(),
+                      None if init is None else init.data_ptr(), out.data_ptr(), g,
+                      _stream(b), entry=f"repro_{name}_columns")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
+
+
+def column_walk_applies(method: str, ndim: int, axis: int, n: int, tile_s: int,
+                        block_tiles: int) -> bool:
+    """Whether ``linear_scan`` walks its scan axis where it lies: ``"kernel"`` and
+    ``"blocked"`` on an axis that is not the last, of ``2 … LINREC_COLUMN_MAX``
+    pairs, and on ``"blocked"`` one block long (B16 alone, as the rows would be)."""
+    if method not in ("kernel", "blocked") or axis == ndim - 1:
+        return False
+    if not 2 <= n <= LINREC_COLUMN_MAX:
+        return False
+    return method == "kernel" or block_geometry(n, tile_s, block_tiles)[2] == 1
+
+
+def linrec_columns(a: torch.Tensor, b: torch.Tensor, axis: int, *, exclusive: bool = False,
+                   reverse: bool = False, initial: torch.Tensor | None = None,
+                   blocked: bool = False) -> torch.Tensor:
+    """The linear recurrence along ``axis``, walked where it lies, one launch.
+
+    Args:
+        a, b: Rank-aligned multipliers and additive inputs, broadcast against
+            each other (a decay shared over trailing axes stays unbroadcast);
+            CUDA tensors launch the column walk of B13 (``blocked``: of B16),
+            CPU tensors run :func:`linrec_columns_plain`.
+        axis: The scan axis (non-negative).
+        exclusive, reverse: As in ``linear_scan``.
+        initial: The state entering the first step, broadcast against the shape
+            without ``axis``; None for zero.
+        blocked: Count the launch as B16's (``linear_scan(method="blocked")``).
+
+    Returns:
+        The recurrence at the broadcast shape, contiguous, in ``b``'s dtype.
+
+    Raises:
+        TypeError: on the card, operands that are not fp32.
+    """
+    if not b.is_cuda:
+        return linrec_columns_plain(a, b, axis, exclusive=exclusive, reverse=reverse,
+                                    initial=initial)
+    for t in (a, b) + (() if initial is None else (initial,)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"linrec_columns: the CUDA kernels read fp32, got {t.dtype}")
+    full = torch.broadcast_shapes(a.shape, b.shape)
+    if math.prod(full) == 0:                           # nothing to walk, no launch
+        return torch.empty(full, dtype=torch.float32, device=b.device)
+    return _linrec_columns_cuda(a, b, initial, axis, exclusive=exclusive, reverse=reverse,
+                                blocked=blocked)
 
 
 def _acc_of(a: torch.Tensor, b: torch.Tensor, accum_dtype):

@@ -1126,3 +1126,153 @@ def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---- B17 as a chunk-parallel pass; the column walk of B13 and B16 ----
+
+
+def _ssd_hold(args, chunk, y):
+    """``y`` against B17's plain version within 2e-6·max|y| and the fp64 oracle
+    within 2e-3, finite."""
+    plain = ssd_chunk.ssd_chunk_plain(*args, chunk=chunk)
+    ref = ssd_scan_ref(*(t.double() for t in args))
+    assert bool(y.isfinite().all())
+    assert torch.allclose(y.double(), ref, rtol=2e-3, atol=2e-3)
+    assert float((y - plain).abs().max()) <= 2e-6 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 3 * 128 + 17])
+def test_ssd_chunk_kernel_sequence_edges(dev, s):
+    """S of 1, Q - 1, Q, Q + 1 and 3Q + 17 at zamba2's widths (Q 128, N = P = 64):
+    one launch, one CTA a chunk."""
+    args = _ssd_args(dev, (2, s, 4, 64, 64), 11)
+    x, al, bm, cm = args
+    q = min(128, s)
+    nc = -(-s // q)
+    ws = torch.empty(-(-ssd_chunk.ssd_workspace_bytes(8, nc, 64, 64) // 8), dtype=torch.int64,
+                     device=dev)
+    ops.reset_launch_counts()
+    y = ssd_chunk._ssd_chunk_cuda(x, al, bm, cm, q, ws=ws)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(ssd_chunk=1)
+    assert int(ws[0]) == 8 * nc
+    _ssd_hold(args, 128, y)
+
+
+@pytest.mark.parametrize("decays", ["mild", "zamba2"])
+def test_ssd_chunk_kernel_is_deterministic(dev, decays):
+    """Five more calls bit-equal to the first: the state reaches every chunk through
+    the same chain, whichever CTAs ran first."""
+    args = _ssd_args(dev, (2, 2048, 16, 64, 64), 12, decays)
+    first = ssd_chunk.ssd_chunk_scan(*args, chunk=128)
+    for _ in range(5):
+        assert torch.equal(ssd_chunk.ssd_chunk_scan(*args, chunk=128), first)
+
+
+def test_ssd_chunk_kernel_under_cuda_graph(dev):
+    """B17 captured in a CUDA graph (its workspace memset included) and replayed on
+    new inputs gives the eager results."""
+    x, al, bm, cm = _ssd_args(dev, (2, 1000, 8, 64, 64), 13)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            ssd_chunk.ssd_chunk_scan(x, al, bm, cm, chunk=128)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssd_chunk.ssd_chunk_scan(x, al, bm, cm, chunk=128)
+    for seed in range(3):
+        x.copy_(torch.randn(x.shape, generator=_gen(dev, 30 + seed), device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ssd_chunk.ssd_chunk_scan(x, al, bm, cm, chunk=128))
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_ssd_chunk_kernel_single_chain_forward_progress(dev, chunk):
+    """One (batch, head) of 256 chunks: every CTA waits on the one before it; the
+    launch ends, one CTA a chunk, within the limits."""
+    args = _ssd_args(dev, (1, 256 * chunk, 1, 64, 64), 14)
+    ws = torch.empty(-(-ssd_chunk.ssd_workspace_bytes(1, 256, 64, 64) // 8), dtype=torch.int64,
+                     device=dev)
+    y = ssd_chunk._ssd_chunk_cuda(*args, chunk, ws=ws)
+    torch.cuda.synchronize()
+    assert int(ws[0]) == 256
+    _ssd_hold(args, chunk, y)
+
+
+@pytest.mark.parametrize("method,key", [("kernel", "linrec_scan"),
+                                        ("blocked", "linrec_block_scan")])
+def test_linrec_columns_one_launch_no_copies(dev, method, key):
+    """The SSD's cross-chunk states, (4, 16, 64, 64, 64) along axis 1 with a decay
+    shared by each (64, 64) state: one launch, no allocation beyond the output, and
+    integer-valued pairs exact against the column walk's plain version and fp64."""
+    a = torch.randint(-1, 2, (4, 16, 64, 1, 1), generator=_gen(dev, 16), device=dev).float()
+    b = torch.randint(-3, 4, (4, 16, 64, 64, 64), generator=_gen(dev, 17), device=dev).float()
+    linear_scan(a, b, axis=1, method=method, tile_s=16)          # builds and warms
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    got = linear_scan(a, b, axis=1, method=method, tile_s=16)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(**{key: 1})
+    assert torch.cuda.max_memory_allocated(dev) - before <= b.numel() * 4
+    want = linrec_mm.linrec_columns_plain(a, b, 1)
+    ref = torch.movedim(_lin_ref(torch.movedim(a.expand(b.shape), 1, -1),
+                                 torch.movedim(b, 1, -1)), -1, 1)
+    assert torch.equal(got, want) and torch.equal(got.double(), ref)
+
+
+@pytest.mark.parametrize("axis,n", [(0, 2), (1, 3), (1, 17), (2, 64), (0, 64)])
+@pytest.mark.parametrize("opts", [{}, dict(exclusive=True), dict(reverse=True),
+                                  dict(initial=2.0, exclusive=True, reverse=True)])
+def test_linrec_columns_match_plain_and_vector(dev, axis, n, opts):
+    """Every axis that is not the last, full and grouped decays, the options:
+    integer-valued pairs exact against the plain version and the "vector" method."""
+    shape = [3, 5, 7, 8]
+    shape[axis] = n
+    b = torch.randint(-3, 4, shape, generator=_gen(dev, 18), device=dev).float()
+    for a_shape in (shape, shape[:axis + 1] + [1] * (3 - axis)):
+        a = torch.randint(-1, 2, a_shape, generator=_gen(dev, 19), device=dev).float()
+        ops.reset_launch_counts()
+        got = linear_scan(a, b, axis=axis, method="kernel", **opts)
+        assert ops.launch_counts() == _counts(linrec_scan=1)
+        init = opts.get("initial")
+        plain = linrec_mm.linrec_columns_plain(
+            a, b, axis, exclusive=opts.get("exclusive", False),
+            reverse=opts.get("reverse", False),
+            initial=None if init is None else torch.tensor(init, device=dev))
+        assert torch.equal(got, plain)
+        assert torch.equal(got, linear_scan(a, b, axis=axis, method="vector", **opts))
+
+
+def test_linrec_columns_random_fp32_within_16_ulp(dev):
+    """Random gated fp32 at the SSD shape within 16 ulp of the fp64 recurrence, on
+    both methods, five more calls bit-equal."""
+    a = 0.9 + 0.1 * torch.rand((4, 16, 64, 1, 1), generator=_gen(dev, 20), device=dev)
+    b = torch.randn((4, 16, 64, 64, 64), generator=_gen(dev, 21), device=dev)
+    rows = (torch.movedim(a.expand(b.shape), 1, -1), torch.movedim(b, 1, -1))
+    ref, scale = _lin_ref(*rows), _lin_ref(rows[0].abs(), rows[1].abs())
+    for method in ("kernel", "blocked"):
+        got = linear_scan(a, b, axis=1, method=method, tile_s=16)
+        assert _ulp_err(torch.movedim(got, 1, -1), ref, scale) <= 16.0
+        for _ in range(5):
+            assert torch.equal(linear_scan(a, b, axis=1, method=method, tile_s=16), got)
+
+
+@pytest.mark.parametrize("method", ["kernel", "blocked"])
+@pytest.mark.parametrize("a_shape,b_shape", [((2, 16, 0), (2, 16, 0)),
+                                             ((0, 16, 4), (0, 16, 4)),
+                                             ((2, 16, 1, 1), (2, 16, 3, 0))])
+def test_linrec_columns_empty_operands(dev, method, a_shape, b_shape):
+    """A short axis 1 whose operands hold no element: an empty result of the broadcast
+    shape, as on the CPU, and no launch."""
+    a, b = torch.ones(a_shape, device=dev), torch.ones(b_shape, device=dev)
+    ops.reset_launch_counts()
+    got = linear_scan(a, b, axis=1, method=method, tile_s=16)
+    assert ops.launch_counts() == _counts()
+    want = linear_scan(a.cpu(), b.cpu(), axis=1, method=method, tile_s=16)
+    assert got.shape == want.shape == torch.broadcast_shapes(a_shape, b_shape)
+    assert got.device.type == "cuda"

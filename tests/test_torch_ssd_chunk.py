@@ -19,8 +19,8 @@ from repro.kernels.ops import ssd_kernel as jax_ssd_kernel
 from repro.kernels.ref import ssd_ref as jax_ssd_ref
 from repro_torch.core.ssd import ssd_scan_ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssd_chunk import (SSD_SMEM_LIMIT, ssd_chunk_plain, ssd_chunk_scan,
-                                           ssd_smem_bytes)
+from repro_torch.kernels.ssd_chunk import (SSD_SMEM_LIMIT, ssd_check_tile, ssd_chunk_plain,
+                                           ssd_chunk_scan, ssd_smem_bytes)
 
 TOL = 2e-3                   # tests/test_kernels.py::test_ssd_kernel_sweep
 CLOSE = 1e-4                 # port against the Pallas kernel, absolute, O(1) outputs
@@ -111,11 +111,21 @@ def test_ssd_chunk_refuses_grad_and_validates():
         ssd_chunk_scan(x, a, bm, cm, chunk=0)
 
 
-def test_ssd_chunk_shared_memory_limit():
-    """zamba2 (Q 128, N = P = 64) fits a CTA's 227 KB; Q 256 does not."""
-    assert ssd_smem_bytes(128, 64, 64) == 191488 <= SSD_SMEM_LIMIT
-    assert ssd_smem_bytes(16, 8, 16) < SSD_SMEM_LIMIT
-    assert ssd_smem_bytes(256, 64, 64) > SSD_SMEM_LIMIT
+@pytest.mark.parametrize("q,n,p,fits", [(128, 64, 64, True), (16, 8, 16, True),
+                                        (64, 128, 64, True), (256, 64, 64, False),
+                                        (128, 64, 128, False), (128, 256, 64, False)])
+def test_ssd_chunk_shared_memory_limit(q, n, p, fits):
+    """zamba2 (Q 128, N = P = 64) takes 105 KB a CTA, so two CTAs share an SM's
+    228 KB (1 KB of it reserved a CTA); a chunk past a CTA's 8 strips of y, 16 tiles
+    of the state or 227 KB of shared memory is refused: Q 256 at zamba2's widths."""
+    assert ssd_smem_bytes(128, 64, 64) == 107520
+    assert 2 * (ssd_smem_bytes(128, 64, 64) + 1024) <= 228 * 1024
+    if fits:
+        ssd_check_tile(q, n, p)
+        assert ssd_smem_bytes(q, n, p) <= SSD_SMEM_LIMIT
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            ssd_check_tile(q, n, p)
 
 
 def test_ssd_chunk_oracle_is_the_jax_oracle():
