@@ -21,7 +21,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 6. b2b4    -- the §4 pipeline's block sums, carry scan and block scan each against
               their plain versions at (4, 2^24), then the whole pipeline on a
               ragged row and on a one-block row (where B2 and B3 must not launch);
-7. b5      -- SplitInd against its plain version and a stable argsort, exact;
+7. b5      -- SplitInd against its plain version and a stable argsort, exact, one
+              launch a call; at and around the edge of its tiles (rows of 1, TILE - 1,
+              TILE, TILE + 1 and 3 TILE + 17, batches of 1 and 64, every word size,
+              flags of 1, 2 and -1) and on a payload and flags off 16-byte alignment;
 8. seg     -- the segmented scan kernels (B9-B12) each against its plain version at
               (4, 2^24) on rows cut into segments of log-uniform length (empty
               ones included), then the segmented scans on a ragged row, a
@@ -30,7 +33,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               around the edge of its tiles (as b1's rows, flags spanning tiles,
               on each tile's first element, none, all, random and one row shared),
               exact and one launch each; five repeated fp32 calls bit-equal; the
-              sampler's single (1, 513024) scan; the CTAs a launch ran;
+              sampler's single (1, 513024) scan; the CTAs a launch ran; B10's five
+              repeated fp32 calls bit-equal and equal to the fold in the kernel's
+              order, and its run and block edges (ragged rows, flags on each run's
+              first or last element, none, all, each block's last, random, per row
+              and shared), one launch each;
 9. linrec -- the linear-recurrence kernels (B13-B16) each against its plain version
               at (4, 2^24) on random, integer-valued and a = 1 rows (ints exact and
               equal to an fp64 reference; random fp32 within 16 ulp of the fp64
@@ -101,7 +108,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
               other row, and as CUDA graph replays (their device time, under names of
-              their own); B1 and B9 beside their three-launch pipelines; B6 at
+              their own), as are B5 at both shapes and B10; B1 and B9 beside their
+              three-launch pipelines; B6 at
               R = 10, 16 and 256 and at the vocab shards (eager and graph), B13 at
               (4, 2^24) (eager and graph), its dist shards, B13 and B16 on the SSD's
               column walk beside the row path before it and the whole axis-1
@@ -689,8 +697,65 @@ def phase_b2b4(gen):
 _WORD = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
+def _b5_hold(x, f, tag) -> int:
+    """One B5 launch, exact against its plain version and a stable argsort of the
+    flags (any nonzero flag is true), ``n_true`` equal to the flag count.  Returns
+    the largest absolute difference from the plain version: ``z`` compared as raw
+    integer words of its element size, ``ind`` and ``n_true`` as integers."""
+    ops.reset_launch_counts()
+    z, ind, cnt = split_mm.split_tiles(x, f)
+    sync()
+    expect_counts(ops.launch_counts(), tag, split=1)
+    pz, pind, pcnt = split_mm.split_plain(x, f != 0)
+    word = _WORD[z.element_size()]
+    worst = max(int((z.view(word).long() - pz.view(word).long()).abs().max()),
+                int((ind.long() - pind.long()).abs().max()),
+                int((cnt.long() - pcnt.long()).abs().max()))
+    check(torch.equal(z, pz) and torch.equal(ind, pind) and torch.equal(cnt, pcnt),
+          f"{tag}: kernel != plain")
+    order = torch.argsort((f == 0).to(torch.uint8), dim=-1, stable=True)
+    check(torch.equal(ind.long(), order) and torch.equal(z, torch.gather(x, -1, order)),
+          f"{tag}: indices != stable argsort")
+    check(torch.equal(cnt.long(), (f != 0).sum(-1)), f"{tag}: n_true != flag count")
+    return worst
+
+
+def b5_tile_edges(gen) -> dict:
+    """One B5 launch per case at and around the edge of its tiles (rows of 1,
+    TILE - 1, TILE, TILE + 1 and 3 TILE + 17, TILE = 4096), batches of 1 and 64,
+    every word size, flags of 1, 2 and -1 with runs across every tile edge (an
+    all-true and an all-false row in a batch), then payload and flags that start
+    off a 16-byte boundary: exact, one launch each."""
+    cases, worst = 0, 0
+    tile = split_mm.RADIX_TILE
+    for b in (1, 64):
+        for n in tile_edge_rows(tile):
+            f = (torch.rand((b, n), generator=gen, device=DEV) < 0.5).to(torch.int8)
+            f *= torch.tensor([1, 2, -1], dtype=torch.int8, device=DEV)[
+                torch.randint(0, 3, (b, n), generator=gen, device=DEV)]
+            for edge in range(tile, n, tile):
+                f[:, edge - 5:edge + 5] = f[:, edge - 5:edge - 4]
+            if b > 1:
+                f[1], f[2] = 1, 0
+            for word, dt in _WORD.items():
+                x = torch.randint(-(1 << 7), 1 << 7, (b, n), generator=gen,
+                                  device=DEV).to(dt)
+                worst = max(worst, _b5_hold(x, f, f"B5 tile edge b={b} n={n} {word}-byte"))
+                cases += 1
+    b, n = 3, 2 * tile + 5
+    for word, dt in _WORD.items():
+        base = torch.randint(-100, 100, (b * n + 1,), generator=gen, device=DEV).to(dt)
+        fb = torch.rand((b * n + 3,), generator=gen, device=DEV) < 0.3
+        x, f = base[1:].view(b, n), fb[3:].view(b, n)
+        check(x.data_ptr() % 16 != 0 and f.data_ptr() % 16 != 0, "B5 unaligned: aligned")
+        worst = max(worst, _b5_hold(x, f, f"B5 unaligned {word}-byte"))
+        cases += 1
+    return {"tile_edge_cases": cases, "tile": tile, "tile_edge_max_abs_err": worst}
+
+
 def phase_b5(gen):
-    """SplitInd against its plain version and a stable argsort of the flags, exact.
+    """SplitInd against its plain version and a stable argsort of the flags, exact,
+    one launch a call, at (4, 2^24) and (4, 128256) and at its tile edges.
 
     Returns the largest absolute difference between kernel and plain output
     over every case: ``z`` compared as raw integer words of its element size,
@@ -703,28 +768,18 @@ def phase_b5(gen):
         f = torch.rand(shape, generator=gen, device=DEV) < 0.5
         f[1] = True                                            # all true
         f[2] = False                                           # all false
-        order = torch.argsort((~f).to(torch.uint8), dim=-1, stable=True)
         for dt in (torch.float32, torch.bfloat16, torch.int64):
             if dt == torch.int64:
                 x = torch.randint(-(1 << 40), 1 << 40, shape, generator=gen, device=DEV)
             else:
                 x = torch.randn(shape, generator=gen, device=DEV).to(dt)
-            z, ind, cnt = split_mm.split_tiles(x, f)
-            pz, pind, pcnt = split_mm.split_plain(x, f)
-            tag = f"B5 n={n} {dt}"
-            word = _WORD[z.element_size()]
-            worst = max(worst,
-                        int((z.view(word).long() - pz.view(word).long()).abs().max()),
-                        int((ind.long() - pind.long()).abs().max()),
-                        int((cnt.long() - pcnt.long()).abs().max()))
-            check(torch.equal(z, pz) and torch.equal(ind, pind) and torch.equal(cnt, pcnt),
-                  f"{tag}: kernel != plain")
-            check(torch.equal(ind.long(), order), f"{tag}: indices != stable argsort")
-            check(torch.equal(cnt.long(), f.sum(-1)), f"{tag}: n_true != flag count")
+            worst = max(worst, _b5_hold(x, f, f"B5 n={n} {dt}"))
             cases.append({"n": n, "payload": str(dt).rsplit(".", 1)[-1], "exact": True,
-                          "n_true": cnt.tolist()})
+                          "n_true": f.sum(-1).tolist()})
+    edges = b5_tile_edges(gen)
+    worst = max(worst, edges["tile_edge_max_abs_err"])
     sync()
-    emit({"phase": "b5", "cases": cases, "max_abs_err_vs_plain": worst})
+    emit({"phase": "b5", "cases": cases, **edges, "max_abs_err_vs_plain": worst})
     return worst
 
 
@@ -907,13 +962,26 @@ def phase_seg(gen):
     hold("B9", "sampler scan", got, segscan_mm.seg_scan_tiles_plain(
         x1, f1.expand(x1.shape) != 0, s=128, acc=torch.int32), ref1)
     edges = seg_tile_edges(gen, hold)
+    # B10's walk: five repeated fp32 calls at the pipeline's geometry, the bits
+    # of the fold in the kernel's order, then its run and block edges
+    m, _, nb = scan_pipeline.block_geometry(n, 128, 8)
+    blocks, fblocks = xr.reshape(b, nb, m, 128), flags.reshape(b, nb, m, 128)
+    first = segscan_mm.seg_block_summaries(blocks, fblocks)
+    check(all(all(torch.equal(u, v) for u, v in zip(
+        segscan_mm.seg_block_summaries(blocks, fblocks), first)) for _ in range(5)),
+        "B10 fp32: five repeated calls differ")
+    fold = segscan_mm.seg_block_summaries_plain(blocks, fblocks, torch.float32, fold=True)
+    check(torch.equal(first[0], fold[0]) and torch.equal(first[1], fold[1]),
+          "B10 fp32: not the bits of the fold in the kernel's order")
+    b10_edges = seg_summaries_edges(gen, hold)
     sync()
     emit({"phase": "seg", "shape": list(SCAN_SHAPE), "segments_per_row": [
         int(o.numel() - 1) for o in offs], "ulp_limit": limit, "cases": cases, "rows": rows,
         "repeats_bit_equal": 5, "ctas": ctas, "ctas_per_row": ctas // b,
         "sampler_scan": {"shape": list(x1.shape), "tiles": -(-x1.shape[-1] // segscan_mm.
                                                               seg_scan_tile(x1.shape[-1]))},
-        **edges, "max_abs_err_vs_plain": worst})
+        **edges, "B10": {"repeats_bit_equal": 5, "fold_bit_equal": True, **b10_edges},
+        "max_abs_err_vs_plain": worst})
     return worst
 
 
@@ -957,6 +1025,68 @@ def seg_tile_edges(gen, hold) -> dict:
                     x, f.expand(x.shape) != 0, s=128, acc=torch.int32), ref)
                 cases += 1
     return {"tile_edge_cases": cases, "tile": tile}
+
+
+def seg_summaries_edges(gen, hold) -> dict:
+    """One B10 launch per case on raw ``(b, n)`` rows cut into blocks of 64 and 16384
+    elements (ragged last blocks; rows of 4095 and 4097 start off 16-byte
+    boundaries), batches of 1 and 64, flags per row and one row shared, on each
+    run's first or last element, nowhere, everywhere, on each block's last element
+    and at random (values 1 to 3), int32 and random fp32 values: has-boundary equal
+    to the plain version's, the sums bit-equal to the fold in the kernel's order,
+    and exact (int32) or within the ulp limit of the fp64 trailing sum (fp32)."""
+    cases = 0
+    run = segscan_mm.SEG_SUMMARIES_RUN
+    for b in (1, 64):
+        for n in tile_edge_rows(split_mm.RADIX_TILE):
+            pos = torch.arange(n, device=DEV).expand(b, n)
+            for block_len in (64, 16384):
+                nb = -(-n // block_len)
+                pad = nb * block_len - n
+                layouts = {
+                    "run_first": pos % run == 0, "run_last": pos % run == run - 1,
+                    "none": torch.zeros((b, n), dtype=torch.bool, device=DEV),
+                    "all": torch.ones((b, n), dtype=torch.bool, device=DEV),
+                    "block_last": (pos % block_len == block_len - 1) | (pos == n - 1),
+                    "random": (torch.rand((b, n), generator=gen, device=DEV) < 1e-3)
+                    * torch.randint(1, 4, (b, n), generator=gen, device=DEV)}
+                for name, lay in layouts.items():
+                    for shared in (False, True):
+                        f = (lay[0] if shared else lay).to(torch.int8).contiguous()
+                        fblocks = torch.nn.functional.pad((f != 0).expand(b, n), (0, pad))
+                        fblocks = fblocks.reshape(b, nb, 1, block_len)
+                        for kind in ("int32", "f32rand"):
+                            if kind == "int32":
+                                x = torch.randint(-1000, 1000, (b, n), generator=gen,
+                                                  device=DEV, dtype=torch.int32)
+                            else:
+                                x = torch.randn((b, n), generator=gen, device=DEV)
+                            acc = x.dtype
+                            tag = (f"B10 edge b={b} n={n} block={block_len} {name} "
+                                   f"{'shared' if shared else 'per row'} {kind}")
+                            fk, fstride = segscan_mm._flag_rows(f, x.shape)
+                            ops.reset_launch_counts()
+                            ts, h = segscan_mm._seg_summaries_cuda(
+                                x, 0 if kind == "f32rand" else 6, fk, fstride, acc, nb,
+                                block_len)
+                            sync()
+                            expect_counts(ops.launch_counts(), tag, seg_summaries=1)
+                            blocks = torch.nn.functional.pad(x, (0, pad)).reshape(
+                                b, nb, 1, block_len)
+                            fts, fh = segscan_mm.seg_block_summaries_plain(
+                                blocks, fblocks, acc, fold=True)
+                            pts, ph = segscan_mm.seg_block_summaries_plain(blocks, fblocks, acc)
+                            check(torch.equal(h, ph) and torch.equal(h, fh),
+                                  f"{tag}: has-boundary != plain")
+                            check(torch.equal(ts, fts),
+                                  f"{tag}: not the bits of the fold in the kernel's order")
+                            r_ts, _ = segscan_mm.seg_block_summaries_plain(
+                                blocks.double(), fblocks, torch.float64)
+                            a_ts, _ = segscan_mm.seg_block_summaries_plain(
+                                blocks.double().abs(), fblocks, torch.float64)
+                            hold("B10", tag, ts, pts, r_ts, a_ts, exact=kind == "int32")
+                            cases += 1
+    return {"edge_cases": cases, "block_lens": [64, 16384]}
 
 
 # ---------------------------------------------------------------------------
@@ -2726,8 +2856,9 @@ def time_pipeline(x, x8):
 
 def time_split(gen):
     """B5 at (4, 2^24) and (4, 128256), fp32 payload and bool flags, in turns with
-    its plain version; beside it a stable argsort of the flags plus a gather of the
-    payload (two PyTorch calls: no single call is the same function)."""
+    its plain version, and as a CUDA-graph replay (``device_ms``); beside it a stable
+    argsort of the flags plus a gather of the payload (two PyTorch calls: no single
+    call is the same function)."""
     res = {}
     for n5, reps, key in ((SCAN_SHAPE[1], 3, "B5"), (VOCAB, 20, "B5_vocab")):
         shape = (SCAN_SHAPE[0], n5)
@@ -2739,9 +2870,68 @@ def time_split(gen):
         two = cuda_ms(lambda: torch.gather(
             xx, -1, torch.argsort(order_key, dim=-1, stable=True)), reps)
         res[key] = dict(ms=k, plain_ms=pl, library_ms=None, argsort_gather_ms=two,
+                        device_ms=graph_ms(lambda: split_mm.split_tiles(xx, f), 10 * reps),
                         bound_ms=bound(shape[0] * n5 * 13 + shape[0] * 4)[0],
                         bound_by="bytes")
     return res
+
+
+def trailing_elements(fblocks) -> int:
+    """Elements of the blocks' trailing segments: from each block's last flag to its
+    end, the whole block where it has none.  B10's outputs depend on these alone."""
+    fb = fblocks.flatten(-2) != 0
+    rank = torch.arange(fb.shape[-1], device=fb.device)
+    return int((fb.shape[-1] - torch.where(fb, rank, 0).amax(-1)).sum())
+
+
+# B10's design options, (threads a CTA at most, walk from the block's end, skip the
+# values before a run's last flag), run by csrc/seg_summaries.cu's
+# repro_seg_summaries_design; walk_t256 is the shipped kernel.
+B10_DESIGNS = {"walk_t256": (256, 1, 1), "walk_t128": (128, 1, 1), "walk_t512": (512, 1, 1),
+               "sweep_t256": (256, 0, 1), "sweep_t512": (512, 0, 1),
+               "walk_t256_noskip": (256, 1, 0)}
+
+
+def time_seg_summaries_design(x, flags, block_len: int, nb: int) -> dict:
+    """B10's design options on fp32 rows ``x`` cut into blocks of ``block_len``, with
+    three layouts of flags a row (``flags``, none, every element), each timed as a
+    CUDA-graph replay (device ms) beside that layout's bound.  Each option's
+    has-boundary equals the plain version's and its sums lie within ``B1_F32_ULP`` of
+    the fp64 trailing sums; the shipped option's are the wrapper's bits."""
+    b, n = x.shape
+    ts = torch.empty((b, nb), dtype=torch.float32, device=DEV)
+    hb = torch.empty((b, nb), dtype=torch.int32, device=DEV)
+    blocks = x.reshape(b, nb, 1, block_len)
+    out = {}
+    for lname, lay in (("segments", flags != 0),
+                       ("none", torch.zeros((b, n), dtype=torch.bool, device=DEV)),
+                       ("all", torch.ones((b, n), dtype=torch.bool, device=DEV))):
+        fk, fstride = segscan_mm._flag_rows(lay, x.shape)
+        fblocks = lay.reshape(b, nb, 1, block_len)
+        _, ref_h = segscan_mm.seg_block_summaries_plain(blocks, fblocks, torch.float32)
+        r64, _ = segscan_mm.seg_block_summaries_plain(blocks.double(), fblocks, torch.float64)
+        a64, _ = segscan_mm.seg_block_summaries_plain(blocks.double().abs(), fblocks,
+                                                       torch.float64)
+        shipped, _ = segscan_mm.seg_block_summaries(blocks, fblocks)
+        trailing = trailing_elements(fblocks)
+        row = {"bound_ms": bound(trailing * 5 + b * nb * 8)[0], "trailing_elements": trailing}
+        for name, (threads, from_end, skip) in B10_DESIGNS.items():
+            def run(threads=threads, from_end=from_end, skip=skip):
+                _build.launch("seg_summaries", x.data_ptr(), fk.data_ptr(), fstride,
+                              ts.data_ptr(), hb.data_ptr(), b, n, nb, block_len, threads,
+                              from_end, skip, torch.cuda.current_stream(DEV).cuda_stream,
+                              entry="repro_seg_summaries_design")
+            run()
+            sync()
+            tag = f"B10 design {name} flags {lname}"
+            check(torch.equal(hb, ref_h.to(torch.int32)), f"{tag}: has-boundary != plain")
+            ulp = max_ulp_dev(ts, r64, a64)
+            check(ulp <= B1_F32_ULP, f"{tag}: {ulp} ulp > {B1_F32_ULP}")
+            if name == "walk_t256":
+                check(torch.equal(ts, shipped), f"{tag}: not the wrapper's bits")
+            row[name] = graph_ms(run, 50)
+        out[lname] = row
+    return out
 
 
 def time_seg(gen):
@@ -2749,8 +2939,12 @@ def time_seg(gen):
     segments, timed in turns with their plain versions; beside them the operator on
     offsets shared by the rows (``segment_scan`` with ``"vector"``, the unsegmented
     cumsum minus a gather, and with the two kernel methods), and the packed sampler
-    at (4 * 128256,) for each method.  No single PyTorch call computes a segmented
-    scan, so ``library_ms`` is None."""
+    at (4 * 128256,) for each method.  B10 is also timed as a CUDA-graph replay
+    (``device_ms``); its bound counts the flags and values of the blocks' trailing
+    segments, and beside it stand the bytes of every flag byte with those values
+    (``every_flag_bound_ms``) and of every flag and value (``all_values_bound_ms``),
+    and its design options (``design_device_ms``).  No single PyTorch call computes a
+    segmented scan, so ``library_ms`` is None."""
     rng = np.random.default_rng(SEG_SEED + 2)
     b, n = SCAN_SHAPE
     flags = torch.stack([boundary_flags(seg_offsets(rng, n), n) for _ in range(b)])
@@ -2772,14 +2966,14 @@ def time_seg(gen):
     blocks, fblocks = x.reshape(b, nb, m, 128), flags.reshape(b, nb, m, 128)
     k, pl = paired_ms(lambda: segscan_mm.seg_block_summaries(blocks, fblocks),
                       lambda: segscan_mm.seg_block_summaries_plain(blocks, fblocks, f32), 10)
-    # what this run's data needs: every flag byte, the values of each block's trailing
-    # segment, 8 B out per block
-    fb = fblocks.flatten(-2) != 0
-    rank = torch.arange(block_len, device=DEV)
-    trailing = int((block_len - torch.where(fb, rank, 0).amax(-1)).sum())
-    bms, by = bound(b * n + trailing * 4 + b * nb * 8, trailing)
+    trailing = trailing_elements(fblocks)
+    bms, by = bound(trailing * 5 + b * nb * 8, trailing)
     out["B10"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by,
-                      trailing_elements=trailing)
+                      trailing_elements=trailing, device_ms=graph_ms(
+                          lambda: segscan_mm.seg_block_summaries(blocks, fblocks), 50),
+                      every_flag_bound_ms=bound(b * n + trailing * 4 + b * nb * 8)[0],
+                      all_values_bound_ms=bound(b * n * 5 + b * nb * 8)[0],
+                      design_device_ms=time_seg_summaries_design(x, flags, block_len, nb))
     ts, hb = segscan_mm.seg_block_summaries_plain(blocks, fblocks, f32)
     k, pl = paired_ms(lambda: segscan_mm.seg_carry_scan(ts, hb),
                       lambda: segscan_mm.seg_carry_scan_plain(ts, hb), 50)

@@ -43,7 +43,7 @@ SOURCES: Dict[str, tuple] = {
     "block_sums": ("repro_block_sums", [_P, _P, _I, _L, _I, _L, _I, _P]),
     "carry_scan": ("repro_carry_scan", [_P, _P, _I, _L, _I, _P]),
     "block_scan": ("repro_block_scan", [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P]),
-    "split": ("repro_split", [_P, _P, _P, _P, _P, _I, _L, _I, _P]),
+    "split": ("repro_split", [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P]),
     "seg_scan": ("repro_seg_scan", [_P, _P, _L, _P, _I, _L, _I, _P, _L, _P]),
     "seg_summaries": ("repro_seg_summaries", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
     "seg_carry": ("repro_seg_carry", [_P, _P, _P, _I, _L, _I, _P]),
@@ -62,6 +62,8 @@ SOURCES: Dict[str, tuple] = {
 ENTRIES: Dict[tuple, list] = {
     ("linrec_scan", "repro_linrec_scan_columns"): [_P, _P, _P, _P, _P, _P],
     ("linrec_block_scan", "repro_linrec_block_scan_columns"): [_P, _P, _P, _P, _P, _P],
+    ("seg_summaries", "repro_seg_summaries_design"):
+        [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P],
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

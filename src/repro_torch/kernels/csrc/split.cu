@@ -11,115 +11,222 @@
 // with n_true written out.
 //
 // Design.  The Pallas kernel holds the whole row in VMEM; a 2^24-element row
-// does not fit one SM.  This is B7's design (radix_pass.cu) with two buckets:
-// one CTA per row cuts the row into one contiguous chunk per warp and streams
-// it twice.
+// does not fit one SM, and one CTA a row runs on 4 of the card's 132 SMs at
+// batch 4.  So this is B6's many-CTA tile split (multi_split.cu, on the
+// machinery of radix_pass.cuh) on two slots, the flag as the digit (slot 0
+// for a true, 1 for a false).  Each row is cut into T = ceil(n / kTile)
+// tiles of 4096 and three kernels run on the caller's stream:
 //
-//   1. counting sweep: each warp counts the flags of its chunk, 32 at a time
-//      (__ballot_sync + popc); one warp scans the 32 chunk counts into each
-//      chunk's trues-before and the row's n_true.
-//   2. ordered sweep: each warp walks its chunk in order, 32 elements at a
-//      time.  popc(ballot & lanes-below) is the exclusive scan of the mask over
-//      those 32 lanes; with the warp's running count of trues it gives ex, and
-//      the payload and the int32 index are scattered to dest.
+//   1. upsweep, grid (T, b): radix_pass.cuh's upsweep_kernel with the flag's
+//      slot as the digit (FlagSlot), radix 2: it stages the tile's flag bytes
+//      by 16-byte cp.async and counts them by shared-memory atomics into
+//      (trues, falses), written slot-major to scratch (b, 2, T).
+//   2. scan, grid (2, b): radix_pass.cuh's scan_kernel as it is: each slot's
+//      exclusive prefix over the tiles and the row's slot totals (slot 0's is
+//      n_true).
+//   3. downsweep, grid (T, b): the tile's flags come in by 16-byte cp.async
+//      and its payload words into registers (coalesced rounds of 32); one
+//      ballot a round of 32 ranks each element among the warp's earlier
+//      elements of its slot, the warps' counts give each warp's offsets, and
+//      the payload and the generated index (lo + i, never read) are staged in
+//      shared memory in destination order: the tile's trues, then its falses.
+//      Consecutive threads then write consecutive addresses of the two runs,
+//      the trues' at the slot-0 prefix and the falses' at n_true plus the
+//      slot-1 prefix (= n_true + i - ex).
 //
-// The mask scan is integer and exact.  Payloads move as raw words of their
-// element size (1, 2, 4 or 8 bytes), so every dtype works.  Flags are bytes
-// read as true where non-zero (the wrapper passes torch.bool).  The ragged
-// end of a row is masked here; nothing is padded.
+// Tile t's elements of a slot land after those of every earlier tile and in
+// order among themselves, so the split is stable.  The mask scan is integer
+// and exact, and no kernel uses global atomics, so every call gives the same
+// bits.  Payloads move as raw words of their element size (1, 2, 4 or 8
+// bytes), so every dtype works.  Flags are bytes, true where nonzero (the
+// wrapper passes torch.bool).  The ragged end of a row is masked in all three
+// kernels; nothing is padded.
 //
-// Bound.  Each flag and payload element is read once and each payload element
-// and index written once: 13 B per element for fp32 payloads and bool flags,
-// so it is bound by bytes.  One CTA per row leaves most SMs idle at small
-// batch, and the second sweep re-reads the flags; a multi-CTA split (chunk
-// counts scanned across CTAs, then the scatter) is later work.
-#include "common.cuh"
+// Bound.  The function reads each flag and payload element once and writes
+// each payload element and index once: 13 B per element for fp32 payloads
+// and bool flags, bound by bytes.  This design also reads the flags a second
+// time (the upsweep's read: 14 B an element) and moves 16 B of counts a tile;
+// both ends of the downsweep are whole runs of consecutive addresses.  At the
+// vocab shape (4, 128256) a split is one wave of CTAs and three launches, so
+// latency bounds it.
+#include "radix_pass.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+using repro::radix::kItems;
+using repro::radix::kThreads;
+using repro::radix::kTile;
+using repro::radix::kWarps;
+
+// The flag's slot: 0 for a true (any nonzero byte), 1 for a false.
+struct FlagSlot {
+    __device__ __forceinline__ unsigned operator()(uint8_t f) const { return f ? 0u : 1u; }
+};
 
 template <typename W>
-__global__ void __launch_bounds__(kThreads)
-split_kernel(const W* __restrict__ x, const uint8_t* __restrict__ flags, W* __restrict__ z,
-             int* __restrict__ ind, int* __restrict__ n_true_out, long long n) {
-    __shared__ int chunk_base[kWarps];      // trues in the chunks before each warp's
-    __shared__ int n_true_sh;
+size_t downsweep_smem() {
+    return kTile * (sizeof(W) + sizeof(int) + sizeof(uint8_t));
+}
+
+// Phase 3: CTA (t, row) ranks its tile stably by flag, stages it in
+// destination order and writes its two runs.  tile_counts holds the scan's
+// exclusive prefixes and totals the (b, 2) slot totals; the row's first tile
+// writes n_true.
+template <typename W>
+__global__ void __launch_bounds__(kThreads, repro::radix::kDownBlocks)
+split_downsweep_kernel(const W* __restrict__ x, const uint8_t* __restrict__ flags,
+                       W* __restrict__ z, int* __restrict__ ind, int* __restrict__ n_true_out,
+                       const int* __restrict__ tile_counts, const int* __restrict__ totals,
+                       long long n, int tiles) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    W* stage_x = reinterpret_cast<W*>(smem);                             // [kTile]
+    int* stage_i = reinterpret_cast<int*>(stage_x + kTile);              // [kTile]
+    uint8_t* in_f = reinterpret_cast<uint8_t*>(stage_i + kTile);         // [kTile]
+    __shared__ int warp_t[kWarps], warp_f[kWarps];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const unsigned lanes_below = (1u << lane) - 1u;
-    const long long row = blockIdx.x;
-    x += row * n;
-    flags += row * n;
+    const long long row = blockIdx.y;
+    const long long lo = static_cast<long long>(blockIdx.x) * kTile;
+    const int tile_n = static_cast<int>(min(static_cast<long long>(kTile), n - lo));
+
+    repro::radix::tile_load(flags + row * n + lo, in_f, tile_n);
+    // the payload's loads, and the tile's prefixes from the scan, are in flight
+    // while the flags arrive
+    W p[kItems];
+    const W* my_x = x + row * n + lo;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+        const int i = repro::radix::item_index(j);
+        p[j] = i < tile_n ? my_x[i] : W(0);
+    }
+    const int n_true = totals[row * 2];
+    const int pre_t = tile_counts[(row * 2) * tiles + blockIdx.x];
+    const int pre_f = tile_counts[(row * 2 + 1) * tiles + blockIdx.x];
+    __pipeline_wait_prior(0);
+    __syncthreads();
+
+    // stable ranks within the warp's share, one ballot of the flag a round
+    // (the valid lanes of a round are a prefix of the warp)
+    int rank[kItems];
+    unsigned flagged = 0;                         // bit j: this lane's element of round j
+    int run_t = 0, run_f = 0;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+        const int i = repro::radix::item_index(j);
+        const bool valid = i < tile_n;
+        const bool f = valid && in_f[i] != 0;
+        const unsigned bt = __ballot_sync(repro::kFullMask, f);
+        const unsigned bf = __ballot_sync(repro::kFullMask, valid) & ~bt;
+        rank[j] = f ? run_t + __popc(bt & lanes_below) : run_f + __popc(bf & lanes_below);
+        flagged |= f ? 1u << j : 0u;
+        run_t += __popc(bt);
+        run_f += __popc(bf);
+    }
+    if (lane == 0) {
+        warp_t[warp] = run_t;
+        warp_f[warp] = run_f;
+    }
+    __syncthreads();
+    int tile_t = 0, before_t = 0, before_f = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+        const int t = warp_t[w];
+        tile_t += t;
+        if (w < warp) {
+            before_t += t;
+            before_f += warp_f[w];
+        }
+    }
+
+    // stage in destination order: the tile's trues, then its falses
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+        const int i = repro::radix::item_index(j);
+        if (i < tile_n) {
+            const int s = ((flagged >> j) & 1u) ? before_t + rank[j]
+                                                : tile_t + before_f + rank[j];
+            stage_x[s] = p[j];
+            stage_i[s] = static_cast<int>(lo) + i;
+        }
+    }
+    __syncthreads();
+
+    // consecutive threads write consecutive addresses of each run: staged slot
+    // i < tile_t goes to pre_t + i, the others to n_true + pre_f + (i - tile_t)
     z += row * n;
     ind += row * n;
-
-    // each warp owns one contiguous chunk of the row, a multiple of 32 long
-    const long long per = ((n + kWarps - 1) / kWarps + 31) / 32 * 32;
-    const long long lo = warp * per;
-    const long long hi = min(n, lo + per);
-
-    // 1. counting sweep
-    int count = 0;
-    for (long long base = lo; base < hi; base += 32) {
-        const long long i = base + lane;
-        const bool f = i < hi && flags[i] != 0;
-        count += __popc(__ballot_sync(repro::kFullMask, f));
+    const int base_f = n_true + pre_f - tile_t;
+    for (int i = threadIdx.x; i < tile_n; i += kThreads) {
+        const int dest = i < tile_t ? pre_t + i : base_f + i;
+        z[dest] = stage_x[i];
+        ind[dest] = stage_i[i];
     }
-    if (lane == 0) chunk_base[warp] = count;
-    __syncthreads();
-    if (warp == 0) {
-        const int c = chunk_base[lane];
-        const int incl = repro::warp_inclusive_scan(c, lane);
-        chunk_base[lane] = incl - c;
-        if (lane == kWarps - 1) n_true_sh = incl;
-    }
-    __syncthreads();
-    const long long n_true = n_true_sh;
-
-    // 2. ordered sweep: ex from the ballot's exclusive scan, then the scatter
-    long long trues = chunk_base[warp];
-    for (long long base = lo; base < hi; base += 32) {
-        const long long i = base + lane;
-        const bool valid = i < hi;
-        const bool f = valid && flags[i] != 0;
-        const unsigned bal = __ballot_sync(repro::kFullMask, f);
-        if (valid) {
-            const long long ex = trues + __popc(bal & lanes_below);
-            const long long dest = f ? ex : n_true + i - ex;
-            z[dest] = x[i];
-            ind[dest] = static_cast<int>(i);
-        }
-        trues += __popc(bal);
-    }
-    if (threadIdx.x == 0) n_true_out[row] = static_cast<int>(n_true);
+    if (blockIdx.x == 0 && threadIdx.x == 0) n_true_out[row] = n_true;
 }
 
 template <typename W>
-int launch(const void* x, const void* flags, void* z, void* ind, void* n_true, int b,
-           long long n, cudaStream_t stream) {
-    split_kernel<W><<<b, kThreads, 0, stream>>>(
-        static_cast<const W*>(x), static_cast<const uint8_t*>(flags), static_cast<W*>(z),
-        static_cast<int*>(ind), static_cast<int*>(n_true), n);
-    return static_cast<int>(cudaGetLastError());
+int launch(const void* x, const void* flags, void* z, void* ind, void* n_true, int* scratch,
+           int b, long long n, cudaStream_t stream) {
+    const int tiles = static_cast<int>((n + kTile - 1) / kTile);
+    const long long per_row = 2LL * tiles;
+    int* totals = scratch + b * per_row;
+    const size_t up_smem = repro::radix::upsweep_smem<uint8_t>(2);
+    const size_t down_smem = downsweep_smem<W>();
+    cudaError_t e;
+    if (down_smem > repro::radix::kStaticSmem) {
+        e = cudaFuncSetAttribute(split_downsweep_kernel<W>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(down_smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const W* xp = static_cast<const W*>(x);
+    const uint8_t* fp = static_cast<const uint8_t*>(flags);
+    W* zp = static_cast<W*>(z);
+    int* ip = static_cast<int*>(ind);
+    int* np = static_cast<int*>(n_true);
+    for (long long r0 = 0; r0 < b; r0 += repro::radix::kMaxGridY) {
+        const int rows = static_cast<int>(std::min<long long>(repro::radix::kMaxGridY, b - r0));
+        const long long off = r0 * n;
+        int* tc = scratch + r0 * per_row;
+        int* tot = totals + r0 * 2;
+        repro::radix::upsweep_kernel<uint8_t, FlagSlot>
+            <<<dim3(tiles, rows), kThreads, up_smem, stream>>>(fp + off, tc, n, tiles,
+                                                               FlagSlot{}, 2);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        repro::radix::scan_kernel<<<dim3(2, rows), repro::radix::kScanThreads, 0, stream>>>(
+            tc, tot, tiles, 2);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+        split_downsweep_kernel<W><<<dim3(tiles, rows), kThreads, down_smem, stream>>>(
+            xp + off, fp + off, zp + off, ip + off, np + r0, tc, tot, n, tiles);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    return 0;
 }
 
 }  // namespace
 
 // x, z: (b, n) payload words of word_bytes (1, 2, 4 or 8) bytes; flags: (b, n)
-// bytes, true where non-zero; ind: (b, n) int32; n_true: (b,) int32.
+// bytes, true where non-zero; ind: (b, n) int32; n_true: (b,) int32;
+// scratch: b·2·(ceil(n / tile) + 1) int32 with tile == 4096 (kTile).
 // n < 2^31.
 extern "C" int repro_split(const void* x, const void* flags, void* z, void* ind,
-                           void* n_true, int b, long long n, int word_bytes, void* stream) {
+                           void* n_true, void* scratch, int b, long long n, int word_bytes,
+                           int tile, void* stream) {
+    if (tile != kTile || scratch == nullptr || n > 0x7fffffffLL) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (b <= 0 || n <= 0) return 0;
-    if (n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int* s = static_cast<int*>(scratch);
     switch (word_bytes) {
-        case 1: return launch<uint8_t>(x, flags, z, ind, n_true, b, n, st);
-        case 2: return launch<uint16_t>(x, flags, z, ind, n_true, b, n, st);
-        case 4: return launch<uint32_t>(x, flags, z, ind, n_true, b, n, st);
-        case 8: return launch<unsigned long long>(x, flags, z, ind, n_true, b, n, st);
+        case 1: return launch<uint8_t>(x, flags, z, ind, n_true, s, b, n, st);
+        case 2: return launch<uint16_t>(x, flags, z, ind, n_true, s, b, n, st);
+        case 4: return launch<uint32_t>(x, flags, z, ind, n_true, s, b, n, st);
+        case 8: return launch<unsigned long long>(x, flags, z, ind, n_true, s, b, n, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

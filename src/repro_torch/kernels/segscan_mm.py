@@ -8,7 +8,10 @@ plus flags, nonzero where an element starts a new segment.  Four kernels:
   decoupled look-back (:mod:`.lookback`), a carry that never crosses a flag;
 * :func:`seg_block_summaries` (B10, ``csrc/seg_summaries.cu``) — phase 1 of
   the segmented §4 pipeline: per block, the sum of the elements at or after
-  its last flag (all of them if it has none) and whether it has a flag;
+  its last flag (all of them if it has none) and whether it has a flag, on
+  the card a walk from the block's end in rounds of 16-element runs folded
+  under the segmented-pair operator, stopping at the last flag
+  (``seg_block_summaries_plain(fold=True)`` is its order);
 * :func:`seg_carry_scan` (B11, ``csrc/seg_carry.cu``) — phase 2: the
   exclusive scan of those summaries under the segmented-pair operator
   ``(a ⊕ b) = b.h ? b.ts : a.ts + b.ts``;
@@ -50,12 +53,17 @@ __all__ = ["seg_scan_tiles", "seg_block_summaries", "seg_carry_scan",
            "seg_block_scan_carry", "seg_blocked_scan", "seg_scan_tiles_plain",
            "seg_block_summaries_plain", "seg_carry_scan_plain",
            "seg_block_scan_carry_plain", "seg_blocked_scan_plain", "seg_scan_tile",
-           "SEG_SCAN_THREADS", "SEG_SCAN_ITEMS"]
+           "seg_summaries_geometry", "SEG_SCAN_THREADS", "SEG_SCAN_ITEMS",
+           "SEG_SUMMARIES_THREADS", "SEG_SUMMARIES_RUN"]
 
 _CARRY_CODES = {torch.float32: 0, torch.int32: 1}
 # csrc/seg_scan.cu: B9's threads a CTA at most, and the elements a thread scans
 SEG_SCAN_THREADS = 512
 SEG_SCAN_ITEMS = 16
+# csrc/seg_summaries.cu: B10's threads a CTA at most (a round is a run a
+# thread), and the elements of a run (one 16-byte load of flags)
+SEG_SUMMARIES_THREADS = 256
+SEG_SUMMARIES_RUN = 16
 # elements of the largest intermediate a plain version builds at once
 _CHUNK_ELEMS = 1 << 26
 
@@ -212,11 +220,72 @@ def seg_scan_tiles_plain(xb: torch.Tensor, fb: torch.Tensor, *, s: int,
     return out.reshape(b, -1)[:, :n]
 
 
+def seg_summaries_geometry(block_len: int):
+    """``(threads, rounds)`` of B10's CTA for blocks of ``block_len``.
+
+    A run of ``SEG_SUMMARIES_RUN`` elements a thread a round, whole warps, at
+    most ``SEG_SUMMARIES_THREADS`` (``threads_for`` in
+    ``csrc/seg_summaries.cu``); the block is ``rounds`` rounds of ``threads``
+    runs, the last one ragged.
+    """
+    run = SEG_SUMMARIES_RUN
+    threads = min((-(-block_len // run) + 31) // 32 * 32, SEG_SUMMARIES_THREADS)
+    return threads, -(-block_len // (threads * run))
+
+
+def _seg_pair(av, ah, bv, bh):
+    """``(a ⊕ b) = (b.h ? b.v : a.v + b.v, a.h | b.h)`` elementwise."""
+    return torch.where(bh, bv, av + bv), ah | bh
+
+
+def _seg_summaries_fold(a: torch.Tensor, f: torch.Tensor):
+    """B10's walk over ``(K, L)`` blocks, in the kernel's order.
+
+    Each run of ``SEG_SUMMARIES_RUN`` folds to its trailing sum (restarting at
+    each flag) and has-flag; a warp's 32 runs combine under ⊕ as a pairwise
+    tree (the lanes' shuffles); the warps' pairs combine in order into the
+    round's pair, from the identity ``(0, false)``; and the rounds are taken
+    from the block's last to its first, each on the left of what has been
+    gathered, ``acc = round ⊕ acc``.  The kernel stops at the round that holds
+    the block's last flag, which changes no bit, so every round is taken here.
+    The block's ragged end is zeros without flags.
+    """
+    k, length = a.shape
+    threads, rounds = seg_summaries_geometry(length)
+    warps, run = threads // 32, SEG_SUMMARIES_RUN
+    pad = rounds * threads * run - length
+    a = torch.nn.functional.pad(a, (0, pad)).view(k, rounds, warps, 32, run)
+    f = torch.nn.functional.pad(f, (0, pad)).view(k, rounds, warps, 32, run)
+    v = torch.zeros(a.shape[:-1], dtype=a.dtype, device=a.device)
+    for j in range(run):
+        v = torch.where(f[..., j], a[..., j], v + a[..., j])
+    h = f.any(-1)
+    while v.shape[-1] > 1:
+        v, h = _seg_pair(v[..., 0::2], h[..., 0::2], v[..., 1::2], h[..., 1::2])
+    v, h = v[..., 0], h[..., 0]
+    rv, rh = torch.zeros_like(v[..., 0]), torch.zeros_like(h[..., 0])
+    for w in range(warps):
+        rv, rh = _seg_pair(rv, rh, v[..., w], h[..., w])
+    bv, bh = torch.zeros_like(rv[..., 0]), torch.zeros_like(rh[..., 0])
+    for r in reversed(range(rounds)):
+        bv, bh = _seg_pair(rv[..., r], rh[..., r], bv, bh)
+    return bv, bh
+
+
 def seg_block_summaries_plain(blocks: torch.Tensor, fblocks: torch.Tensor,
-                              acc: torch.dtype):
-    """Per ``(m, s)`` block: ``(trailing-segment sum, has-flag)`` as two ``(b, nb)``."""
+                              acc: torch.dtype, *, fold: bool = False):
+    """Per ``(m, s)`` block: ``(trailing-segment sum, has-flag)`` as two ``(b, nb)``.
+
+    ``fold=True`` takes the CUDA kernel's walk instead of one sum of the
+    masked trailing segment: 16-element runs folded under the segmented-pair
+    operator, combined in the kernel's fixed order
+    (:func:`_seg_summaries_fold`), so fp32 sums round as the kernel's do.
+    """
     a = blocks.flatten(-2).to(acc)
     f = fblocks.flatten(-2) != 0
+    if fold:
+        ts, h = _seg_summaries_fold(a.reshape(-1, a.shape[-1]), f.reshape(-1, f.shape[-1]))
+        return ts.reshape(a.shape[:-1]), h.reshape(a.shape[:-1]).to(torch.int32)
     rank = torch.arange(a.shape[-1], device=a.device)
     lastpos = torch.where(f, rank, 0).amax(dim=-1, keepdim=True)
     trailing = torch.where(rank >= lastpos, a, torch.zeros((), dtype=acc, device=a.device))

@@ -5,7 +5,9 @@ Port of five kernels of ``repro/kernels/split_mm.py``:
 
 * :func:`split_tiles` (``csrc/split.cu``): SplitInd — the mask scan, stable
   destinations (flagged elements first) and the scatter of the payload and
-  its original index, with the number of flagged elements.
+  its original index, with the number of flagged elements; on the card B6's
+  tile split on two slots (the tiles' trues and falses, their slot-major
+  scan, each element's in-tile rank plus its tile's base).
 * :func:`multi_split_tiles` (``csrc/multi_split.cu``): the stable ``R``-way
   split by int32 digits — up to ``MULTI_SPLIT_TILE_MAX_BUCKETS`` buckets as
   B7's tile split on ``R + 1`` slots (tile slot counts, their bucket-major
@@ -52,8 +54,8 @@ MULTI_SPLIT_MAX_BUCKETS = 232448 // 8 - 1
 # B6 runs one CTA a row
 MULTI_SPLIT_TILE_MAX_BUCKETS = 511
 
-# keys a tile of the B7/B7h tile split: kTile in csrc/radix_pass.cuh, which the
-# entry points check it against; the plain version's default tile
+# keys a tile of the B5/B6/B7/B7h tile splits: kTile in csrc/radix_pass.cuh, which
+# the entry points check it against; the plain versions' default tile
 RADIX_TILE = 4096
 
 # fp32 summation-order band of the fused top-p tail, relative to the row's
@@ -61,20 +63,36 @@ RADIX_TILE = 4096
 TOPP_BAND = 2.0 ** -16
 
 
-def split_plain(x: torch.Tensor, flags: torch.Tensor):
+def split_plain(x: torch.Tensor, flags: torch.Tensor, *, tile=None):
     """Plain version of SplitInd on ``(b, n)`` payloads and ``bool`` flags.
 
     Returns ``(z, ind, n_true)``: destinations are the exclusive int32 mask
     scan ``ex`` for a flagged element and ``n_true + i - ex`` for the others.
+
+    ``tile`` models the kernel's tile split on two slots, slot 0 for a
+    flagged element and 1 for the others: the tiles' slot counts
+    (:func:`_radix_tile_hist`), their slot-major exclusive scan
+    (:func:`_radix_tile_scan`, whose slot-0 total is ``n_true``) and each
+    element's in-tile rank plus its tile's base (:func:`_radix_tile_dest`).
+    A stable split has one answer, so every ``tile`` gives the same bits.
     """
-    fi = flags.to(torch.int32)
-    inc = torch.cumsum(fi, dim=-1, dtype=torch.int32)               # exact
-    ex = inc - fi
-    n_true = inc[:, -1]
-    iota = torch.arange(x.shape[-1], dtype=torch.int32, device=x.device)
-    dest = torch.where(flags, ex, n_true[:, None] + iota - ex).to(torch.int64)
+    n = x.shape[-1]
+    iota = torch.arange(n, dtype=torch.int32, device=x.device)
+    if tile is None:
+        fi = flags.to(torch.int32)
+        inc = torch.cumsum(fi, dim=-1, dtype=torch.int32)           # exact
+        ex = inc - fi
+        n_true = inc[:, -1]
+        dest = torch.where(flags, ex, n_true[:, None] + iota - ex).to(torch.int64)
+    else:
+        slot = (~flags).to(torch.int64)
+        tile = max(min(tile, n), 1)                # a short row is one tile, unpadded
+        tile_base, totals = _radix_tile_scan(_radix_tile_hist(slot, 2, tile))
+        dest = _radix_tile_dest(slot, tile_base, totals, tile)
+        n_true = totals[:, 0].contiguous()
     z = torch.empty_like(x).scatter_(1, dest, x)
-    ind = torch.empty_like(dest, dtype=torch.int32).scatter_(1, dest, iota.expand_as(ex))
+    ind = torch.empty(dest.shape, dtype=torch.int32, device=x.device).scatter_(
+        1, dest, iota.expand(dest.shape))
     return z, ind, n_true
 
 
@@ -89,7 +107,9 @@ def split_tiles(x: torch.Tensor, flags: torch.Tensor):
             counts as true.  (The Pallas kernel casts flags to int8 and puts
             an element first only where its flag is exactly 1; for ``bool``
             flags the two agree.)  The Pallas kernel's tile side ``s`` has
-            no counterpart: the CUDA kernel scans the mask 32 lanes at a time.
+            no counterpart: the CUDA kernel splits tiles of ``RADIX_TILE``
+            elements, many CTAs a row, with an int32 scratch of
+            ``b·2·(T + 1)`` for the tiles' slot counts and the row totals.
 
     Returns:
         ``z`` shaped like ``x``, ``ind`` (int32) shaped like ``x``, and
@@ -117,10 +137,14 @@ def split_tiles(x: torch.Tensor, flags: torch.Tensor):
         z = torch.empty_like(xb)
         ind = torch.empty((b, n), dtype=torch.int32, device=xb.device)
         cnt = torch.empty((b,), dtype=torch.int32, device=xb.device)
+        # the tiles' (trues, falses) counts (b, 2, T), then the row totals (b, 2)
+        scratch = torch.empty(b * 2 * (-(-n // RADIX_TILE) + 1), dtype=torch.int32,
+                              device=xb.device)
         with torch.cuda.device(xb.device):
             stream = torch.cuda.current_stream(xb.device).cuda_stream
             _build.launch("split", xb.data_ptr(), fb.data_ptr(), z.data_ptr(),
-                          ind.data_ptr(), cnt.data_ptr(), b, n, xb.element_size(), stream)
+                          ind.data_ptr(), cnt.data_ptr(), scratch.data_ptr(), b, n,
+                          xb.element_size(), RADIX_TILE, stream)
     return z.reshape(x.shape), ind.reshape(x.shape), cnt.reshape(lead)
 
 

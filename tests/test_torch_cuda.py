@@ -264,6 +264,74 @@ def test_split_kernel_matches_plain(dev, dtype, n):
     assert torch.equal(ind.long(), order)
 
 
+# ---- B5 as a tile split on two slots (tiles of split_mm.RADIX_TILE elements) ----
+
+B5_EDGE_ROWS = [1, split_mm.RADIX_TILE - 1, split_mm.RADIX_TILE, split_mm.RADIX_TILE + 1,
+                3 * split_mm.RADIX_TILE + 17]
+_WORDS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _b5_hold(x, f):
+    """One B5 launch, exact against its plain version and a stable argsort of the
+    flags (any nonzero flag is true), n_true equal to the count of the flags."""
+    ops.reset_launch_counts()
+    z, ind, cnt = split_mm.split_tiles(x, f)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(split=1)
+    pz, pind, pcnt = split_mm.split_plain(x, f != 0)
+    assert torch.equal(z, pz) and torch.equal(ind, pind) and torch.equal(cnt, pcnt)
+    order = torch.argsort((f == 0).to(torch.uint8), dim=-1, stable=True)
+    assert torch.equal(ind.long(), order) and torch.equal(z, torch.gather(x, -1, order))
+    assert torch.equal(cnt.long(), (f != 0).sum(-1))
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("n", B5_EDGE_ROWS)
+@pytest.mark.parametrize("word", sorted(_WORDS))
+def test_split_tile_split_at_its_tile_edges(dev, word, n, b):
+    """Rows ending before, at and after a tile edge, runs of one flag across
+    every edge, an all-true and an all-false row, flags of 1, 2 and -1."""
+    x = torch.randint(0, 1 << 7, (b, n), generator=_gen(dev), device=dev).to(_WORDS[word])
+    x = x * 3 + torch.arange(n, device=dev).to(x.dtype)
+    f = (torch.rand((b, n), generator=_gen(dev, 1), device=dev) < 0.5).to(torch.int8)
+    f *= torch.tensor([1, 2, -1], dtype=torch.int8, device=dev)[
+        torch.randint(0, 3, (b, n), generator=_gen(dev, 2), device=dev)]
+    for edge in range(split_mm.RADIX_TILE, n, split_mm.RADIX_TILE):
+        f[:, edge - 5:edge + 5] = f[:, edge - 5:edge - 4]
+    if b > 1:
+        f[1], f[2] = 1, 0
+    _b5_hold(x, f)
+
+
+@pytest.mark.parametrize("word", sorted(_WORDS))
+def test_split_unaligned_payload_and_flags(dev, word):
+    """A payload and flags that start one word and three bytes past an aligned
+    address: the tile loads take the element path; exact, one launch."""
+    b, n = 3, 2 * split_mm.RADIX_TILE + 5
+    base = torch.randint(-100, 100, (b * n + 1,), generator=_gen(dev), device=dev)
+    x = base.to(_WORDS[word])[1:].view(b, n)
+    fb = torch.rand((b * n + 3,), generator=_gen(dev, 1), device=dev) < 0.3
+    f = fb[3:].view(b, n)
+    assert x.data_ptr() % 16 and f.data_ptr() % 16
+    _b5_hold(x, f)
+
+
+def test_split_more_rows_than_a_grid(dev):
+    """70000 rows pass grid.y's 65535: the launch goes in chunks of rows."""
+    x = torch.randint(-100, 100, (70000, 37), generator=_gen(dev), device=dev,
+                      dtype=torch.int32)
+    f = torch.rand(x.shape, generator=_gen(dev, 1), device=dev) < 0.5
+    _b5_hold(x, f)
+
+
+def test_split_is_deterministic(dev):
+    x = torch.randn((4, 1 << 20), generator=_gen(dev), device=dev)
+    f = torch.rand(x.shape, generator=_gen(dev, 1), device=dev) < 0.5
+    first = split_mm.split_tiles(x, f)
+    for _ in range(5):
+        assert all(torch.equal(a, c) for a, c in zip(split_mm.split_tiles(x, f), first))
+
+
 def test_pipeline_and_split_launch_counts(dev):
     x = torch.randn((4, 1 << 18), generator=_gen(dev), device=dev)
     ops.reset_launch_counts()
@@ -450,6 +518,97 @@ def test_seg_random_fp32_close_to_fp64(dev):
                 segscan_mm.seg_blocked_scan(x, f, s=128, block_tiles=8),
                 segscan_mm.seg_blocked_scan(x, f, s=16, block_tiles=1)):
         assert float(((got.double() - ref).abs() / ulp.double()).max()) <= 16.0
+
+
+# ---- B10 as a walk from each block's end in 16-element runs (csrc/seg_summaries.cu) ----
+
+B10_F32_ULP = 16.0                   # chip_smoke.py's B1_F32_ULP
+
+
+def _b10_flags(layout, shape, dev):
+    """Flags on each run's first or last element, none, all, each block's last
+    element, or random values 1 to 3; ``block`` is the block length."""
+    b, n, block = shape
+    pos = torch.arange(n, device=dev).expand(b, n)
+    run = segscan_mm.SEG_SUMMARIES_RUN
+    f = {"run_first": lambda: pos % run == 0, "run_last": lambda: pos % run == run - 1,
+         "none": lambda: torch.zeros((b, n), dtype=torch.bool, device=dev),
+         "all": lambda: torch.ones((b, n), dtype=torch.bool, device=dev),
+         "block_last": lambda: (pos % block == block - 1) | (pos == n - 1),
+         "random": lambda: torch.rand((b, n), generator=_gen(dev, 5), device=dev) < 1e-3}
+    f = f[layout]().to(torch.int8)
+    if layout == "random":
+        f *= torch.randint(1, 4, (b, n), generator=_gen(dev, 6), device=dev, dtype=torch.int8)
+    return f
+
+
+def _b10_hold(x, f, block_len):
+    """One B10 launch on ``(b, n)`` rows cut into blocks of ``block_len`` (the
+    ragged end and unaligned row starts handled in the kernel) and ``f`` per
+    row or one ``(n,)`` row shared: has-boundary equal to the plain version's;
+    the sums bit-equal to the fold in the kernel's order, and exact (integers)
+    or within ``B10_F32_ULP`` of the fp64 trailing sum (fp32)."""
+    b, n = x.shape
+    nb = -(-n // block_len)
+    acc = accum_dtype_for(x.dtype)
+    xk, code = scan_mm.kernel_operand(x, acc, op="B10 test")
+    fk, fstride = segscan_mm._flag_rows(f, x.shape)
+    assert fstride == (0 if f.numel() == n else n)
+    ops.reset_launch_counts()
+    ts, h = segscan_mm._seg_summaries_cuda(xk, code, fk, fstride, acc, nb, block_len)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(seg_summaries=1)
+    pad = nb * block_len - n
+    blocks = torch.nn.functional.pad(x, (0, pad)).reshape(b, nb, 1, block_len)
+    fblocks = torch.nn.functional.pad((f != 0).expand(b, n), (0, pad)).reshape(
+        b, nb, 1, block_len)
+    fts, fh = segscan_mm.seg_block_summaries_plain(blocks, fblocks, acc, fold=True)
+    pts, ph = segscan_mm.seg_block_summaries_plain(blocks, fblocks, acc)
+    assert torch.equal(h, ph) and torch.equal(h, fh)
+    assert torch.equal(ts, fts)
+    if acc == torch.int32:
+        assert torch.equal(ts, pts)
+        return
+    ref, _ = segscan_mm.seg_block_summaries_plain(blocks.double(), fblocks, torch.float64)
+    scale, _ = segscan_mm.seg_block_summaries_plain(blocks.double().abs(), fblocks,
+                                                    torch.float64)
+    sc = scale.float().clamp(min=torch.finfo(torch.float32).tiny)
+    ulp = (torch.nextafter(sc, torch.full_like(sc, float("inf"))) - sc).double()
+    assert float(((ts.double() - ref).abs() / ulp).max()) <= B10_F32_ULP
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_row", "shared"])
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("n", B5_EDGE_ROWS)
+@pytest.mark.parametrize("block_len", [64, 2048, 16384])
+def test_seg_summaries_at_run_and_block_edges(dev, block_len, n, b, shared):
+    """Rows of 1, 4095, 4096, 4097 and 3·4096 + 17 (ragged last blocks, and row
+    starts off 16-byte alignment), every flag layout, int8, int32, bf16,
+    integer-valued and random fp32."""
+    for layout in ("run_first", "run_last", "none", "all", "block_last", "random"):
+        f = _b10_flags(layout, (1 if shared else b, n, block_len), dev)
+        f = f[0] if shared else f
+        for dtype in (torch.int8, torch.int32, torch.bfloat16, torch.float32):
+            _b10_hold(_int_payload(dtype, (b, n), dev), f, block_len)
+        _b10_hold(torch.randn((b, n), generator=_gen(dev, 7), device=dev), f, block_len)
+
+
+def test_seg_summaries_fp32_is_deterministic(dev):
+    """Random fp32 at the pipeline's geometry (s = 128, 8 tiles: 131072-element
+    blocks): five calls give the same bits, those of the fold in the kernel's
+    order."""
+    n = 1 << 20
+    x = torch.randn((4, n), generator=_gen(dev), device=dev)
+    f = (torch.rand((4, n), generator=_gen(dev, 1), device=dev) < 1e-5).to(torch.int8)
+    m, block_len, nb = scan_pipeline.block_geometry(n, 128, 8)
+    blocks, fblocks = x.reshape(4, nb, m, 128), f.reshape(4, nb, m, 128)
+    first = segscan_mm.seg_block_summaries(blocks, fblocks)
+    for _ in range(5):
+        again = segscan_mm.seg_block_summaries(blocks, fblocks)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    fold = segscan_mm.seg_block_summaries_plain(blocks, fblocks, torch.float32, fold=True)
+    assert torch.equal(first[0], fold[0]) and torch.equal(first[1], fold[1])
+    _b10_hold(x, f, block_len)
 
 
 # ---- B1 and B9 as single passes over many CTAs a row (csrc/lookback.cuh) ----
