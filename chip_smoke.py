@@ -17,7 +17,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               digits of 8-, 16- and 32-bit keys), exact and one launch a pass;
 5. b8      -- the fused top-p tail at (4, 128256): on every row within the window
               of indices that the stated band allows, and exact where that
-              window holds one index;
+              window holds one index; then at the rows of B8_ROWS (1 to 257216
+              in one round of its cluster, 2^20 in rounds) the same, and equal to
+              its model (``split_mm._topp_tail_cluster``) and over five more
+              calls, one launch each;
 6. b2b4    -- the §4 pipeline's block sums, carry scan and block scan each against
               their plain versions at (4, 2^24), then the whole pipeline on a
               ragged row and on a one-block row (where B2 and B3 must not launch);
@@ -37,7 +40,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               repeated fp32 calls bit-equal and equal to the fold in the kernel's
               order, and its run and block edges (ragged rows, flags on each run's
               first or last element, none, all, each block's last, random, per row
-              and shared), one launch each;
+              and shared), one launch each; B11 at one tile (nb = 128, 8192) and
+              over many (8193, 70001, 2^20: the look-back, CTAs counted), int32
+              exact, fp32 within 16 ulp and five calls bit-equal, one launch each;
 9. linrec -- the linear-recurrence kernels (B13-B16) each against its plain version
               at (4, 2^24) on random, integer-valued and a = 1 rows (ints exact and
               equal to an fp64 reference; random fp32 within 16 ulp of the fp64
@@ -114,7 +119,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (4, 2^24) (eager and graph), its dist shards, B13 and B16 on the SSD's
               column walk beside the row path before it and the whole axis-1
               ``linear_scan`` call, B16 at the shards, B17 beside its bytes,
-              tensor-core and fp32 bounds; then, after the
+              tensor-core and fp32 bounds; B8 as a graph replay at (4, 128256)
+              with its design options (threads a CTA, CTAs a cluster) and at
+              (4, 2^20); B11 at (4, 128) and (4, 2^20), eager and graph; the
+              launch floor (one ``zero_()`` of 4 elements, eager and graph);
+              B2, B3, B4, B12, B14 and B15 as graph replays; and
+              ``top_p_sample(method="kernel")`` as a graph replay; then, after the
               kernels line's checks, one
               ``launches_by_shape`` line: B6's, B13's, B16's and B17's launches by
               the shape they ran at, beside their ms and bound there.
@@ -174,6 +184,13 @@ DIST_WORLDS = (4, 2)
 DIST_SEED = 21
 DIST_TIMEOUT = 420                  # seconds for one world, startup included
 SERVE_SHARDED = dict(ranks=2, **SERVE)
+# B8 off the sampler's shape: rows on and around the 16-byte words of its slices,
+# zamba2's and llama3's vocabularies and their shards, paligemma's, and a row of
+# 2^20 that the cluster walks in rounds
+B8_ROWS = (1, 2, 7, 8, 9, 4096, 32000, 64128, 128255, 128256, 128257, 257216, 1 << 20)
+# B11 at one tile (the pipeline's nb = 128, 8192) and over many (look-back)
+B11_ROWS = (128, 8192, 8193, 70001, 1 << 20)
+B11_LARGE = (4, 1 << 20)            # B11 timed where the look-back works
 # relative fp32 rounding allowed on top of the bound that the logits put on the
 # methods' ce (forward_zamba2): a few roundings of each ~10-nat term and a tree sum
 CE_SLACK = 1e-5
@@ -572,11 +589,60 @@ def phase_b8(gen):
                 exact += int(one.sum())
                 if i:
                     deepest = max(deepest, int(jr.max()))
+    shapes = b8_shapes(gen, p)
+    worst = max(worst, max(r["max_index_diff_vs_plain"] for r in shapes))
     sync()
     emit({"phase": "b8", "shape": [VOCAB_ROWS, n], "p": p, "band": split_mm.TOPP_BAND,
           "rows": rows, "rows_with_one_answer": exact, "widest_window": widest,
-          "deepest_mid_step_index": deepest, "max_index_diff_vs_plain": worst})
+          "deepest_mid_step_index": deepest, "max_index_diff_vs_plain": worst,
+          "shapes": shapes})
     return worst
+
+
+def b8_shapes(gen, p) -> list:
+    """B8 at the rows of ``B8_ROWS``: on and around the slices' 16-byte words, the
+    sampler's vocabularies, paligemma's 257216 (one round) and 2^20 (three rounds of
+    the cluster's walk).  On every row the index lies inside the band's window and
+    equals the plain version and fp64 where the window holds one index; it is the
+    index of the kernel's model (``split_mm._topp_tail_cluster``, the same operations
+    in the same order) and the same over five more calls, one launch each."""
+    out = []
+    for n in B8_ROWS:
+        logits = torch.randn((VOCAB_ROWS, n), generator=gen, device=DEV) * 2.0
+        sp = torch.sort(torch.softmax(logits, -1), -1, descending=True).values
+        draws = (torch.rand((VOCAB_ROWS, 1), generator=gen, device=DEV),
+                 mid_step_uniforms(sp, p))
+        one_answer = worst = 0
+        for i, uu in enumerate(draws):
+            tag = f"B8 n={n} {'mid-step' if i else 'random'} uniforms"
+            ops.reset_launch_counts()
+            got = split_mm.topp_mask_sample_tiles(sp, uu, p=p)
+            sync()
+            expect_counts(ops.launch_counts(), tag, topp_tail=1)
+            jk = got.long().cpu().numpy()
+            jp = split_mm.topp_tail_plain(sp, uu, p=p).long().cpu().numpy()
+            jr, lo, hi = topp_window(sp, uu, p)
+            check(((lo <= jk) & (jk <= hi)).all(), f"{tag}: kernel index outside the band's "
+                  f"window (kernel {jk.tolist()}, window {lo.tolist()}..{hi.tolist()})")
+            # a mid-step uniform keeps theta off the CDF's edges, but on short rows
+            # a token larger than the band may sit at the cut, so not every row
+            # has one answer here: the count of those that do is recorded
+            one = lo == hi
+            check((jk[one] == jr[one]).all() and (jk[one] == jp[one]).all(),
+                  f"{tag}: kernel != plain or fp64 on a row outside the band")
+            model = split_mm._topp_tail_cluster(sp.cpu(), uu.cpu(), p=p)
+            check(torch.equal(got.cpu(), model), f"{tag}: kernel != its model "
+                  f"({got.tolist()} against {model.tolist()})")
+            check(all(torch.equal(split_mm.topp_mask_sample_tiles(sp, uu, p=p), got)
+                      for _ in range(5)), f"{tag}: five repeated calls differ")
+            one_answer += int(one.sum())
+            worst = max(worst, int(np.abs(jk - jp).max()))
+        slice_, rounds, threads, items = split_mm.topp_tail_geometry(n)
+        out.append({"n": n, "slice": slice_, "rounds": rounds, "threads": threads,
+                    "items": items,
+                    "rows": len(draws) * VOCAB_ROWS, "rows_with_one_answer": one_answer,
+                    "max_index_diff_vs_plain": worst, "repeats_equal": 5})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -974,6 +1040,7 @@ def phase_seg(gen):
     check(torch.equal(first[0], fold[0]) and torch.equal(first[1], fold[1]),
           "B10 fp32: not the bits of the fold in the kernel's order")
     b10_edges = seg_summaries_edges(gen, hold)
+    b11 = seg_carry_pass(gen, hold)
     sync()
     emit({"phase": "seg", "shape": list(SCAN_SHAPE), "segments_per_row": [
         int(o.numel() - 1) for o in offs], "ulp_limit": limit, "cases": cases, "rows": rows,
@@ -981,8 +1048,53 @@ def phase_seg(gen):
         "sampler_scan": {"shape": list(x1.shape), "tiles": -(-x1.shape[-1] // segscan_mm.
                                                               seg_scan_tile(x1.shape[-1]))},
         **edges, "B10": {"repeats_bit_equal": 5, "fold_bit_equal": True, **b10_edges},
-        "max_abs_err_vs_plain": worst})
+        "B11": b11, "max_abs_err_vs_plain": worst})
     return worst
+
+
+def seg_carry_pass(gen, hold) -> list:
+    """B11, B9's single pass made exclusive, at one tile (the pipeline's nb = 128 and
+    8192: one CTA a row, no workspace) and over many (8193 to 2^20 summaries a row:
+    the look-back, one CTA a tile, counted), on int32 and fp32 summaries with
+    has-flag words set at random (one row none, one all, one 7s): int32 exact
+    against the exclusive fp64 scan (and the plain version where its masked
+    contraction fits), fp32 within ``B1_F32_ULP`` of it at the per-segment scale,
+    five repeated fp32 calls bit-equal, one launch a call."""
+    out = []
+    for nb in B11_ROWS:
+        b = 4
+        h = (torch.rand((b, nb), generator=gen, device=DEV) < 1e-3).to(torch.int32)
+        h[1], h[2] = 0, 1
+        h[3] *= 7
+        tiles = -(-nb // segscan_mm.seg_scan_tile(nb))
+        row = {"nb": nb, "tiles": tiles}
+        for name, ts in (("int32", torch.randint(-1000, 1000, (b, nb), generator=gen,
+                                                 device=DEV, dtype=torch.int32)),
+                         ("f32rand", torch.randn((b, nb), generator=gen, device=DEV))):
+            tag = f"B11 nb={nb} {name}"
+            ops.reset_launch_counts()
+            got = segscan_mm.seg_carry_scan(ts, h)
+            sync()
+            expect_counts(ops.launch_counts(), tag, seg_carry=1)
+            inc, inc_scale = seg_ref64(ts, h)
+            ref = torch.cat([torch.zeros_like(inc[:, :1]), inc[:, :-1]], -1)
+            scale = torch.cat([torch.zeros_like(inc[:, :1]), inc_scale[:, :-1]], -1)
+            if name == "int32":
+                if nb <= 8192:
+                    hold("B11", tag, got, segscan_mm.seg_carry_scan_plain(ts, h), ref)
+                else:
+                    check(torch.equal(got.double(), ref), f"{tag}: != exact reference")
+            else:
+                e = row["f32_max_ulp"] = max_ulp_dev(got, ref, scale)
+                check(e <= B1_F32_ULP, f"{tag}: {e} ulp > {B1_F32_ULP}")
+                check(all(torch.equal(segscan_mm.seg_carry_scan(ts, h), got)
+                          for _ in range(5)), f"{tag}: five repeated calls differ")
+        if tiles > 1:
+            row["ctas"] = launched_ctas(lambda ws: segscan_mm._seg_carry_cuda(ts, h, ws=ws),
+                                        b * tiles)
+            check(row["ctas"] == b * tiles, f"B11 nb={nb}: {row['ctas']} CTAs")
+        out.append(row)
+    return out
 
 
 def sampler_scan_inputs(gen):
@@ -2770,7 +2882,23 @@ def phase_timing(gen, dist_sort_ms):
     k, pl = paired_ms(lambda: split_mm.topp_mask_sample_tiles(sp, u, p=0.9),
                       lambda: split_mm.topp_tail_plain(sp, u, p=0.9), 50)
     bms, by = bound(VOCAB_ROWS * (v * 4 + 8), VOCAB_ROWS * v * 5)
-    out["B8"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by)
+    out["B8"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by,
+                     device_ms=graph_ms(lambda: split_mm.topp_mask_sample_tiles(sp, u, p=0.9),
+                                        200),
+                     design_device_ms=time_topp_design(sp, u, 0.9))
+    n1m = 1 << 20
+    sp1m = torch.sort(torch.softmax(torch.randn((VOCAB_ROWS, n1m), generator=gen, device=DEV)
+                                    * 4, -1), -1, descending=True).values
+    out["B8"]["n1m"] = dict(
+        rounds=split_mm.topp_tail_geometry(n1m)[1],
+        ms=cuda_ms(lambda: split_mm.topp_mask_sample_tiles(sp1m, u, p=0.9), 50),
+        device_ms=graph_ms(lambda: split_mm.topp_mask_sample_tiles(sp1m, u, p=0.9), 100),
+        plain_ms=cuda_ms(lambda: split_mm.topp_tail_plain(sp1m, u, p=0.9), 20),
+        bound_ms=bound(VOCAB_ROWS * (n1m * 4 + 8), VOCAB_ROWS * n1m * 5)[0])
+    del sp1m
+    # the yardstick of a launch bound by latency: one zero_() of 4 elements
+    z4 = torch.zeros(4, device=DEV)
+    launch_floor = dict(ms=cuda_ms(z4.zero_, 200), device_ms=graph_ms(z4.zero_, 500))
 
     logits = torch.randn((VOCAB_ROWS, v), generator=gen, device=DEV) * 4
     uu = torch.rand((VOCAB_ROWS, 1), generator=gen, device=DEV)
@@ -2778,6 +2906,9 @@ def phase_timing(gen, dist_sort_ms):
                for m in ("kernel", "blocked", "vector", "matmul")}
     sampler["xla_argsort"] = cuda_ms(
         lambda: top_p_sample(logits, method="vector", sort_method="xla", u=uu), 20)
+    # the kernel sampler's device time alone: softmax, four B7 passes and B8
+    sampler["kernel_device_ms"] = graph_ms(lambda: top_p_sample(logits, method="kernel",
+                                                                u=uu), 50)
     out.update(time_pipeline(x, x8))
     out["B1"].update(pipeline_ms=out["pipeline"]["ms"],
                      faster_than_pipeline=out["B1"]["ms"] < out["pipeline"]["ms"])
@@ -2787,12 +2918,15 @@ def phase_timing(gen, dist_sort_ms):
     out.update(time_b6_b17(gen))
     out.update(time_b7h(gen))
     emit({"phase": "timing", "kernels": out, "top_p_sample_ms": sampler,
+          "launch_floor": launch_floor,
           "dist_sort_f32_ms": {f"D{d}": ms for d, ms in dist_sort_ms.items()},
           "dist_sort_transport": "gloo over loopback, operands staged through host memory",
           "segment_top_p_sample_ms": out.pop("segment_top_p_sample_ms"),
           "shapes": {"B1": list(SCAN_SHAPE), "B2-B4": list(SCAN_SHAPE),
                      "B5": [[b, n], [VOCAB_ROWS, v]], "B7": [VOCAB_ROWS, v],
-                     "B8": [VOCAB_ROWS, v], "B9-B12": list(SCAN_SHAPE),
+                     "B8": [[VOCAB_ROWS, v], [VOCAB_ROWS, 1 << 20]],
+                     "B9-B12": list(SCAN_SHAPE),
+                     "B11": [[b, out["B11"]["nb"]], list(B11_LARGE)],
                      "B13-B16": [list(SCAN_SHAPE), list(SSD_ROWS)],
                      "B6": [list(SCAN_SHAPE)] + [[VOCAB_ROWS, VOCAB // dd]
                                                   for dd in DIST_WORLDS], "B7h": [list(B7H_SHAPE), [B7H_SHAPE[0],
@@ -2801,6 +2935,34 @@ def phase_timing(gen, dist_sort_ms):
                          "batch", "seq", "heads", "head_dim", "state", "chunk")],
                      "segment_top_p_sample": [4 * VOCAB]}})
     return out
+
+
+# B8's design options, (threads a CTA, CTAs a cluster), run by csrc/topp_tail.cu's
+# repro_topp_tail_design; t256_c8 is the shipped kernel at (4, 128256), c1 one CTA a
+# row in rounds.
+B8_DESIGNS = {"t256_c8": (256, 8), "t512_c8": (512, 8), "t1024_c8": (1024, 8),
+              "t256_c4": (256, 4), "t1024_c1": (1024, 1)}
+
+
+def time_topp_design(sp, u, p) -> dict:
+    """B8's design options on ``sp``, each checked against its model and timed as a
+    CUDA-graph replay (device ms)."""
+    b, n = sp.shape
+    out_j = torch.empty(b, dtype=torch.int32, device=DEV)
+    res = {}
+    for name, (threads, cluster) in B8_DESIGNS.items():
+        def run(threads=threads, cluster=cluster):
+            _build.launch("topp_tail", sp.data_ptr(), sp.stride(0), u.data_ptr(),
+                          out_j.data_ptr(), b, n, p, threads, cluster,
+                          torch.cuda.current_stream(DEV).cuda_stream,
+                          entry="repro_topp_tail_design")
+        run()
+        sync()
+        want = split_mm._topp_tail_cluster(sp.cpu(), u.cpu(), p=p, cluster=cluster,
+                                           threads=threads)
+        check(torch.equal(out_j.cpu(), want), f"B8 design {name}: != its model")
+        res[name] = graph_ms(run, 200)
+    return res
 
 
 def time_pipeline(x, x8):
@@ -2821,12 +2983,16 @@ def time_pipeline(x, x8):
         bms, by = bound(b * n * esz + b * nb * 4, b * n if f32 else 0)
         out["B2"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
                           name + "bound_by": by, name + "library_ms": cuda_ms(
-                              lambda: torch.sum(blocks, dim=(-2, -1), dtype=acc), 10)})
+                              lambda: torch.sum(blocks, dim=(-2, -1), dtype=acc), 10),
+                          name + "device_ms": graph_ms(
+                              lambda: scan_pipeline.block_partial_sums(blocks), 20)})
         k, pl = paired_ms(lambda: scan_pipeline.carry_scan(sums),
                           lambda: scan_pipeline.carry_scan_plain(sums), 50)
         bms, by = bound(b * nb * 8, b * nb if f32 else 0)
         out["B3"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
-                          name + "bound_by": by, name + "library_ms": None})
+                          name + "bound_by": by, name + "library_ms": None,
+                          name + "device_ms": graph_ms(
+                              lambda: scan_pipeline.carry_scan(sums), 200)})
         k, pl = paired_ms(
             lambda: scan_pipeline.block_scan_carry(blocks, carries),
             lambda: scan_pipeline.block_scan_carry_plain(blocks, carries, variant="scanul1",
@@ -2835,7 +3001,9 @@ def time_pipeline(x, x8):
         out["B4"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
                           name + "bound_by": by, name + "library_ms": None,
                           name + "scanu_ms": cuda_ms(lambda: scan_pipeline.block_scan_carry(
-                              blocks, carries, variant="scanu"), 10)})
+                              blocks, carries, variant="scanu"), 10),
+                          name + "device_ms": graph_ms(
+                              lambda: scan_pipeline.block_scan_carry(blocks, carries), 20)})
         k, pl = paired_ms(
             lambda: scan(xx, method="blocked"),
             lambda: scan_pipeline.blocked_scan_plain(xx, s=128, block_tiles=8,
@@ -2975,16 +3143,15 @@ def time_seg(gen):
                       all_values_bound_ms=bound(b * n * 5 + b * nb * 8)[0],
                       design_device_ms=time_seg_summaries_design(x, flags, block_len, nb))
     ts, hb = segscan_mm.seg_block_summaries_plain(blocks, fblocks, f32)
-    k, pl = paired_ms(lambda: segscan_mm.seg_carry_scan(ts, hb),
-                      lambda: segscan_mm.seg_carry_scan_plain(ts, hb), 50)
-    bms, by = bound(b * nb * 12, b * nb)
-    out["B11"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by, nb=nb)
+    out["B11"] = time_seg_carry(ts, hb, gen)
     carries = segscan_mm.seg_carry_scan_plain(ts, hb)
     k, pl = paired_ms(lambda: segscan_mm.seg_block_scan_carry(blocks, fblocks, carries),
                       lambda: segscan_mm.seg_block_scan_carry_plain(blocks, fblocks, carries,
                                                                     f32), 3)
     bms, by = bound(b * n * 9 + b * nb * 4, b * n)
-    out["B12"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by)
+    out["B12"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by,
+                      device_ms=graph_ms(lambda: segscan_mm.seg_block_scan_carry(
+                          blocks, fblocks, carries), 10))
     k, pl = paired_ms(lambda: segscan_mm.seg_blocked_scan(x, flags),
                       lambda: segscan_mm.seg_blocked_scan_plain(x, flags != 0, s=128,
                                                                 block_tiles=8, acc=f32), 10)
@@ -3001,6 +3168,33 @@ def time_seg(gen):
         m_: cuda_ms(lambda m_=m_: segment_top_p_sample(logits, poff, method=m_, u=uu), 10)
         for m_ in ("kernel", "blocked", "vector", "matmul")}
     return out
+
+
+def time_seg_carry(ts, hb, gen) -> dict:
+    """B11 on the pipeline's summaries ``(ts, hb)`` (one tile a row) in turns with
+    its plain version, eagerly and as a CUDA-graph replay, and at ``B11_LARGE``
+    (many tiles a row, the look-back) on random summaries with a
+    flag a thousand blocks, beside the plain version's tile model
+    (``seg_carry_scan_plain(tile=)``; the untiled masked contraction would hold
+    2^40 elements).  Bound: 12 B a summary (4 B of sums and of flag words in, 4 B
+    out), and one add a summary."""
+    b, nb = ts.shape
+    k, pl = paired_ms(lambda: segscan_mm.seg_carry_scan(ts, hb),
+                      lambda: segscan_mm.seg_carry_scan_plain(ts, hb), 50)
+    bms, by = bound(b * nb * 12, b * nb)
+    res = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by, nb=nb,
+               device_ms=graph_ms(lambda: segscan_mm.seg_carry_scan(ts, hb), 500))
+    b1, nb1 = B11_LARGE
+    t1 = torch.randn((b1, nb1), generator=gen, device=DEV)
+    h1 = (torch.rand((b1, nb1), generator=gen, device=DEV) < 1e-3).to(torch.int32)
+    tile = segscan_mm.seg_scan_tile(nb1)
+    k1, pl1 = paired_ms(lambda: segscan_mm.seg_carry_scan(t1, h1),
+                        lambda: segscan_mm.seg_carry_scan_plain(t1, h1, tile=tile, s=16), 5,
+                        kernel_reps=50)
+    res["nb1m"] = dict(shape=[b1, nb1], ms=k1, plain_tile_ms=pl1,
+                       device_ms=graph_ms(lambda: segscan_mm.seg_carry_scan(t1, h1), 200),
+                       bound_ms=bound(b1 * nb1 * 12, b1 * nb1)[0])
+    return res
 
 
 def time_linrec(gen):
@@ -3035,12 +3229,14 @@ def time_linrec(gen):
     k, pl = paired_ms(lambda: linrec_mm.linrec_block_summaries(ab, bb),
                       lambda: linrec_mm.linrec_block_summaries_plain(ab, bb, f32), 5)
     out["B14"] = dict(ms=k, plain_ms=pl, library_ms=None,
-                      bound_ms=bound(rows * n * 8 + rows * nb * 8)[0], bound_by="bytes")
+                      bound_ms=bound(rows * n * 8 + rows * nb * 8)[0], bound_by="bytes",
+                      device_ms=graph_ms(lambda: linrec_mm.linrec_block_summaries(ab, bb), 10))
     pp, pl_ = linrec_mm.linrec_block_summaries_plain(ab, bb, f32)
     k, pl = paired_ms(lambda: linrec_mm.linrec_carry_scan(pp, pl_),
                       lambda: linrec_mm.linrec_carry_scan_plain(pp, pl_), 20)
     bms, by = bound(rows * nb * 12, rows * nb * 2)
-    out["B15"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by, nb=nb)
+    out["B15"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by, nb=nb,
+                      device_ms=graph_ms(lambda: linrec_mm.linrec_carry_scan(pp, pl_), 200))
     cin = linrec_mm.linrec_carry_scan_plain(pp, pl_)
     k, pl = paired_ms(lambda: linrec_mm.linrec_block_scan_carry(ab, bb, cin),
                       lambda: linrec_mm.linrec_block_scan_carry_plain(ab, bb, cin, f32), 1,

@@ -39,14 +39,14 @@ SOURCES: Dict[str, tuple] = {
     "radix_pass": ("repro_radix_pass", [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P]),
     "radix_pass_hist": ("repro_radix_pass_hist",
                         [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P]),
-    "topp_tail": ("repro_topp_tail", [_P, _P, _P, _I, _L, _F, _P]),
+    "topp_tail": ("repro_topp_tail", [_P, _L, _P, _P, _I, _L, _F, _P]),
     "block_sums": ("repro_block_sums", [_P, _P, _I, _L, _I, _L, _I, _P]),
     "carry_scan": ("repro_carry_scan", [_P, _P, _I, _L, _I, _P]),
     "block_scan": ("repro_block_scan", [_P, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P]),
     "split": ("repro_split", [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P]),
     "seg_scan": ("repro_seg_scan", [_P, _P, _L, _P, _I, _L, _I, _P, _L, _P]),
     "seg_summaries": ("repro_seg_summaries", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
-    "seg_carry": ("repro_seg_carry", [_P, _P, _P, _I, _L, _I, _P]),
+    "seg_carry": ("repro_seg_carry", [_P, _P, _P, _I, _L, _I, _P, _L, _P]),
     "seg_block_scan": ("repro_seg_block_scan", [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _P]),
     "linrec_scan": ("repro_linrec_scan", [_P, _P, _P, _I, _L, _P, _L, _P]),
     "linrec_summaries": ("repro_linrec_summaries", [_P, _P, _P, _P, _I, _L, _I, _L, _P]),
@@ -64,6 +64,7 @@ ENTRIES: Dict[tuple, list] = {
     ("linrec_block_scan", "repro_linrec_block_scan_columns"): [_P, _P, _P, _P, _P, _P],
     ("seg_summaries", "repro_seg_summaries_design"):
         [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P],
+    ("topp_tail", "repro_topp_tail_design"): [_P, _L, _P, _P, _I, _L, _F, _I, _I, _P],
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -9,76 +9,47 @@
 // forms it as one masked (nb, nb) triangular contraction; at nb = 65536 that
 // matrix alone would be 16 GB.
 //
-// Design.  As B3 (carry_scan.cu): one CTA per row walks its nb summaries in
-// rounds of 1024 threads x 8 values with the segmented walk of seg_tile.cuh,
-// and a running carry links the rounds in order.  Integer carries are exact
-// (int32 adds wrap as the JAX contraction does); fp32 carries are direct sums
-// of one segment's terms.
+// Design.  B9's single pass (seg_pass.cuh), exclusive, with the summaries as
+// the values and the has-flag words as the flags: B9's tile aggregate, the sum
+// from the tile's last flag on and whether the tile holds one, is this
+// operator's, so the same pass computes it.  Rows of summaries are cut into
+// B9's tiles, seg_threads(nb, 512, 16) threads x 16 summaries (8192 for rows
+// of 8192 or more).  A row of one tile -- the pipeline's nb = 128 and every
+// nb <= 8192 -- is one CTA with no look-back and no workspace, so the call is
+// one kernel on the stream.  Longer rows take one CTA a tile and the
+// deterministic look-back of lookback.cuh, whose workspace the wrapper passes
+// and this entry point zeroes.  Integer carries are exact (int32 adds wrap as
+// the JAX contraction does); fp32 carries are direct sums of one segment's
+// terms, in a fixed tree, the same bits on every call.
 //
-// Bound.  It moves 12 B per block (a few KB at the pipeline's usual nb), so
-// it is bound by its launch and its one CTA per row, not by bytes.
-#include "seg_tile.cuh"
+// Bound.  It moves 12 B a block (4 B of ts and 4 B of h in, 4 B out): 0.015 ms
+// at (4, 2^20).  At the pipeline's usual nb (a few KB) it is bound by its one
+// launch.
+#include "seg_pass.cuh"
 
 namespace {
 
 template <typename A>
-__global__ void __launch_bounds__(repro::kSegMaxThreads)
-seg_carry_kernel(const A* __restrict__ ts, const int* __restrict__ hb, A* __restrict__ out,
-                 long long nb) {
-    __shared__ repro::SegScratch<A> sc;
-    const long long row = blockIdx.x;
-    const A* in = ts + row * nb;
-    const int* hin = hb + row * nb;
-    A* o = out + row * nb;
-    A carry = A(0);
-    const long long round = static_cast<long long>(blockDim.x) * repro::kSegItems;
-    for (long long base = 0; base < nb; base += round) {
-        const long long i0 = base + static_cast<long long>(threadIdx.x) * repro::kSegItems;
-        A v[repro::kSegItems];
-        int f[repro::kSegItems];
-        A run = A(0);
-        int h = 0;
-#pragma unroll
-        for (int k = 0; k < repro::kSegItems; ++k) {
-            const long long i = i0 + k;
-            const bool ok = i < nb;
-            v[k] = ok ? in[i] : A(0);
-            f[k] = ok && hin[i] != 0;
-            run = f[k] ? v[k] : run + v[k];
-            h |= f[k];
-        }
-        A ex_v, tot_v;
-        int ex_h, tot_h;
-        repro::block_seg_exclusive_scan(run, h, sc, ex_v, ex_h, tot_v, tot_h);
-        A pre = ex_h ? ex_v : carry + ex_v;
-#pragma unroll
-        for (int k = 0; k < repro::kSegItems; ++k) {
-            if (i0 + k < nb) o[i0 + k] = pre;       // exclusive: before block i0 + k
-            pre = f[k] ? v[k] : pre + v[k];
-        }
-        carry = tot_h ? tot_v : carry + tot_v;
-    }
-}
-
-template <typename A>
-int launch(const void* ts, const void* hb, void* out, int b, long long nb,
-           cudaStream_t stream) {
-    seg_carry_kernel<A><<<b, repro::seg_threads(nb, repro::kSegMaxThreads), 0, stream>>>(
-        static_cast<const A*>(ts), static_cast<const int*>(hb), static_cast<A*>(out), nb);
-    return static_cast<int>(cudaGetLastError());
+int launch(const void* ts, const void* hb, void* out, int b, long long nb, void* ws,
+           long long ws_bytes, cudaStream_t stream) {
+    return repro::seg_pass_launch<A, A, int, true>(ts, hb, nb, out, b, nb, ws, ws_bytes, true,
+                                                    stream);
 }
 
 }  // namespace
 
 // ts, out: (b, nb) contiguous in the accumulation dtype; hb: (b, nb) int32
-// has-boundary (nonzero = the block holds a flag).  acc: 0 fp32, 1 int32.
+// has-boundary (nonzero = the block holds a flag).  acc: 0 fp32, 1 int32.  ws:
+// the look-back's workspace of ws_bytes >= 8 * (b * tiles + 1) where a row is
+// more than one tile (tiles = ceil(nb / (seg_threads(nb, 512, 16) * 16))),
+// zeroed here; unread, and may be null, where a row is one tile.
 extern "C" int repro_seg_carry(const void* ts, const void* hb, void* out, int b, long long nb,
-                               int acc, void* stream) {
+                               int acc, void* ws, long long ws_bytes, void* stream) {
     if (b <= 0 || nb <= 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (acc) {
-        case 0: return launch<float>(ts, hb, out, b, nb, st);
-        case 1: return launch<int>(ts, hb, out, b, nb, st);
+        case 0: return launch<float>(ts, hb, out, b, nb, ws, ws_bytes, st);
+        case 1: return launch<int>(ts, hb, out, b, nb, ws, ws_bytes, st);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

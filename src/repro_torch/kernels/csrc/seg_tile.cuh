@@ -1,5 +1,5 @@
-// The segmented scan walk shared by B9 (seg_scan.cu), B11 (seg_carry.cu) and
-// B12 (seg_block_scan.cu).
+// The segmented scan walk shared by B9 (seg_scan.cu) and B11 (seg_carry.cu),
+// through seg_pass.cuh's single pass, and B12 (seg_block_scan.cu).
 //
 // A segmented scan is a plain scan under the segmented-pair operator on
 // (value, flag) pairs,
@@ -8,12 +8,12 @@
 //
 // where h marks an element, or a run of elements, that holds a segment start.
 // The operator is associative, so the usual parallel scan applies: each
-// thread scans N consecutive elements in registers (kSegItems = 8 for B11 and
-// B12, 16 for B9), warp shuffles
+// thread scans N consecutive elements in registers (kSegItems = 8 for B12, 16
+// for B9 and B11), warp shuffles
 // carry (v, h) across the lanes, and one warp scans the warp totals.  Rounds
 // are linked in order by the same operator on their aggregates: a running
-// carry within a CTA's range (B11, B12), or the look-back of lookback.cuh
-// across CTAs (B9, one round a CTA).  The carry of earlier rounds reaches
+// carry within a CTA's range (B12), or the look-back of lookback.cuh across
+// CTAs (B9 and B11, one round a CTA).  The carry of earlier rounds reaches
 // only the elements before a round's first flag, which is what the Pallas
 // kernels do with their `seen` mask.  Each warp loads and stores its round's
 // elements through shared memory, in address order (warp_stage_in,
@@ -23,7 +23,8 @@
 // Every result is a sum of terms of its own segment only, taken as a tree
 // within a round and sequentially across rounds, so fp32 results carry no
 // cancellation against earlier segments.  Integer inputs accumulate in int32.
-// Flags are bytes; any nonzero byte starts a segment.
+// Flags are bytes (B9, B12) or int32 words (B11's has-flag summaries); any
+// nonzero flag starts a segment.
 #pragma once
 
 #include "common.cuh"
@@ -135,6 +136,28 @@ __device__ __forceinline__ unsigned load_flag_bits(const uint8_t* __restrict__ p
     return bits;
 }
 
+// The same for int32 flags (nonzero = a segment start): four 16-byte words a
+// thread of 16 when whole and aligned.
+template <int N>
+__device__ __forceinline__ unsigned load_flag_bits(const int* __restrict__ p, long long avail) {
+    static_assert(N % 4 == 0, "whole 16-byte words of flags a thread");
+    unsigned bits = 0;
+    if (avail >= N && (reinterpret_cast<uintptr_t>(p) % 16) == 0) {
+#pragma unroll
+        for (int c = 0; c < N / 4; ++c) {
+            const int4 w = reinterpret_cast<const int4*>(p)[c];
+            bits |= (w.x != 0 ? 1u : 0u) << (4 * c);
+            bits |= (w.y != 0 ? 2u : 0u) << (4 * c);
+            bits |= (w.z != 0 ? 4u : 0u) << (4 * c);
+            bits |= (w.w != 0 ? 8u : 0u) << (4 * c);
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < N; ++k) bits |= (k < avail && p[k] != 0) ? 1u << k : 0u;
+    }
+    return bits;
+}
+
 // One round of a segmented scan, as a thread holds it: its flag bits, its
 // exclusive prefix within the round, and the round's aggregate (the same on
 // every thread).  Its values stay in the staging area until the store.
@@ -157,9 +180,9 @@ inline size_t seg_stage_bytes(int threads) {
 // read as zero with no flag.  The values come in through `stage`
 // (seg_stage_bytes<N>(blockDim.x) bytes), each warp's in address order, and
 // stay there for seg_round_store.  Ends with a barrier.
-template <typename T, typename A, int N = kSegItems>
+template <typename T, typename A, int N = kSegItems, typename F>
 __device__ __forceinline__ void seg_round_scan(const T* __restrict__ xr,
-                                               const uint8_t* __restrict__ fr, long long base,
+                                               const F* __restrict__ fr, long long base,
                                                long long hi, SegRound<A>& r,
                                                SegScratch<A>& sc, unsigned char* stage) {
     const int lane = threadIdx.x & 31;
@@ -178,7 +201,8 @@ __device__ __forceinline__ void seg_round_scan(const T* __restrict__ xr,
 
 // Write the round that starts at orow[base] below hi, seeded with the round's
 // carry-in: the seed reaches only the elements before the round's first flag.
-template <typename A, int N = kSegItems>
+// kExclusive writes each element's prefix before it instead of through it.
+template <typename A, int N = kSegItems, bool kExclusive = false>
 __device__ __forceinline__ void seg_round_store(A* __restrict__ orow, long long base,
                                                 long long hi, const SegRound<A>& r, A carry,
                                                 unsigned char* stage) {
@@ -190,8 +214,9 @@ __device__ __forceinline__ void seg_round_store(A* __restrict__ orow, long long 
     A pre = r.ex_h ? r.ex_v : carry + r.ex_v;
 #pragma unroll
     for (int k = 0; k < N; ++k) {
+        const A before = pre;
         pre = ((r.f >> k) & 1u) ? v[k] : pre + v[k];
-        v[k] = pre;
+        v[k] = kExclusive ? before : pre;
     }
     warp_store_staged<A, N>(orow + wbase, hi - wbase, wstage, lane, v);
 }

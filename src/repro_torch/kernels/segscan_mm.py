@@ -14,7 +14,9 @@ plus flags, nonzero where an element starts a new segment.  Four kernels:
   (``seg_block_summaries_plain(fold=True)`` is its order);
 * :func:`seg_carry_scan` (B11, ``csrc/seg_carry.cu``) — phase 2: the
   exclusive scan of those summaries under the segmented-pair operator
-  ``(a ⊕ b) = b.h ? b.ts : a.ts + b.ts``;
+  ``(a ⊕ b) = b.h ? b.ts : a.ts + b.ts``, on the card B9's single pass
+  (``csrc/seg_pass.cuh``) made exclusive, with no look-back where a row of
+  summaries is one tile (``seg_carry_scan_plain(tile=)`` models it);
 * :func:`seg_block_scan_carry` (B12, ``csrc/seg_block_scan.cu``) — phases 1
   and 3 fused: each block's segmented scan plus its carry, added only where no
   flag has been seen since the block start.
@@ -57,7 +59,8 @@ __all__ = ["seg_scan_tiles", "seg_block_summaries", "seg_carry_scan",
            "SEG_SUMMARIES_THREADS", "SEG_SUMMARIES_RUN"]
 
 _CARRY_CODES = {torch.float32: 0, torch.int32: 1}
-# csrc/seg_scan.cu: B9's threads a CTA at most, and the elements a thread scans
+# csrc/seg_pass.cuh: B9's and B11's threads a CTA at most, and the elements a
+# thread scans
 SEG_SCAN_THREADS = 512
 SEG_SCAN_ITEMS = 16
 # csrc/seg_summaries.cu: B10's threads a CTA at most (a round is a run a
@@ -292,9 +295,20 @@ def seg_block_summaries_plain(blocks: torch.Tensor, fblocks: torch.Tensor,
     return torch.sum(trailing, dim=-1, dtype=acc), f.any(dim=-1).to(torch.int32)
 
 
-def seg_carry_scan_plain(sums: torch.Tensor, has_boundary: torch.Tensor) -> torch.Tensor:
-    """Exclusive segmented scan of each row of the ``(b, nb)`` summaries."""
-    return _seg_row_carries(sums, has_boundary != 0, sums.dtype)
+def seg_carry_scan_plain(sums: torch.Tensor, has_boundary: torch.Tensor, *,
+                         tile: int | None = None, s: int = 8) -> torch.Tensor:
+    """Exclusive segmented scan of each row of the ``(b, nb)`` summaries.
+
+    ``tile`` (a multiple of ``s²``) models the kernel's pass instead of the one
+    masked contraction: the inclusive tile pass of B9
+    (:func:`seg_scan_tiles_plain` with ``tile=``: each tile's fold, its carry-in
+    from the look-back's left-to-right fold of the earlier tiles' aggregates),
+    then the shift to exclusive, block 0's carry being zero.
+    """
+    if tile is None:
+        return _seg_row_carries(sums, has_boundary != 0, sums.dtype)
+    inc = seg_scan_tiles_plain(sums, has_boundary != 0, s=s, acc=sums.dtype, tile=tile)
+    return torch.cat([torch.zeros_like(inc[:, :1]), inc[:, :-1]], dim=-1)
 
 
 def seg_block_scan_carry_plain(blocks: torch.Tensor, fblocks: torch.Tensor,
@@ -366,12 +380,19 @@ def _seg_summaries_cuda(xk, code, fk, fstride, acc, nb, block_len):
     return ts, h
 
 
-def _seg_carry_cuda(ts, h):
+def _seg_carry_cuda(ts, h, ws=None):
+    """One launch of B11, B9's single pass made exclusive.  Rows of more than one
+    tile take the look-back's workspace ``ws`` (allocated here if None; its last
+    word ends as the count of CTAs that ran); rows of one tile take none."""
     b, nb = ts.shape
     carries = torch.empty_like(ts)
+    tiles = -(-nb // seg_scan_tile(nb))
+    if ws is None and tiles > 1:
+        ws = lookback.workspace(b * tiles, ts.device)
+    ptr, nbytes = (0, 0) if ws is None else (ws.data_ptr(), ws.numel() * ws.element_size())
     with torch.cuda.device(ts.device):
         _build.launch("seg_carry", ts.data_ptr(), h.data_ptr(), carries.data_ptr(), b, nb,
-                      _CARRY_CODES[ts.dtype], _stream(ts))
+                      _CARRY_CODES[ts.dtype], ptr, nbytes, _stream(ts))
     return carries
 
 

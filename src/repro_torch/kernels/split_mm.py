@@ -21,7 +21,9 @@ Port of five kernels of ``repro/kernels/split_mm.py``:
   the row's digit histogram for the distributed sort.
 * :func:`topp_mask_sample_tiles` (``csrc/topp_tail.cu``): prefix sum of the
   sorted probabilities, the llama3 cut ``(cum - sp) > p``, the masked CDF and
-  the inverse-transform sample, one int32 per row.
+  the inverse-transform sample, one int32 per row; on the card one cluster of
+  ``TOPP_CLUSTER`` CTAs a row, each holding a slice of the row in shared
+  memory (:func:`_topp_tail_cluster` repeats its arithmetic).
 
 Keys travel as raw words: ``uint8`` for 8-bit keys, ``int16`` for 16-bit keys
 and ``int32`` for 32-bit keys (the bit patterns of the unsigned encodings;
@@ -40,7 +42,8 @@ from repro_torch.kernels import _build
 
 __all__ = ["split_tiles", "split_plain", "multi_split_tiles", "multi_split_plain",
            "radix_pass_multibit", "radix_pass_plain", "topp_mask_sample_tiles",
-           "topp_tail_plain", "KEY_DTYPES", "TOPP_BAND", "MULTI_SPLIT_MAX_BUCKETS",
+           "topp_tail_plain", "topp_tail_geometry", "KEY_DTYPES", "TOPP_BAND",
+           "TOPP_CLUSTER", "TOPP_MAX_ITEMS", "TOPP_MAX_SLICE", "MULTI_SPLIT_MAX_BUCKETS",
            "MULTI_SPLIT_TILE_MAX_BUCKETS", "RADIX_TILE"]
 
 KEY_DTYPES = {torch.uint8: 8, torch.int16: 16, torch.int32: 32}
@@ -61,6 +64,14 @@ RADIX_TILE = 4096
 # fp32 summation-order band of the fused top-p tail, relative to the row's
 # probability mass (derivation in csrc/topp_tail.cu)
 TOPP_BAND = 2.0 ** -16
+
+# csrc/topp_tail.cu: B8's CTAs a row (one cluster), the longest run a thread sums
+# where 1024 threads allow it (a CTA has the fewest of 256, 512 and 1024 threads
+# that keep to it), and the most elements a CTA holds in shared memory (longer
+# rows are walked in rounds)
+TOPP_CLUSTER = 8
+TOPP_MAX_ITEMS = 63
+TOPP_MAX_SLICE = 55296
 
 
 def split_plain(x: torch.Tensor, flags: torch.Tensor, *, tile=None):
@@ -394,6 +405,107 @@ def topp_tail_plain(sp: torch.Tensor, u: torch.Tensor, *, p: float) -> torch.Ten
     return torch.clamp(j, 0, sp.shape[-1] - 1)
 
 
+def topp_tail_geometry(n: int, cluster: int = TOPP_CLUSTER, threads: int | None = None):
+    """``(slice, rounds, threads, items)`` of B8 for rows of ``n``: the elements of a
+    CTA's slice (``ceil(n / cluster)`` rounded up to 4, at most ``TOPP_MAX_SLICE``),
+    the rounds of ``cluster`` slices that cover the row, the threads a CTA (by
+    default the fewest of 256, 512 and 1024 whose runs keep to ``TOPP_MAX_ITEMS``)
+    and the odd length of a thread's run (``geometry``, ``threads_for`` and
+    ``items`` in ``csrc/topp_tail.cu``)."""
+    per = -(-n // cluster)
+    slice_ = min(-(-per // 4) * 4, TOPP_MAX_SLICE)
+    if threads is None:
+        threads = next((t for t in (256, 512) if (-(-slice_ // t) | 1) <= TOPP_MAX_ITEMS),
+                       1024)
+    return slice_, -(-n // (cluster * slice_)), threads, -(-slice_ // threads) | 1
+
+
+def _warp_inclusive(v: torch.Tensor) -> torch.Tensor:
+    """Hillis-Steele inclusive scan of the last axis (32 lanes), as the shuffles add."""
+    d = 1
+    while d < v.shape[-1]:
+        v = torch.cat([v[..., :d], v[..., d:] + v[..., :-d]], -1)
+        d *= 2
+    return v
+
+
+def _slice_tree(v: torch.Tensor, threads: int):
+    """B8's fixed tree over ``(b, slices, threads, items)`` values: each thread's
+    running sums in order, and its base without the slice's prefix, ``(pw, lex)``
+    (its warp's exclusive prefix across the warps and its own across the lanes),
+    and each slice's total."""
+    b, g = v.shape[:2]
+    warps = threads // 32
+    runs = torch.empty_like(v)
+    acc = torch.zeros_like(v[..., 0])
+    for k in range(v.shape[-1]):
+        acc = acc + v[..., k]
+        runs[..., k] = acc
+    inc = _warp_inclusive(runs[..., -1].reshape(b, g, warps, 32))
+    lex = torch.cat([torch.zeros_like(inc[..., :1]), inc[..., :-1]], -1)
+    winc = _warp_inclusive(torch.nn.functional.pad(inc[..., -1], (0, 32 - warps)))
+    pw = torch.cat([torch.zeros_like(winc[..., :1]), winc[..., :warps - 1]], -1)
+    return runs, pw, lex, winc[..., warps - 1]
+
+
+def _fold_slices(totals: torch.Tensor) -> torch.Tensor:
+    """Each slice's prefix: the strict left-to-right fold of the totals before it."""
+    pre = torch.empty_like(totals)
+    acc = torch.zeros_like(totals[:, 0])
+    for q in range(totals.shape[1]):
+        pre[:, q] = acc
+        acc = acc + totals[:, q]
+    return pre
+
+
+def _topp_tail_cluster(sp: torch.Tensor, u: torch.Tensor, *, p: float,
+                       cluster: int = TOPP_CLUSTER, threads: int | None = None,
+                       parts: bool = False):
+    """B8's arithmetic on the card, operation for operation, on ``(b, n)`` fp32 rows
+    and ``(b, 1)`` uniforms (for tests; the CPU path is :func:`topp_tail_plain`).
+
+    The row is cut into slices (:func:`topp_tail_geometry`), one a CTA of the
+    cluster, a round of ``cluster`` slices at a time.  In each slice a thread
+    sums its run of ``items`` elements in order, the lanes' and warps' totals
+    are joined by Hillis-Steele scans (:func:`_slice_tree`), and the slices'
+    totals are folded left to right into each slice's prefix; an element's
+    value is ``((prefix + pw) + lex) + run``.  So for ``cum``, then for the
+    masked values; ``theta = u · cdf[n-1]`` from the last element's own
+    ``cdf``, and ``j`` is the sum of the slices' counts of ``cdf < theta``,
+    clipped to ``[0, n - 1]``.  With ``parts=True`` also returns a dict of the
+    slices' sums of ``cum`` and of the masked values (``(b, slices)``, in the
+    order they are folded), ``cdf[n-1]``, the per-slice counts, and ``cum``,
+    the masked values and ``cdf`` as ``(b, n)``.
+    """
+    b, n = sp.shape
+    slice_, rounds, threads, items = topp_tail_geometry(n, cluster, threads)
+    g = rounds * cluster
+    x = torch.nn.functional.pad(sp.to(torch.float32), (0, g * slice_ - n)).reshape(b, g, slice_)
+    x = torch.nn.functional.pad(x, (0, threads * items - slice_)).reshape(b, g, threads, items)
+
+    def values(v):
+        runs, pw, lex, tot = _slice_tree(v, threads)
+        base = (_fold_slices(tot)[..., None, None] + pw[..., None]) + lex
+        return base.reshape(b, g, threads)[..., None] + runs, tot
+
+    cum, sums = values(x)
+    m = torch.where((cum - x) > p, torch.zeros_like(x), x)
+    cdf, msums = values(m)
+    cdf = cdf.reshape(b, g, threads * items)[..., :slice_]
+    last = cdf.reshape(b, g * slice_)[:, n - 1:n]
+    theta = u.reshape(b, 1).to(torch.float32) * last
+    valid = torch.arange(g * slice_).reshape(g, slice_) < n
+    counts = ((cdf < theta[..., None]) & valid).sum(-1, dtype=torch.int64)
+    j = torch.clamp(counts.sum(-1), 0, n - 1).to(torch.int32)
+    if parts:
+        def rows(t):
+            return t.reshape(b, g, threads * items)[..., :slice_].reshape(b, -1)[:, :n]
+        return j, {"slice_sums": sums, "masked_sums": msums, "last_cdf": last[:, 0],
+                   "counts": counts, "cum": rows(cum), "masked": rows(m),
+                   "cdf": cdf.reshape(b, -1)[:, :n]}
+    return j
+
+
 def topp_mask_sample_tiles(sorted_p: torch.Tensor, u: torch.Tensor, *,
                            p: float) -> torch.Tensor:
     """Fused nucleus-sampling tail: index into the descending sorted order.
@@ -417,11 +529,15 @@ def topp_mask_sample_tiles(sorted_p: torch.Tensor, u: torch.Tensor, *,
                          f"{sp.shape[0]} rows")
     if not sp.is_cuda:
         return topp_tail_plain(sp, ub, p=p).reshape(lead)
-    sp, ub = sp.contiguous(), ub.contiguous()
+    # rows of unit element stride are read where they lie, at any row stride
+    # and 4-byte alignment (a slice of a wider tensor is not copied)
+    if sp.stride(-1) != 1:
+        sp = sp.contiguous()
+    ub = ub.contiguous()
     b = sp.shape[0]
     j = torch.empty((b,), dtype=torch.int32, device=sp.device)
     with torch.cuda.device(sp.device):
         stream = torch.cuda.current_stream(sp.device).cuda_stream
-        _build.launch("topp_tail", sp.data_ptr(), ub.data_ptr(), j.data_ptr(), b, n,
-                      float(p), stream)
+        _build.launch("topp_tail", sp.data_ptr(), sp.stride(0), ub.data_ptr(), j.data_ptr(),
+                      b, n, float(p), stream)
     return j.reshape(lead)

@@ -9,6 +9,7 @@ neither JAX nor the JAX package: the machine with the card need not have them.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -21,8 +22,8 @@ from repro_torch.core.scan import accum_dtype_for, scan
 from repro_torch.core.segmented import (SegmentedBatch, segment_compress,
                                         segment_linear_scan, segment_scan)
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref
-from repro_torch.kernels import (linrec_mm, lookback, ops, scan_mm, scan_pipeline, segscan_mm,
-                                 split_mm, ssd_chunk)
+from repro_torch.kernels import (_build, linrec_mm, lookback, ops, scan_mm, scan_pipeline,
+                                 segscan_mm, split_mm, ssd_chunk)
 from repro_torch.models import mamba
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving.engine import ServeEngine
@@ -1435,3 +1436,163 @@ def test_linrec_columns_empty_operands(dev, method, a_shape, b_shape):
     want = linear_scan(a.cpu(), b.cpu(), axis=1, method=method, tile_s=16)
     assert got.shape == want.shape == torch.broadcast_shapes(a_shape, b_shape)
     assert got.device.type == "cuda"
+
+
+# ---- B8 as one thread-block cluster a row (csrc/topp_tail.cu) ----
+
+B8_ROWS = [1, 2, 7, 8, 9, 4096, 32000, 64128, 128255, 128256, 128257, 257216, 1 << 20]
+B8_UNIFORMS = [0.05, 0.3, 0.6, 0.8, 0.95, 0.999]
+
+
+def _peaked_rows(b, n, dev, seed=0):
+    """Sorted rows whose mass sits on at most four tokens (the logits' peaks grow with
+    log n, so the tail keeps under 1e-4 of it at any n): every cut and CDF step is
+    far wider than the band, so the kernel and its plain version agree exactly."""
+    logits = torch.randn((b, n), generator=_gen(dev, seed), device=dev) * 0.1
+    k = min(4, n)
+    logits[:, :k] += torch.tensor([9.0, 8.0, 7.0, 6.0][:k], device=dev) + math.log(n)
+    sp = torch.sort(torch.softmax(logits, -1), -1, descending=True).values
+    u = torch.tensor([B8_UNIFORMS[r % 6] for r in range(b)], device=dev).reshape(b, 1)
+    return sp, u
+
+
+@pytest.mark.parametrize("b", [1, 4, 64])
+@pytest.mark.parametrize("n", B8_ROWS)
+def test_topp_tail_cluster_matches_plain(dev, n, b):
+    """Peaked rows at and around the slices' 16-byte words, the sampler's vocabularies,
+    paligemma's 257216 and a row of 2^20 (walked in rounds): the plain version's index,
+    the model's (``_topp_tail_cluster``), the same over five calls, one launch each."""
+    sp, u = _peaked_rows(b, n, dev)
+    for p in (0.0, 0.5, 0.9, 1.0):
+        ops.reset_launch_counts()
+        got = split_mm.topp_mask_sample_tiles(sp, u, p=p)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == _counts(topp_tail=1)
+        assert torch.equal(got, split_mm.topp_tail_plain(sp, u, p=p))
+        assert torch.equal(got.cpu(), split_mm._topp_tail_cluster(sp.cpu(), u.cpu(), p=p))
+        for _ in range(5):
+            assert torch.equal(split_mm.topp_mask_sample_tiles(sp, u, p=p), got)
+
+
+@pytest.mark.parametrize("n", [9, 32000, 128256, 257216, 1 << 20])
+def test_topp_tail_cluster_is_its_model_on_random_rows(dev, n):
+    """Flat random rows, whose cuts and steps lie inside the band: the kernel's index
+    is still the model's, which repeats its arithmetic operation for operation."""
+    for sigma in (1.0, 4.0):
+        logits = torch.randn((4, n), generator=_gen(dev, 7), device=dev) * sigma
+        sp = torch.sort(torch.softmax(logits, -1), -1, descending=True).values
+        u = torch.rand((4, 1), generator=_gen(dev, 8), device=dev)
+        for p in (0.5, 0.9, 1.0):
+            got = split_mm.topp_mask_sample_tiles(sp, u, p=p)
+            assert torch.equal(got.cpu(), split_mm._topp_tail_cluster(sp.cpu(), u.cpu(), p=p))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [9, 4096, 128256, 128257])
+def test_topp_tail_cluster_unaligned_rows(dev, n, offset):
+    """Rows off 16-byte alignment, read where they lie: a column slice of a wider
+    tensor (row stride n + offset) and a flat buffer entered at an offset."""
+    sp, u = _peaked_rows(4, n, dev)
+    wide = torch.zeros((4, n + offset), device=dev)
+    wide[:, offset:] = sp
+    flat = torch.zeros(4 * n + offset, device=dev)
+    flat[offset:] = sp.reshape(-1)
+    for view in (wide[:, offset:], flat[offset:].view(4, n)):
+        assert view.data_ptr() % 16 != 0
+        for p in (0.5, 0.9):
+            got = split_mm.topp_mask_sample_tiles(view, u, p=p)
+            assert torch.equal(got, split_mm.topp_tail_plain(sp, u, p=p))
+            assert torch.equal(got.cpu(), split_mm._topp_tail_cluster(sp.cpu(), u.cpu(), p=p))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("threads", [256, 512, 1024])
+def test_topp_tail_design_options_are_their_models(dev, threads, cluster):
+    """The design entry point's CTAs a cluster and threads a CTA: each option's index is
+    its model's, on random rows at the sampler's shape and at 2^20."""
+    for n in (128256, 1 << 20):
+        logits = torch.randn((4, n), generator=_gen(dev, 9), device=dev) * 2
+        sp = torch.sort(torch.softmax(logits, -1), -1, descending=True).values
+        u = torch.rand((4, 1), generator=_gen(dev, 10), device=dev)
+        out = torch.empty(4, dtype=torch.int32, device=dev)
+        _build.launch("topp_tail", sp.data_ptr(), n, u.data_ptr(), out.data_ptr(), 4, n, 0.9,
+                      threads, cluster, torch.cuda.current_stream(dev).cuda_stream,
+                      entry="repro_topp_tail_design")
+        want = split_mm._topp_tail_cluster(sp.cpu(), u.cpu(), p=0.9, cluster=cluster,
+                                           threads=threads)
+        assert torch.equal(out.cpu(), want)
+
+
+# ---- B11 on B9's single pass, exclusive (csrc/seg_carry.cu, csrc/seg_pass.cuh) ----
+
+B11_ROWS = [1, 7, 128, 8192, 8193, 70001, 1 << 20]
+
+
+def _b11_summaries(dtype, nb, dev):
+    if dtype == torch.int32:
+        ts = torch.randint(-100, 100, (4, nb), generator=_gen(dev, 11), device=dev,
+                           dtype=torch.int32)
+    else:
+        ts = torch.randn((4, nb), generator=_gen(dev, 11), device=dev)
+    h = (torch.rand((4, nb), generator=_gen(dev, 12), device=dev) < 0.001).to(torch.int32)
+    h[1] = 0
+    h[2] = 1
+    h[3] *= 7                                          # nonzero words other than 1
+    return ts, h
+
+
+def _b11_reference(ts, h):
+    """The fp64 exclusive carries and their scale (the running ``Σ|ts|`` of each
+    block's segment)."""
+    v, a = _seg_ref64(ts.double(), h), _seg_ref64(ts.double().abs(), h)
+    shift = lambda t: torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], -1)  # noqa: E731
+    return shift(v), shift(a)
+
+
+def _seg_ref64(x, h):
+    full = torch.cumsum(x, -1)
+    pos = torch.arange(x.shape[-1], device=x.device).expand(x.shape)
+    start = torch.cummax(torch.where(h != 0, pos, 0), -1).values
+    return full - torch.gather(full - x, -1, start)
+
+
+@pytest.mark.parametrize("nb", B11_ROWS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_seg_carry_single_pass(dev, dtype, nb):
+    """Exact on int32, within 16 ulp on fp32 at the per-segment scale, five calls
+    bit-equal, one launch a call; rows of h all zero, all set, random and 7."""
+    ts, h = _b11_summaries(dtype, nb, dev)
+    ops.reset_launch_counts()
+    got = segscan_mm.seg_carry_scan(ts, h)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(seg_carry=1)
+    assert got.dtype == dtype and bool((got[:, 0] == 0).all())
+    ref, scale = _b11_reference(ts, h)
+    if dtype == torch.int32:
+        assert torch.equal(got.to(torch.float64), ref)
+    else:
+        assert _ulp_err(got, ref, scale) <= 16.0
+    for _ in range(5):
+        assert torch.equal(segscan_mm.seg_carry_scan(ts, h), got)
+
+
+@pytest.mark.parametrize("nb", B11_ROWS)
+def test_seg_carry_workspace_only_past_one_tile(dev, nb):
+    """Rows of one tile launch with no workspace at all (a null pointer of 0 bytes);
+    longer rows refuse one and, given it, run one CTA a tile."""
+    ts, h = _b11_summaries(torch.int32, nb, dev)
+    tiles = -(-nb // segscan_mm.seg_scan_tile(nb))
+    out = torch.empty_like(ts)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (ts.data_ptr(), h.data_ptr(), out.data_ptr(), 4, nb, 1)
+    if tiles == 1:
+        _build.launch("seg_carry", *args, 0, 0, stream)
+        torch.cuda.synchronize()
+        assert torch.equal(out, segscan_mm.seg_carry_scan(ts, h))
+        return
+    with pytest.raises(RuntimeError):
+        _build.launch("seg_carry", *args, 0, 0, stream)
+    got = {}
+    assert _ctas(lambda ws: got.setdefault("x", segscan_mm._seg_carry_cuda(ts, h, ws=ws)),
+                 4 * tiles, dev) == 4 * tiles
+    assert torch.equal(got["x"].to(torch.float64), _b11_reference(ts, h)[0])

@@ -110,11 +110,11 @@ def _hold(kind, port: np.ndarray, jax: np.ndarray, ref: np.ndarray, scale: np.nd
 def test_geometry_matches_the_kernel_sources():
     """The wrappers size the look-back's workspace from these constants."""
     scan_src = (CSRC / "scan_tile.cuh").read_text()
-    seg_src = (CSRC / "seg_scan.cu").read_text()
+    seg_src = (CSRC / "seg_pass.cuh").read_text()
     for src, name, value in ((scan_src, "kScanThreads", scan_mm.SCAN_THREADS),
                              (scan_src, "kScanItems", scan_mm.SCAN_ITEMS),
-                             (seg_src, "kThreads", segscan_mm.SEG_SCAN_THREADS),
-                             (seg_src, "kItems", segscan_mm.SEG_SCAN_ITEMS)):
+                             (seg_src, "kSegPassThreads", segscan_mm.SEG_SCAN_THREADS),
+                             (seg_src, "kSegPassItems", segscan_mm.SEG_SCAN_ITEMS)):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m is not None and int(m.group(1)) == value, name
 
