@@ -150,6 +150,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
@@ -184,6 +185,15 @@ DIST_WORLDS = (4, 2)
 DIST_SEED = 21
 DIST_TIMEOUT = 420                  # seconds for one world, startup included
 SERVE_SHARDED = dict(ranks=2, **SERVE)
+# continuous batching (serve_continuous): 128 allocatable pages of 16 hold fewer
+# full-length (512-position) requests than the 8 rows, so admission waits on pages
+CONTINUOUS = dict(max_batch=8, page_size=16, n_pages=129, max_len=512, tick_tokens=8)
+# 12 requests, not 24: on the H100 the phase took 189 s at 24 and 180 s at 16
+# (PERF.md); 12 still fill the pool (128 of 128 pages) and wait on it 4 times
+CONT_TRACE = dict(n_requests=12, rate=0.25, prompt_len=(32, 384), max_new=(8, 64), seed=17)
+CONT_SAMPLERS = ("greedy", "topp_scan")
+CONT_KERNEL_ALLOC = "topp_scan"     # the run whose page allocator is method="kernel" (B5)
+CONT_PROFILE_TICK = 5               # the warm-up tick traced with torch.profiler
 # B8 off the sampler's shape: rows on and around the 16-byte words of its slices,
 # zamba2's and llama3's vocabularies and their shards, paligemma's, and a row of
 # 2^20 that the cluster walks in rounds
@@ -237,6 +247,8 @@ import torch.distributed as dist  # noqa: E402
 
 from repro_torch.analysis import ulp  # noqa: E402
 from repro_torch.analysis.collectives import modeled_dist_traffic  # noqa: E402
+from repro_torch.analysis.streams import (DenseReplay, first_divergence,  # noqa: E402
+                                          step_margin)
 from repro_torch.core import comm  # noqa: E402
 from repro_torch.core.autotune import method_override  # noqa: E402
 from repro_torch.core.dist_ops import (dist_linear_scan, dist_segment_scan,  # noqa: E402
@@ -255,7 +267,9 @@ from repro_torch.kernels import (_build, linrec_mm, lookback, ops,  # noqa: E402
 from repro_torch.launch.world import run_world  # noqa: E402
 from repro_torch.models import mamba as mamba_model  # noqa: E402
 from repro_torch.models.model import build_model, get_config  # noqa: E402
+from repro_torch.serving import paged_kv  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.serving.scheduler import ContinuousEngine, poisson_trace  # noqa: E402
 
 DEV = torch.device("cuda")
 
@@ -2058,7 +2072,7 @@ def main_serve(gen):
           "prefill_plus_first_sample_ms": t_one_b * 1e3, **sampled_b,
           "stream_agreement_with_topp_kernel": float((toks_b == toks).float().mean()),
           "stream_agreement_with_topp_scan": scan_agree_b})
-    return counts, counts_b, counts_s
+    return counts, counts_b, counts_s, params
 
 
 @torch.inference_mode()
@@ -2081,6 +2095,234 @@ def decode_busy(eng, params, batch, uniforms, s, new, steps: int = 4):
     return {"steps": steps, "device_ops_per_step": len(dev) / steps,
             "device_busy_ms_per_step": busy_ms if dev else None,
             "profiled_wall_ms_per_step": wall / steps * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# serve_continuous: continuous batching over the paged KV cache
+# ---------------------------------------------------------------------------
+
+
+class TickProbe:
+    """Wraps a ContinuousEngine's ``_decode_n`` (one tick): the wall ms of each tick
+    and, while ``count`` is set, its host syncs (``torch.cuda.set_sync_debug_mode``
+    warnings); tick ``profile`` (0-based, counted while ``count`` is set) runs under
+    ``torch.profiler`` and gives the device's busy ms against the tick's wall ms."""
+
+    def __init__(self, eng, profile: int):
+        self.orig, self.profile = eng._decode_n, profile
+        eng._decode_n = self
+        self.count, self.ms, self.steps, self.syncs, self.busy = True, [], [], [], None
+        self.sites = collections.Counter()
+
+    def __call__(self, n_steps):
+        if not self.count:
+            t0 = time.perf_counter()
+            out = self.orig(n_steps)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.steps.append(out[1])
+            return out
+        sync()
+        if len(self.syncs) == self.profile and self.busy is None:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                out = self.orig(n_steps)
+                wall = (time.perf_counter() - t0) * 1e3
+            dev = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 if dev else None
+            self.busy = {"tick": self.profile, "wall_ms": wall, "device_busy_ms": busy,
+                         "device_ops": len(dev),
+                         "device_idle_share": None if busy is None else 1 - busy / wall}
+            return out
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = self.orig(n_steps)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        hits = [w for w in caught if "synchroniz" in str(w.message)]
+        self.syncs.append(len(hits))
+        self.sites.update(f"{os.path.basename(w.filename)}:{w.lineno}" for w in hits)
+        return out
+
+
+def _same_run(a, b) -> bool:
+    return (a["requests"] == b["requests"] and a["stats"] == b["stats"]
+            and a["streams"].keys() == b["streams"].keys()
+            and all(np.array_equal(a["streams"][k], b["streams"][k]) for k in a["streams"]))
+
+
+def continuous_layout_parity(eng, req) -> dict:
+    """One request's prefill inserted into a row of the engine's full-width pages:
+    ``gather_dense`` of the row equals the dense prefill cache bit for bit."""
+    m = paged_kv.pages_needed(req.tokens.size + req.max_new_tokens, eng.page_size)
+    pages = eng.alloc.alloc(m)
+    toks = torch.as_tensor(req.tokens, device=DEV)[None]
+    _, dense = eng.model.prefill(eng.params, {"tokens": toks}, cache_len=m * eng.page_size)
+    paged_kv.insert_request(eng.caches, dense, 0, pages)
+    view = paged_kv.gather_dense(eng.caches)["stack"]["sub0"]
+    equal = all(torch.equal(view[n][:, 0, :m * eng.page_size], dense["stack"]["sub0"][n][:, 0])
+                for n in ("k", "v"))
+    check(equal, "serve_continuous: the gathered pages differ from the dense prefill cache")
+    eng.alloc.release(pages)
+    paged_kv.clear_page_table(eng.caches, 0)
+    return {"pages": m, "positions": m * eng.page_size, "bit_equal": equal}
+
+
+@torch.inference_mode()
+def batch_logit_gap(model, params, reqs, clen: int, steps: int = 4) -> dict:
+    """Decode steps of ``len(reqs)`` rows at once (per-row positions) and of each row
+    alone, fed the same tokens: whether the logits agree bit for bit, and their
+    largest difference, the ``delta`` of the divergence rule."""
+    singles = [model.prefill(params, {"tokens": torch.as_tensor(r.tokens, device=DEV)[None]},
+                             cache_len=clen) for r in reqs]
+    batched = {"stack": {"sub0": {n: torch.cat([c["stack"]["sub0"][n] for _, c in singles], 1)
+                                  for n in ("k", "v")}}}
+    tok = torch.cat([torch.argmax(lg, -1) for lg, _ in singles]).to(torch.int32)
+    pos = torch.tensor([r.tokens.size for r in reqs], device=DEV)
+    gap, same = 0.0, True
+    for _ in range(steps):
+        lb, batched = model.decode_step(params, tok[:, None], batched, pos)
+        ls = torch.cat([model.decode_step(params, tok[r:r + 1, None], singles[r][1],
+                                          int(pos[r]))[0] for r in range(len(reqs))])
+        same &= torch.equal(lb, ls)
+        gap = max(gap, float((lb - ls).abs().max()))
+        tok = torch.argmax(lb, -1).to(torch.int32)
+        pos = pos + 1
+    return {"rows": len(reqs), "steps": steps, "bit_equal": same, "max_abs_logit_diff": gap}
+
+
+def solo_streams(cfg, params, trace, sampler: str, n_ctx: int, cont, gap: float) -> dict:
+    """Each request alone through ``ServeEngine.generate`` (the dense sequential
+    baseline, timed) with the request's uniform stream, each stream held to the
+    continuous one: equal, or parting first at a step whose ``step_margin`` lies
+    within ``gap`` (where the batch-1 and batch-8 bits agree, equal everywhere)."""
+    solo = ServeEngine(cfg, params, max_len=n_ctx, sampler=sampler)
+    orig = solo._sample
+    logits = []
+    solo._sample = lambda lg, g, u: (logits.append(lg[0].clone()), orig(lg, g, u))[1]
+    equal, parted, total, wall = 0, [], 0, 0.0
+    for r in trace:
+        logits.clear()
+        u = torch.rand((r.max_new_tokens,), generator=torch.Generator(device=DEV).manual_seed(
+            r.seed), device=DEV)
+        prompt = {"tokens": torch.as_tensor(r.tokens, device=DEV)[None]}
+        ref, dt = _timed_generate(solo, prompt, r.max_new_tokens, uniforms=u[:, None])
+        wall += dt
+        ref = ref[0].cpu().numpy()
+        total += ref.size
+        got = cont["streams"][r.rid]
+        k = first_divergence(got, ref)
+        if k is None:
+            equal += 1
+            continue
+        check(gap > 0 and k < min(got.size, ref.size),
+              f"serve_continuous {sampler}: {r.rid} left its solo stream at step {k} "
+              "though batch 1 and batch 8 give a row the same bits")
+        margin = step_margin(logits[k], float(u[k]), sampler=sampler, top_p=solo.top_p,
+                             other=int(got[k]))
+        check(margin <= gap, f"serve_continuous {sampler}: {r.rid} left its solo stream at "
+              f"step {k}, whose margin {margin} exceeds the measured logit difference {gap}")
+        parted.append({"rid": r.rid, "step": k, "of": int(ref.size), "margin": margin})
+    return {"streams_equal": equal, "streams": len(trace), "first_divergences": parted,
+            "tokens": total, "seconds": wall, "tokens_per_s": total / wall}
+
+
+def serve_continuous(params) -> dict:
+    """ContinuousEngine on llama3-8b at full width under the Poisson trace: the
+    layout, schedule, replay, solo-stream and launch checks, the warm-up run's
+    paged decode held bit for bit to a dense replay of its steps, and each
+    sampler's times beside the dense sequential baseline.  Returns the timed
+    runs' launches."""
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3-8b")
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **CONT_TRACE)
+    parts = {}
+
+    def lap(name, since):
+        parts[name] = time.perf_counter() - since
+        return time.perf_counter()
+
+    t = time.perf_counter()
+    # the schedule of the same trace and geometry: the SMOKE model on the CPU
+    scfg = get_config("llama3-8b", smoke=True)
+    cpu = ContinuousEngine(scfg, build_model(scfg).init(0, device="cpu"), device="cpu",
+                           **CONTINUOUS).run(
+        [dataclasses.replace(r, tokens=r.tokens % scfg.vocab_size) for r in trace])
+    engines = {s: ContinuousEngine(cfg, params, sampler=s, alloc_method=(
+        "kernel" if s == CONT_KERNEL_ALLOC else "auto"), **CONTINUOUS) for s in CONT_SAMPLERS}
+    eng0 = engines[CONT_SAMPLERS[0]]
+    n_ctx = eng0.n_blocks * eng0.page_size
+    t = lap("cpu_schedule", t)
+    parity = continuous_layout_parity(eng0, trace[0])
+    gap = batch_logit_gap(eng0.model, params, trace[:eng0.max_batch], n_ctx)
+    t = lap("parity_and_batch_gap", t)
+    out, launches = {}, {k: 0 for k in ops.KERNELS}
+    for sampler, eng in engines.items():
+        probe = TickProbe(eng, profile=CONT_PROFILE_TICK)
+        with DenseReplay(eng) as rep:                               # warm-up
+            first = eng.run(trace)
+        replay = rep.result()
+        check(replay["bit_equal"] and replay["row_steps"] > 0
+              and replay["steps"] == eng.tick_tokens * (len(probe.syncs)
+                                                         + (probe.busy is not None)),
+              f"serve_continuous {sampler}: paged decode differs from the dense replay "
+              f"of its steps: {replay}")
+        probe.count, probe.ms = False, []
+        t = lap(f"{sampler}_warm_up", t)
+        # --- the main path: counters zeroed just before, read just after ---
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        res = eng.run(trace)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        calls = eng.alloc.calls
+        expect_counts(counts, f"serve_continuous {sampler}",
+                      **({"split": calls} if eng.alloc_method == "kernel" else {}))
+        launches = {k: launches[k] + counts[k] for k in ops.KERNELS}
+        check(_same_run(first, res),
+              f"serve_continuous {sampler}: two runs of the trace differ")
+        check(res["requests"] == cpu["requests"] and res["stats"] == cpu["stats"],
+              f"serve_continuous {sampler}: the schedule differs from the CPU's SMOKE run")
+        check(all(s.size == r.max_new_tokens and ((s >= 0) & (s < cfg.vocab_size)).all()
+                  for r in trace for s in [res["streams"][r.rid]]),
+              f"serve_continuous {sampler}: a stream of the wrong length or out of range")
+        st = res["stats"]
+        lat = [q["per_token_latency_steps"] for q in res["requests"].values()]
+        t = lap(f"{sampler}_timed", t)
+        solo = solo_streams(cfg, params, trace, sampler, n_ctx, res,
+                            gap["max_abs_logit_diff"])
+        t = lap(f"{sampler}_solo", t)
+        out[sampler] = {
+            "alloc_method": eng.alloc_method, "launches": counts,
+            "alloc_calls": calls, "admissions": len(trace), "alloc_refused": eng.alloc.refused,
+            "seconds": wall, "tokens_per_s": st["total_tokens"] / wall, **st,
+            "p50_per_token_latency_steps": float(np.percentile(lat, 50)),
+            "p99_per_token_latency_steps": float(np.percentile(lat, 99)),
+            "decode_ticks": len(probe.ms), "ms_per_tick": float(np.mean(probe.ms)),
+            "decode_steps_run": len(probe.ms) * eng.tick_tokens,
+            "decode_steps_after_all_done": len(probe.ms) * eng.tick_tokens - sum(probe.steps),
+            "host_syncs_per_tick": {"min": min(probe.syncs), "max": max(probe.syncs),
+                                    "mean": float(np.mean(probe.syncs)),
+                                    "ticks": len(probe.syncs), "sites": dict(probe.sites)},
+            "profiled_tick": probe.busy, "dense_replay": replay,
+            "device_idle_share_of_timed_tick": None
+            if not (probe.busy and probe.busy["device_busy_ms"])
+            else 1 - probe.busy["device_busy_ms"] / float(np.mean(probe.ms)),
+            "dense_sequential": solo,
+            "continuous_speedup": solo["seconds"] / wall}
+        check(out[sampler]["alloc_refused"] > 0,
+              f"serve_continuous {sampler}: admission never waited on pages")
+    emit({"phase": "serve_continuous", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": "bfloat16", **CONTINUOUS,
+          "trace": CONT_TRACE, "layout_parity": parity,
+          "batch_1_vs_batch_8": gap, **out, "seconds_by_part": parts,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def _leaves(tree):
@@ -3457,7 +3699,9 @@ def main() -> int:
     linrec_counts = main_linrec(gen)
     ref = smoke_reference(gen)
     emit({"phase": "smoke_reference", **ref})
-    serve_counts, serve_b_counts, serve_s_counts = main_serve(gen)
+    serve_counts, serve_b_counts, serve_s_counts, llama = main_serve(gen)
+    cont_counts = serve_continuous(llama)
+    del llama
     phase_ssd(gen)
     zamba_counts = serve_zamba2(gen)
     b6_err = phase_b6(gen)
@@ -3490,8 +3734,10 @@ def main() -> int:
          blocked_counts["block_scan"] + serve_b_counts["block_scan"]
          + zamba_counts["block_scan"] + forward_counts["block_scan"], b2b4_err["B4"],
          timing["B4"]),
-        ("B5 split_tiles (SplitInd)", "split.cu", "src/repro/kernels/split_mm.py:136",
-         blocked_counts["split"], b5_err, timing["B5"]),
+        ("B5 split_tiles (SplitInd; launches: compress on the blocked pipeline, and the "
+         "continuous engine's page allocator under method='kernel', one an allocation)",
+         "split.cu", "src/repro/kernels/split_mm.py:136",
+         blocked_counts["split"] + cont_counts["split"], b5_err, timing["B5"]),
         ("B6 multi_split_tiles (stable R-way split, the tile split for R <= 511; times at "
          "(4, 2^24), R = 16; launches: multi_split(method='kernel') at (4, 2^24) and "
          "dist_top_p_sample's vocab shards at R = 16, (4, 32064) in the world of 4 and "

@@ -1,15 +1,17 @@
 """Grouped-query attention for the dense decoder: full (prefill) and decode.
 
-Port of ``repro/models/attention.py`` (``_qk``, ``attn_full``, ``attn_decode``)
-in plain einsum/matmul, with the same ``-1e30`` masking.  Scores and the
-probability-value product accumulate in fp32 as the JAX package's
-``preferred_element_type=float32`` does: the bf16 operands are widened to fp32
-first (exact), and the probabilities are rounded to the value dtype before
-the second product, as the JAX code casts them.
+Port of ``repro/models/attention.py`` (``_qk``, ``attn_full``, ``attn_decode``,
+``attn_decode_paged``) in plain einsum/matmul, with the same ``-1e30``
+masking.  Scores and the probability-value product accumulate in fp32 as the
+JAX package's ``preferred_element_type=float32`` does: the bf16 operands are
+widened to fp32 first (exact), and the probabilities are rounded to the value
+dtype before the second product, as the JAX code casts them.
 
 The KV cache is a pair of ``(B, T, K, D)`` tensors.  ``attn_decode`` writes the
 new key and value into it in place (the JAX version returns an updated copy),
-which saves a cache-sized copy per layer and step.
+which saves a cache-sized copy per layer and step.  ``attn_decode_paged`` does
+the same on the paged layout of continuous batching (``serving/paged_kv.py``):
+page pools shared by every row and a page table a row.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 from repro_torch.core import guards
 from repro_torch.models.layers import apply_rope, linear, ninit, softcap
 
-__all__ = ["attn_init", "attn_full", "attn_decode"]
+__all__ = ["attn_init", "attn_full", "attn_decode", "attn_decode_paged"]
 
 F32 = torch.float32
 NEG = -1e30
@@ -87,26 +89,81 @@ def attn_full(p, x, cfg, *, positions, cdt, return_cache=False, cache_len=None):
     return y, {"k": kc, "v": vc}
 
 
-def attn_decode(p, x, cfg, cache, pos: int, *, cdt):
-    """Single-token decode at scalar position ``pos``; updates ``cache`` in place.
-
-    ``x``: (B, 1, D); ``cache["k"/"v"]``: (B, T, K, D).
-    """
+def _decode_attend(q, kc, vc, pos, cfg, x, p, cdt):
+    """Attention of one query a row over a ``(B, T, K, D)`` cache, masked to
+    ``j <= pos`` (``pos``: an int, or a (B,) tensor of each row's position)."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
     kh, gh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    positions = torch.full((b, s), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qk(p, x, cfg, positions, cdt)
-    kc, vc = cache["k"], cache["v"]
-    kc[:, pos:pos + s] = k.to(kc.dtype)
-    vc[:, pos:pos + s] = v.to(vc.dtype)
     scores = _gqa_scores(q.reshape(b, s, kh, gh, hd), kc, hd ** -0.5,
                          cfg.attn_softcap)                        # (B,K,G,1,T)
     j = torch.arange(kc.shape[1], device=x.device)
-    scores = torch.where(j <= pos, scores, NEG)
+    if isinstance(pos, torch.Tensor):
+        mask = (j[None, :] <= pos[:, None])[:, None, None, None, :]
+    else:
+        mask = j <= pos
+    scores = torch.where(mask, scores, NEG)
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, vc).to(x.dtype).reshape(b, s, -1)
-    return linear({"w": p["wo"]}, out, cdt), cache
+    return linear({"w": p["wo"]}, out, cdt)
+
+
+def attn_decode(p, x, cfg, cache, pos, *, cdt):
+    """Single-token decode; updates ``cache`` in place.
+
+    ``x``: (B, 1, D); ``cache["k"/"v"]``: (B, T, K, D).  ``pos`` is an int (every
+    row writes and attends at the same position) or a (B,) integer tensor (each
+    row at its own depth, as in continuous batching).
+    """
+    b, s, _ = x.shape
+    kc, vc = cache["k"], cache["v"]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        pos = pos.to(device=x.device, dtype=torch.int64)
+        q, k, v = _qk(p, x, cfg, pos[:, None], cdt)
+        rows = torch.arange(b, device=x.device)
+        kc[rows, pos] = k[:, 0].to(kc.dtype)
+        vc[rows, pos] = v[:, 0].to(vc.dtype)
+    else:
+        pos = int(pos)
+        positions = torch.full((b, s), pos, dtype=torch.int32, device=x.device)
+        q, k, v = _qk(p, x, cfg, positions, cdt)
+        kc[:, pos:pos + s] = k.to(kc.dtype)
+        vc[:, pos:pos + s] = v.to(vc.dtype)
+    return _decode_attend(q, kc, vc, pos, cfg, x, p, cdt), cache
+
+
+def attn_decode_paged(p, x, cfg, cache, pos, *, cdt):
+    """Single-token decode against a paged KV cache; updates the pools in place.
+
+    ``cache``: ``{"k"/"v": (P, page, K, D)}`` page pools shared by every row and
+    ``"pages": (B, n_blocks)`` int32, each row's page table (logical block
+    ``t // page`` -> pool page).  ``pos``: (B,) integer write positions (an int
+    is repeated over the rows).  The new k/v go to page ``pages[b, pos // page]``,
+    slot ``pos % page``; each row's pages are then gathered back into a
+    contiguous ``(B, n_blocks * page, K, D)`` view and attended exactly as
+    :func:`attn_decode` attends its cache (the same scores, ``-1e30`` mask and
+    softmax), so at equal attention length the two agree bit for bit.  Page 0
+    is the allocator's scratch page: table entries not assigned point there, so
+    idle rows write there and no row reads it unmasked.
+    """
+    b = x.shape[0]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        pos = pos.to(device=x.device, dtype=torch.int64)
+    else:
+        pos = torch.full((b,), int(pos), dtype=torch.int64, device=x.device)
+    pages = cache["pages"]
+    kp, vp = cache["k"], cache["v"]
+    page = kp.shape[1]
+    q, k, v = _qk(p, x, cfg, pos[:, None], cdt)
+    rows = torch.arange(b, device=x.device)
+    pid = pages[rows, pos // page].to(torch.int64)
+    slot = pos % page
+    kp[pid, slot] = k[:, 0].to(kp.dtype)
+    vp[pid, slot] = v[:, 0].to(vp.dtype)
+    table = pages.to(torch.int64)
+    kc = kp[table].reshape(b, -1, *kp.shape[2:])                  # (B, nblk*page, K, D)
+    vc = vp[table].reshape(b, -1, *vp.shape[2:])
+    return _decode_attend(q, kc, vc, pos, cfg, x, p, cdt), cache
 
 
 def attn_init(gen, cfg, *, n, dtype, device):

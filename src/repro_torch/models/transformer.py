@@ -21,6 +21,12 @@ Interface:
   loss(params, batch)                           -> (total, {"ce", "aux"})
   prefill(params, batch, cache_len=None)        -> (last-position logits, caches)
   decode_step(params, tokens, caches, pos)      -> (logits, caches)
+  empty_caches(batch_size, cache_len)           -> zero dense caches (dense stack)
+
+``decode_step`` on the dense stack takes ``pos`` as an int or a (B,) tensor
+of per-row positions, and runs paged attention (``attn_decode_paged``) when
+the caches hold a ``"pages"`` table (``serving/paged_kv.py``), as the JAX
+package's ``_block`` dispatches on that leaf.
 
 ``forward`` and ``loss`` are the JAX package's ``mode="train"`` pass: no
 caches, and the hybrid's Mamba2 layers on the SSD chunk kernel B17 under
@@ -127,7 +133,9 @@ class TransformerLM:
         cfg, cdt = self.cfg, self.cdt
         hin = rmsnorm(p["norm1"], h, cfg.norm_eps)
         if mode == "decode":
-            y, new_cache = att.attn_decode(p["attn"], hin, cfg, cache, pos, cdt=cdt)
+            # a "pages" leaf marks the paged KV layout (continuous batching)
+            dec = att.attn_decode_paged if "pages" in cache else att.attn_decode
+            y, new_cache = dec(p["attn"], hin, cfg, cache, pos, cdt=cdt)
         elif mode == "prefill":
             y, new_cache = att.attn_full(p["attn"], hin, cfg, positions=positions,
                                          cdt=cdt, return_cache=True,
@@ -284,19 +292,44 @@ class TransformerLM:
         caches = {"stack": {"sub0": {"k": torch.stack(ks), "v": torch.stack(vs)}}}
         return self._logits(params, h[:, -1:])[:, -1], caches
 
-    def decode_step(self, params, tokens, caches, pos: int):
+    def decode_step(self, params, tokens, caches, pos):
         """One token per row (``tokens``: (B, 1)) written at position ``pos``.
 
+        ``pos`` is an int, or for the dense stack a (B,) integer tensor of
+        per-row positions (continuous batching); the hybrid takes an int only.
+        Dense caches may be the paged layout of ``serving/paged_kv.py``.
         Updates ``caches`` in place and returns ``(logits (B, V), caches)``.
         """
         cfg = self.cfg
         h = self._embed(params, tokens)
+        per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
         if self.hybrid:
+            if per_row:
+                raise ValueError(
+                    f"decode_step: {cfg.name} is a hybrid stack; per-row positions "
+                    "are for attention-only stacks (its SSM state has no position)")
             h, _ = self._hybrid(params, h, mode="decode", caches=caches, pos=int(pos))
             return self._logits(params, h)[:, -1], caches
+        if not per_row:
+            pos = int(pos)
         stack = params["stack"]["sub0"]
         cache = caches["stack"]["sub0"]
         for i in range(cfg.n_layers):
             h, _ = self._block(_layer(stack, i), h, mode="decode",
-                               cache=_layer(cache, i), pos=int(pos))
+                               cache=_layer(cache, i), pos=pos)
         return self._logits(params, h)[:, -1], caches
+
+    def empty_caches(self, batch_size: int, cache_len: int, *, device=None) -> Dict:
+        """Zero dense decode caches of the dense stack, shaped and typed as
+        :meth:`prefill` returns them: ``{"stack": {"sub0": {"k", "v"}}}``, each
+        ``(n_layers, batch_size, cache_len, K, D)`` in the config's dtype.
+        ``device=None`` means ``"cuda"``; ``"meta"`` gives the shapes alone."""
+        cfg = self.cfg
+        if self.hybrid:
+            raise NotImplementedError(
+                f"empty_caches: {cfg.name} is a hybrid stack; only the dense "
+                "decoder's caches are built here")
+        dev = guards.resolve_device(device, op="TransformerLM.empty_caches")
+        shape = (cfg.n_layers, batch_size, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+        return {"stack": {"sub0": {name: torch.zeros(shape, dtype=self.cdt, device=dev)
+                                   for name in ("k", "v")}}}

@@ -40,7 +40,34 @@ from repro_torch.core.primitives import METHODS, top_p_sample
 from repro_torch.core.segmented import SegmentedBatch, segment_top_p_sample
 from repro_torch.models.model import build_model
 
-__all__ = ["ServeEngine"]
+__all__ = ["ServeEngine", "sample_tokens"]
+
+
+def sample_tokens(sampler: str, logits: torch.Tensor, u=None, generator=None, *, mesh=None,
+                  top_p: float, temperature: float, bits_per_pass: int) -> torch.Tensor:
+    """One token a row of ``logits`` (B, V) by ``sampler`` (a ``ServeEngine.SAMPLERS``
+    name), row ``r`` from the uniform ``u[r, 0]`` when ``u`` is given, else from
+    ``generator``.  Both ``ServeEngine`` and ``ContinuousEngine`` sample here."""
+    if sampler == "greedy":
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if sampler == "topp_sharded" and mesh is not None and comm.axis_size(mesh) > 1:
+        v = logits.shape[-1]
+        shard = comm.shard_last(logits, comm.axis_size(mesh), comm.axis_index(mesh))
+        return dist_top_p_sample(shard, v, mesh, generator=generator, p=top_p,
+                                 temperature=temperature, method="matmul",
+                                 bits_per_pass=bits_per_pass, u=u)
+    if sampler == "topp_segmented":
+        b, v = logits.shape
+        offsets = torch.arange(b + 1, dtype=torch.int32, device=logits.device) * v
+        return segment_top_p_sample(logits.reshape(b * v), offsets, generator,
+                                    p=top_p, temperature=temperature,
+                                    bits_per_pass=bits_per_pass, u=u)
+    method = {"topp_kernel": "kernel", "topp_blocked": "blocked",
+              "topp_auto": "auto"}.get(sampler, "matmul")
+    sort_method = "xla" if sampler == "topp_xla" else "radix"
+    return top_p_sample(logits, generator, p=top_p, temperature=temperature,
+                        method=method, sort_method=sort_method,
+                        bits_per_pass=bits_per_pass, u=u)
 
 
 class ServeEngine:
@@ -72,29 +99,9 @@ class ServeEngine:
         self.model = build_model(cfg)
 
     def _sample(self, logits: torch.Tensor, generator, u) -> torch.Tensor:
-        if self.sampler == "greedy":
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        if (self.sampler == "topp_sharded" and self.mesh is not None
-                and comm.axis_size(self.mesh) > 1):
-            v = logits.shape[-1]
-            shard = comm.shard_last(logits, comm.axis_size(self.mesh),
-                                    comm.axis_index(self.mesh))
-            return dist_top_p_sample(shard, v, self.mesh, generator=generator, p=self.top_p,
-                                     temperature=self.temperature, method="matmul",
-                                     bits_per_pass=self.bits_per_pass, u=u)
-        if self.sampler == "topp_segmented":
-            b, v = logits.shape
-            offsets = torch.arange(b + 1, dtype=torch.int32, device=logits.device) * v
-            return segment_top_p_sample(logits.reshape(b * v), offsets, generator,
-                                        p=self.top_p, temperature=self.temperature,
-                                        bits_per_pass=self.bits_per_pass, u=u)
-        method = {"topp_kernel": "kernel", "topp_blocked": "blocked",
-                  "topp_auto": "auto"}.get(self.sampler, "matmul")
-        sort_method = "xla" if self.sampler == "topp_xla" else "radix"
-        return top_p_sample(logits, generator, p=self.top_p,
-                            temperature=self.temperature, method=method,
-                            sort_method=sort_method,
-                            bits_per_pass=self.bits_per_pass, u=u)
+        return sample_tokens(self.sampler, logits, u, generator, mesh=self.mesh,
+                             top_p=self.top_p, temperature=self.temperature,
+                             bits_per_pass=self.bits_per_pass)
 
     @torch.inference_mode()
     def sample_packed(self, packed: SegmentedBatch,

@@ -14,6 +14,7 @@ import math
 import pytest
 import torch
 
+from repro_torch.analysis.streams import DenseReplay, first_divergence, step_margin
 from repro_torch.core.autotune import method_override
 from repro_torch.core.linrec import cummax, cumprod, linear_scan
 from repro_torch.core.primitives import (compress, multi_split, radix_sort, split,
@@ -24,9 +25,11 @@ from repro_torch.core.segmented import (SegmentedBatch, segment_compress,
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref
 from repro_torch.kernels import (_build, linrec_mm, lookback, ops, scan_mm, scan_pipeline,
                                  segscan_mm, split_mm, ssd_chunk)
-from repro_torch.models import mamba
+from repro_torch.models import attention, mamba
 from repro_torch.models.model import build_model, get_config
+from repro_torch.serving import paged_kv
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.scheduler import ContinuousEngine, poisson_trace
 
 pytestmark = pytest.mark.cuda
 
@@ -1596,3 +1599,109 @@ def test_seg_carry_workspace_only_past_one_tile(dev, nb):
     assert _ctas(lambda ws: got.setdefault("x", segscan_mm._seg_carry_cuda(ts, h, ws=ws)),
                  4 * tiles, dev) == 4 * tiles
     assert torch.equal(got["x"].to(torch.float64), _b11_reference(ts, h)[0])
+
+
+# ---- continuous batching: the paged KV cache and ContinuousEngine ----
+
+# the SMOKE model's logits on the card against the CPU (chip_smoke.py's
+# smoke_reference holds its prefill to the same limit)
+CARD_CPU_ATOL = 1e-4
+
+
+def _smoke_model(dev):
+    cfg = get_config("llama3-8b", smoke=True)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    return cfg, model, params, {k: _tree_to(v, dev) for k, v in params.items()}
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_paged_insert_then_gather_is_the_dense_cache_on_the_card(dev):
+    cfg, model, _, params = _smoke_model(dev)
+    caches = paged_kv.build_paged_caches(model, 2, 9, 8, 3, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, 10), generator=_gen(dev), device=dev)
+    _, dense = model.prefill(params, {"tokens": toks}, cache_len=16)
+    paged_kv.insert_request(caches, dense, 1, [4, 2])
+    view = paged_kv.gather_dense(caches)["stack"]["sub0"]
+    for name in ("k", "v"):
+        assert torch.equal(view[name][:, 1, :16], dense["stack"]["sub0"][name][:, 0])
+    assert caches["stack"]["sub0"]["pages"][:, 1].tolist() == [[4, 2, 0]] * cfg.n_layers
+
+
+def test_attn_decode_paged_on_the_card_matches_the_cpu(dev):
+    cfg, _, cpu_params, _ = _smoke_model(dev)
+    p = {k: v[0] for k, v in cpu_params["stack"]["sub0"]["attn"].items()}
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 1, cfg.d_model), generator=g)
+    pools = {name: torch.randn((7, 8, cfg.n_kv_heads, cfg.head_dim_), generator=g)
+             for name in ("k", "v")}
+    pages = torch.tensor([[3, 1, 5], [2, 6, 0], [0, 0, 0]], dtype=torch.int32)
+    pos = torch.tensor([17, 9, 4])
+    outs = []
+    for d in ("cpu", dev):
+        cache = {**{k: v.clone().to(d) for k, v in pools.items()}, "pages": pages.to(d)}
+        y, cache = attention.attn_decode_paged({k: v.to(d) for k, v in p.items()}, x.to(d),
+                                               cfg, cache, pos.to(d), cdt=torch.float32)
+        outs.append((y.cpu(), cache["k"].cpu(), cache["v"].cpu()))
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max()) <= CARD_CPU_ATOL
+
+
+def test_continuous_schedule_on_the_card_equals_the_cpu(dev):
+    cfg, model, cpu_params, params = _smoke_model(dev)
+    geom = dict(max_batch=3, page_size=4, n_pages=12, max_len=28, tick_tokens=4)
+    reqs = poisson_trace(9, rate=0.5, vocab_size=cfg.vocab_size, seed=3,
+                         prompt_len=(2, 12), max_new=(1, 10))
+    cpu = ContinuousEngine(cfg, cpu_params, device="cpu", **geom).run(reqs)
+    eng = ContinuousEngine(cfg, params, alloc_method="kernel", **geom)
+    ops.reset_launch_counts()
+    with DenseReplay(eng) as rep:
+        card = eng.run(reqs)
+    torch.cuda.synchronize()
+    assert card["requests"] == cpu["requests"] and card["stats"] == cpu["stats"]
+    assert ops.launch_counts() == _counts(split=eng.alloc.calls)
+    assert eng.alloc.calls >= len(reqs)
+    replay = rep.result()
+    assert replay["bit_equal"] and replay["row_steps"] > 0, replay
+    # each card stream equals the CPU's, or parts from it first at a step whose
+    # greedy margin (from the CPU's logits there) lies within CARD_CPU_ATOL
+    equal = 0
+    for r in reqs:
+        got, want = card["streams"][r.rid], cpu["streams"][r.rid]
+        k = first_divergence(got, want)
+        if k is None:
+            equal += 1
+            continue
+        assert k < min(got.size, want.size), (r.rid, got, want)
+        toks = torch.cat([torch.as_tensor(r.tokens), torch.as_tensor(want[:k])])[None]
+        logits, _ = model.prefill(cpu_params, {"tokens": toks}, cache_len=toks.shape[1])
+        assert step_margin(logits[0], 0.0, sampler="greedy") <= CARD_CPU_ATOL, (r.rid, k)
+    assert equal > len(reqs) // 2
+
+
+def test_kernel_allocator_picks_equal_vector_with_one_b5_an_alloc(dev):
+    kern = paged_kv.PageAllocator(33, method="kernel", device=dev)
+    vec = paged_kv.PageAllocator(33, method="vector", device=dev)
+    g = torch.Generator().manual_seed(5)
+    held = []
+    for _ in range(60):
+        if held and float(torch.rand((), generator=g)) < 0.45:
+            ids = held.pop(int(torch.randint(len(held), (), generator=g)))
+            kern.release(ids)
+            vec.release(ids)
+            continue
+        n = int(torch.randint(1, 9, (), generator=g))
+        ops.reset_launch_counts()
+        k = kern.alloc(n)
+        assert ops.launch_counts() == _counts(split=1)
+        v = vec.alloc(n)
+        assert (k is None) == (v is None)
+        if k is not None:
+            assert k.tolist() == v.tolist()
+            held.append(k)
+    assert (kern.free == vec.free).all()

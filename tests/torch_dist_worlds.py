@@ -148,6 +148,21 @@ def run_engine(params, prompts, uniforms, new: int, top_p: float) -> dict:
     return {"sharded": toks.numpy(), "solo": solo.numpy(), "counts": counts}
 
 
+def run_continuous(params, trace, geom) -> dict:
+    """ContinuousEngine ``topp_sharded`` on the world's vocab shards over the
+    request dicts of ``trace`` (uniforms included), on the SMOKE llama3-8b with the
+    given (JAX package) weights: its result and its collective calls."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models.model import get_config
+    from repro_torch.serving.scheduler import ContinuousEngine, Request
+
+    eng = ContinuousEngine(get_config("llama3-8b", smoke=True),
+                           params_from_jax(params, device="cpu"), mesh=dist.group.WORLD,
+                           sampler="topp_sharded", top_p=0.9, device="cpu", **geom)
+    res, counts = _counted(lambda: eng.run([Request(**r) for r in trace]))
+    return {**res, "collectives": sum(counts["calls"].values())}
+
+
 def run_world_cases(cases, engine=None, grid=None) -> dict:
     """A world's whole workload: the cases, then the engine run and the 2-D grid."""
     out = {"cases": run_cases(cases)}
