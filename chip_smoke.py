@@ -57,7 +57,31 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               methods; B13's single pass at and around the edge of its tiles (as
               b1's rows), exact and one launch each, at (1, 2^26) and (64, 2^20)
               (one CTA a tile, exact), and five repeated fp32 calls bit-equal;
-10. main   -- the main paths with the launch counters zeroed before and read
+10. guards -- the non-finite policies through the public entry points at (4, 2^24),
+              the inputs poisoned by ``analysis/faults.py`` ``inject_nonfinite``
+              (NaN, +inf, -inf): ``scan``, ``segment_scan`` and ``linear_scan`` on
+              "kernel" (B1, B9, B13) and "blocked" (B2-B4, B10-B12, B14-B16):
+              ``raise`` refuses with every launch counter at 0, ``sanitize`` is
+              finite and bit-equal to the same method on the identity-filled input
+              with the same launches, ``propagate`` puts NaN and ±inf exactly where
+              the reference stated in ``PROPAGATE_REF`` does (finite elements within
+              16 ulp of fp64); ROADMAP Queue C's overflow rows (``a ≡ 2``, ``b ≡ 1``
+              and ``b ≡ 0``; 300 long and (4, 2^24); the column walk at the SSD's
+              shape, also with ``a ≡ 512``), their first inf and NaN steps equal to
+              ``OVERFLOW_REF``'s reference; the samplers at (4, 128256) (a clean, a
+              half-masked, a fully masked and a NaN-poisoned row) through
+              ``top_p_sample`` (B7 + B8), ``segment_top_p_sample`` (B9) and
+              ``weighted_sample`` (B1) on "kernel": greedy tokens for the poisoned
+              rows under ``sanitize``, window-held tokens for the others, ``raise``
+              refusing the four rows and passing the first two; each policy's ms;
+              ``guards_serving`` (after ``serve_continuous``, on its weights and
+              trace): a greedy ``ContinuousEngine`` run under ``guards.checks()``
+              identical to the unchecked run (ms and host syncs a tick beside each
+              other), the page-budget guard firing on a row placed past its budget,
+              and ``ServeEngine(sampler="topp_kernel")`` under
+              ``nonfinite_override("sanitize")`` with the tokens and B7/B8 launches
+              of the run without it;
+11. main   -- the main paths with the launch counters zeroed before and read
               after each: ``scan(method="kernel")`` and ``scan(method="blocked")``
               at (4, 2^24), ``compress`` with ``method="kernel"`` and
               ``"blocked"``, ``segment_compress`` with both, ``linear_scan`` with
@@ -66,49 +90,51 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ``method_override("kernel")`` and ``("blocked")``, with
               ``sample_packed`` on a ragged batch) on llama3-8b at full width,
               32 layers, bf16;
-11. ssd    -- ``ssd_scan`` at zamba2's shapes on "kernel" (B1 + B13) and "blocked"
+12. ssd    -- ``ssd_scan`` at zamba2's shapes on "kernel" (B1 + B13) and "blocked"
               (B4 + B16) against "vector" and the fp64 sequential oracle;
-12. serve_zamba2 -- zamba2-1.2b at full width and depth (38 layers, bf16) serving
+13. serve_zamba2 -- zamba2-1.2b at full width and depth (38 layers, bf16) serving
               batch 4, prompt 2048, 32 new tokens with ``topp_kernel`` under
               ``scan_method="kernel"`` and ``"blocked"``, exact launch counts;
-13. b6     -- the multi-way split kernel against its plain version at (4, 2^24),
+14. b6     -- the multi-way split kernel against its plain version at (4, 2^24),
               R = 16, exact; at R = 256 and R = 10 against a stable argsort and a
               bincount; a ragged row, R = 1, empty buckets, out-of-range digits,
               bf16, int32 and int64 payloads, R = 511 and 512 on either side of the
               tile split's ceiling, R = 5000; the dist phase's vocab shards; one
               launch at and around the edge of its tiles, exact;
-14. b17    -- the SSD chunk kernel against its plain version and the fp64 oracle at
+15. b17    -- the SSD chunk kernel against its plain version and the fp64 oracle at
               zamba2's shapes: the ``ssd`` inputs, zamba2's init decays, a ragged S;
               its chunk-parallel pass: five repeated calls bit-equal, a CUDA-graph
               replay equal to the eager call, S of 1, Q - 1, Q, Q + 1 and 3Q + 17
               (one CTA a chunk), a chain of 256 chunks;
-15. main_multisplit -- ``multi_split(method="kernel")`` at (4, 2^24), R = 16: one
+16. main_multisplit -- ``multi_split(method="kernel")`` at (4, 2^24), R = 16: one
               B6 launch and nothing else;
-16. forward_zamba2 -- zamba2-1.2b (38 layers, bf16) ``forward`` and ``loss`` on
+17. forward_zamba2 -- zamba2-1.2b (38 layers, bf16) ``forward`` and ``loss`` on
               4 x 2048 tokens under each ``scan_method``: 38 B17 launches a pass on
               "kernel", 38 B4 + 38 B16 on "blocked", none on "vector"; the SMOKE
               model's fp32 forward on the card against the CPU, and against B17's
               plain version on two inputs (one the card tests');
-17. b7h    -- the radix pass that exports its histogram against its plain version at
+18. b7h    -- the radix pass that exports its histogram against its plain version at
               (4, 2^22) int32 keys (one shard of a 2^24 row at D = 4): every shift of
               the 8 radix-16 passes, chained into a stable sort; a ragged row and
               16-bit keys; the tile-edge cases of ``b7``; keys, permutation and counts
               exact, counts equal to a bincount of the digits;
-18. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
+19. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
               card (a process a rank): dist_sort / dist_topk (method="kernel") of
               (4, 2^24) fp32 and bf16 keys bit-equal to the local kernel sort, exactly
               8 (fp32) or 4 (bf16) B7h launches a rank and no B7; dist_top_p_sample
               (method="kernel") on (4, 128256) logits, exactly 4 B7h + 4 B6 + 2 B1 a
               rank, every token inside the band's window; mcscan, dist_linear_scan
               and dist_segment_scan on "kernel" and "blocked" at (4, 2^24) under the
-              single-device phases' limits; every call's collective calls and bytes
-              equal to modeled_dist_traffic;
-19. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
+              single-device phases' limits; in the world of 2, dist_top_p_sample
+              (method="kernel", nonfinite="sanitize") on the guards phase's sampler
+              rows, the poisoned rows' greedy tokens; every call's collective calls
+              and bytes equal to modeled_dist_traffic;
+20. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
               and depth (bf16, random weights from seed 0), batch 4, prompt 128, 32
               new tokens, in a world of 2 ranks on the card: the same stream on both
               ranks, every token inside the window of the solo sampler, the decode
               step's ms and collectives;
-20. timing -- kernel, plain-version and library times beside each kernel's bound, and
+21. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
@@ -142,9 +168,11 @@ exits non-zero at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -246,17 +274,18 @@ import numpy as np  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch.analysis import ulp  # noqa: E402
+from repro_torch.analysis.faults import inject_nonfinite  # noqa: E402
 from repro_torch.analysis.collectives import modeled_dist_traffic  # noqa: E402
 from repro_torch.analysis.streams import (DenseReplay, first_divergence,  # noqa: E402
                                           step_margin)
-from repro_torch.core import comm  # noqa: E402
+from repro_torch.core import comm, guards  # noqa: E402
 from repro_torch.core.autotune import method_override  # noqa: E402
 from repro_torch.core.dist_ops import (dist_linear_scan, dist_segment_scan,  # noqa: E402
                                        dist_sort, dist_top_p_sample, dist_topk)
 from repro_torch.core.distributed import mcscan  # noqa: E402
 from repro_torch.core.linrec import cummax, cumprod, linear_scan  # noqa: E402
 from repro_torch.core.primitives import (compress, multi_split, radix_sort,  # noqa: E402
-                                         top_p_sample)
+                                         top_p_sample, weighted_sample)
 from repro_torch.core.scan import accum_dtype_for, scan  # noqa: E402
 from repro_torch.core.segmented import (SegmentedBatch, boundary_flags,  # noqa: E402
                                         segment_compress, segment_linear_scan,
@@ -1542,6 +1571,407 @@ def linrec_operators(gen):
 
 
 # ---------------------------------------------------------------------------
+# guards: the non-finite policies on the kernel paths, the overflow rows, the
+# samplers at llama3-8b's vocabulary
+# ---------------------------------------------------------------------------
+
+GUARD_FRAC = 2.0 ** -20             # inject_nonfinite: 64 poisoned elements of (4, 2^24)
+GUARD_SEED = 31
+GUARD_KINDS = ("nan", "inf", "-inf")
+GUARD_REPS = 5
+# The reference each kernel path's propagate placement equals exactly, chosen
+# from the card's first run of this phase (PERF.md §6): "fp64", the sequential
+# fp64 scan or recurrence rounded to fp32, or "plain", the path's plain version
+# on the card.
+PROPAGATE_REF = {"scan/kernel": "fp64", "scan/blocked": "fp64",
+                 "segment_scan/kernel": "fp64", "segment_scan/blocked": "fp64",
+                 "linear_scan/kernel": "fp64", "linear_scan/blocked": "fp64"}
+# The same for the first inf and first NaN step of the overflow rows: "fp64", or
+# "fold32", the affine fold of the pairs in fp32 applied to the zero state, which
+# is what B13-B16 compute (past an overflowed product, inf·0 = NaN where the
+# sequential recurrence keeps inf); every path's first inf step also equals fp64's.
+OVERFLOW_REF = {"B13": "fold32", "B14-B16": "fold32", "columns/kernel": "fp64",
+                "columns/blocked": "fp64"}
+
+
+def _refused(fn) -> bool:
+    """Whether ``fn()`` raises ``NonFiniteError`` (the ``"raise"`` policy)."""
+    try:
+        fn()
+    except guards.NonFiniteError:
+        return True
+    return False
+
+
+def placement(y) -> dict:
+    """Where the non-finite values of ``y`` (rows, n) lie: each row's first
+    non-finite index (-1 where none) and the counts of NaN, +inf and -inf."""
+    bad = ~torch.isfinite(y)
+    first = torch.where(bad.any(-1), bad.int().argmax(-1), -1)
+    return {"first": first.tolist(), "nan": int(torch.isnan(y).sum()),
+            "posinf": int(torch.isposinf(y).sum()), "neginf": int(torch.isneginf(y).sum())}
+
+
+def same_placement(a, b) -> bool:
+    return all(torch.equal(f(a), f(b)) for f in (torch.isnan, torch.isposinf, torch.isneginf))
+
+
+def guard_path(path, clean, poison, poison_p, call, sanitized, plain, ref64, scale, want):
+    """One kernel path under the three policies.  ``call(*operands, **kw)`` is the
+    public entry point; ``poison(kind)`` gives the operands that ``raise`` and
+    ``sanitize`` see, ``poison_p(kind)`` those of ``propagate``; ``sanitized``
+    writes each operand's identity over its non-finite elements; ``plain`` and
+    ``ref64`` are the path's plain version and fp64 sequential reference;
+    ``scale`` the reference's scale on the clean operands.
+
+    * raise: ``NonFiniteError`` with every launch counter still 0;
+    * sanitize: finite, bit-equal to ``propagate`` on the sanitized operands,
+      with the same launches (``want``);
+    * propagate: NaN, +inf and -inf exactly where ``PROPAGATE_REF[path]`` puts
+      them, finite elements within ``B1_F32_ULP`` of fp64."""
+    res = {"reference": PROPAGATE_REF[path]}
+    for kind in GUARD_KINDS:
+        bad = poison(kind)
+        ops.reset_launch_counts()
+        check(_refused(lambda: call(*bad, nonfinite="raise")),
+              f"guards {path} {kind}: nonfinite='raise' did not raise")
+        sync()
+        expect_counts(ops.launch_counts(), f"guards {path} {kind} raise")
+        ops.reset_launch_counts()
+        got = call(*bad, nonfinite="sanitize")
+        sync()
+        expect_counts(ops.launch_counts(), f"guards {path} {kind} sanitize", **want)
+        ops.reset_launch_counts()
+        ref = call(*sanitized(bad))
+        sync()
+        expect_counts(ops.launch_counts(), f"guards {path} {kind} on sanitized input", **want)
+        check(torch.equal(got, ref) and bool(torch.isfinite(got).all()),
+              f"guards {path} {kind}: sanitize != the same method on the sanitized input")
+        del got, ref, bad
+        badp = poison_p(kind)
+        ops.reset_launch_counts()
+        out = call(*badp)
+        sync()
+        expect_counts(ops.launch_counts(), f"guards {path} {kind} propagate", **want)
+        r64 = ref64(*badp)
+        refs = {"fp64": r64.float(), "plain": plain(*badp)}
+        rows = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+        got_at = placement(rows(out))
+        at = {k: placement(rows(r)) for k, r in refs.items()}
+        equal = {k: same_placement(out, r) for k, r in refs.items()}
+        fin = torch.isfinite(out) & torch.isfinite(r64)
+        e = max_ulp_dev(out[fin], r64[fin], scale[fin]) if bool(fin.any()) else 0.0
+        poisoned = torch.stack([~torch.isfinite(t) for t in badp if t.is_floating_point()]
+                               ).any(0)
+        res[kind] = {"poisoned": int(poisoned.sum()),
+                     "first_poisoned": placement(rows(torch.where(
+                         poisoned, float("nan"), 0.0)))["first"],
+                     "kernel": got_at, **{f"{k}_ref": v for k, v in at.items()},
+                     "equal": equal, "finite_max_ulp": e}
+        check(equal[res["reference"]],
+              f"guards {path} {kind}: propagate puts NaN/inf {got_at}, its "
+              f"{res['reference']} reference {at[res['reference']]}")
+        check(e <= B1_F32_ULP, f"guards {path} {kind}: finite elements {e} ulp > "
+              f"{B1_F32_ULP}")
+        del out, r64, refs, badp
+    ms = {}
+    for pol in guards.NONFINITE:
+        ms[pol] = cuda_ms(lambda: call(*clean, nonfinite=pol), GUARD_REPS)
+    res["ms_clean"] = ms
+    return res
+
+
+def guard_operators(gen) -> dict:
+    """``scan``, ``segment_scan`` and ``linear_scan`` on "kernel" and "blocked" at
+    (4, 2^24) fp32 under each policy (``guard_path``), the inputs poisoned by
+    ``inject_nonfinite``.  ``linear_scan``'s propagate rows poison ``b`` only, with
+    ``a`` in [1 - 2^-20, 1] (no product of a row underflows); raise and sanitize
+    poison ``a`` and ``b``."""
+    rows, n = SCAN_SHAPE
+    f32 = torch.float32
+    out = {}
+    x = torch.randn(SCAN_SHAPE, generator=gen, device=DEV)
+    scale = x.double().abs().cumsum(-1)
+
+    def inj(t, kind, seed=GUARD_SEED):
+        return inject_nonfinite(t, kind, frac=GUARD_FRAC, seed=seed)
+
+    def zero_fill(ops_):
+        return [torch.where(torch.isfinite(t), t, 0.0) for t in ops_]
+
+    plain_scan = {
+        "kernel": lambda t: scan_mm.scan_tiles_plain(t, s=128, variant="scanul1", acc=f32),
+        "blocked": lambda t: scan_pipeline.blocked_scan_plain(t, s=128, block_tiles=8,
+                                                              variant="scanul1", acc=f32)}
+    want_scan = {"kernel": {"scan_mm": 1},
+                 "blocked": {"block_sums": 1, "carry_scan": 1, "block_scan": 1}}
+    for m in ("kernel", "blocked"):
+        out[f"scan/{m}"] = guard_path(
+            f"scan/{m}", (x,), lambda k: (inj(x, k),), lambda k: (inj(x, k),),
+            lambda t, m=m, **kw: scan(t, method=m, **kw), zero_fill, plain_scan[m],
+            lambda t: t.double().cumsum(-1), scale, want_scan[m])
+    del scale
+    # the four rows packed as one batch of segments, as main_segmented
+    rng = np.random.default_rng(SEG_SEED + 3)
+    xs = x.reshape(-1)
+    off = torch.cat([seg_offsets(rng, n)[:-1] + r * n for r in range(rows)]
+                    + [torch.tensor([rows * n], dtype=torch.int32, device=DEV)])
+    flags = boundary_flags(off, rows * n)[None]
+    _, sscale = seg_ref64(xs[None], flags)
+    plain_seg = {
+        "kernel": lambda t: segscan_mm.seg_scan_tiles_plain(t[None], flags != 0, s=128,
+                                                            acc=f32)[0],
+        "blocked": lambda t: segscan_mm.seg_blocked_scan_plain(t[None], flags != 0, s=128,
+                                                               block_tiles=8, acc=f32)[0]}
+    want_seg = {"kernel": {"seg_scan": 1},
+                "blocked": {"seg_summaries": 1, "seg_carry": 1, "seg_block_scan": 1}}
+    for m in ("kernel", "blocked"):
+        out[f"segment_scan/{m}"] = guard_path(
+            f"segment_scan/{m}", (xs,), lambda k: (inj(xs, k),), lambda k: (inj(xs, k),),
+            lambda t, m=m, **kw: segment_scan(t, off, method=m, **kw), zero_fill,
+            plain_seg[m], lambda t: seg_ref64(t[None], flags)[0][0], sscale[0],
+            want_seg[m])
+    out["segment_scan/kernel"]["segments"] = int(off.numel() - 1)
+    del sscale, flags, xs
+    a = 1.0 - 2.0 ** -20 * torch.rand(SCAN_SHAPE, generator=gen, device=DEV)
+    b = x
+    lscale = lin_ref64(a.abs(), b.abs())
+    plain_lin = {
+        "kernel": lambda aa, bb: linrec_mm.linrec_scan_tiles_plain(aa, bb, s=128, acc=f32),
+        "blocked": lambda aa, bb: linrec_mm.linrec_blocked_scan_plain(aa, bb, s=128,
+                                                                      block_tiles=8,
+                                                                      acc=f32)}
+    want_lin = {"kernel": {"linrec_scan": 1},
+                "blocked": {"linrec_summaries": 1, "linrec_carry": 1,
+                            "linrec_block_scan": 1}}
+    for m in ("kernel", "blocked"):
+        out[f"linear_scan/{m}"] = guard_path(
+            f"linear_scan/{m}", (a, b), lambda k: (inj(a, k, GUARD_SEED + 1), inj(b, k)),
+            lambda k: (a, inj(b, k)),
+            lambda aa, bb, m=m, **kw: linear_scan(aa, bb, method=m, **kw),
+            lambda ab: [torch.where(torch.isfinite(ab[0]), ab[0], 1.0),
+                        torch.where(torch.isfinite(ab[1]), ab[1], 0.0)],
+            plain_lin[m], lin_ref64, lscale, want_lin[m])
+    return out
+
+
+def first_steps(y, axis: int = -1) -> dict:
+    """The first step along ``axis`` at which ``y`` holds ±inf and NaN (None where
+    none), taken over every row; and whether every row has the same steps."""
+    y = torch.movedim(y, axis, -1).reshape(-1, y.shape[axis])
+    res = {}
+    for name, mask in (("first_inf", torch.isinf(y)), ("first_nan", torch.isnan(y))):
+        hit = mask.any(-1)
+        steps = torch.where(hit, mask.int().argmax(-1), -1)
+        res[name] = None if not bool(hit.any()) else int(steps[hit].min())
+        res[f"{name}_same_on_every_row"] = bool((steps == steps[0]).all())
+    return res
+
+
+def seq_steps64(a: float, b: float, n: int) -> dict:
+    """``first_steps`` of the sequential fp64 recurrence ``y_t = a y_{t-1} + b`` from
+    ``y_{-1} = 0``, each value rounded to fp32, walked until it stops changing."""
+    y, res = 0.0, {"first_inf": None, "first_nan": None}
+    for t in range(n):
+        prev, y = y, a * y + b
+        v = float(torch.tensor(y, dtype=torch.float64).float())
+        if res["first_inf"] is None and math.isinf(v):
+            res["first_inf"] = t
+        if res["first_nan"] is None and math.isnan(v):
+            res["first_nan"] = t
+        if y == prev or math.isnan(y):
+            break
+    return res
+
+
+def fold_steps32(a: float, b: float, n: int) -> dict:
+    """``first_steps`` of the recurrence computed as the kernels' affine fold: in
+    fp32, ``y_t = A_t · y_{-1} + B_t`` with ``y_{-1} = 0``, ``A_t`` the product of
+    the multipliers before step ``t`` and ``B_t = a B_{t-1} + b``, walked until it
+    stops changing."""
+    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))  # noqa: E731
+    big, bb, y = 1.0, 0.0, 0.0
+    res = {"first_inf": None, "first_nan": None}
+    for t in range(n):
+        prev = (big, bb)
+        if t:
+            big = f32(big * a)
+        bb = f32(a * bb + b)
+        y = f32(big * 0.0 + bb)                   # inf·0 = NaN past an overflow
+        if res["first_inf"] is None and math.isinf(y):
+            res["first_inf"] = t
+        if res["first_nan"] is None and math.isnan(y):
+            res["first_nan"] = t
+        if (big, bb) == prev and t:
+            break
+    return res
+
+
+def overflow_rows() -> list:
+    """ROADMAP Queue C's overflow rows: ``a ≡ 2`` with ``b ≡ 1`` and ``b ≡ 0``, 300 long
+    and at (4, 2^24), through B13 (``linear_scan(method="kernel")``) and B14-B16
+    (``"blocked"``); and the column walk at the SSD's (4, 16, 64, 64, 64) shape
+    along axis 1, with ``a ≡ 2`` (16 steps cannot overflow) and ``a ≡ 512``
+    (overflows at step 15).  Each path's first inf and first NaN step equal those
+    of its ``OVERFLOW_REF`` reference, and its first inf step that of the fp64
+    sequential recurrence; the plain versions' steps are printed beside them."""
+    f32 = torch.float32
+    res = []
+
+    def hold(path, got, plain_out, seq, fold, axis=-1):
+        steps = first_steps(got, axis)
+        refs = {"fp64": seq, "fold32": fold, "plain": first_steps(plain_out, axis)}
+        chosen = OVERFLOW_REF[path]
+        equal = {k: all(steps[key] == r[key] for key in ("first_inf", "first_nan"))
+                 for k, r in refs.items()}
+        check(steps["first_inf_same_on_every_row"] and steps["first_nan_same_on_every_row"],
+              f"overflow {path}: rows of equal inputs overflow at different steps: {steps}")
+        check(equal[chosen] and steps["first_inf"] == seq["first_inf"],
+              f"overflow {path}: steps {steps} != its {chosen} reference {refs[chosen]} "
+              f"(fp64: {seq})")
+        return {"kernel": steps, **refs, "equal": equal, "reference": chosen}
+
+    for av, bv in ((2.0, 1.0), (2.0, 0.0)):
+        for shape in ((1, 300), SCAN_SHAPE):
+            a = torch.full(shape, av, device=DEV)
+            b = torch.full(shape, bv, device=DEV)
+            seq, fold = seq_steps64(av, bv, shape[-1]), fold_steps32(av, bv, shape[-1])
+            case = {"a": av, "b": bv, "shape": list(shape)}
+            for path, m, plain in (
+                    ("B13", "kernel", lambda: linrec_mm.linrec_scan_tiles_plain(
+                        a, b, s=128, acc=f32)),
+                    ("B14-B16", "blocked", lambda: linrec_mm.linrec_blocked_scan_plain(
+                        a, b, s=128, block_tiles=8, acc=f32))):
+                got = linear_scan(a, b, method=m)
+                case[path] = hold(path, got, plain(), seq, fold)
+                del got
+            res.append(case)
+            del a, b
+    b5, nc, h, _, _ = SSD_ROWS
+    for av, bv in ((2.0, 1.0), (2.0, 0.0), (512.0, 1.0), (512.0, 0.0)):
+        a = torch.full((b5, nc, h, 1, 1), av, device=DEV)
+        b = torch.full(SSD_ROWS, bv, device=DEV)
+        seq, fold = seq_steps64(av, bv, nc), fold_steps32(av, bv, nc)
+        case = {"a": av, "b": bv, "shape": list(SSD_ROWS), "axis": 1}
+        plain = linrec_mm.linrec_columns_plain(a, b, 1)
+        for m, key in (("kernel", "linrec_scan"), ("blocked", "linrec_block_scan")):
+            ops.reset_launch_counts()
+            got = linear_scan(a, b, axis=1, method=m, tile_s=16)
+            sync()
+            expect_counts(ops.launch_counts(), f"overflow column walk {m}", **{key: 1})
+            case[f"columns/{m}"] = hold(f"columns/{m}", got, plain, seq, fold, axis=1)
+        res.append(case)
+        del a, b, plain, got
+    return res
+
+
+def guard_rows(gen, vocab: int):
+    """The sampler rows at a vocabulary of ``vocab``: clean, its second half masked
+    with -inf, fully -inf, and poisoned with NaN (``inject_nonfinite``); and their
+    uniforms."""
+    rows = torch.randn((4, vocab), generator=gen, device=DEV) * 2.0
+    rows[1, vocab // 2:] = float("-inf")
+    rows[2] = float("-inf")
+    rows[3] = inject_nonfinite(rows[3], "nan", frac=2.0 ** -10, seed=GUARD_SEED)
+    return rows, torch.rand((4, 1), generator=gen, device=DEV)
+
+
+def greedy_tokens(rows):
+    """The greedy token of each row: the first maximum, NaN read as -inf."""
+    return torch.argmax(torch.where(torch.isnan(rows), float("-inf"), rows), -1)
+
+
+def cdf_window(w, u):
+    """The least and greatest index that inverse-transform sampling of ``w`` may
+    return for ``u``: the indices whose fp64 CDF value lies within
+    ``TOPP_BAND`` of the row's mass of ``u`` times that mass."""
+    c = w.double().cumsum(-1)
+    total = c[:, -1:]
+    theta, d = u.double() * total, split_mm.TOPP_BAND * total
+    n = w.shape[-1] - 1
+    return ((c < theta - d).sum(-1).clamp(max=n).cpu().numpy(),
+            (c < theta + d).sum(-1).clamp(max=n).cpu().numpy())
+
+
+def guard_samplers(gen) -> dict:
+    """``top_p_sample(method="kernel")`` (B7 + B8), ``segment_top_p_sample(
+    method="kernel")`` on the same rows packed (B9) and ``weighted_sample(
+    method="kernel")`` on their softmax (B1), at (4, 128256): ``raise`` refuses
+    the four rows before any launch and passes the clean and half-masked rows
+    alone; ``sanitize`` gives each poisoned row its greedy token, the others a
+    token inside the band's window, with the launches of ``propagate``."""
+    rows, u = guard_rows(gen, VOCAB)
+    greedy = greedy_tokens(rows)
+    clean = torch.randn((4, VOCAB), generator=gen, device=DEV) * 2.0
+
+    def packed(r, uu, **kw):
+        off = torch.arange(r.shape[0] + 1, dtype=torch.int32, device=DEV) * r.shape[1]
+        return segment_top_p_sample(r.reshape(-1), off, p=0.9, u=uu, method="kernel", **kw)
+
+    samplers = {
+        "top_p_sample": (lambda r, uu, **kw: top_p_sample(r, p=0.9, u=uu, method="kernel",
+                                                          **kw),
+                         {"radix_pass": 4, "topp_tail": 1}),
+        "segment_top_p_sample": (packed, {"seg_scan": 8}),
+        "weighted_sample": (lambda r, uu, **kw: weighted_sample(
+            torch.softmax(r, -1), u=uu, method="kernel", **kw), {"scan_mm": 1}),
+    }
+    res = {}
+    for name, (fn, want) in samplers.items():
+        ops.reset_launch_counts()
+        check(_refused(lambda: fn(rows, u, nonfinite="raise")),
+              f"guards {name}: nonfinite='raise' passed poisoned rows")
+        sync()
+        expect_counts(ops.launch_counts(), f"guards {name} raise")
+        tr = fn(rows[:2], u[:2], nonfinite="raise")
+        ops.reset_launch_counts()
+        ts = fn(rows, u, nonfinite="sanitize")
+        sync()
+        expect_counts(ops.launch_counts(), f"guards {name} sanitize", **want)
+        ops.reset_launch_counts()
+        tp = fn(rows, u)
+        sync()
+        expect_counts(ops.launch_counts(), f"guards {name} propagate", **want)
+        if name == "weighted_sample":
+            w = torch.softmax(rows, -1)
+            gw = torch.argmax(torch.where(torch.isfinite(w), w, 0.0), -1)
+            check(torch.equal(ts[2:].long(), gw[2:]),
+                  f"guards {name}: sanitize gave the poisoned rows {ts[2:].tolist()}, "
+                  f"not their greedy index {gw[2:].tolist()}")
+            lo, hi = cdf_window(w[:2], u[:2])
+            for t in (ts[:2], tr):
+                j = t.long().cpu().numpy()
+                check(((lo <= j) & (j <= hi)).all(), f"guards {name}: index {j.tolist()} "
+                      f"outside the window {lo.tolist()}..{hi.tolist()}")
+            held = {"window": [lo.tolist(), hi.tolist()]}
+        else:
+            check(torch.equal(ts[2:].long(), greedy[2:]),
+                  f"guards {name}: sanitize gave the poisoned rows {ts[2:].tolist()}, not "
+                  f"their greedy token {greedy[2:].tolist()}")
+            held = hold_steps([(rows[:2], u[:2], ts[:2]), (rows[:2], u[:2], tr)], 0.9,
+                              f"guards {name}", masks=True)
+        ms = {pol: cuda_ms(lambda: fn(clean, u, nonfinite=pol), GUARD_REPS)
+              for pol in guards.NONFINITE}
+        res[name] = {"sanitize": ts.tolist(), "raise_rows_0_1": tr.tolist(),
+                     "propagate": tp.tolist(), "greedy": greedy.tolist(), **held,
+                     "launches": _nonzero(want), "ms_clean_rows": ms}
+    return res
+
+
+def phase_guards(gen):
+    """The ``guards`` phase: the non-finite policies on B1-B4, B9-B12 and B13-B16 at
+    (4, 2^24), Queue C's overflow rows, and the samplers at llama3-8b's vocabulary."""
+    t0 = time.perf_counter()
+    res = {"operators": guard_operators(gen)}
+    res["overflow"] = overflow_rows()
+    res["samplers"] = guard_samplers(gen)
+    sync()
+    emit({"phase": "guards", "shape": list(SCAN_SHAPE), "frac": GUARD_FRAC,
+          "ulp_limit": B1_F32_ULP, **res, "seconds": time.perf_counter() - t0})
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the main paths
 # ---------------------------------------------------------------------------
 
@@ -1873,13 +2303,15 @@ def check_sampled(eng, batch, uniforms, toks, new):
     return hold_steps(steps, eng.top_p, eng.sampler)
 
 
-def hold_steps(steps, top_p, name):
+def hold_steps(steps, top_p, name, masks: bool = False):
     """Hold each ``(logits, u, tok)`` step's tokens to the ``topp_window`` of their
     rows: inside it on every row, and equal to the plain sampler's token where the
-    window has one index."""
+    window has one index.  With ``masks``, ``-inf`` logits (vocabulary masks) are
+    allowed; NaN and ``+inf`` never are."""
     agree = total = one_answer = plain_in = widest = 0
     for logits, u, tok in steps:
-        check(bool(logits.isfinite().all()), "non-finite logits on the decode path")
+        bad = (logits.isnan() | logits.isposinf()) if masks else ~logits.isfinite()
+        check(not bool(bad.any()), f"{name}: non-finite logits on the sampled rows")
         plain = top_p_sample(logits, p=top_p, method="vector", u=u)
         probs = torch.softmax(logits.float(), -1)
         _, order = radix_sort(probs.to(torch.bfloat16), descending=True, method="vector")
@@ -2105,8 +2537,9 @@ def decode_busy(eng, params, batch, uniforms, s, new, steps: int = 4):
 class TickProbe:
     """Wraps a ContinuousEngine's ``_decode_n`` (one tick): the wall ms of each tick
     and, while ``count`` is set, its host syncs (``torch.cuda.set_sync_debug_mode``
-    warnings); tick ``profile`` (0-based, counted while ``count`` is set) runs under
-    ``torch.profiler`` and gives the device's busy ms against the tick's wall ms."""
+    warnings, the tick itself timed inside that mode); tick ``profile`` (0-based,
+    counted while ``count`` is set) runs under ``torch.profiler`` and gives the
+    device's busy ms against the tick's wall ms."""
 
     def __init__(self, eng, profile: int):
         self.orig, self.profile = eng._decode_n, profile
@@ -2139,7 +2572,9 @@ class TickProbe:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
+                t0 = time.perf_counter()
                 out = self.orig(n_steps)
+                self.ms.append((time.perf_counter() - t0) * 1e3)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         hits = [w for w in caught if "synchroniz" in str(w.message)]
@@ -2323,6 +2758,80 @@ def serve_continuous(params) -> dict:
           "batch_1_vs_batch_8": gap, **out, "seconds_by_part": parts,
           "seconds": time.perf_counter() - t_phase})
     return launches
+
+
+def guards_serving(params) -> dict:
+    """The guard layer on llama3-8b serving, on ``serve_continuous``'s weights and
+    trace: a greedy ``ContinuousEngine`` run with checks off and one under
+    ``guards.checks()`` (the same ``requests``, ``stats`` and streams; ms and host
+    syncs a tick beside each other; no kernel launch either way); the page-budget
+    guard of ``_decode_n`` firing under checks on a row placed past its budget;
+    and ``ServeEngine(sampler="topp_kernel")`` under ``nonfinite_override(
+    "sanitize")``, with the tokens and B7/B8 launches of the run without it."""
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3-8b")
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **CONT_TRACE)
+    eng = ContinuousEngine(cfg, params, sampler="greedy", **CONTINUOUS)
+    eng.run(trace[:2])                                              # warm-up
+    runs, out = {}, {}
+    for name, on in (("checks_off", False), ("checks_on", True)):
+        probe = TickProbe(eng, profile=-1)
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        with guards.checks(on):
+            runs[name] = eng.run(trace)
+        sync()
+        wall = time.perf_counter() - t0
+        eng._decode_n = probe.orig
+        expect_counts(ops.launch_counts(), f"guards_serving {name}")
+        out[name] = {"seconds": wall, "ms_per_tick": float(np.mean(probe.ms)),
+                     "host_syncs_per_tick": probe.syncs,
+                     "host_syncs_per_tick_median": float(np.median(probe.syncs))}
+    check(_same_run(runs["checks_off"], runs["checks_on"]),
+          "guards_serving: the run under checks() differs from the run without")
+    check(out["checks_off"]["host_syncs_per_tick_median"] == 1
+          and out["checks_on"]["host_syncs_per_tick_median"] == 2,
+          f"guards_serving: host syncs a tick {out['checks_off']['host_syncs_per_tick']} "
+          f"without checks, {out['checks_on']['host_syncs_per_tick']} with them")
+    # the page budget: a running row placed past it fails the guard before any step
+    cap = eng.n_blocks * eng.page_size
+    fired = None
+    ops.reset_launch_counts()
+    with torch.inference_mode(), guards.checks():       # the engine's tensors' mode
+        eng._pos[0], eng._done[0], eng._rem[0] = cap, False, 1
+        try:
+            eng._decode_n(eng.tick_tokens)
+        except guards.GuardCheckError as e:
+            fired = str(e)
+    sync()
+    eng._reset_rows()
+    check(fired is not None and "page budget" in fired,
+          f"guards_serving: the page-budget guard did not fire ({fired})")
+    expect_counts(ops.launch_counts(), "guards_serving page budget")
+    # the dense engine under nonfinite_override("sanitize")
+    b, s, new = SERVE["batch"], SERVE["prompt"], SERVE["new"]
+    g = torch.Generator(device=DEV).manual_seed(GUARD_SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=DEV)}
+    uniforms = torch.rand((new, b), generator=g, device=DEV)
+    se = ServeEngine(cfg, params, max_len=s + new, sampler="topp_kernel")
+    se.generate(batch, 2, uniforms=uniforms[:2])                    # warm-up
+    toks, dense = {}, {}
+    for name, ctx in (("propagate", contextlib.nullcontext()),
+                      ("sanitize", guards.nonfinite_override("sanitize"))):
+        ops.reset_launch_counts()
+        with ctx:
+            toks[name], secs = _timed_generate(se, batch, new, uniforms=uniforms)
+        expect_counts(ops.launch_counts(), f"guards_serving topp_kernel {name}",
+                      radix_pass=4 * new, topp_tail=new)
+        dense[name] = {"seconds": secs, "tokens_per_s": b * new / secs}
+    check(torch.equal(toks["propagate"], toks["sanitize"]),
+          "guards_serving: topp_kernel under nonfinite_override('sanitize') drew other "
+          "tokens")
+    emit({"phase": "guards_serving", "arch": cfg.name, "trace": CONT_TRACE, **CONTINUOUS,
+          "continuous_greedy": out, "page_budget_guard": fired,
+          "serve_topp_kernel": dense, "seconds": time.perf_counter() - t_phase})
+    return out
 
 
 def _leaves(tree):
@@ -2870,6 +3379,27 @@ def dist_rank(shape, vocab, seed, time_reps):
         steps.append((logits, u, tok))
         res["tokens"].append(tok.cpu())
     res["top_p"] = hold_steps(steps, 0.9, "dist_top_p_sample")
+    if d == 2:
+        # the guards phase's sampler rows under nonfinite="sanitize": the poisoned rows
+        # their greedy token, the others inside their window; the flags' all-reduce
+        # and the greedy token's two beside the model's other collectives
+        rows, gu = guard_rows(gen, vocab)
+        tok = main_call("dist_top_p_sample_sanitize",
+                        lambda: dist_top_p_sample(rows[:, vlo:vhi], vocab, p=0.9,
+                                                  method="kernel", u=gu,
+                                                  nonfinite="sanitize"),
+                        {"radix_pass_hist": 4, "multi_split": 4, "scan_mm": 2},
+                        modeled_dist_traffic("dist_top_p_sample", d=d, n=vocab, batch=b,
+                                             nonfinite="sanitize"))
+        greedy = greedy_tokens(rows)
+        check(torch.equal(tok[2:].long(), greedy[2:]),
+              f"dist_top_p_sample sanitize on rank {me}: poisoned rows drew "
+              f"{tok[2:].tolist()}, not their greedy tokens {greedy[2:].tolist()}")
+        res["top_p_sanitize"] = {"tokens": tok.tolist(), "greedy": greedy.tolist(),
+                                 **hold_steps([(rows[:2], gu[:2], tok[:2])], 0.9,
+                                              "dist_top_p_sample sanitize", masks=True)}
+        res["tokens"].append(tok.cpu())
+        del rows
 
     # --- mcscan: int8 exact, fp32 within the ulp limit of the fp64 scan ---
     xf = torch.randn(shape, generator=gen, device=DEV)
@@ -2980,6 +3510,7 @@ def phase_dist():
                       for name, c in ranks[0]["calls"].items()},
             "max_ulp": {k: max(r["max_ulp"][k] for r in ranks) for k in ranks[0]["max_ulp"]},
             "top_p": ranks[0]["top_p"], "segments": ranks[0]["segments"],
+            "top_p_sanitize": ranks[0].get("top_p_sanitize"),
             "dist_sort_f32_ms_per_rank": [r["dist_sort_f32_ms"] for r in ranks]}
     emit({"phase": "dist", "global_shape": list(DIST_SHAPE), "vocab": VOCAB,
           "worlds": summary})
@@ -3693,6 +4224,7 @@ def main() -> int:
     b5_err = phase_b5(gen)
     seg_err = phase_seg(gen)
     lin_err = phase_linrec(gen)
+    phase_guards(gen)
     scan_counts = main_scan(gen)
     blocked_counts = main_blocked(gen)
     segmented_counts = main_segmented(gen)
@@ -3701,6 +4233,7 @@ def main() -> int:
     emit({"phase": "smoke_reference", **ref})
     serve_counts, serve_b_counts, serve_s_counts, llama = main_serve(gen)
     cont_counts = serve_continuous(llama)
+    guards_serving(llama)
     del llama
     phase_ssd(gen)
     zamba_counts = serve_zamba2(gen)

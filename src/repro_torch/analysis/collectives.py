@@ -37,7 +37,8 @@ def _form(calls: Dict[str, int], nbytes: Dict[str, int], jax_bytes: int) -> Dict
 
 def modeled_dist_traffic(op: str, *, d: int, n: int, batch: int = 1,
                          dtype: str = "float32", bits_per_pass: int = 4,
-                         itemsize: int = 4, greedy: bool = False) -> Dict:
+                         itemsize: int = 4, greedy: bool = False,
+                         nonfinite: str = "propagate") -> Dict:
     """Closed-form collective traffic of one call of a distributed operator.
 
     * ``dist_sort`` (``dist_radix_sort``/``dist_sort``/``dist_topk``): per
@@ -49,7 +50,11 @@ def modeled_dist_traffic(op: str, *, d: int, n: int, batch: int = 1,
       all-reduces, the two ``mcscan_local`` block-sum gathers, the
       shard-threshold gather and the two sampling all-reduces, each of
       ``batch`` scalars; with ``greedy`` (``temperature == 0``) only two
-      all-reduces (the maximum and the first index that holds it).
+      all-reduces (the maximum and the first index that holds it).  Its
+      ``nonfinite`` policy adds one all-reduce of three int32 flags a row
+      (``"raise"``), or that and the greedy token's two all-reduces
+      (``"sanitize"``); JAX computes both on the gathered logits, outside its
+      sharded body, so its form does not change.
     * ``dist_linear_scan`` / ``dist_segment_scan``: one ``all_gather`` of the
       ``(A, B)`` carry pairs, ``2·itemsize·D·batch`` bytes.
     * ``mcscan``: one ``all_gather`` of the block sums, ``itemsize·D·batch``.
@@ -65,6 +70,7 @@ def modeled_dist_traffic(op: str, *, d: int, n: int, batch: int = 1,
         bits_per_pass: Bits retired per radix pass.
         itemsize: Accumulation-dtype bytes (linrec, segmented, mcscan).
         greedy: ``dist_top_p_sample`` at ``temperature == 0``.
+        nonfinite: ``dist_top_p_sample``'s resolved non-finite policy.
 
     Returns:
         ``{"collective_count", "operand_bytes", "counts_by_kind",
@@ -87,6 +93,10 @@ def modeled_dist_traffic(op: str, *, d: int, n: int, batch: int = 1,
             calls.update(all_gather=len(radixes) + 3, all_reduce=4)
             nbytes.update(all_gather=hist + 3 * 4 * d * batch, all_reduce=4 * 4 * batch)
         jax = sum(nbytes.values()) + (d - 1) * a2a
+        if op == "dist_top_p_sample" and nonfinite != "propagate":
+            extra, extra_bytes = {"raise": (1, 12), "sanitize": (3, 20)}[nonfinite]
+            calls["all_reduce"] += extra
+            nbytes["all_reduce"] += extra_bytes * batch
         return _form(calls, nbytes, jax)
     if op in ("dist_linear_scan", "dist_segment_scan"):
         b = 2 * itemsize * d * batch

@@ -8,6 +8,10 @@ from repro_torch.core.dist_ops import (
     dist_topk,
 )
 from repro_torch.core.distributed import mcscan, mcscan_local
+from repro_torch.core.guards import (
+    NONFINITE, GuardCheckError, NonFiniteError, checked, checks, checks_enabled,
+    guards_disabled, nonfinite_override, resolve_nonfinite,
+)
 from repro_torch.core.linrec import cummax, cumprod, linear_scan, linrec_accum_dtype_for
 from repro_torch.core.precision import PRECISIONS, pdot, resolve_precision
 from repro_torch.core.primitives import (

@@ -490,6 +490,14 @@ def _dist_greedy(logits: torch.Tensor, n: int, group, start: int) -> torch.Tenso
     return comm.all_reduce(idx, "min", group)
 
 
+def _poisoned_rows(ll: torch.Tensor, group) -> torch.Tensor:
+    """Per global row: (has a finite entry, holds NaN, holds ``+inf``), read over
+    every shard with one all-reduce; ``(rows, 3)`` bool."""
+    flags = torch.stack([torch.isfinite(ll).any(-1), torch.isnan(ll).any(-1),
+                         torch.isposinf(ll).any(-1)], dim=-1).to(torch.int32)
+    return comm.all_reduce(flags, "max", group) > 0
+
+
 def dist_top_p_sample(logits: torch.Tensor, n: int, group=None, *,
                       generator: Optional[torch.Generator] = None, p: float = 0.9,
                       temperature: float = 1.0, method: str = "auto", tile_s: int = 128,
@@ -525,26 +533,40 @@ def dist_top_p_sample(logits: torch.Tensor, n: int, group=None, *,
         tile_s: Tile side ``s``.
         bits_per_pass: Bits per radix pass over the 16 bf16 key bits.
         u: Optional uniforms ``logits.shape[:-1] + (1,)``, the same on every rank.
-        nonfinite: Only ``"propagate"`` is ported; ``"raise"`` and
-            ``"sanitize"`` raise ``NotImplementedError`` (ROADMAP Queue A item 8).
+        nonfinite: Non-finite logit policy, as in ``top_p_sample``.  The rows'
+            state is read over the shards with one all-reduce: ``"raise"``
+            rejects NaN, ``+inf`` and fully masked rows on every rank alike;
+            ``"sanitize"`` gives each row that holds NaN or no finite entry a
+            one-hot at its greedy token inside the sharded body, and that token
+            (two more all-reduces) after it.
 
     Returns:
         int32 token ids ``logits.shape[:-1]``, the same on every rank.
+
+    Raises:
+        NonFiniteError: ``nonfinite="raise"`` and poisoned logits on any rank.
     """
     guards.validate_probability(p, op="dist_top_p_sample")
     guards.validate_temperature(temperature, op="dist_top_p_sample")
     bits_per_pass = guards.validate_bits_per_pass(bits_per_pass, op="dist_top_p_sample")
-    guards.resolve_nonfinite(nonfinite, op="dist_top_p_sample")
+    nonfinite = guards.resolve_nonfinite(nonfinite, op="dist_top_p_sample")
     d, me, L, real = _layout(logits, n, group, op="dist_top_p_sample")
     if d == 1:
         return top_p_sample(logits, generator, p=p, temperature=temperature, method=method,
                             sort_method="radix", tile_s=tile_s,
-                            bits_per_pass=bits_per_pass, u=u)
+                            bits_per_pass=bits_per_pass, u=u, nonfinite=nonfinite)
     start = me * L
     lead = logits.shape[:-1]
     if float(temperature) == 0.0:
         return _dist_greedy(logits.reshape(math.prod(lead), real), n, group,
                             start).reshape(lead)
+    if nonfinite == "raise":
+        has = _poisoned_rows(logits.reshape(math.prod(lead), real).to(torch.float32),
+                             group)
+        if bool((has[:, 1] | has[:, 2] | ~has[:, 0]).any()):
+            raise guards.NonFiniteError(
+                "dist_top_p_sample: poisoned logits under nonfinite='raise' (NaN/+inf "
+                "entries or a fully masked row)")
     if temperature != 1.0:
         logits = logits / temperature
     # -inf padding: zero probability, an exact normaliser, sorted last
@@ -553,14 +575,21 @@ def dist_top_p_sample(logits: torch.Tensor, n: int, group=None, *,
     if u is None:
         u = _uniforms(lead + (1,), generator, ll.device)
     uu = u.reshape(-1, 1).to(device=ll.device, dtype=torch.float32)
+    gidx = start + torch.arange(L, dtype=torch.int32, device=ll.device)
+    if nonfinite == "sanitize":
+        has = _poisoned_rows(ll, group)
+        bad = has[:, 1] | ~has[:, 0]                     # NaN, or no finite entry
+        greedy = _dist_greedy(logits.reshape(math.prod(lead), real), n, group, start)
     m = comm.all_reduce(torch.amax(ll, dim=-1, keepdim=True), "max", group)
     e = torch.exp(ll - m)
     probs = e / comm.all_reduce(torch.sum(e, dim=-1, keepdim=True), "sum", group)
+    if nonfinite == "sanitize":
+        onehot = (gidx == greedy[:, None]).to(probs.dtype)
+        probs = torch.where(bad[:, None], onehot, probs)
     # 16 bf16 sort bits as in the paper's fp16 evaluation; descending
     keys16, _, _ = _encode_for_sort(probs.to(torch.bfloat16))
     work = _widen(~keys16)
-    toks = (start + torch.arange(L, dtype=torch.int32, device=ll.device)).expand(
-        ll.shape).contiguous()
+    toks = gidx.expand(ll.shape).contiguous()
     _, tok_sorted, p_bits = _dist_radix_passes(
         (work, toks, probs.contiguous().view(torch.int32)), 16, group, method=method,
         tile_s=tile_s, bits_per_pass=bits_per_pass)
@@ -569,10 +598,15 @@ def dist_top_p_sample(logits: torch.Tensor, n: int, group=None, *,
     masked = torch.where((cum - p_sorted) > p, torch.zeros_like(p_sorted), p_sorted)
     cdf = mcscan_local(masked, group, method=method, tile_s=tile_s)
     total = comm.all_gather(cdf[..., -1:], group)[-1]    # the last shard's CDF tail
+    guards.guard_check(lambda: torch.isfinite(total).all(),
+                       "dist_top_p_sample: non-finite nucleus mass before the "
+                       "inverse-transform sample")
     theta = uu * total
     rank = comm.all_reduce(torch.sum(cdf < theta, dim=-1, dtype=torch.int32), "sum", group)
     rel = torch.clamp(rank, 0, n - 1) - start           # pads carry no mass: never hit
     in_range = (rel >= 0) & (rel < L)
     at = _take_along_last(tok_sorted, torch.clamp(rel, 0, L - 1)[..., None])[..., 0]
     tok = comm.all_reduce(torch.where(in_range, at, torch.zeros_like(at)), "sum", group)
+    if nonfinite == "sanitize":
+        tok = torch.where(bad, greedy.to(tok.dtype), tok)
     return tok.reshape(lead).to(torch.int32)

@@ -1,28 +1,280 @@
-"""Pre-dispatch validation shared by the port's public entry points.
+"""Guardrails: validation, the non-finite policy and opt-in checks.
 
-Port of the validators of ``repro/core/guards.py``.  PyTorch runs eagerly, so
-every check is a plain Python check on concrete values that raises at the
-call site; there is no traced/checkified half.
+Port of ``repro/core/guards.py`` (``docs/architecture.md`` dispatch rule 10)
+but for its backend probe.  Its three layers, in the order an entry point
+runs them:
 
-Only the ``nonfinite="propagate"`` policy is ported: non-finite values keep
-IEEE semantics.  ``"raise"`` and ``"sanitize"`` raise ``NotImplementedError``
-until the guardrail layer is ported.
+1. **Validation** -- plain Python checks on concrete values (axis bounds,
+   ``bits_per_pass``, probabilities, temperatures, CSR offsets) that raise
+   ``ValueError``/``TypeError`` at the call site.  PyTorch runs eagerly, so
+   there is no traced half.
+2. **The non-finite policy** -- ``nonfinite="propagate" | "raise" |
+   "sanitize"`` on the scan and sampler family, resolved like ``method``: an
+   active :func:`nonfinite_override` wins, else ``REPRO_NONFINITE``, else the
+   argument.  ``"propagate"`` (the default) adds no operation; ``"raise"``
+   reads one ``isfinite(x).all()`` on the host before any kernel launches and
+   raises :class:`NonFiniteError`; ``"sanitize"`` writes the operator's
+   identity over every non-finite element with one ``torch.where`` before the
+   launch (the samplers map a degenerate row to its greedy token).
+3. **Opt-in checks** -- :func:`guard_check` asserts a predicate only when
+   ``REPRO_CHECKS=1`` or a :func:`checks` block is active, raising
+   :class:`GuardCheckError` (where JAX raises ``checkify.JaxRuntimeError``).
+   Predicates are thunks, so with checks off nothing is computed and no host
+   sync happens.
+
+:func:`guards_disabled` turns all three off.  JAX's backend probe
+(``ensure_available``) is not ported: a kernel that fails to build or load
+raises, and no call falls back to another method.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Tuple
+import os
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 __all__ = [
-    "NONFINITE", "validate_axis", "validate_bits_per_pass",
+    "NONFINITE", "ENV_VAR", "CHECKS_ENV_VAR", "NonFiniteError", "GuardCheckError",
+    "resolve_nonfinite", "nonfinite_override", "apply_nonfinite",
+    "checks", "checks_enabled", "guard_check", "checked",
+    "guards_disabled", "guards_active",
+    "validate_axis", "validate_bits_per_pass",
     "validate_positive", "validate_choice", "validate_probability",
     "validate_temperature", "validate_same_shape", "validate_broadcastable_to",
-    "validate_offsets", "resolve_nonfinite", "resolve_device", "refuse_grad",
+    "validate_offsets", "resolve_device", "refuse_grad",
 ]
 
 NONFINITE = ("propagate", "raise", "sanitize")
+ENV_VAR = "REPRO_NONFINITE"
+CHECKS_ENV_VAR = "REPRO_CHECKS"
+
+
+class NonFiniteError(ValueError):
+    """Raised by ``nonfinite="raise"`` when a payload holds a non-finite value."""
+
+
+class GuardCheckError(RuntimeError):
+    """Raised by :func:`guard_check` when checks are on and its predicate is false."""
+
+
+_NONFINITE_OVERRIDE: List[str] = []
+_CHECKS_OVERRIDE: List[bool] = []
+_BYPASS: List[bool] = []
+
+
+def guards_active() -> bool:
+    """False inside a :func:`guards_disabled` block, else True."""
+    return not _BYPASS
+
+
+@contextlib.contextmanager
+def guards_disabled():
+    """Turn the whole guard layer off inside the block (a bench and test hook).
+
+    The validators, the non-finite policy and the checks become no-ops.  With
+    checks off, a guarded operator's default call issues exactly the ATen
+    operations it issues inside this block (``tests/test_torch_guards.py``).
+
+    Example:
+        >>> with guards_disabled():
+        ...     guards_active()
+        False
+    """
+    _BYPASS.append(True)
+    try:
+        yield
+    finally:
+        _BYPASS.pop()
+
+
+# ---------------------------------------------------------------------------
+# The non-finite policy (dispatch rule 10)
+# ---------------------------------------------------------------------------
+
+
+def _unknown_policy(policy, op: str) -> ValueError:
+    return ValueError(f"{op}: unknown nonfinite policy {policy!r}; expected one of "
+                      f"{NONFINITE}")
+
+
+@contextlib.contextmanager
+def nonfinite_override(policy: str):
+    """Force every non-finite-policy resolution to ``policy`` inside the block.
+
+    The in-process form of ``REPRO_NONFINITE``, and it wins over it.
+
+    Example:
+        >>> with nonfinite_override("sanitize"):
+        ...     resolve_nonfinite("propagate")
+        'sanitize'
+    """
+    if policy not in NONFINITE:
+        raise _unknown_policy(policy, "nonfinite_override")
+    _NONFINITE_OVERRIDE.append(policy)
+    try:
+        yield
+    finally:
+        _NONFINITE_OVERRIDE.pop()
+
+
+def _env_nonfinite() -> Optional[str]:
+    """The policy that ``REPRO_NONFINITE`` forces, or ``None``."""
+    p = os.environ.get(ENV_VAR)
+    if not p:
+        return None
+    if p not in NONFINITE:
+        raise ValueError(f"{ENV_VAR}={p!r} is not a known nonfinite policy; "
+                         f"expected one of {NONFINITE}")
+    return p
+
+
+def resolve_nonfinite(policy: str = "propagate", *, op: str = "op") -> str:
+    """The non-finite policy one call runs under.
+
+    An active :func:`nonfinite_override` wins, else ``REPRO_NONFINITE``, else
+    the call's ``nonfinite=`` argument; inside :func:`guards_disabled` it is
+    ``"propagate"``.
+
+    Raises:
+        ValueError: ``policy`` (argument or environment) is unknown.
+
+    Example:
+        >>> resolve_nonfinite()
+        'propagate'
+        >>> resolve_nonfinite("sanitize")
+        'sanitize'
+    """
+    if policy not in NONFINITE:
+        raise _unknown_policy(policy, op)
+    if _BYPASS:
+        return "propagate"
+    p = _NONFINITE_OVERRIDE[-1] if _NONFINITE_OVERRIDE else None
+    if p is None:
+        p = _env_nonfinite()
+    return policy if p is None else p
+
+
+def apply_nonfinite(x: torch.Tensor, policy: str, *, op: str,
+                    identity: float = 0.0) -> torch.Tensor:
+    """Apply a resolved non-finite policy to a payload.
+
+    * ``"propagate"``: ``x`` itself, with no operation (IEEE semantics);
+    * ``"raise"``: one ``isfinite(x).all()`` read on the host; a non-finite
+      element raises :class:`NonFiniteError`, and ``x`` comes back untouched;
+    * ``"sanitize"``: ``x`` with ``identity`` at every non-finite element
+      (0 for sums; the recurrences pass ``a -> 1``, ``b -> 0``).
+
+    Integer and bool payloads are always finite and come back untouched.
+
+    Example:
+        >>> x = torch.tensor([1.0, float("inf"), float("nan")])
+        >>> apply_nonfinite(x, "sanitize", op="scan").tolist()
+        [1.0, 0.0, 0.0]
+        >>> try:
+        ...     apply_nonfinite(x, "raise", op="scan")
+        ... except NonFiniteError:
+        ...     print("rejected")
+        rejected
+    """
+    if _BYPASS or policy == "propagate" or not x.dtype.is_floating_point:
+        return x
+    if policy == "raise":
+        if not bool(torch.isfinite(x).all()):
+            raise NonFiniteError(
+                f"{op}: non-finite input under nonfinite='raise' (use 'propagate' for "
+                "IEEE semantics or 'sanitize' for the identity-element fallback)")
+        return x
+    return torch.where(torch.isfinite(x), x,
+                       torch.full((), identity, dtype=x.dtype, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Opt-in checks (REPRO_CHECKS=1 / checks())
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def checks(enable: bool = True):
+    """Turn :func:`guard_check` assertions on (or off) inside the block.
+
+    The in-process form of ``REPRO_CHECKS=1``, and it wins over it.
+
+    Example:
+        >>> with checks():
+        ...     checks_enabled()
+        True
+    """
+    _CHECKS_OVERRIDE.append(bool(enable))
+    try:
+        yield
+    finally:
+        _CHECKS_OVERRIDE.pop()
+
+
+def checks_enabled() -> bool:
+    """Whether :func:`guard_check` asserts: an active :func:`checks` block wins,
+    else ``REPRO_CHECKS=1``; :func:`guards_disabled` forces them off."""
+    if _BYPASS:
+        return False
+    if _CHECKS_OVERRIDE:
+        return _CHECKS_OVERRIDE[-1]
+    return os.environ.get(CHECKS_ENV_VAR, "") == "1"
+
+
+def guard_check(pred, msg: str) -> None:
+    """Assert ``pred`` when checks are on; with checks off, do nothing.
+
+    Pass the predicate as a thunk (a function of no arguments) whenever it
+    computes anything: with checks off it is never called, so the call adds
+    no operation and no host sync.  With checks on, a tensor predicate is
+    read on the host (one sync on the card).
+
+    Raises:
+        GuardCheckError: Checks are on and the predicate is false.
+
+    Example:
+        >>> guard_check(lambda: 1 / 0, "never evaluated: checks are off")
+        >>> with checks():
+        ...     guard_check(True, "fine")
+    """
+    if not checks_enabled():
+        return
+    if callable(pred):
+        pred = pred()
+    if not bool(pred):
+        raise GuardCheckError(msg)
+
+
+def checked(fn: Callable) -> Callable:
+    """``fn`` with its :func:`guard_check` assertions firing.
+
+    JAX functionalizes a traced function with ``checkify`` and throws the
+    collected error after the call.  PyTorch runs eagerly, so an assertion
+    already raises :class:`GuardCheckError` where it fails, and the wrapper
+    only calls ``fn``; it is kept so that harness code reads the same in both
+    packages.
+
+    Example:
+        >>> def f(x):
+        ...     guard_check(lambda: bool((x > 0).all()), "x must be positive")
+        ...     return x * 2
+        >>> with checks():
+        ...     checked(f)(torch.tensor([1.0, 2.0])).tolist()
+        [2.0, 4.0]
+    """
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        return fn(*args, **kwargs)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Validation shared by every public entry point
+# ---------------------------------------------------------------------------
 
 
 def validate_axis(axis: int, ndim: int, *, op: str) -> int:
@@ -32,6 +284,8 @@ def validate_axis(axis: int, ndim: int, *, op: str) -> int:
         >>> validate_axis(-1, 3, op="scan")
         2
     """
+    if _BYPASS:
+        return axis % max(ndim, 1)
     if ndim == 0:
         raise ValueError(f"{op}: input is 0-d; scans need at least one axis")
     if not -ndim <= axis < ndim:
@@ -42,7 +296,7 @@ def validate_axis(axis: int, ndim: int, *, op: str) -> int:
 
 def validate_bits_per_pass(bits_per_pass: int, *, op: str) -> int:
     """Reject ``bits_per_pass`` outside ``[1, 8]`` (the radix-2^k contract)."""
-    if not 1 <= int(bits_per_pass) <= 8:
+    if not _BYPASS and not 1 <= int(bits_per_pass) <= 8:
         raise ValueError(f"{op}: bits_per_pass must be in [1, 8], got "
                          f"{bits_per_pass}")
     return int(bits_per_pass)
@@ -50,14 +304,14 @@ def validate_bits_per_pass(bits_per_pass: int, *, op: str) -> int:
 
 def validate_positive(value, *, name: str, op: str) -> int:
     """Reject a non-positive integer knob (tile sides, lengths, budgets)."""
-    if int(value) < 1:
+    if not _BYPASS and int(value) < 1:
         raise ValueError(f"{op}: {name} must be >= 1, got {value!r}")
     return int(value)
 
 
 def validate_choice(value, choices, *, name: str, op: str):
     """Reject a knob outside its closed set (e.g. an unknown kernel variant)."""
-    if value not in choices:
+    if not _BYPASS and value not in choices:
         raise ValueError(f"{op}: {name} must be one of {tuple(choices)}, "
                          f"got {value!r}")
     return value
@@ -65,6 +319,8 @@ def validate_choice(value, choices, *, name: str, op: str):
 
 def validate_probability(p, *, name: str = "p", op: str) -> None:
     """Reject a probability outside ``[0, 1]`` (NaN included)."""
+    if _BYPASS:
+        return
     v = float(p)
     if not 0.0 <= v <= 1.0:  # NaN fails every comparison -> rejected too
         raise ValueError(f"{op}: {name} must be in [0, 1], got {p!r}")
@@ -72,6 +328,8 @@ def validate_probability(p, *, name: str = "p", op: str) -> None:
 
 def validate_temperature(temperature, *, op: str) -> None:
     """Reject a negative, NaN or infinite temperature (0 is the greedy limit)."""
+    if _BYPASS:
+        return
     v = float(temperature)
     if not v >= 0.0 or not math.isfinite(v):
         raise ValueError(f"{op}: temperature must be a finite value >= 0, "
@@ -82,7 +340,7 @@ def validate_same_shape(a_shape: Tuple[int, ...], b_shape: Tuple[int, ...],
                         *, op: str, a_name: str = "x",
                         b_name: str = "flags") -> None:
     """Reject mismatched payload/companion shapes with a call-site error."""
-    if tuple(a_shape) != tuple(b_shape):
+    if not _BYPASS and tuple(a_shape) != tuple(b_shape):
         raise ValueError(f"{op}: {a_name} shape {tuple(a_shape)} and "
                          f"{b_name} shape {tuple(b_shape)} must match")
 
@@ -94,6 +352,8 @@ def validate_broadcastable_to(b_shape, target, *, op: str,
     Example:
         >>> validate_broadcastable_to((8,), (4, 8), op="seg_scan_tiles")
     """
+    if _BYPASS:
+        return
     try:
         ok = tuple(torch.broadcast_shapes(tuple(b_shape), tuple(target))) == tuple(target)
     except RuntimeError:
@@ -123,6 +383,8 @@ def validate_offsets(offsets: torch.Tensor, n: int, *, op: str) -> torch.Tensor:
         >>> validate_offsets(o, 5, op="segment_scan") is o
         True
     """
+    if _BYPASS:
+        return offsets
     if offsets.dim() != 1:
         raise ValueError(f"{op}: offsets must be 1-D (num_segments + 1,), got "
                          f"shape {tuple(offsets.shape)}")
@@ -169,13 +431,3 @@ def refuse_grad(*xs, op: str) -> None:
             f"{op} has no gradient in the port yet: its backward pass comes with "
             "training (ROADMAP Queue A item 11); run it under torch.no_grad() or on "
             "inputs that do not require grad")
-
-
-def resolve_nonfinite(nonfinite: str, *, op: str = "op") -> str:
-    """Validate the ``nonfinite=`` policy; only ``"propagate"`` is ported."""
-    validate_choice(nonfinite, NONFINITE, name="nonfinite", op=op)
-    if nonfinite != "propagate":
-        raise NotImplementedError(
-            f"{op}: nonfinite={nonfinite!r} is not ported yet (ROADMAP "
-            "Queue A item 8); only 'propagate' is available")
-    return nonfinite

@@ -27,7 +27,7 @@ walked where it lies, one launch of B13's or B16's column walk
 
 The two kernel methods run their plain PyTorch versions on CPU tensors.
 Integer and bool inputs accumulate in fp32 (:func:`linrec_accum_dtype_for`).
-Only ``precision="highest"`` and ``nonfinite="propagate"`` are ported.
+Only ``precision="highest"`` is ported.
 
 There is no gradient yet: with grad mode on, an input that requires grad
 raises ``NotImplementedError`` (the analytic reverse-recurrence adjoint comes
@@ -267,7 +267,9 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
         block_tiles: Tiles per block for ``method="blocked"``.
         accum_dtype: Accumulation dtype; defaults to
             :func:`linrec_accum_dtype_for` of the operands' common dtype.
-        nonfinite: Only ``"propagate"`` is ported (ROADMAP Queue A item 8).
+        nonfinite: Non-finite input policy (:mod:`repro_torch.core.guards`):
+            ``"propagate"``, ``"raise"``, or ``"sanitize"`` (``a -> 1``,
+            ``b -> 0``: the affine identity) before any launch.
 
     Returns:
         The recurrence at the broadcast shape of ``a`` and ``b``, in the
@@ -277,7 +279,9 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
         ValueError: An unknown ``method``, ``tile_s`` out of range, or an
             axis out of bounds.
         NotImplementedError: An input requires grad while grad mode is on,
-            or an unported ``precision``/``nonfinite``.
+            or an unported ``precision``.
+        NonFiniteError: ``nonfinite="raise"`` and ``a`` or ``b`` holds a
+            non-finite value.
 
     Example:
         >>> a = torch.tensor([1.0, 2.0, 0.0, 3.0])
@@ -310,7 +314,9 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
     explicit_method = method != "auto"
     method = maybe_resolve(method, "linear_scan", n, dtype, device=b.device)
     resolve_precision(precision, method=method, explicit_method=explicit_method)
-    guards.resolve_nonfinite(nonfinite, op="linear_scan")
+    nonfinite = guards.resolve_nonfinite(nonfinite, op="linear_scan")
+    a = guards.apply_nonfinite(a, nonfinite, op="linear_scan", identity=1.0)
+    b = guards.apply_nonfinite(b, nonfinite, op="linear_scan", identity=0.0)
     from repro_torch.kernels import linrec_mm  # no import cycle
     if linrec_mm.column_walk_applies(method, nd, axis, n, tile_s, block_tiles):
         # a short axis that is not the last: walked where it lies, nothing moved

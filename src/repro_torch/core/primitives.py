@@ -385,7 +385,13 @@ def weighted_sample(w: torch.Tensor, generator: Optional[torch.Generator] = None
         cdf: Optional precomputed inclusive scan of ``w``.
         tile_s: Tile side for the matmul scans.
         u: Optional uniforms of shape ``w.shape[:-1] + (1,)``.
-        nonfinite: Only ``"propagate"`` is ported.
+        nonfinite: Non-finite weight policy (:mod:`repro_torch.core.guards`):
+            ``"propagate"`` keeps IEEE semantics; ``"raise"`` rejects
+            non-finite weights; ``"sanitize"`` zeroes them (a caller's ``cdf``
+            is then dropped) and gives a row whose total is not finite and
+            positive its greedy index (the argmax of the sanitized weights,
+            ties low).  With checks on (``REPRO_CHECKS=1``), a non-finite CDF
+            fails a ``guard_check``.
 
     Returns:
         int32 indices of shape ``w.shape[:-1]``, in ``[0, n)``.
@@ -394,18 +400,46 @@ def weighted_sample(w: torch.Tensor, generator: Optional[torch.Generator] = None
         >>> int(weighted_sample(torch.tensor([1.0, 1.0]), u=torch.tensor([0.75]),
         ...                     method="vector"))
         1
+        >>> int(weighted_sample(torch.tensor([0.2, float("nan"), 0.1]),
+        ...                     u=torch.tensor([0.99]), method="vector",
+        ...                     nonfinite="sanitize"))
+        2
     """
     method = maybe_resolve(method, "weighted_sample", w.shape[-1], w.dtype,
                            device=w.device)
-    guards.resolve_nonfinite(nonfinite, op="weighted_sample")
+    nonfinite = guards.resolve_nonfinite(nonfinite, op="weighted_sample")
+    w_eff = guards.apply_nonfinite(w, nonfinite, op="weighted_sample")
+    if w_eff is not w:
+        cdf = None                                 # a caller's CDF no longer matches
     if cdf is None:
-        cdf = scan(w, axis=-1, method=method, tile_s=tile_s)
+        cdf = scan(w_eff, axis=-1, method=method, tile_s=tile_s)
+    if cdf.dtype.is_floating_point:
+        guards.guard_check(lambda: torch.isfinite(cdf).all(),
+                           "weighted_sample: non-finite CDF before the "
+                           "inverse-transform sample")
     total = cdf[..., -1:]
     if u is None:
         u = _uniforms(w.shape[:-1] + (1,), generator, w.device)
     theta = u.to(device=cdf.device, dtype=cdf.dtype) * total
     idx = torch.sum(cdf < theta, dim=-1, dtype=torch.int32)
-    return torch.clamp(idx, 0, w.shape[-1] - 1)
+    idx = torch.clamp(idx, 0, w.shape[-1] - 1)
+    if nonfinite == "sanitize" and w_eff.dtype.is_floating_point:
+        bad = ~(torch.isfinite(total[..., 0]) & (total[..., 0] > 0))
+        idx = torch.where(bad, torch.argmax(w_eff, dim=-1).to(idx.dtype), idx)
+    return idx
+
+
+def _reject_poisoned_logits(logits: torch.Tensor) -> None:
+    """``nonfinite="raise"`` for the samplers: NaN, ``+inf`` and rows with no finite
+    entry fail, with one host read.  ``-inf`` entries are legal vocabulary masks,
+    so :func:`~repro_torch.core.guards.apply_nonfinite` would be too strict."""
+    x = logits.to(torch.float32)
+    bad = (torch.isnan(x).any() | torch.isposinf(x).any()
+           | ~torch.isfinite(x).any(dim=-1).all())
+    if bool(bad):
+        raise guards.NonFiniteError(
+            "top_p_sample: poisoned logits under nonfinite='raise' (NaN/+inf "
+            "entries or a fully masked row)")
 
 
 @_register("top_p_tail", "matmul", "vector", "blocked")
@@ -450,10 +484,19 @@ def top_p_sample(logits: torch.Tensor, generator: Optional[torch.Generator] = No
         tile_s: Tile side for the matmul scans.
         bits_per_pass: Bits per radix pass (1..8).
         u: Optional uniforms of shape ``logits.shape[:-1] + (1,)``.
-        nonfinite: Only ``"propagate"`` is ported.
+        nonfinite: Non-finite logit policy (:mod:`repro_torch.core.guards`):
+            ``"propagate"`` keeps IEEE semantics (a fully masked or NaN row
+            samples an undefined token); ``"raise"`` rejects NaN, ``+inf`` and
+            fully masked rows before any launch (``-inf`` masks are legal);
+            ``"sanitize"`` turns each row whose softmax is not finite into a
+            one-hot at its greedy token (NaN read as ``-inf``, ties low)
+            before the sort and pins that token after the tail.
 
     Returns:
         int32 token ids of shape ``logits.shape[:-1]``.
+
+    Raises:
+        NonFiniteError: ``nonfinite="raise"`` and poisoned logits.
 
     Example:
         >>> logits = torch.tensor([[0.0, 20.0, 0.0, 0.0]])
@@ -464,7 +507,7 @@ def top_p_sample(logits: torch.Tensor, generator: Optional[torch.Generator] = No
     """
     guards.validate_probability(p, op="top_p_sample")
     guards.validate_temperature(temperature, op="top_p_sample")
-    guards.resolve_nonfinite(nonfinite, op="top_p_sample")
+    nonfinite = guards.resolve_nonfinite(nonfinite, op="top_p_sample")
     guards.validate_choice(sort_method, ("radix", "xla"), name="sort_method",
                            op="top_p_sample")
     if float(temperature) == 0.0:
@@ -473,9 +516,19 @@ def top_p_sample(logits: torch.Tensor, generator: Optional[torch.Generator] = No
         return torch.argmax(greedy, dim=-1).to(torch.int32)
     method = maybe_resolve(method, "top_p_sample", logits.shape[-1], logits.dtype,
                            device=logits.device)
+    if nonfinite == "raise":
+        _reject_poisoned_logits(logits)
     if temperature != 1.0:
         logits = logits / temperature
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    if nonfinite == "sanitize":
+        # a row whose softmax is not finite (fully masked, NaN) becomes a one-hot at
+        # its greedy token, so the sort and the tail see a valid distribution
+        bad = ~torch.isfinite(probs).all(dim=-1)
+        greedy = torch.argmax(torch.where(torch.isnan(logits), float("-inf"), logits),
+                              dim=-1)
+        onehot = torch.nn.functional.one_hot(greedy, probs.shape[-1]).to(probs.dtype)
+        probs = torch.where(bad[..., None], onehot, probs)
     if sort_method == "radix":
         # 16 sort bits, as in the paper's fp16 evaluation
         keys16 = probs.to(torch.bfloat16)
@@ -486,4 +539,7 @@ def top_p_sample(logits: torch.Tensor, generator: Optional[torch.Generator] = No
     sorted_p = _take_along_last(probs, order)
     j = dispatch("top_p_tail", method)(sorted_p, generator, p=p, method=method,
                                        tile_s=tile_s, u=u)
-    return _take_along_last(order, j[..., None].to(torch.int64))[..., 0].to(torch.int32)
+    tok = _take_along_last(order, j[..., None].to(torch.int64))[..., 0].to(torch.int32)
+    if nonfinite == "sanitize":
+        tok = torch.where(bad, greedy.to(tok.dtype), tok)    # pin the greedy token
+    return tok

@@ -160,10 +160,18 @@ def scan(x: torch.Tensor, axis: int = -1, *, exclusive: bool = False,
             otherwise, but validated as positive); a block covers
             ``block_tiles * tile_s²`` elements.
         accum_dtype: Accumulation dtype override.
-        nonfinite: Only ``"propagate"`` is ported.
+        nonfinite: Non-finite input policy (:mod:`repro_torch.core.guards`;
+            ``nonfinite_override`` > ``REPRO_NONFINITE`` > this argument):
+            ``"propagate"`` keeps IEEE semantics and adds no operation,
+            ``"raise"`` rejects a non-finite input before any launch,
+            ``"sanitize"`` replaces non-finite elements with 0.  Integer scans
+            are unaffected.
 
     Returns:
         The scanned tensor, same shape as ``x``, in the accumulation dtype.
+
+    Raises:
+        NonFiniteError: ``nonfinite="raise"`` and ``x`` holds a non-finite value.
 
     Example:
         >>> scan(torch.arange(1, 9, dtype=torch.int32), method="vector").tolist()
@@ -181,12 +189,12 @@ def scan(x: torch.Tensor, axis: int = -1, *, exclusive: bool = False,
     block_tiles = guards.validate_positive(block_tiles, name="block_tiles", op="scan")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(x.dtype)
     axis = guards.validate_axis(axis, x.dim(), op="scan")
-    guards.resolve_nonfinite(nonfinite, op="scan")
     explicit_method = method != "auto"
     method = maybe_resolve(method, "scan", x.shape[axis], x.dtype,
                            device=x.device)
     precision = resolve_precision(precision, method=method,
                                   explicit_method=explicit_method)
+    x = guards.apply_nonfinite(x, guards.resolve_nonfinite(nonfinite, op="scan"), op="scan")
     last = x.dim() - 1
     if axis != last:
         x = torch.movedim(x, axis, -1)

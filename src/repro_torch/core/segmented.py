@@ -28,8 +28,10 @@ method: offsets, permutations and counts come from exact int8 -> int32 mask
 scans.
 
 Every entry point validates the offsets on the host (``guards.validate_offsets``),
-one read per call.  ``precision`` other than ``"highest"`` and ``nonfinite``
-other than ``"propagate"`` raise as elsewhere in the port.
+one read per call.  ``precision`` other than ``"highest"`` raises as elsewhere
+in the port.  :func:`segment_scan`, :func:`segment_linear_scan` and
+:func:`segment_top_p_sample` take the non-finite policy of
+:mod:`repro_torch.core.guards` (``nonfinite=``).
 """
 from __future__ import annotations
 
@@ -257,10 +259,15 @@ def segment_scan(values, offsets=None, *, exclusive: bool = False,
         block_tiles: Tiles per block for ``method="blocked"``.
         accum_dtype: Accumulation dtype override.
         precision: Only ``"highest"`` is ported.
-        nonfinite: Only ``"propagate"`` is ported.
+        nonfinite: Non-finite input policy (:mod:`repro_torch.core.guards`):
+            ``"propagate"``, ``"raise"`` or ``"sanitize"`` (non-finite -> 0).
 
     Returns:
         The per-segment scan, shaped like ``values``, in the accumulation dtype.
+
+    Raises:
+        NonFiniteError: ``nonfinite="raise"`` and ``values`` holds a non-finite
+            value.
 
     Example:
         >>> x = torch.ones(5, dtype=torch.int32)
@@ -270,7 +277,8 @@ def segment_scan(values, offsets=None, *, exclusive: bool = False,
         [0, 1, 0, 1, 2]
     """
     values, offsets = _unwrap(values, offsets, op="segment_scan")
-    guards.resolve_nonfinite(nonfinite, op="segment_scan")
+    values = guards.apply_nonfinite(
+        values, guards.resolve_nonfinite(nonfinite, op="segment_scan"), op="segment_scan")
     return _segment_scan(values, offsets, exclusive=exclusive, reverse=reverse,
                          method=method, tile_s=tile_s, block_tiles=block_tiles,
                          accum_dtype=accum_dtype, precision=precision)
@@ -336,7 +344,8 @@ def segment_linear_scan(a, b, offsets=None, *, exclusive: bool = False,
         initial: The state at each segment start: a scalar, or a tensor
             broadcastable against the leading dims (one value per row).
         tile_s, block_tiles, accum_dtype, precision: As in ``linear_scan``.
-        nonfinite: Only ``"propagate"`` is ported.
+        nonfinite: Non-finite input policy, as in ``linear_scan`` (``"sanitize"``:
+            ``a -> 1``, ``b -> 0``).
 
     Returns:
         The per-segment recurrence at the broadcast shape of ``a`` and ``b``,
@@ -350,8 +359,10 @@ def segment_linear_scan(a, b, offsets=None, *, exclusive: bool = False,
         [3.0, 7.0, 3.0, 7.0, 15.0]
     """
     a, offsets = _unwrap(a, offsets, op="segment_linear_scan")
-    guards.resolve_nonfinite(nonfinite, op="segment_linear_scan")
     b = torch.as_tensor(b, device=a.device)
+    nf = guards.resolve_nonfinite(nonfinite, op="segment_linear_scan")
+    a = guards.apply_nonfinite(a, nf, op="segment_linear_scan", identity=1.0)
+    b = guards.apply_nonfinite(b, nf, op="segment_linear_scan", identity=0.0)
     shp = torch.broadcast_shapes(a.shape, b.shape)
     a, b = a.expand(shp), b.expand(shp)
     n = shp[-1]
@@ -619,6 +630,25 @@ def _segment_greedy(values, offsets, n: int, num_segments: int) -> torch.Tensor:
     return torch.clamp(first - offsets[:-1], min=0).to(torch.int32)
 
 
+def _reject_poisoned_packed_logits(values, offsets, n: int, num_segments: int) -> None:
+    """The packed ``nonfinite="raise"`` gate of :func:`segment_top_p_sample`.
+
+    ``-inf`` entries are legal vocabulary masks; NaN, ``+inf`` and a non-empty
+    segment with no finite entry are rejected, with one host read.
+    """
+    v = values.to(torch.float32)
+    ids = segment_ids(offsets, n).to(torch.int64)
+    has_finite = _segment_reduce(torch.isfinite(v).to(torch.int32), ids, num_segments,
+                                 "amax", 0)
+    lens = offsets[1:] - offsets[:-1]
+    bad = (torch.isnan(v).any() | torch.isposinf(v).any()
+           | ((has_finite == 0) & (lens > 0)).any())
+    if bool(bad):
+        raise guards.NonFiniteError(
+            "segment_top_p_sample: poisoned logits under nonfinite='raise' — NaN, "
+            "+inf, or a segment with no finite entry (-inf vocab masks are allowed)")
+
+
 def segment_top_p_sample(values, offsets=None, generator: Optional[torch.Generator] = None,
                          p: float = 0.9, temperature: float = 1.0, *,
                          method: str = "auto", bits_per_pass: int = 4,
@@ -649,10 +679,17 @@ def segment_top_p_sample(values, offsets=None, generator: Optional[torch.Generat
         u: Optional ``(num_segments, 1)`` uniforms.
         tile_s: Tile side for the mask scans.
         block_tiles: Tiles per block for ``method="blocked"``.
-        nonfinite: Only ``"propagate"`` is ported.
+        nonfinite: Non-finite logits policy (:mod:`repro_torch.core.guards`):
+            ``"raise"`` rejects NaN, ``+inf`` and fully masked segments (``-inf``
+            vocab masks stay legal); ``"sanitize"`` gives each segment that
+            holds a non-finite probability its greedy token (NaN read as
+            ``-inf``, ties low).
 
     Returns:
         ``(num_segments,)`` int32 segment-local token ids (0 for empty segments).
+
+    Raises:
+        NonFiniteError: ``nonfinite="raise"`` and poisoned logits.
 
     Example:
         >>> logits = torch.tensor([0.0, 20.0, 0.0, 0.0, 20.0])
@@ -663,7 +700,7 @@ def segment_top_p_sample(values, offsets=None, generator: Optional[torch.Generat
     values, offsets = _unwrap(values, offsets, op="segment_top_p_sample")
     guards.validate_probability(p, op="segment_top_p_sample")
     guards.validate_temperature(temperature, op="segment_top_p_sample")
-    guards.resolve_nonfinite(nonfinite, op="segment_top_p_sample")
+    nonfinite = guards.resolve_nonfinite(nonfinite, op="segment_top_p_sample")
     n = values.shape[-1]
     num_segments = offsets.shape[0] - 1
     dev = values.device
@@ -675,6 +712,8 @@ def segment_top_p_sample(values, offsets=None, generator: Optional[torch.Generat
         return torch.where(lens > 0, greedy, 0).to(torch.int32)
     method = maybe_resolve(method, "segment_top_p_sample", n, values.dtype, device=dev)
     kw = dict(method=method, tile_s=tile_s, block_tiles=block_tiles)
+    if nonfinite == "raise":
+        _reject_poisoned_packed_logits(values, offsets, n, num_segments)
     if is_probs:
         probs = values.to(torch.float32)
     else:
@@ -697,5 +736,10 @@ def segment_top_p_sample(values, offsets=None, generator: Optional[torch.Generat
     cnt = _segment_ends(segment_scan(less, offsets, **kw), offsets)
     j = torch.minimum(torch.clamp(cnt, min=0), torch.clamp(lens - 1, min=0))
     pos = torch.clamp(offsets[:-1] + j, 0, n - 1).to(torch.int64)
-    tok = order[pos] - offsets[:-1]
-    return torch.where(lens > 0, tok, 0).to(torch.int32)
+    tok = torch.where(lens > 0, order[pos] - offsets[:-1], 0).to(torch.int32)
+    if nonfinite == "sanitize":
+        bad = _segment_reduce((~torch.isfinite(probs)).to(torch.int32), ids, num_segments,
+                              "amax", 0) > 0
+        greedy = _segment_greedy(values, offsets, n, num_segments)
+        tok = torch.where(bad & (lens > 0), greedy, tok)
+    return tok

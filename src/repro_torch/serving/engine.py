@@ -21,6 +21,10 @@ run on: ``"kernel"`` puts their prefill on B1 and B13, ``"blocked"`` on the
 §4 pipelines (B4 and B16 at zamba2's shapes); decode's length-1 state
 updates launch no kernel on any method.
 
+Under ``REPRO_CHECKS=1`` (or ``guards.checks()``) each decode step asserts
+``pos < max_len`` with ``guards.guard_check``; with checks off the check costs
+nothing.
+
 ``generate(..., uniforms=)`` feeds the sampler's per-step uniforms from
 outside, as the operators' ``u=`` does: row ``i`` holds the draws of the
 ``i``-th sampled token (row 0 samples the prefill's last position).  That is
@@ -185,6 +189,9 @@ class ServeEngine:
         for i in range(max_new_tokens - 1):
             if done is not None and i % sync_every == 0 and bool(done.all()):
                 break  # every row emitted eos_id
+            guards.guard_check(lambda: s + i < self.max_len,
+                               "decode: pos must stay below max_len (the KV cache "
+                               "budget) — raise max_len= at engine construction")
             logits, caches = self.model.decode_step(self.params, tok[:, None],
                                                     caches, s + i)
             tok = self._sample(logits, generator, u_at(i + 1))

@@ -213,8 +213,18 @@ class ContinuousEngine:
         ``steps`` is the JAX loop's count: the first step after which every
         row was done, else ``n_steps``.  A done row keeps stepping with its
         position, remaining budget and uniform frozen, and emits its eos (0
-        without one) into the slots that the caller does not harvest.
+        without one) into the slots that the caller does not harvest.  Under
+        ``REPRO_CHECKS=1`` (or ``guards.checks()``) it first asserts that no
+        running row would write past its page budget (one host read); with
+        checks off that adds nothing.
         """
+        cap = self.n_blocks * self.page_size
+        guards.guard_check(
+            lambda: torch.all(torch.where(
+                self._done, 0, self._pos + torch.clamp(self._rem, max=n_steps)) <= cap),
+            "decode_n: a row's write positions would overrun its page budget "
+            "(n_blocks * page_size) — admission must bound prompt + max_new_tokens "
+            "by max_len")
         b = self.max_batch
         out = torch.zeros((b, n_steps), dtype=torch.int32, device=self.device)
         steps = torch.full((), n_steps, dtype=torch.int32, device=self.device)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.analysis.streams import DenseReplay, first_divergence, step_margin
+from repro_torch.core import guards
 from repro_torch.core.autotune import method_override
 from repro_torch.core.linrec import cummax, cumprod, linear_scan
 from repro_torch.core.primitives import (compress, multi_split, radix_sort, split,
@@ -1705,3 +1706,91 @@ def test_kernel_allocator_picks_equal_vector_with_one_b5_an_alloc(dev):
             assert k.tolist() == v.tolist()
             held.append(k)
     assert (kern.free == vec.free).all()
+
+
+# ---- the guard layer: the non-finite policies and checks on the kernel paths ----
+
+
+@pytest.mark.parametrize("method,want", [("kernel", dict(scan_mm=1)),
+                                         ("blocked", dict(block_sums=1, carry_scan=1,
+                                                          block_scan=1))])
+def test_scan_policies_on_the_kernels(dev, method, want):
+    """``raise`` refuses before any launch; ``sanitize`` is bit-equal to the same
+    method on the input with zeros for its non-finite elements, with the launches
+    of ``propagate``."""
+    x = torch.randn((3, 300001), generator=_gen(dev, 3), device=dev)  # three blocks
+    x[0, 5], x[1, 140000], x[2, 299999] = float("nan"), float("inf"), float("-inf")
+    ops.reset_launch_counts()
+    with pytest.raises(guards.NonFiniteError):
+        scan(x, method=method, nonfinite="raise")
+    assert ops.launch_counts() == _counts()
+    got = scan(x, method=method, nonfinite="sanitize")
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(**want)
+    assert torch.equal(got, scan(torch.where(torch.isfinite(x), x, 0.0), method=method))
+    assert bool(torch.isfinite(got).all())
+
+
+def test_segment_scan_policies_on_b9(dev):
+    x = torch.randn((70001,), generator=_gen(dev, 4), device=dev)
+    x[[3, 30000, 69000]] = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                                        device=dev)
+    off = torch.tensor([0, 10, 10, 40000, 70001], dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    with pytest.raises(guards.NonFiniteError):
+        segment_scan(x, off, method="kernel", nonfinite="raise")
+    assert ops.launch_counts() == _counts()
+    got = segment_scan(x, off, method="kernel", nonfinite="sanitize")
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _counts(seg_scan=1)
+    assert torch.equal(got, segment_scan(torch.where(torch.isfinite(x), x, 0.0), off,
+                                         method="kernel"))
+
+
+@pytest.mark.parametrize("n", [1, 7, 4096, 128256, 300000])
+def test_b8_keeps_a_sanitized_one_hot_row_on_its_index(dev, n):
+    """A one-hot row (what ``sanitize`` gives a poisoned row) samples index 0 of
+    its sorted order under every uniform, the band's edge included."""
+    sp = torch.zeros((6, n), device=dev)
+    sp[:, 0] = 1.0
+    u = torch.tensor([[0.0], [0.5], [1 - 2 ** -16], [1 - 2 ** -24], [2 ** -30], [0.999]],
+                     device=dev)
+    for p in (0.0, 0.9, 1.0):
+        assert split_mm.topp_mask_sample_tiles(sp, u, p=p).tolist() == [0] * 6
+
+
+def test_top_p_sanitize_gives_poisoned_rows_their_greedy_token(dev):
+    logits = torch.randn((4, 128256), generator=_gen(dev, 5), device=dev)
+    logits[1, 64128:] = float("-inf")
+    logits[2] = float("-inf")
+    logits[3, [7, 90000]] = float("nan")
+    u = torch.rand((4, 1), generator=_gen(dev, 6), device=dev)
+    ops.reset_launch_counts()
+    with pytest.raises(guards.NonFiniteError):
+        top_p_sample(logits, u=u, method="kernel", nonfinite="raise")
+    assert ops.launch_counts() == _counts()
+    tok = top_p_sample(logits, u=u, method="kernel", nonfinite="sanitize")
+    assert ops.launch_counts() == _counts(radix_pass=4, topp_tail=1)
+    greedy = torch.argmax(torch.where(torch.isnan(logits), float("-inf"), logits), -1)
+    assert tok[2] == 0 and tok[3] == greedy[3]
+    assert torch.equal(tok[:2], top_p_sample(logits[:2], u=u[:2], method="kernel",
+                                             nonfinite="raise"))
+
+
+def test_page_budget_guard_fires_on_the_card(dev):
+    cfg, _, _, params = _smoke_model(dev)
+    eng = ContinuousEngine(cfg, params, max_batch=2, page_size=8, n_pages=9, max_len=24,
+                           tick_tokens=4)
+    eng._pos[:] = eng.n_blocks * eng.page_size
+    eng._done[:] = False
+    eng._rem[:] = 1
+    with guards.checks():
+        with pytest.raises(guards.GuardCheckError, match="page budget"):
+            eng._decode_n(2)
+    reqs = poisson_trace(4, rate=0.5, vocab_size=cfg.vocab_size, seed=3,
+                         prompt_len=(2, 12), max_new=(1, 10))
+    plain = eng.run(reqs)
+    with guards.checks():
+        checked = eng.run(reqs)
+    assert plain["requests"] == checked["requests"] and plain["stats"] == checked["stats"]
+    assert all((plain["streams"][k] == checked["streams"][k]).all() for k in plain["streams"])

@@ -47,7 +47,7 @@ from repro.core.segmented import segment_scan as jax_segment_scan
 from repro.models.model import build_model as jax_build_model
 from repro.models.model import get_config as jax_get_config
 from repro_torch.analysis.collectives import modeled_dist_traffic
-from repro_torch.core import comm, dist_ops
+from repro_torch.core import comm, dist_ops, guards
 from repro_torch.core.primitives import radix_sort, top_p_sample
 from repro_torch.launch.world import run_world
 
@@ -126,6 +126,27 @@ _TOPPS = {
 }
 
 
+# the non-finite policies (world of 2): a clean row, a row masked with -inf over
+# its second half (rank 1's whole shard), a fully masked row and a NaN-poisoned row
+_POISONED = _TOPP_LOGITS.copy()
+_POISONED[1, 17:] = -np.inf
+_POISONED[2] = -np.inf
+_POISONED[3, [5, 20]] = np.nan
+_POLICIES = {
+    "sanitize-matmul": dict(p=0.8, method="matmul", nonfinite="sanitize"),
+    "sanitize-kernel": dict(p=0.8, method="kernel", nonfinite="sanitize"),
+    "raise": dict(p=0.8, method="matmul", nonfinite="raise"),
+    "raise-clean-rows": dict(p=0.8, method="matmul", nonfinite="raise", rows=2),
+}
+
+
+def _policy_cases():
+    return [dict(id=f"policy-{name}", op="topp", logits=_POISONED[:kw.get("rows", 4)],
+                 u=_TOPP_U[:kw.get("rows", 4)],
+                 kw=dict({k: v for k, v in kw.items() if k != "rows"}, tile_s=8))
+            for name, kw in _POLICIES.items()]
+
+
 def _cases():
     cases = []
     for name, c in _SORTS.items():
@@ -154,7 +175,8 @@ def _cases():
 
 CASES = _cases()
 CASE_IDS = [c["id"] for c in CASES]
-BY_ID = {c["id"]: c for c in CASES}
+POLICY_CASES = _policy_cases()
+BY_ID = {c["id"]: c for c in CASES + POLICY_CASES}
 
 # ---- the engine (world of 2) ----
 
@@ -190,10 +212,21 @@ from repro.core import dist_top_p_sample
 from repro.models.model import get_config
 from repro.serving.engine import ServeEngine
 from repro.utils.compat import make_mesh
+from repro.core.guards import NonFiniteError
 inp = np.load({inputs!r}, allow_pickle=True)
 logits, u = jnp.asarray(inp["logits"]), jnp.asarray(inp["u"])
-cases = inp["topps"].item()
+mesh2 = make_mesh((2,), ("model",))
 out = {{}}
+for name, kw in inp["policies"].item().items():
+    kw = dict(kw)
+    rows = kw.pop("rows", 4)
+    try:                     # eager: the raise gate needs concrete logits
+        out[f"policy-{{name}}"] = np.asarray(dist_top_p_sample(
+            jnp.asarray(inp["poisoned"][:rows]), None, mesh2, "model", u=u[:rows],
+            tile_s=8, **kw))
+    except NonFiniteError:
+        out[f"policy-{{name}}"] = np.asarray("NonFiniteError")
+cases = inp["topps"].item()
 for d in {worlds!r}:
     mesh = make_mesh((d,), ("model",))
     for name, kw in cases.items():
@@ -213,6 +246,7 @@ np.savez({outputs!r}, **out)
 def _start_jax(tmp):
     inputs, outputs = str(tmp / "jax_in.npz"), str(tmp / "jax_out.npz")
     np.savez(inputs, logits=_TOPP_LOGITS, u=_TOPP_U, topps=np.array(_TOPPS, dtype=object),
+             poisoned=_POISONED, policies=np.array(_POLICIES, dtype=object),
              params=np.array(_jax_params(), dtype=object), prompts=_engine_prompts())
     code = _JAX_SCRIPT.format(inputs=inputs, outputs=outputs, worlds=WORLDS,
                               max_len=ENGINE_S + ENGINE_NEW, top_p=ENGINE_P, new=ENGINE_NEW,
@@ -237,7 +271,8 @@ def runs(tmp_path_factory):
         worlds = {}
         for d in WORLDS:
             worlds[d] = run_world("torch_dist_worlds:run_world_cases", d,
-                                  dict(cases=CASES, engine=engine if d == 2 else None),
+                                  dict(cases=CASES + (POLICY_CASES if d == 2 else []),
+                                       engine=engine if d == 2 else None),
                                   workdir=tmp / f"world{d}", timeout=WORLD_TIMEOUT,
                                   pythonpath=[os.path.dirname(__file__)])
         log, _ = proc.communicate(timeout=WORLD_TIMEOUT)
@@ -326,7 +361,8 @@ def _model(c, d):
     if c["op"] == "topp":
         x = c["logits"]
         return modeled_dist_traffic("dist_top_p_sample", d=d, n=x.shape[-1],
-                                    batch=x.shape[0], greedy=c["kw"].get("temperature") == 0.0)
+                                    batch=x.shape[0], greedy=c["kw"].get("temperature") == 0.0,
+                                    nonfinite=c["kw"].get("nonfinite", "propagate"))
     x = c["a"] if c["op"] == "linrec" else c["x"]
     op = "dist_linear_scan" if c["op"] == "linrec" else "dist_segment_scan"
     return modeled_dist_traffic(op, d=d, n=x.shape[-1], batch=math.prod(x.shape[:-1]),
@@ -399,10 +435,48 @@ def test_one_rank_needs_no_process_group_and_is_the_local_op():
     assert modeled_dist_traffic("dist_sort", d=1, n=100)["collective_count"] == 0
 
 
-@pytest.mark.parametrize("policy", ["raise", "sanitize"])
-def test_top_p_nonfinite_policies_are_not_ported(policy):
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        dist_ops.dist_top_p_sample(torch.zeros((1, 4)), 4, nonfinite=policy)
+@pytest.mark.parametrize("name", list(_POLICIES))
+def test_top_p_nonfinite_policies_match_jax(runs, name):
+    """Both ranks give JAX's tokens on the poisoned rows at D = 2, or both raise
+    ``NonFiniteError`` where JAX does; sanitize gives the poisoned rows their
+    greedy token."""
+    want = runs["jax"][f"policy-{name}"]
+    for rank in range(2):
+        case = _case(runs, 2, f"policy-{name}", rank)
+        if want.dtype.kind == "U":
+            assert case.get("raised") == str(want) == "NonFiniteError"
+            continue
+        got = case["out"][0]
+        assert got.dtype == np.int32 and np.array_equal(got, want), (got, want)
+        if name.startswith("sanitize"):
+            greedy = np.argmax(np.where(np.isnan(_POISONED), -np.inf, _POISONED), -1)
+            assert got[2] == 0 and got[3] == greedy[3]
+
+
+@pytest.mark.parametrize("name", list(_POLICIES))
+def test_top_p_nonfinite_policy_collectives_match_the_model(runs, name):
+    """Raise adds one all-reduce of the rows' flags (and a rejected call stops
+    there); sanitize adds it and the greedy token's two all-reduces."""
+    c = BY_ID[f"policy-{name}"]
+    model = _model(c, 2)
+    if name == "raise":
+        model = {"counts_by_kind": {"all_reduce": 1},
+                 "bytes_by_kind": {"all_reduce": 12 * c["logits"].shape[0]}}
+    for rank in range(2):
+        counts = _case(runs, 2, c["id"], rank)["counts"]
+        assert {k: v for k, v in counts["calls"].items() if v} == model["counts_by_kind"]
+        assert {k: v for k, v in counts["bytes"].items() if v} == model["bytes_by_kind"]
+
+
+def test_top_p_nonfinite_policies_at_one_rank_are_the_local_sampler():
+    lg = torch.from_numpy(_POISONED)
+    u = torch.from_numpy(_TOPP_U)
+    t = dist_ops.dist_top_p_sample(lg, 33, p=0.8, method="matmul", tile_s=8, u=u,
+                                   nonfinite="sanitize")
+    assert torch.equal(t, top_p_sample(lg, p=0.8, method="matmul", tile_s=8, u=u,
+                                       nonfinite="sanitize"))
+    with pytest.raises(guards.NonFiniteError):
+        dist_ops.dist_top_p_sample(lg, 33, u=u, nonfinite="raise")
 
 
 @pytest.mark.parametrize("fn", [

@@ -148,8 +148,8 @@ def test_guard_helpers():
         guards.validate_probability(float("nan"), op="t")
     with pytest.raises(ValueError):
         guards.validate_same_shape((2, 3), (3, 2), op="t")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        guards.resolve_nonfinite("sanitize", op="t")
+    assert guards.resolve_nonfinite("sanitize", op="t") == "sanitize"
+    assert guards.resolve_nonfinite("raise", op="t") == "raise"
     with pytest.raises(ValueError):
         guards.resolve_nonfinite("ignore", op="t")
 

@@ -16,7 +16,7 @@ import torch
 
 from repro.core import linrec as jax_linrec
 from repro.core import segmented as jax_segmented
-from repro_torch.core import autotune
+from repro_torch.core import autotune, guards
 from repro_torch.core.linrec import cummax, cumprod
 from repro_torch.core.segmented import SegmentedBatch, segment_linear_scan
 
@@ -126,8 +126,22 @@ def test_segment_linear_scan_batch_empty_and_validation():
     assert out.shape == (0,) and out.dtype == torch.float32
     with pytest.raises(ValueError):
         segment_linear_scan(a, torch.ones(5), [0, 2, 4])
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        segment_linear_scan(a, torch.ones(5), [0, 5], nonfinite="raise")
+    # the non-finite policies: JAX's outcome, and JAX's values under sanitize
+    an = np.asarray([2.0, np.nan, 2.0, np.inf, 0.5], np.float32)
+    bn = np.asarray([1.0, 1.0, -np.inf, 1.0, np.nan], np.float32)
+    off = np.asarray([0, 2, 5], np.int32)
+    with pytest.raises(guards.NonFiniteError):
+        segment_linear_scan(torch.from_numpy(an), torch.ones(5), [0, 5], nonfinite="raise")
+    with pytest.raises(jax_segmented.guards.NonFiniteError):
+        jax_segmented.segment_linear_scan(jnp.asarray(an), jnp.ones(5), jnp.asarray(off),
+                                          nonfinite="raise")
+    for method in METHODS:
+        want = _jit(lambda x, y, o: jax_segmented.segment_linear_scan(
+            x, y, o, method=method, nonfinite="sanitize", **KW), an, bn, off)
+        got = segment_linear_scan(torch.from_numpy(an), torch.from_numpy(bn),
+                                  torch.from_numpy(off), method=method,
+                                  nonfinite="sanitize", **KW)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_aliases_resolve_through_the_linear_scan_and_segment_scan_rows():

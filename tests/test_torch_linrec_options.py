@@ -21,6 +21,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import linrec as jax_linrec
+from repro_torch.core import guards
 from repro_torch.core import linrec as port_linrec
 from repro_torch.core.linrec import linear_scan
 from repro_torch.kernels import ops
@@ -176,8 +177,20 @@ def test_validation_and_grad_refusal():
         linear_scan(a, b, axis=1)
     with pytest.raises(NotImplementedError, match="Queue A item 2"):
         linear_scan(a, b, method="matmul", precision="compensated")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        linear_scan(a, b, nonfinite="sanitize")
+    # the non-finite policies: JAX's outcome and values (a -> 1, b -> 0)
+    an = np.asarray([1.0, np.nan, 2.0, np.inf], np.float32)
+    bn = np.asarray([1.0, 2.0, -np.inf, 3.0], np.float32)
+    want = np.asarray(jax_linrec.linear_scan(jnp.asarray(an), jnp.asarray(bn),
+                                             nonfinite="sanitize", method="vector"))
+    got = linear_scan(torch.from_numpy(an), torch.from_numpy(bn), nonfinite="sanitize",
+                      method="vector")
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(jax_linrec.guards.NonFiniteError):
+        jax_linrec.linear_scan(jnp.asarray(an), jnp.asarray(bn), nonfinite="raise")
+    with pytest.raises(guards.NonFiniteError):
+        linear_scan(torch.from_numpy(an), torch.from_numpy(bn), nonfinite="raise")
+    with pytest.raises(ValueError, match="nonfinite"):
+        linear_scan(a, b, nonfinite="ignore")
     for method in METHODS:
         with pytest.raises(NotImplementedError, match="gradient"):
             linear_scan(a.clone().requires_grad_(), b, method=method)

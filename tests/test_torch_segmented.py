@@ -125,14 +125,22 @@ def test_unported_options_raise():
     x, off = torch.ones(5), [0, 2, 5]
     with pytest.raises(NotImplementedError, match="item 2"):
         T.segment_linear_scan(x, x, off, method="matmul", precision="compensated")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.segment_linear_scan(x, x, off, nonfinite="sanitize")
+    xn = torch.tensor([1.0, float("nan"), 1.0, float("inf"), 1.0])
+    jn = jnp.asarray(xn.numpy())
+    np.testing.assert_array_equal(
+        T.segment_linear_scan(xn, xn, off, nonfinite="sanitize").numpy(),
+        np.asarray(J.segment_linear_scan(jn, jn, jnp.asarray(off), nonfinite="sanitize")))
     with pytest.raises(NotImplementedError, match="item 2"):
         T.segment_scan(x, off, method="matmul", precision="compensated")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.segment_scan(x, off, nonfinite="sanitize")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.segment_top_p_sample(x, off, nonfinite="raise")
+    np.testing.assert_array_equal(
+        T.segment_scan(xn, off, nonfinite="sanitize").numpy(),
+        np.asarray(J.segment_scan(jn, jnp.asarray(off), nonfinite="sanitize")))
+    with pytest.raises(guards.NonFiniteError):
+        T.segment_top_p_sample(xn, off, nonfinite="raise")
+    with pytest.raises(J.guards.NonFiniteError):
+        J.segment_top_p_sample(jn, jnp.asarray(off), None, nonfinite="raise")
+    with pytest.raises(ValueError, match="nonfinite"):
+        T.segment_scan(x, off, nonfinite="ignore")
 
 
 # ---- segment_scan and the ops read off it ----

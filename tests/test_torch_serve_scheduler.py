@@ -32,6 +32,7 @@ from repro.serving.scheduler import Request as JaxRequest
 from repro.serving.scheduler import poisson_trace as jax_poisson_trace
 from repro_torch.analysis.streams import DenseReplay, first_divergence, step_margin
 from repro_torch.configs import base as port_base
+from repro_torch.core import guards
 from repro_torch.convert import params_from_jax
 from repro_torch.launch.world import run_world
 from repro_torch.models import attention as att
@@ -384,6 +385,26 @@ def test_step_margin_reads_the_decision_distance():
 # ---------------------------------------------------------------------------
 # the engine against JAX's, and against the port's solo ServeEngine
 # ---------------------------------------------------------------------------
+
+
+def test_page_budget_guard_fires_under_checks():
+    """Counterpart of JAX's test: under ``checks()`` a running row positioned past
+    its page budget fails ``_decode_n``'s guard before any decode step; a done row
+    at that position does not."""
+    eng = _engine()
+    cap = eng.n_blocks * PS
+    eng._pos[:] = cap                                   # past the budget
+    eng._done[:] = False
+    eng._rem[:] = 1
+    with guards.checks():
+        with pytest.raises(guards.GuardCheckError, match="page budget"):
+            eng._decode_n(2)
+        eng._done[1] = True                    # row 1 done, its budget not counted
+        eng._pos[1], eng._rem[1] = cap - 1, 5
+        eng._pos[0], eng._rem[0] = cap - 2, 2          # row 0 ends on its last slot
+        eng._budget[:] = 5                             # uniforms 3 and 4 of 5
+        out, steps, done, rem = eng._decode_n(2)
+    assert out.shape == (eng.max_batch, 2) and steps == 2 and rem[0] == 0
 
 
 def test_poisson_trace_equals_jax():

@@ -228,8 +228,10 @@ def test_top_p_sample_validates():
                dict(nonfinite="bogus")):
         with pytest.raises(ValueError):
             P.top_p_sample(x, **kw)
-    with pytest.raises(NotImplementedError):
-        P.top_p_sample(x, nonfinite="sanitize")
+    want = jax_top_p_sample(jnp.zeros((1, 4)), None, u=jnp.asarray([[0.5]]),
+                            nonfinite="sanitize")
+    assert P.top_p_sample(x, nonfinite="sanitize",
+                          u=torch.tensor([[0.5]])).tolist() == np.asarray(want).tolist()
     with pytest.raises(ValueError):
         P.radix_sort(torch.zeros(4, dtype=torch.int32), bits_per_pass=0)
 

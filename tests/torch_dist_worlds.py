@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import comm, dist_ops, distributed
+from repro_torch.core import comm, dist_ops, distributed, guards
 from repro_torch.core.primitives import radix_sort
 from repro_torch.kernels import ops
 
@@ -82,8 +82,11 @@ def run_case(case: dict, group=None) -> dict:
         logits = _tensor(case["logits"])
         n = logits.shape[-1]
         u = _tensor(case["u"])
-        tok, counts = _counted(lambda: dist_ops.dist_top_p_sample(shard(logits), n, group,
-                                                                  u=u, **kw))
+        try:
+            tok, counts = _counted(lambda: dist_ops.dist_top_p_sample(shard(logits), n,
+                                                                      group, u=u, **kw))
+        except guards.NonFiniteError:                # nonfinite="raise", on every rank
+            return {"out": [], "counts": comm.comm_counts(), "raised": "NonFiniteError"}
         out = [tok]
     elif op == "mcscan":
         x = _tensor(case["x"], case["dtype"])
