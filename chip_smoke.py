@@ -59,8 +59,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (one CTA a tile, exact), and five repeated fp32 calls bit-equal;
 10. guards -- the non-finite policies through the public entry points at (4, 2^24),
               the inputs poisoned by ``analysis/faults.py`` ``inject_nonfinite``
-              (NaN, +inf, -inf): ``scan``, ``segment_scan`` and ``linear_scan`` on
-              "kernel" (B1, B9, B13) and "blocked" (B2-B4, B10-B12, B14-B16):
+              (NaN, +inf, -inf): ``scan``, ``segment_scan``, ``linear_scan`` and
+              ``segment_linear_scan`` on "kernel" (B1, B9, B13) and "blocked" (B2-B4,
+              B10-B12, B14-B16):
               ``raise`` refuses with every launch counter at 0, ``sanitize`` is
               finite and bit-equal to the same method on the identity-filled input
               with the same launches, ``propagate`` puts NaN and ±inf exactly where
@@ -90,35 +91,49 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ``method_override("kernel")`` and ``("blocked")``, with
               ``sample_packed`` on a ragged batch) on llama3-8b at full width,
               32 layers, bf16;
-12. ssd    -- ``ssd_scan`` at zamba2's shapes on "kernel" (B1 + B13) and "blocked"
+12. auto   -- ``method="auto"`` on the table's ``"cuda"`` backend, with
+              ``AutotuneFallbackWarning`` an error for the whole run: (a) the table is
+              valid, its "cuda" backend covers ``TUNED_OPS`` and ``build_table`` on the
+              committed ``cuda_sweep.json`` reproduces it (the sweep's card printed
+              beside this one); (b) every tuned op and alias (the ``dist_*`` ones
+              resolved only), every dtype of its family in the table, at each
+              breakpoint and inside each bucket (at most 2^24 elements a call): the
+              default call resolves to the table's method, launches what the call
+              with that method given explicitly launches, and is bit-equal to it;
+              (c) at eight spot points every method and the default, eager, in turns:
+              the default within 4x of the fastest (JAX's ``--auto-factor 4`` gate);
+              (d) after ``main``'s serving, ``ServeEngine(sampler="topp_auto")`` for
+              4 decode steps on its weights: the method it resolved, its launches and
+              tokens equal to the explicit sampler's, every token in the band's window;
+13. ssd    -- ``ssd_scan`` at zamba2's shapes on "kernel" (B1 + B13) and "blocked"
               (B4 + B16) against "vector" and the fp64 sequential oracle;
-13. serve_zamba2 -- zamba2-1.2b at full width and depth (38 layers, bf16) serving
+14. serve_zamba2 -- zamba2-1.2b at full width and depth (38 layers, bf16) serving
               batch 4, prompt 2048, 32 new tokens with ``topp_kernel`` under
               ``scan_method="kernel"`` and ``"blocked"``, exact launch counts;
-14. b6     -- the multi-way split kernel against its plain version at (4, 2^24),
+15. b6     -- the multi-way split kernel against its plain version at (4, 2^24),
               R = 16, exact; at R = 256 and R = 10 against a stable argsort and a
               bincount; a ragged row, R = 1, empty buckets, out-of-range digits,
               bf16, int32 and int64 payloads, R = 511 and 512 on either side of the
               tile split's ceiling, R = 5000; the dist phase's vocab shards; one
               launch at and around the edge of its tiles, exact;
-15. b17    -- the SSD chunk kernel against its plain version and the fp64 oracle at
+16. b17    -- the SSD chunk kernel against its plain version and the fp64 oracle at
               zamba2's shapes: the ``ssd`` inputs, zamba2's init decays, a ragged S;
               its chunk-parallel pass: five repeated calls bit-equal, a CUDA-graph
               replay equal to the eager call, S of 1, Q - 1, Q, Q + 1 and 3Q + 17
               (one CTA a chunk), a chain of 256 chunks;
-16. main_multisplit -- ``multi_split(method="kernel")`` at (4, 2^24), R = 16: one
+17. main_multisplit -- ``multi_split(method="kernel")`` at (4, 2^24), R = 16: one
               B6 launch and nothing else;
-17. forward_zamba2 -- zamba2-1.2b (38 layers, bf16) ``forward`` and ``loss`` on
+18. forward_zamba2 -- zamba2-1.2b (38 layers, bf16) ``forward`` and ``loss`` on
               4 x 2048 tokens under each ``scan_method``: 38 B17 launches a pass on
               "kernel", 38 B4 + 38 B16 on "blocked", none on "vector"; the SMOKE
               model's fp32 forward on the card against the CPU, and against B17's
               plain version on two inputs (one the card tests');
-18. b7h    -- the radix pass that exports its histogram against its plain version at
+19. b7h    -- the radix pass that exports its histogram against its plain version at
               (4, 2^22) int32 keys (one shard of a 2^24 row at D = 4): every shift of
               the 8 radix-16 passes, chained into a stable sort; a ragged row and
               16-bit keys; the tile-edge cases of ``b7``; keys, permutation and counts
               exact, counts equal to a bincount of the digits;
-19. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
+20. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
               card (a process a rank): dist_sort / dist_topk (method="kernel") of
               (4, 2^24) fp32 and bf16 keys bit-equal to the local kernel sort, exactly
               8 (fp32) or 4 (bf16) B7h launches a rank and no B7; dist_top_p_sample
@@ -129,12 +144,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (method="kernel", nonfinite="sanitize") on the guards phase's sampler
               rows, the poisoned rows' greedy tokens; every call's collective calls
               and bytes equal to modeled_dist_traffic;
-20. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
+21. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
               and depth (bf16, random weights from seed 0), batch 4, prompt 128, 32
               new tokens, in a world of 2 ranks on the card: the same stream on both
               ranks, every token inside the window of the solo sampler, the decode
               step's ms and collectives;
-21. timing -- kernel, plain-version and library times beside each kernel's bound, and
+22. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
@@ -175,6 +190,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -278,8 +294,10 @@ from repro_torch.analysis.faults import inject_nonfinite  # noqa: E402
 from repro_torch.analysis.collectives import modeled_dist_traffic  # noqa: E402
 from repro_torch.analysis.streams import (DenseReplay, first_divergence,  # noqa: E402
                                           step_margin)
-from repro_torch.core import comm, guards  # noqa: E402
-from repro_torch.core.autotune import method_override  # noqa: E402
+from repro_torch.core import autotune, comm, guards  # noqa: E402
+from repro_torch.core import primitives as prim  # noqa: E402
+from repro_torch.core import segmented as segm  # noqa: E402
+from repro_torch.core.autotune import AutotuneFallbackWarning, method_override  # noqa: E402
 from repro_torch.core.dist_ops import (dist_linear_scan, dist_segment_scan,  # noqa: E402
                                        dist_sort, dist_top_p_sample, dist_topk)
 from repro_torch.core.distributed import mcscan  # noqa: E402
@@ -287,6 +305,7 @@ from repro_torch.core.linrec import cummax, cumprod, linear_scan  # noqa: E402
 from repro_torch.core.primitives import (compress, multi_split, radix_sort,  # noqa: E402
                                          top_p_sample, weighted_sample)
 from repro_torch.core.scan import accum_dtype_for, scan  # noqa: E402
+from repro_torch.core.scan import cumsum as prim_cumsum  # noqa: E402
 from repro_torch.core.segmented import (SegmentedBatch, boundary_flags,  # noqa: E402
                                         segment_compress, segment_linear_scan,
                                         segment_scan, segment_top_p_sample)
@@ -299,6 +318,7 @@ from repro_torch.models.model import build_model, get_config  # noqa: E402
 from repro_torch.serving import paged_kv  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousEngine, poisson_trace  # noqa: E402
+from repro_torch.tools import sweep, tune  # noqa: E402
 
 DEV = torch.device("cuda")
 
@@ -1585,7 +1605,8 @@ GUARD_REPS = 5
 # on the card.
 PROPAGATE_REF = {"scan/kernel": "fp64", "scan/blocked": "fp64",
                  "segment_scan/kernel": "fp64", "segment_scan/blocked": "fp64",
-                 "linear_scan/kernel": "fp64", "linear_scan/blocked": "fp64"}
+                 "linear_scan/kernel": "fp64", "linear_scan/blocked": "fp64",
+                 "segment_linear_scan/kernel": "fp64", "segment_linear_scan/blocked": "fp64"}
 # The same for the first inf and first NaN step of the overflow rows: "fp64", or
 # "fold32", the affine fold of the pairs in fp32 applied to the zero state, which
 # is what B13-B16 compute (past an overflowed product, inf·0 = NaN where the
@@ -1682,11 +1703,11 @@ def guard_path(path, clean, poison, poison_p, call, sanitized, plain, ref64, sca
 
 
 def guard_operators(gen) -> dict:
-    """``scan``, ``segment_scan`` and ``linear_scan`` on "kernel" and "blocked" at
-    (4, 2^24) fp32 under each policy (``guard_path``), the inputs poisoned by
-    ``inject_nonfinite``.  ``linear_scan``'s propagate rows poison ``b`` only, with
-    ``a`` in [1 - 2^-20, 1] (no product of a row underflows); raise and sanitize
-    poison ``a`` and ``b``."""
+    """``scan``, ``segment_scan``, ``linear_scan`` and ``segment_linear_scan`` on
+    "kernel" and "blocked" at (4, 2^24) fp32 under each policy (``guard_path``), the
+    inputs poisoned by ``inject_nonfinite``.  The recurrences' propagate rows poison
+    ``b`` only, with ``a`` in [1 - 2^-20, 1] (no product of a row underflows); raise
+    and sanitize poison ``a`` and ``b``."""
     rows, n = SCAN_SHAPE
     f32 = torch.float32
     out = {}
@@ -1752,6 +1773,26 @@ def guard_operators(gen) -> dict:
             lambda ab: [torch.where(torch.isfinite(ab[0]), ab[0], 1.0),
                         torch.where(torch.isfinite(ab[1]), ab[1], 0.0)],
             plain_lin[m], lin_ref64, lscale, want_lin[m])
+    # segment_linear_scan: the same rows cut into segments (offsets shared by the
+    # rows); it zeroes a at each segment start and runs linear_scan, so its
+    # references are the recurrence of the cut rows
+    soff = seg_offsets(np.random.default_rng(SEG_SEED + 4), n)
+    starts = boundary_flags(soff, n) > 0
+
+    def cut(aa):
+        return torch.where(starts, 0.0, aa)
+
+    sl_scale = lin_ref64(cut(a).abs(), b.abs())
+    for m in ("kernel", "blocked"):
+        out[f"segment_linear_scan/{m}"] = guard_path(
+            f"segment_linear_scan/{m}", (a, b),
+            lambda k: (inj(a, k, GUARD_SEED + 1), inj(b, k)), lambda k: (a, inj(b, k)),
+            lambda aa, bb, m=m, **kw: segment_linear_scan(aa, bb, soff, method=m, **kw),
+            lambda ab: [torch.where(torch.isfinite(ab[0]), ab[0], 1.0),
+                        torch.where(torch.isfinite(ab[1]), ab[1], 0.0)],
+            lambda aa, bb, m=m: plain_lin[m](cut(aa), bb),
+            lambda aa, bb: lin_ref64(cut(aa), bb), sl_scale, want_lin[m])
+    out["segment_linear_scan/kernel"]["segments"] = int(soff.numel() - 1)
     return out
 
 
@@ -2089,6 +2130,315 @@ def main_linrec(gen):
         check(e <= B1_F32_ULP, f"linear_scan({method}): {e} ulp > {B1_F32_ULP}")
     emit({"phase": "main_linrec", "shape": list(SCAN_SHAPE), "launches": runs, **res})
     return {k: sum(c[k] for c in runs.values()) for k in ops.KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# method="auto" on the card: the table's "cuda" backend
+# ---------------------------------------------------------------------------
+
+AUTO_MAX_ELEMENTS = 1 << 24         # a call's elements in the resolution checks
+AUTO_FACTOR = 4.0                   # gate (c): a default call within 4x of the fastest
+AUTO_REPS = 10                      # eager calls a method at a spot point, in turns
+AUTO_SERVE_STEPS = 4
+AUTO_SPLIT_SHAPE = (4, 1 << 20)     # gate (c)'s split point
+AUTO_SEG_N = 1 << 20                # gate (c)'s packed segment_scan
+AUTO_LINREC_SHAPE = (4, 1 << 22)    # gate (c)'s linear_scan point
+
+
+@contextlib.contextmanager
+def resolutions():
+    """Record every table resolution, ``(op, n, dtype, backend, method)``, made in
+    the block (``maybe_resolve`` calls ``autotune.resolve_method`` by name)."""
+    rec, orig = [], autotune.resolve_method
+
+    def spy(op, n, dtype, *, backend):
+        m = orig(op, n, dtype, backend=backend)
+        rec.append((op, int(n), autotune.dtype_name(dtype), backend, m))
+        return m
+
+    autotune.resolve_method = spy
+    try:
+        yield rec
+    finally:
+        autotune.resolve_method = orig
+
+
+def table_pick(table, op, n, dt):
+    """The ``"cuda"`` backend's method for ``op`` at length ``n`` and dtype name
+    ``dt``, read off the table by hand (the largest breakpoint <= n; a missing
+    dtype falls to float32)."""
+    optab = table["backends"]["cuda"][autotune.OP_ALIASES.get(op, op)]
+    entries = optab.get(dt) or optab.get("float32") or optab[sorted(optab)[0]]
+    m = entries[0][1]
+    for b, mm in entries:
+        if n >= b:
+            m = mm
+    return m
+
+
+def auto_lengths(entries) -> list:
+    """Every breakpoint of a bucket list and one length inside each bucket, up to
+    ``AUTO_MAX_ELEMENTS``."""
+    bps = [b for b, _ in entries]
+    ns = set(bps)
+    for lo, hi in zip(bps, bps[1:] + [None]):
+        ns.add((lo + hi) // 2 if hi else min(2 * lo, AUTO_MAX_ELEMENTS))
+    return sorted(n for n in ns if n <= AUTO_MAX_ELEMENTS)
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def auto_call(op, n, dtype, gen):
+    """The entry point of ``op`` on CUDA inputs of length ``n``: a function of the
+    call's keyword arguments (none: the default call, ``method="auto"``)."""
+    rows = max(1, min(4, AUTO_MAX_ELEMENTS // n))
+
+    def pay(shape=(rows, n)):
+        if dtype == torch.int8:
+            return torch.randint(-100, 100, shape, generator=gen, device=DEV).to(dtype)
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+    u = torch.rand((rows, 1), generator=gen, device=DEV)
+    fam = autotune.OP_ALIASES.get(op, op)
+    if fam == "segment_scan":
+        segs = max(1, n // 1024)
+        cuts = torch.sort(torch.randint(0, n + 1, (segs - 1,), generator=gen,
+                                        device=DEV)).values
+        off = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), n)]).to(torch.int32)
+        x = pay((n,))
+        mask = torch.rand((n,), generator=gen, device=DEV) < 0.5
+        a = 0.9 + 0.1 * torch.rand((n,), generator=gen, device=DEV)
+        us = torch.rand((segs, 1), generator=gen, device=DEV)
+        return {
+            "segment_scan": lambda **kw: segment_scan(x, off, **kw),
+            "segment_cumsum": lambda **kw: segm.segment_cumsum(x, off, **kw),
+            "segment_sums": lambda **kw: segm.segment_sums(x, off, **kw),
+            "segment_softmax": lambda **kw: segm.segment_softmax(x, off, **kw),
+            "segment_compress": lambda **kw: segment_compress(x, mask, off, **kw),
+            "segment_sort": lambda **kw: segm.segment_sort(x, off, **kw),
+            "segment_topk": lambda **kw: segm.segment_topk(x, off, k=2, **kw),
+            "segment_top_p_sample": lambda **kw: segment_top_p_sample(x, off, u=us, **kw),
+            "segment_linear_scan": lambda **kw: segment_linear_scan(a, x, off, **kw),
+            # its own default is "vector": "auto" reaches the table only when asked
+            "segment_ids": lambda **kw: segm.segment_ids(off, n, **({"method": "auto"}
+                                                                   | kw)),
+        }[op]
+    x = pay()
+    if fam == "scan":
+        w = torch.rand((rows, n), generator=gen, device=DEV).to(dtype)
+        return {"scan": lambda **kw: scan(x, **kw),
+                "cumsum": lambda **kw: prim_cumsum(x, **kw),
+                "weighted_sample": lambda **kw: weighted_sample(w, u=u, **kw)}[op]
+    if fam == "split":
+        mask = torch.rand((rows, n), generator=gen, device=DEV) < 0.5
+        digits = torch.randint(0, B6_BUCKETS, (rows, n), generator=gen, device=DEV)
+        return {"split": lambda **kw: prim.split(x, mask, **kw),
+                "compress": lambda **kw: compress(x, mask, **kw),
+                "multi_split": lambda **kw: multi_split(x, digits, B6_BUCKETS, **kw)}[op]
+    if fam == "sort":
+        return {"sort": lambda **kw: prim.sort(x, **kw),
+                "radix_sort": lambda **kw: radix_sort(x, **kw),
+                "topk": lambda **kw: prim.topk(x, min(8, n), **kw)}[op]
+    if fam == "top_p_sample":
+        logits = torch.randn((rows, n), generator=gen, device=DEV) * 3
+        return lambda **kw: top_p_sample(logits, p=0.9, u=u, **kw)
+    a = (0.9 + 0.1 * torch.rand((rows, n), generator=gen, device=DEV)).to(dtype)
+    return {"linear_scan": lambda **kw: linear_scan(a, x, **kw),
+            "cumprod": lambda **kw: cumprod(1.0 + 1e-3 * x, **kw),
+            "cummax": lambda **kw: cummax(x, **kw)}[op]
+
+
+def auto_table(smi: str) -> dict:
+    """(a): the committed table is valid, its "cuda" backend covers the tuned ops and
+    ``build_table`` on the committed sweep rows reproduces it."""
+    table = autotune.load_table()
+    probs = autotune.validate_table(table)
+    check(not probs, f"auto: the tuning table is not valid: {probs}")
+    check(set(autotune.TUNED_OPS) <= set(table["backends"]["cuda"]),
+          f"auto: the cuda backend lacks {set(autotune.TUNED_OPS) - set(table['backends']['cuda'])}")
+    with open(tune.sweep_path(autotune.default_table_path())) as f:
+        sweep = json.load(f)
+    built = autotune.build_table(sweep["rows"], backend="cuda")
+    check(not built["fallbacks"] and built["backends"]["cuda"] == table["backends"]["cuda"],
+          "auto: build_table on the committed sweep rows does not reproduce the cuda backend")
+    print(f"auto: the table's cuda backend was measured on {sweep['provenance']['nvidia_smi']};"
+          f" this run: {smi}", flush=True)
+    return {"sweep_card": sweep["provenance"]["nvidia_smi"], "this_card": smi,
+            "sweep_seconds": sweep["provenance"].get("sweep_seconds"),
+            "buckets": table["backends"]["cuda"]}
+
+
+def auto_resolution(gen, table) -> dict:
+    """(b): every tuned op and alias, every dtype of its family in the table, at each
+    breakpoint and inside each bucket: the default call resolves to the table's
+    method, launches what the explicit call of that method launches, and is
+    bit-equal to it.  The dist_* aliases are resolved only."""
+    res = {}
+    for op in sorted(set(autotune.TUNED_OPS) | set(autotune.OP_ALIASES)):
+        fam = autotune.OP_ALIASES.get(op, op)
+        for dt, entries in sorted(table["backends"]["cuda"][fam].items()):
+            if op == "weighted_sample" and dt == "int8":
+                continue                    # weights are probabilities: float only
+            dtype = getattr(torch, dt)
+            for n in auto_lengths(entries):
+                want = table_pick(table, op, n, dt)
+                key = f"{op}/{dt}/n={n}"
+                if op.startswith("dist_"):
+                    got = autotune.resolve_method(op, n, dtype, backend="cuda")
+                    check(got == want, f"auto {key}: resolved {got}, the table says {want}")
+                    res[key] = {"method": got}
+                    continue
+                fn = auto_call(op, n, dtype, gen)
+                ops.reset_launch_counts()
+                with resolutions() as rec:
+                    out = fn()
+                sync()
+                counts = ops.launch_counts()
+                check(rec and rec[0][1] == n and rec[0][4] == table_pick(table, *rec[0][:3]),
+                      f"auto {key}: resolved {rec[:1]}, the table says otherwise")
+                got = rec[0][4]
+                ops.reset_launch_counts()
+                ref = fn(method=got)
+                sync()
+                check(ops.launch_counts() == counts,
+                      f"auto {key}: the default call launched {counts}, method={got!r} "
+                      f"{ops.launch_counts()}")
+                check(_same(out, ref), f"auto {key}: the default call != method={got!r}")
+                res[key] = {"method": got, "resolved_as": list(rec[0][:3]),
+                            "launches": {k: v for k, v in counts.items() if v}}
+                del fn, out, ref
+    return res
+
+
+def auto_spots(gen) -> dict:
+    """(c), the port of JAX's auto-vs-oracle gate (``tools/compare_bench.py
+    --auto-factor 4``): at each point every method and the default call, eager, in
+    turns; the default within ``AUTO_FACTOR`` of the fastest method."""
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    x4k, x24, xl = rnd((4, 4096)), rnd(SCAN_SHAPE), rnd(AUTO_LINREC_SHAPE)
+    s8 = torch.randint(-100, 100, AUTO_SPLIT_SHAPE, generator=gen, device=DEV).to(torch.int8)
+    f8 = torch.rand(AUTO_SPLIT_SHAPE, generator=gen, device=DEV) < 0.5
+    kb = rnd((4, VOCAB)).to(torch.bfloat16)
+    logits = rnd((4, VOCAB)) * 3
+    u = torch.rand((4, 1), generator=gen, device=DEV)
+    n = AUTO_SEG_N
+    cuts = torch.sort(torch.randint(0, n + 1, (n // 1024 - 1,), generator=gen,
+                                    device=DEV)).values
+    off = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), n)]).to(torch.int32)
+    xs = rnd((n,))
+    al = 0.9 + 0.1 * torch.rand(AUTO_LINREC_SHAPE, generator=gen, device=DEV)
+    ssd_a = torch.exp(-torch.rand(SSD_ROWS[:3] + (1, 1), generator=gen, device=DEV))
+    ssd_b = rnd(SSD_ROWS)
+    points = {
+        "scan float32 (4, 4096)": lambda **kw: scan(x4k, **kw),
+        "scan float32 (4, 2^24)": lambda **kw: scan(x24, **kw),
+        "split int8 (4, 2^20)": lambda **kw: prim.split(s8, f8, **kw),
+        "sort bfloat16 (4, 128256)": lambda **kw: radix_sort(kb, **kw),
+        "top_p_sample (4, 128256)": lambda **kw: top_p_sample(logits, p=0.9, u=u, **kw),
+        "segment_scan 2^20 packed": lambda **kw: segment_scan(xs, off, **kw),
+        "linear_scan float32 (4, 2^22)": lambda **kw: linear_scan(al, xl, **kw),
+        "linear_scan SSD (4, 16, 64, 64, 64) axis 1": lambda **kw: linear_scan(
+            ssd_a, ssd_b, axis=1, tile_s=SSD_ROWS[1], **kw),
+    }
+    res = {}
+    for name, fn in points.items():
+        calls = {m: (lambda m=m, fn=fn: fn(method=m)) for m in autotune.CONCRETE_METHODS}
+        calls["auto"] = fn
+        with resolutions() as rec:
+            fn()
+        times, oom = sweep.time_in_turns(calls, AUTO_REPS)
+        check("auto" in times, f"auto {name}: the default call ran out of memory")
+        ms = {m: statistics.median(t) * 1e3 for m, t in times.items()}
+        fastest = min((m for m in autotune.CONCRETE_METHODS if m in ms), key=ms.get)
+        ratio = ms["auto"] / ms[fastest]
+        print(f"auto {name}: default ({rec[0][4]}) {ms['auto']:.4g} ms, fastest "
+              f"({fastest}) {ms[fastest]:.4g} ms, ratio {ratio:.3f}", flush=True)
+        res[name] = {"resolved": rec[0][4], "ms": ms, "fastest": fastest,
+                     "ratio_to_fastest": ratio, "out_of_memory": oom}
+        check(ratio <= AUTO_FACTOR, f"auto {name}: the default call ({rec[0][4]}) takes "
+              f"{ratio:.2f}x the fastest method ({fastest}), over {AUTO_FACTOR}x")
+        del calls
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_auto(gen, smi: str) -> dict:
+    """The ``auto`` phase: (a) the table, (b) resolution and launches, (c) spot times
+    against the fastest method.  (d), the serving default, runs in ``auto_serving``
+    on ``main_serve``'s weights."""
+    t0 = time.perf_counter()
+    res = {"table": auto_table(smi)}
+    table = autotune.load_table()
+    res["resolution"] = auto_resolution(gen, table)
+    t_b = time.perf_counter() - t0
+    res["spots"] = auto_spots(gen)
+    by = collections.Counter(v["method"] for v in res["resolution"].values())
+    launched = collections.Counter()
+    for v in res["resolution"].values():
+        launched.update(v.get("launches", {}))
+    emit({"phase": "auto", "table": res["table"], "spots": res["spots"],
+          "calls_checked": len(res["resolution"]), "calls_by_method": dict(by),
+          "launches_of_default_calls": dict(launched), "resolution_seconds": t_b,
+          "seconds": time.perf_counter() - t0})
+    return res
+
+
+def auto_serving(params, gen) -> dict:
+    """(d): ``ServeEngine(sampler="topp_auto")`` for ``AUTO_SERVE_STEPS`` decode steps
+    on llama3-8b: the method its sampler resolved, its launches (those of the
+    engine whose sampler names that method explicitly, with the same tokens, where
+    one exists), every token held to the band's window (``check_sampled``)."""
+    cfg = get_config("llama3-8b")
+    b, s, new = SERVE["batch"], SERVE["prompt"], AUTO_SERVE_STEPS
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=DEV)}
+    uniforms = torch.rand((new, b), generator=gen, device=DEV)
+    eng = ServeEngine(cfg, params, max_len=s + new, sampler="topp_auto")
+    eng.generate(batch, 1, uniforms=uniforms[:1])                   # warm-up
+    ops.reset_launch_counts()
+    with resolutions() as rec:
+        toks = eng.generate(batch, new, uniforms=uniforms)
+    sync()
+    counts = ops.launch_counts()
+    picks = sorted({r for r in rec})
+    check(len(picks) == 1 and picks[0][0] == "top_p_sample" and picks[0][1] == cfg.vocab_size,
+          f"auto_serving: expected one resolution of top_p_sample at the vocabulary, got {picks}")
+    method = picks[0][4]
+    explicit = {"kernel": "topp_kernel", "blocked": "topp_blocked",
+                "matmul": "topp_scan"}.get(method)
+    same = None
+    if explicit:
+        e2 = ServeEngine(cfg, params, max_len=s + new, sampler=explicit)
+        e2.generate(batch, 1, uniforms=uniforms[:1])
+        ops.reset_launch_counts()
+        t2 = e2.generate(batch, new, uniforms=uniforms)
+        sync()
+        check(ops.launch_counts() == counts, f"auto_serving: topp_auto ({method}) launched "
+              f"{counts}, {explicit} {ops.launch_counts()}")
+        same = torch.equal(t2, toks)
+        check(same, f"auto_serving: topp_auto ({method}) and {explicit} drew other tokens")
+    held = check_sampled(eng, batch, uniforms, toks, new)
+    out = {"resolved": picks[0], "launches": {k: v for k, v in counts.items() if v},
+           "explicit_sampler": explicit, "tokens_equal_to_explicit": same, "held": held}
+    emit({"phase": "auto", "part": "serving", "arch": cfg.name, "batch": b, "prompt": s,
+          "steps": new, **out})
+    return out
+
+
+def alloc_launches(eng) -> dict:
+    """The launches of one page allocation of ``eng``: a ``compress`` over the page
+    ids on the method its ``alloc_method`` resolves to (counted here, outside any
+    checked run)."""
+    a = eng.alloc
+    ops.reset_launch_counts()
+    compress(a._ids, torch.ones_like(a._ids, dtype=torch.bool), method=a.method)
+    sync()
+    return ops.launch_counts()
 
 
 def ssd_inputs(gen, dtype=torch.float32):
@@ -2694,6 +3044,9 @@ def serve_continuous(params) -> dict:
     parity = continuous_layout_parity(eng0, trace[0])
     gap = batch_logit_gap(eng0.model, params, trace[:eng0.max_batch], n_ctx)
     t = lap("parity_and_batch_gap", t)
+    # one allocation's launches: none on "matmul"/"vector", B5 on "kernel" (the
+    # topp_scan run's allocator), B2-B4 on "blocked"; "auto" resolves at n_pages
+    per_alloc = {s: alloc_launches(e) for s, e in engines.items()}
     out, launches = {}, {k: 0 for k in ops.KERNELS}
     for sampler, eng in engines.items():
         probe = TickProbe(eng, profile=CONT_PROFILE_TICK)
@@ -2717,7 +3070,7 @@ def serve_continuous(params) -> dict:
         counts = ops.launch_counts()
         calls = eng.alloc.calls
         expect_counts(counts, f"serve_continuous {sampler}",
-                      **({"split": calls} if eng.alloc_method == "kernel" else {}))
+                      **{k: v * calls for k, v in per_alloc[sampler].items()})
         launches = {k: launches[k] + counts[k] for k in ops.KERNELS}
         check(_same_run(first, res),
               f"serve_continuous {sampler}: two runs of the trace differ")
@@ -2733,7 +3086,8 @@ def serve_continuous(params) -> dict:
                             gap["max_abs_logit_diff"])
         t = lap(f"{sampler}_solo", t)
         out[sampler] = {
-            "alloc_method": eng.alloc_method, "launches": counts,
+            "alloc_method": eng.alloc_method, "alloc_launches": {
+                k: v for k, v in per_alloc[sampler].items() if v}, "launches": counts,
             "alloc_calls": calls, "admissions": len(trace), "alloc_refused": eng.alloc.refused,
             "seconds": wall, "tokens_per_s": st["total_tokens"] / wall, **st,
             "p50_per_token_latency_steps": float(np.percentile(lat, 50)),
@@ -2772,6 +3126,7 @@ def guards_serving(params) -> dict:
     cfg = get_config("llama3-8b")
     trace = poisson_trace(vocab_size=cfg.vocab_size, **CONT_TRACE)
     eng = ContinuousEngine(cfg, params, sampler="greedy", **CONTINUOUS)
+    per_alloc = alloc_launches(eng)
     eng.run(trace[:2])                                              # warm-up
     runs, out = {}, {}
     for name, on in (("checks_off", False), ("checks_on", True)):
@@ -2784,7 +3139,9 @@ def guards_serving(params) -> dict:
         sync()
         wall = time.perf_counter() - t0
         eng._decode_n = probe.orig
-        expect_counts(ops.launch_counts(), f"guards_serving {name}")
+        calls = eng.alloc.calls                 # each run makes a fresh allocator
+        expect_counts(ops.launch_counts(), f"guards_serving {name}",
+                      **{k: v * calls for k, v in per_alloc.items()})
         out[name] = {"seconds": wall, "ms_per_tick": float(np.mean(probe.ms)),
                      "host_syncs_per_tick": probe.syncs,
                      "host_syncs_per_tick_median": float(np.median(probe.syncs))}
@@ -3305,6 +3662,7 @@ def dist_rank(shape, vocab, seed, time_reps):
     just before and read just after, and its launches and collectives must be
     exact.  The references are the single-device operators on the whole input, on
     this rank."""
+    warnings.simplefilter("error", AutotuneFallbackWarning)
     d, me = comm.axis_size(), comm.axis_index()
     gen = torch.Generator(device=DEV).manual_seed(seed)
     b, n = shape
@@ -3525,6 +3883,7 @@ def phase_dist():
 def serve_sharded_rank(seed, batch, prompt, new):
     """One rank of ``serve_sharded``: the whole model on this rank, the vocab's
     half sampled here (``dist_top_p_sample``, ``method="matmul"``)."""
+    warnings.simplefilter("error", AutotuneFallbackWarning)
     me = comm.axis_index()
     cfg = get_config("llama3-8b")
     params = build_model(cfg).init(seed, device=DEV, dtype=torch.bfloat16)
@@ -4216,6 +4575,8 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi[0],
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # a default call that falls back to another backend's table fails the run
+    warnings.simplefilter("error", AutotuneFallbackWarning)
     gen = torch.Generator(device=DEV).manual_seed(1234)
     b1_err = phase_b1(gen)
     b7_err = phase_b7(gen)
@@ -4229,9 +4590,11 @@ def main() -> int:
     blocked_counts = main_blocked(gen)
     segmented_counts = main_segmented(gen)
     linrec_counts = main_linrec(gen)
+    phase_auto(gen, smi[0])
     ref = smoke_reference(gen)
     emit({"phase": "smoke_reference", **ref})
     serve_counts, serve_b_counts, serve_s_counts, llama = main_serve(gen)
+    auto_counts = auto_serving(llama, gen)["launches"]
     cont_counts = serve_continuous(llama)
     guards_serving(llama)
     del llama
@@ -4268,7 +4631,9 @@ def main() -> int:
          + zamba_counts["block_scan"] + forward_counts["block_scan"], b2b4_err["B4"],
          timing["B4"]),
         ("B5 split_tiles (SplitInd; launches: compress on the blocked pipeline, and the "
-         "continuous engine's page allocator under method='kernel', one an allocation)",
+         "continuous engines' page allocators, one an allocation: the topp_scan run's "
+         "method='kernel', and the greedy run's 'auto' where the cuda table resolves "
+         "129 pages to 'kernel')",
          "split.cu", "src/repro/kernels/split_mm.py:136",
          blocked_counts["split"] + cont_counts["split"], b5_err, timing["B5"]),
         ("B6 multi_split_tiles (stable R-way split, the tile split for R <= 511; times at "
@@ -4326,9 +4691,11 @@ def main() -> int:
          timing["B17"]),
     ]
     # every row also counts the dist phase's checked calls on every rank (the kernel
-    # methods' scans, splits and passes) and the topp_sharded run (none: "matmul")
+    # methods' scans, splits and passes), the topp_sharded run (none: "matmul") and
+    # the topp_auto run (the auto phase's serving default, on the "cuda" table)
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
-                    launches=n + dist_counts[f[:-3]] + sharded_counts[f[:-3]],
+                    launches=n + dist_counts[f[:-3]] + sharded_counts[f[:-3]]
+                    + auto_counts.get(f[:-3], 0),
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])

@@ -15,10 +15,15 @@ of the documented outcomes, never to silence or a crash inside a kernel:
   and ``"sanitize"`` (the identity element, the greedy token) document.
 
 JAX's ``"degraded"`` outcome (a failed lowering probe falling back to another
-method) does not exist here: the port has no fallback, and a kernel that fails
-to build or load raises.  The injectors are seeded, and
-:func:`inject_nonfinite` draws its positions from numpy exactly as the JAX
-package does, so both packages poison the same elements.
+method) does not exist here: the port has no fallback.  A kernel method whose
+libraries cannot be built or loaded raises
+:class:`repro_torch.core.guards.KernelUnavailableError` from the backend probe
+(``force_probe_failure`` simulates it), and :func:`classify` lets it
+propagate, as JAX's ``classify`` does with exceptions it does not know.
+
+The injectors are seeded, and :func:`inject_nonfinite` draws its positions
+from numpy exactly as the JAX package does, so both packages poison the same
+elements.
 """
 from __future__ import annotations
 
@@ -139,7 +144,8 @@ def classify(fn, *args, **kwargs) -> Tuple[str, Optional[object]]:
 
     Returns ``(outcome, detail)``: ``outcome`` is one of ``OUTCOMES`` and
     ``detail`` the result (``"ok"``) or the exception.  Any other exception
-    propagates: an undocumented failure is what the fault suite must flag.
+    propagates, :class:`~repro_torch.core.guards.KernelUnavailableError`
+    among them: an undocumented failure is what the fault suite must flag.
     A result on the card is synchronized before it counts as ``"ok"``.
 
     Example:

@@ -1,8 +1,7 @@
 """Guardrails: validation, the non-finite policy and opt-in checks.
 
-Port of ``repro/core/guards.py`` (``docs/architecture.md`` dispatch rule 10)
-but for its backend probe.  Its three layers, in the order an entry point
-runs them:
+Port of ``repro/core/guards.py`` (``docs/architecture.md`` dispatch rule 10).
+Its three layers, in the order an entry point runs them:
 
 1. **Validation** -- plain Python checks on concrete values (axis bounds,
    ``bits_per_pass``, probabilities, temperatures, CSR offsets) that raise
@@ -22,9 +21,18 @@ runs them:
    Predicates are thunks, so with checks off nothing is computed and no host
    sync happens.
 
-:func:`guards_disabled` turns all three off.  JAX's backend probe
-(``ensure_available``) is not ported: a kernel that fails to build or load
-raises, and no call falls back to another method.
+:func:`guards_disabled` turns all three off, and the backend probe with them.
+
+**The backend probe** (:func:`ensure_available`, dispatch rule 10).  Method
+resolution (:func:`repro_torch.core.autotune.maybe_resolve`) passes every
+``"kernel"`` and ``"blocked"`` method, explicit or resolved, through it.  On
+a CUDA device the first call of each (family, method) builds, if they are
+missing, and loads that family's CUDA libraries through
+``kernels/_build.py``; on the CPU it passes at once, since the kernels' plain
+versions run there.  Where JAX degrades a failed probe to another method with
+a ``ProbeFallbackWarning``, the port raises :class:`KernelUnavailableError`
+and never returns another method, so ``ProbeFallbackWarning`` has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -32,9 +40,11 @@ import contextlib
 import functools
 import math
 import os
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from repro_torch.core.autotune import OP_ALIASES, TUNED_OPS
 
 __all__ = [
     "NONFINITE", "ENV_VAR", "CHECKS_ENV_VAR", "NonFiniteError", "GuardCheckError",
@@ -45,6 +55,8 @@ __all__ = [
     "validate_positive", "validate_choice", "validate_probability",
     "validate_temperature", "validate_same_shape", "validate_broadcastable_to",
     "validate_offsets", "resolve_device", "refuse_grad",
+    "KernelUnavailableError", "ensure_available", "probe_build", "force_probe_failure",
+    "PROBE_LIBRARIES",
 ]
 
 NONFINITE = ("propagate", "raise", "sanitize")
@@ -58,6 +70,10 @@ class NonFiniteError(ValueError):
 
 class GuardCheckError(RuntimeError):
     """Raised by :func:`guard_check` when checks are on and its predicate is false."""
+
+
+class KernelUnavailableError(RuntimeError):
+    """Raised by :func:`ensure_available` when a kernel method cannot run on the card."""
 
 
 _NONFINITE_OVERRIDE: List[str] = []
@@ -431,3 +447,126 @@ def refuse_grad(*xs, op: str) -> None:
             f"{op} has no gradient in the port yet: its backward pass comes with "
             "training (ROADMAP Queue A item 11); run it under torch.no_grad() or on "
             "inputs that do not require grad")
+
+
+# ---------------------------------------------------------------------------
+# Backend probe (a raise, never a fallback)
+# ---------------------------------------------------------------------------
+
+# (probe family, method) -> the libraries its operators launch without going
+# through method resolution again (a nested operator call probes its own family)
+PROBE_LIBRARIES: Dict[Tuple[str, str], Tuple[str, ...]] = {
+    ("scan", "kernel"): ("scan_mm",),
+    ("scan", "blocked"): ("block_sums", "carry_scan", "block_scan"),
+    ("split", "kernel"): ("split", "multi_split"),
+    ("sort", "kernel"): ("radix_pass", "radix_pass_hist"),
+    ("top_p_sample", "kernel"): ("radix_pass", "radix_pass_hist", "multi_split",
+                                 "topp_tail"),
+    ("segment_scan", "kernel"): ("seg_scan",),
+    ("segment_scan", "blocked"): ("seg_summaries", "seg_carry", "seg_block_scan"),
+    ("linear_scan", "kernel"): ("linrec_scan",),
+    ("linear_scan", "blocked"): ("linrec_summaries", "linrec_carry", "linrec_block_scan"),
+}
+
+# (family, method) -> None once the libraries loaded, else the error (kept, so a
+# failed build is tried once a process)
+_PROBE_CACHE: Dict[Tuple[str, str], Optional[str]] = {}
+_FORCED_FAILURES: List[Tuple[Optional[str], Optional[str]]] = []
+
+
+def _reset_probes_for_testing() -> None:
+    """Clear the probe cache (tests only)."""
+    _PROBE_CACHE.clear()
+
+
+@contextlib.contextmanager
+def force_probe_failure(op: Optional[str] = None, method: Optional[str] = None):
+    """Make the backend probe fail inside the block (a fault-injection hook).
+
+    ``op`` and ``method`` restrict the failure to one family and one of
+    ``("kernel", "blocked")``; ``None`` matches everything.  The probe cache is
+    cleared on entry and restored on exit, so the forced failure neither sees
+    nor leaves real results.  It applies on every device, the CPU included.
+
+    Example:
+        >>> with force_probe_failure("scan", "kernel"):
+        ...     probe_build("scan", "kernel", device=torch.device("cpu")) is not None
+        True
+    """
+    saved = dict(_PROBE_CACHE)
+    _PROBE_CACHE.clear()
+    _FORCED_FAILURES.append((op, method))
+    try:
+        yield
+    finally:
+        _FORCED_FAILURES.pop()
+        _PROBE_CACHE.clear()
+        _PROBE_CACHE.update(saved)
+
+
+def _probe_family(op: str, method: str) -> str:
+    """Collapse an entry-point op onto the kernel family its probe loads."""
+    fam = OP_ALIASES.get(op, op)
+    if fam not in TUNED_OPS:
+        fam = "scan"
+    if method == "blocked" and fam in ("split", "sort", "top_p_sample"):
+        # the blocked variants of the §5 operators are built from blocked
+        # scans: they share the scan pipeline's probe
+        fam = "scan"
+    return fam
+
+
+def probe_build(op: str, method: str, *, device: torch.device) -> Optional[str]:
+    """Whether ``method`` can run ``op``'s family on ``device``: None, or the error.
+
+    On a CUDA device the first probe of a (family, method) builds, if they are
+    missing, and loads the family's libraries (:data:`PROBE_LIBRARIES`) with
+    ``kernels/_build.py`` ``load``; the result is cached.  On the CPU the plain
+    versions run, and the probe passes without building.
+    """
+    fam = _probe_family(op, method)
+    for f_op, f_method in _FORCED_FAILURES:
+        if (f_op is None or _probe_family(f_op, method) == fam) and \
+                (f_method is None or f_method == method):
+            return "forced by force_probe_failure"
+    if torch.device(device).type != "cuda":
+        return None
+    key = (fam, method)
+    if key not in _PROBE_CACHE:
+        from repro_torch.kernels import _build  # local import: built only on the card
+        try:
+            for lib in PROBE_LIBRARIES[key]:
+                _build.load(lib)
+            _PROBE_CACHE[key] = None
+        except (RuntimeError, OSError) as e:   # nvcc missing or failing, dlopen failing
+            _PROBE_CACHE[key] = f"{type(e).__name__}: {e}"
+    return _PROBE_CACHE[key]
+
+
+def ensure_available(method: str, op: str, *, device: torch.device) -> str:
+    """Return ``method``, or raise when its kernels cannot run on ``device``.
+
+    Called by :func:`repro_torch.core.autotune.maybe_resolve` on every
+    ``"kernel"`` and ``"blocked"`` method, explicit or resolved.  It never
+    returns another method: JAX's ``ProbeFallbackWarning`` degrade has no
+    counterpart in the port.  ``"matmul"`` and ``"vector"`` never probe, and
+    inside :func:`guards_disabled` nothing does.
+
+    Raises:
+        KernelUnavailableError: The probe failed; the message names the op, the
+            method, the family and the build's error (nvcc's output).
+
+    Example:
+        >>> ensure_available("vector", "scan", device=torch.device("cpu"))
+        'vector'
+        >>> ensure_available("kernel", "scan", device=torch.device("cpu"))
+        'kernel'
+    """
+    if _BYPASS or method not in ("kernel", "blocked"):
+        return method
+    err = probe_build(op, method, device=device)
+    if err is not None:
+        raise KernelUnavailableError(
+            f"{op}: method={method!r} (kernel family {_probe_family(op, method)!r}) "
+            f"cannot run on {torch.device(device)}: {err}")
+    return method

@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import pytest
 import torch
 
 from repro_torch.analysis.streams import DenseReplay, first_divergence, step_margin
-from repro_torch.core import guards
+from repro_torch.core import autotune, guards
 from repro_torch.core.autotune import method_override
 from repro_torch.core.linrec import cummax, cumprod, linear_scan
 from repro_torch.core.primitives import (compress, multi_split, radix_sort, split,
@@ -1794,3 +1795,78 @@ def test_page_budget_guard_fires_on_the_card(dev):
         checked = eng.run(reqs)
     assert plain["requests"] == checked["requests"] and plain["stats"] == checked["stats"]
     assert all((plain["streams"][k] == checked["streams"][k]).all() for k in plain["streams"])
+
+
+# ---- method="auto" on the card: the table's "cuda" backend and the probe ----
+
+AUTO_OPS = ("scan", "split", "sort", "top_p_sample", "segment_scan", "linear_scan")
+
+
+def _auto_fn(op, n, dtype, dev):
+    """``op``'s entry point on inputs of length ``n``: a function of its keyword
+    arguments (none: the default call)."""
+    g = _gen(dev, n)
+    x = torch.randint(-100, 100, (4, n), generator=g, device=dev)
+    x = x.to(dtype) if dtype == torch.int8 else torch.randn((4, n), generator=g,
+                                                            device=dev).to(dtype)
+    u = torch.rand((4, 1), generator=g, device=dev)
+    if op == "scan":
+        return lambda **kw: scan(x, **kw)
+    if op == "split":
+        f = torch.rand((4, n), generator=g, device=dev) < 0.5
+        return lambda **kw: split(x, f, **kw)
+    if op == "sort":
+        return lambda **kw: radix_sort(x, **kw)
+    if op == "top_p_sample":
+        return lambda **kw: top_p_sample(x * 3, p=0.9, u=u, **kw)
+    if op == "segment_scan":
+        cuts = torch.sort(torch.randint(0, n + 1, (max(1, n // 1024) - 1,), generator=g,
+                                        device=dev)).values
+        off = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), n)]).to(torch.int32)
+        return lambda **kw: segment_scan(x[0], off, **kw)
+    a = (0.9 + 0.1 * torch.rand((4, n), generator=g, device=dev)).to(dtype)
+    return lambda **kw: linear_scan(a, x, **kw)
+
+
+@pytest.mark.parametrize("op", AUTO_OPS)
+def test_auto_default_call_is_its_resolved_method(dev, op):
+    """At one length in each "cuda" bucket up to 2^22, for every dtype in the table:
+    the default call resolves with no warning, launches what the explicit call of
+    the resolved method launches, and is bit-equal to it."""
+    table = autotune.load_table()["backends"]["cuda"][op]
+    for dt, entries in sorted(table.items()):
+        bps = [b for b, _ in entries]
+        for (lo, m_want), hi in zip(entries, bps[1:] + [None]):
+            n = min((lo + hi) // 2 if hi else 2 * lo, 1 << 22)
+            if n < lo:
+                continue
+            dtype = getattr(torch, dt)
+            fn = _auto_fn(op, n, dtype, dev)
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                m = autotune.resolve_method(op, n, dtype, backend="cuda")
+                ops.reset_launch_counts()
+                out = fn()
+                torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert m == m_want, (op, dt, n)
+            ops.reset_launch_counts()
+            ref = fn(method=m)
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == counts, (op, dt, n, m)
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            assert all(torch.equal(a, b) for a, b in zip(outs, refs)), (op, dt, n, m)
+
+
+def test_forced_probe_failure_raises_before_any_launch(dev):
+    x = torch.randn((4, 1 << 16), device=dev)
+    for m in ("kernel", "blocked"):
+        ops.reset_launch_counts()
+        with guards.force_probe_failure():
+            with pytest.raises(guards.KernelUnavailableError):
+                scan(x, method=m)
+            with method_override(m), pytest.raises(guards.KernelUnavailableError):
+                segment_scan(x[0], torch.tensor([0, 1 << 16], device=dev))
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == _counts()
+        assert scan(x, method=m).shape == x.shape          # the real probe passes

@@ -10,6 +10,7 @@ tensors, and then count no launch.
 from __future__ import annotations
 
 import ast
+import json
 import os
 import pathlib
 import warnings
@@ -198,21 +199,32 @@ def test_autotune_chain(monkeypatch):
 
 
 def test_autotune_cuda_falls_back_to_the_default_backend_once(monkeypatch):
+    """A backend the table lacks warns once and resolves through ``default_backend``;
+    ``"cuda"`` has its own measured backend and resolves with no warning."""
     autotune._reset_for_testing()
     monkeypatch.delenv(autotune.ENV_VAR, raising=False)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        m1 = autotune.resolve_method("scan", 1 << 20, torch.float32, backend="cuda")
-        m2 = autotune.resolve_method("scan", 1 << 20, torch.float32, backend="cuda")
+        m1 = autotune.resolve_method("scan", 1 << 20, torch.float32, backend="xpu")
+        m2 = autotune.resolve_method("scan", 1 << 20, torch.float32, backend="xpu")
     assert m1 == m2 == autotune.resolve_method("scan", 1 << 20, torch.float32,
                                                backend="cpu")
     hits = [x for x in w if issubclass(x.category, autotune.AutotuneFallbackWarning)]
-    assert len(hits) == 1 and "'cuda'" in str(hits[0].message)
+    assert len(hits) == 1 and "'xpu'" in str(hits[0].message)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert autotune.resolve_method("scan", 1 << 20, torch.float32,
+                                       backend="cuda") in autotune.CONCRETE_METHODS
 
 
 def test_autotune_table_matches_the_jax_package_copy():
-    ours = (ROOT / "src" / "repro_torch" / "configs" / "tuning" / "default.json").read_text()
-    theirs = (ROOT / "src" / "repro" / "configs" / "tuning" / "default.json").read_text()
+    """The port's table is JAX's with a ``"cuda"`` backend and its provenance added."""
+    ours = json.loads((ROOT / "src" / "repro_torch" / "configs" / "tuning" /
+                       "default.json").read_text())
+    theirs = json.loads((ROOT / "src" / "repro" / "configs" / "tuning" /
+                         "default.json").read_text())
+    assert "cuda" not in theirs["backends"] and "cuda" in ours["backends"]
+    del ours["backends"]["cuda"], ours["provenance"]["cuda"]
     assert ours == theirs
 
 
