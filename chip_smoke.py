@@ -105,35 +105,54 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (d) after ``main``'s serving, ``ServeEngine(sampler="topp_auto")`` for
               4 decode steps on its weights: the method it resolved, its launches and
               tokens equal to the explicit sampler's, every token in the band's window;
-13. ssd    -- ``ssd_scan`` at zamba2's shapes on "kernel" (B1 + B13) and "blocked"
+13. precision -- ``precision="compensated"`` and ``"fast"`` (after ``auto``): ``scan``,
+              ``segment_scan``, ``linear_scan`` and ``segment_linear_scan`` on "kernel"
+              and "blocked" at (4, 2^24) fp32 and ``ssd_scan`` on "kernel" at zamba2's
+              shapes launch what "highest" launches and return its bits (the CUDA
+              kernels form no triangle), each within ``ulp_bound(precision, n)`` of
+              fp64, integer-valued rows exact; the "matmul" method at (4, 2^20), where
+              the split runs, within each bound, integer-valued rows exact under
+              "compensated", "fast" further than twice "highest"'s bound from
+              "highest", the three precisions' eager ms side by side, and at
+              (2, 2^14) each precision within twice "highest"'s bound of the same
+              call on the CPU; the phase draws from its own generator;
+              ``split_f16`` bit-equal on the card and the CPU (extreme, subnormal,
+              fp16-overflow, zero and non-finite rows) and exact for 22-bit
+              mantissas; the resolution chain on ``method="auto"`` calls (the
+              table's "vector" giving ``torch.cumsum``'s bits under every precision,
+              its "kernel" launching B1, ``precision_override`` and
+              ``REPRO_SCAN_PRECISION`` reaching a call, an explicit "vector" with
+              "fast" raising); and in ``dist``'s world of 2, ``dist_linear_scan`` and
+              ``dist_segment_scan`` on "kernel" under "compensated";
+14. ssd    -- ``ssd_scan`` at zamba2's shapes on "kernel" (B1 + B13) and "blocked"
               (B4 + B16) against "vector" and the fp64 sequential oracle;
-14. serve_zamba2 -- zamba2-1.2b at full width and depth (38 layers, bf16) serving
+15. serve_zamba2 -- zamba2-1.2b at full width and depth (38 layers, bf16) serving
               batch 4, prompt 2048, 32 new tokens with ``topp_kernel`` under
               ``scan_method="kernel"`` and ``"blocked"``, exact launch counts;
-15. b6     -- the multi-way split kernel against its plain version at (4, 2^24),
+16. b6     -- the multi-way split kernel against its plain version at (4, 2^24),
               R = 16, exact; at R = 256 and R = 10 against a stable argsort and a
               bincount; a ragged row, R = 1, empty buckets, out-of-range digits,
               bf16, int32 and int64 payloads, R = 511 and 512 on either side of the
               tile split's ceiling, R = 5000; the dist phase's vocab shards; one
               launch at and around the edge of its tiles, exact;
-16. b17    -- the SSD chunk kernel against its plain version and the fp64 oracle at
+17. b17    -- the SSD chunk kernel against its plain version and the fp64 oracle at
               zamba2's shapes: the ``ssd`` inputs, zamba2's init decays, a ragged S;
               its chunk-parallel pass: five repeated calls bit-equal, a CUDA-graph
               replay equal to the eager call, S of 1, Q - 1, Q, Q + 1 and 3Q + 17
               (one CTA a chunk), a chain of 256 chunks;
-17. main_multisplit -- ``multi_split(method="kernel")`` at (4, 2^24), R = 16: one
+18. main_multisplit -- ``multi_split(method="kernel")`` at (4, 2^24), R = 16: one
               B6 launch and nothing else;
-18. forward_zamba2 -- zamba2-1.2b (38 layers, bf16) ``forward`` and ``loss`` on
+19. forward_zamba2 -- zamba2-1.2b (38 layers, bf16) ``forward`` and ``loss`` on
               4 x 2048 tokens under each ``scan_method``: 38 B17 launches a pass on
               "kernel", 38 B4 + 38 B16 on "blocked", none on "vector"; the SMOKE
               model's fp32 forward on the card against the CPU, and against B17's
               plain version on two inputs (one the card tests');
-19. b7h    -- the radix pass that exports its histogram against its plain version at
+20. b7h    -- the radix pass that exports its histogram against its plain version at
               (4, 2^22) int32 keys (one shard of a 2^24 row at D = 4): every shift of
               the 8 radix-16 passes, chained into a stable sort; a ragged row and
               16-bit keys; the tile-edge cases of ``b7``; keys, permutation and counts
               exact, counts equal to a bincount of the digits;
-20. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
+21. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
               card (a process a rank): dist_sort / dist_topk (method="kernel") of
               (4, 2^24) fp32 and bf16 keys bit-equal to the local kernel sort, exactly
               8 (fp32) or 4 (bf16) B7h launches a rank and no B7; dist_top_p_sample
@@ -144,12 +163,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (method="kernel", nonfinite="sanitize") on the guards phase's sampler
               rows, the poisoned rows' greedy tokens; every call's collective calls
               and bytes equal to modeled_dist_traffic;
-21. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
+22. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
               and depth (bf16, random weights from seed 0), batch 4, prompt 128, 32
               new tokens, in a world of 2 ranks on the card: the same stream on both
               ranks, every token inside the window of the solo sampler, the decode
               step's ms and collectives;
-22. timing -- kernel, plain-version and library times beside each kernel's bound, and
+23. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
@@ -302,6 +321,9 @@ from repro_torch.core.dist_ops import (dist_linear_scan, dist_segment_scan,  # n
                                        dist_sort, dist_top_p_sample, dist_topk)
 from repro_torch.core.distributed import mcscan  # noqa: E402
 from repro_torch.core.linrec import cummax, cumprod, linear_scan  # noqa: E402
+from repro_torch.core.precision import ENV_VAR as PRECISION_ENV  # noqa: E402
+from repro_torch.core.precision import (PRECISIONS, SPLIT_SHIFT, ldexp,  # noqa: E402
+                                        precision_override, split_f16)
 from repro_torch.core.primitives import (compress, multi_split, radix_sort,  # noqa: E402
                                          top_p_sample, weighted_sample)
 from repro_torch.core.scan import accum_dtype_for, scan  # noqa: E402
@@ -949,12 +971,17 @@ def seg_ref64(x, f):
     return v, a
 
 
-def max_ulp_dev(got, ref, scale) -> float:
-    """``analysis/ulp.py``'s max ulp error, computed on the card: ``|got - ref|`` in
-    fp32 spacings at ``scale``."""
+def ulp_dev(got, ref, scale):
+    """``analysis/ulp.py``'s ulp error of each element, computed on the card:
+    ``|got - ref|`` in fp32 spacings at ``scale``."""
     sc = scale.float().clamp(min=float(np.finfo(np.float32).tiny))
     spacing = (torch.nextafter(sc, torch.full_like(sc, float("inf"))) - sc).double()
-    return float(((got.double() - ref).abs() / spacing).max())
+    return (got.double() - ref).abs() / spacing
+
+
+def max_ulp_dev(got, ref, scale) -> float:
+    """The largest of :func:`ulp_dev`."""
+    return float(ulp_dev(got, ref, scale).max())
 
 
 def _seg_inputs(gen, shape):
@@ -2430,6 +2457,278 @@ def auto_serving(params, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# precision: "compensated" and "fast" on the kernel paths, "matmul", the split
+# ---------------------------------------------------------------------------
+
+PRECISION_MATMUL_SHAPE = (4, 1 << 20)   # "matmul"'s linrec triangles: 2 GiB a tensor
+PRECISION_CPU_SHAPE = (2, 1 << 14)      # "matmul" on the card against the CPU's
+PRECISION_SEED = 41                     # the phase's own inputs: later phases keep theirs
+PRECISION_REPS = 5                      # eager calls a precision, in turns
+PRECISION_AUTO = dict(vector=4096, kernel=1 << 20)   # the "cuda" table: scan fp32
+
+
+def precision_inputs(gen, shape):
+    """Each op's random fp32 call, its integer-valued call and their fp64 references
+    and scales: the ``b1``/``seg``/``linrec`` phases' inputs (segments shared by the
+    rows; ``segment_linear_scan`` on them zeroes ``a`` at each start).  The segmented
+    scan's scale is the global ``Σ|x|`` prefix, ``analysis/ulp.py``'s contract for
+    every method ("matmul" subtracts the scan before each segment start)."""
+    rows, n = shape
+    x = torch.randn(shape, generator=gen, device=DEV)
+    xi = torch.randint(-3, 4, shape, generator=gen, device=DEV).float()
+    off = seg_offsets(np.random.default_rng(SEG_SEED + 5), n)
+    flags = boundary_flags(off, n)
+    starts = flags > 0
+    lin = lin_inputs(gen, shape)
+    (a, b), (ai, bi) = lin["random"], lin["int"]
+    cut = lambda t: torch.where(starts, 0.0, t)          # noqa: E731
+    gscale = x.double().abs().cumsum(-1)
+    return {
+        "scan": (lambda **kw: scan(x, **kw), lambda **kw: scan(xi, **kw),
+                 x.double().cumsum(-1), gscale, xi.double().cumsum(-1)),
+        "segment_scan": (lambda **kw: segment_scan(x, off, **kw),
+                         lambda **kw: segment_scan(xi, off, **kw), seg_ref64(x, flags)[0],
+                         gscale, seg_ref64(xi, flags)[0]),
+        "linear_scan": (lambda **kw: linear_scan(a, b, **kw),
+                        lambda **kw: linear_scan(ai, bi, **kw), lin_ref64(a, b),
+                        lin_ref64(a.abs(), b.abs()), lin_ref64(ai, bi)),
+        "segment_linear_scan": (lambda **kw: segment_linear_scan(a, b, off, **kw),
+                                lambda **kw: segment_linear_scan(ai, bi, off, **kw),
+                                lin_ref64(cut(a), b), lin_ref64(cut(a).abs(), b.abs()),
+                                lin_ref64(cut(ai), bi)),
+    }
+
+
+def _counted_call(fn, **kw):
+    ops.reset_launch_counts()
+    out = fn(**kw)
+    sync()
+    return out, ops.launch_counts()
+
+
+def precision_kernels(gen) -> dict:
+    """On "kernel" (B1, B9, B13) and "blocked" (B2-B4, B10-B12, B14-B16) at (4, 2^24):
+    "compensated" and "fast" launch what "highest" launches and return its bits; each
+    within ``ulp_bound(precision, n)`` of fp64; integer-valued rows exact.  Then
+    ``ssd_scan`` on "kernel" at zamba2's shapes (1 B1 + 1 B13), the same bits."""
+    n = SCAN_SHAPE[1]
+    out = {}
+    for op, (call, call_int, ref, scale, ref_int) in precision_inputs(gen, SCAN_SHAPE).items():
+        for m in ("kernel", "blocked"):
+            want, launches = _counted_call(call, method=m)
+            row = {"launches": _nonzero(launches), "max_ulp": {}}
+            for p in PRECISIONS:
+                got, counts = _counted_call(call, method=m, precision=p)
+                check(counts == launches, f"precision {op}/{m}/{p}: launches {counts} != "
+                      f"highest's {launches}")
+                check(torch.equal(got, want), f"precision {op}/{m}/{p}: not the bits of "
+                      "highest")
+                row["max_ulp"][p] = e = max_ulp_dev(got, ref, scale)
+                check(e <= ulp.ulp_bound(p, n), f"precision {op}/{m}/{p}: {e} ulp > "
+                      f"{ulp.ulp_bound(p, n)}")
+                yi, counts = _counted_call(call_int, method=m, precision=p)
+                check(counts == launches and torch.equal(yi.double(), ref_int),
+                      f"precision {op}/{m}/{p}: integer-valued rows not exact")
+            out[f"{op}/{m}"] = row
+        del call, call_int, ref, scale, ref_int
+    args = ssd_inputs(gen)
+    want, launches = _counted_call(lambda **kw: ssd_scan(*args, chunk=SSD["chunk"], **kw),
+                                   scan_method="kernel")
+    expect_counts(launches, "ssd_scan(kernel)", scan_mm=1, linrec_scan=1)
+    for p in PRECISIONS:
+        got, counts = _counted_call(lambda **kw: ssd_scan(*args, chunk=SSD["chunk"], **kw),
+                                    scan_method="kernel", precision=p)
+        check(counts == launches and torch.equal(got, want),
+              f"precision ssd_scan(kernel)/{p}: launches {counts} or bits differ")
+    out["ssd_scan/kernel"] = {"launches": _nonzero(launches), "bits_equal": True}
+    return out
+
+
+def precision_matmul(gen) -> dict:
+    """``"matmul"`` at (4, 2^20), where the split really runs: ``scan``,
+    ``segment_scan`` and ``linear_scan`` within each precision's bound of fp64,
+    integer-valued rows exact under "compensated", and eager ms of the three
+    precisions taken in turns."""
+    n = PRECISION_MATMUL_SHAPE[1]
+    out = {}
+    for op, (call, call_int, ref, scale, ref_int) in precision_inputs(
+            gen, PRECISION_MATMUL_SHAPE).items():
+        if op == "segment_linear_scan":
+            continue
+        row = {"max_ulp": {}, "ms": {p: [] for p in PRECISIONS}}
+        for p in PRECISIONS:
+            got, counts = _counted_call(call, method="matmul", precision=p)
+            expect_counts(counts, f"{op}(matmul, {p})")
+            row["max_ulp"][p] = e = max_ulp_dev(got, ref, scale)
+            check(e <= ulp.ulp_bound(p, n), f"precision {op}/matmul/{p}: {e} ulp > "
+                  f"{ulp.ulp_bound(p, n)}")
+            if p == "highest":
+                hi = got
+            elif p == "fast":
+                # bf16 operands move the result far beyond a reordering of fp32 sums
+                row["fast_from_highest_ulp"] = e = max_ulp_dev(got, hi.double(), scale)
+                check(e > 2 * ulp.ulp_bound("highest", n),
+                      f"precision {op}/matmul/fast: only {e} ulp from highest")
+            del got
+        del hi
+        yi = call_int(method="matmul", precision="compensated")
+        check(torch.equal(yi.double(), ref_int),
+              f"precision {op}/matmul/compensated: integer-valued rows not exact")
+        del yi
+        for turn in (PRECISIONS, PRECISIONS[::-1]):
+            for p in turn:
+                row["ms"][p].append(cuda_ms(lambda p=p: call(method="matmul", precision=p),
+                                            PRECISION_REPS))
+        row["ms"] = {p: sum(v) / len(v) for p, v in row["ms"].items()}
+        row["ms_over_highest"] = {p: row["ms"][p] / row["ms"]["highest"] for p in PRECISIONS}
+        out[op] = row
+        del call, call_int, ref, scale, ref_int
+        _free_card()
+    return out
+
+
+def precision_card_vs_cpu(gen) -> dict:
+    """``"matmul"`` on the card against the port's ``"matmul"`` on the CPU (the plain
+    products the CPU tests hold within twice ``"highest"``'s bound of JAX's) on the
+    same inputs at ``PRECISION_CPU_SHAPE``, under every precision: ``scan`` and
+    ``segment_scan`` within twice ``ulp_bound("highest", n)`` of each other, so the
+    card's ``"fast"`` rounds to bf16 where the CPU does and its ``"compensated"``
+    splits where the CPU does.  ``linear_scan``'s weights come from a ``cumprod``
+    whose fp32 rounding differs by device (a third of them, run BC), and a rare
+    weight then rounds to the other bf16 neighbour (7 of 524288), moving a few
+    outputs by up to ~10^4 ulp: there the mean distance is held within
+    ``ulp_bound("highest", 1)`` (8 ulp), where ``"fast"`` lies ~4·10^3 ulp from
+    ``"highest"`` on average."""
+    rows, n = shape = PRECISION_CPU_SHAPE
+    x = torch.randn(shape, generator=gen, device=DEV)
+    off = seg_offsets(np.random.default_rng(SEG_SEED + 6), n)
+    a, b = lin_inputs(gen, shape)["random"]
+    gscale = x.double().abs().cumsum(-1)
+    ops_ = {"scan": (lambda x, off, a, b, **kw: scan(x, **kw), gscale),
+            "segment_scan": (lambda x, off, a, b, **kw: segment_scan(x, off, **kw), gscale),
+            "linear_scan": (lambda x, off, a, b, **kw: linear_scan(a, b, **kw),
+                            lin_ref64(a.abs(), b.abs()))}
+    limit, mean_limit = 2 * ulp.ulp_bound("highest", n), ulp.ulp_bound("highest", 1)
+    out = {"shape": list(shape), "limit_ulp": limit, "mean_limit_ulp": mean_limit}
+    for op, (fn, scale) in ops_.items():
+        out[op] = {}
+        for p in PRECISIONS:
+            card = fn(x, off, a, b, method="matmul", precision=p)
+            cpu = fn(x.cpu(), off.cpu(), a.cpu(), b.cpu(), method="matmul", precision=p)
+            u = ulp_dev(card, cpu.to(DEV).double(), scale)
+            out[op][p] = {"max_ulp": float(u.max()), "mean_ulp": float(u.mean())}
+            check(float(u.mean()) <= mean_limit, f"precision {op}/matmul/{p}: card "
+                  f"{float(u.mean())} ulp from the CPU on average > {mean_limit}")
+            check(op == "linear_scan" or float(u.max()) <= limit,
+                  f"precision {op}/matmul/{p}: card {float(u.max())} ulp from the CPU > "
+                  f"{limit}")
+    return out
+
+
+def precision_split() -> dict:
+    """``split_f16`` on the card against the CPU, bit for bit, on rows with a max
+    near 2^±126, subnormal elements and maxima, values past fp16's range, zero rows,
+    NaN and ±inf, along both axes; 22-bit mantissas come back exactly.  A NaN is
+    NaN in the same place: its fp16 payload is the device's (the CPU's cast keeps
+    the top payload bits, the card's gives 0x7FFF, run AZ)."""
+    g = torch.Generator().manual_seed(SEG_SEED)
+    mag = 0.5 + torch.randn((8, 1024), generator=g).abs()
+    ints = torch.randint(-(1 << 21), 1 << 21, (4, 1024), generator=g).float()
+    rows = torch.cat([mag * 2.0 ** 125, mag * 2.0 ** -125, mag * 2.0 ** -140,
+                      mag * 2.0 ** -147, mag * 65504.0 * 3, torch.zeros((1, 1024)),
+                      ints * 2.0 ** -20, ints * 2.0 ** -145])
+    special = torch.ones((3, 1024))
+    special[0, 3], special[1, 7], special[2, [1, 9]] = float("nan"), float("inf"), float("-inf")
+    rows = torch.cat([rows, special])
+    for axis in (-1, -2):
+        cpu = split_f16(rows, axis=axis)
+        card = split_f16(rows.to(DEV), axis=axis)
+        for name, c, k in zip(("hi", "lo", "e"), cpu, card):
+            k = k.cpu()
+            view = torch.int16 if c.dtype == torch.float16 else c.dtype
+            nan = torch.isnan(c) if c.is_floating_point() else torch.zeros_like(c, dtype=bool)
+            check(torch.equal(nan, torch.isnan(k) if k.is_floating_point() else nan)
+                  and torch.equal(c.view(view)[~nan], k.view(view)[~nan]),
+                  f"split_f16 axis {axis}: {name} differs on the card")
+    exact = torch.cat([ints * 2.0 ** -20, ints * 2.0 ** -145, ints * 2.0 ** -160]).to(DEV)
+    hi, lo, e = split_f16(exact, axis=-1)
+    shift = torch.tensor(-SPLIT_SHIFT, device=DEV)
+    check(torch.equal(ldexp(hi.float() + ldexp(lo.float(), shift), e), exact),
+          "split_f16 on the card: 22-bit mantissas not reconstructed exactly")
+    tiny = torch.finfo(torch.float32).tiny
+    subnormal_max = int((rows.abs().amax(-1) < tiny).sum()
+                        + (exact.abs().amax(-1) < tiny).sum())
+    return {"rows": rows.shape[0], "row_len": rows.shape[1], "axes": [-1, -2],
+            "bit_equal_cpu": True, "exact_rows": exact.shape[0],
+            "rows_with_subnormal_max": subnormal_max}
+
+
+def precision_resolution(gen) -> dict:
+    """The chain on ``method="auto"`` calls on the card: where the "cuda" table picks
+    "vector" (scan fp32 at 4096) every precision gives ``torch.cumsum``'s bits; where
+    it picks "kernel" (2^20) B1 launches once with "highest"'s bits; under
+    ``method_override("matmul")`` the precision override and ``REPRO_SCAN_PRECISION``
+    reach the call (the override winning) and give the explicit call's bits; an
+    explicit ``method="vector", precision="fast"`` raises."""
+    table = autotune.load_table()
+    xv = torch.randn((4, PRECISION_AUTO["vector"]), generator=gen, device=DEV)
+    xk = torch.randn((4, PRECISION_AUTO["kernel"]), generator=gen, device=DEV)
+    for m, x in (("vector", xv), ("kernel", xk)):
+        check(table_pick(table, "scan", x.shape[-1], "float32") == m,
+              f"the cuda table no longer picks {m} for scan fp32 at {x.shape[-1]}")
+    for p in PRECISIONS:
+        got, counts = _counted_call(lambda **kw: scan(xv, **kw), precision=p)
+        expect_counts(counts, f"scan auto->vector, {p}")
+        check(torch.equal(got, torch.cumsum(xv, -1)), f"scan auto->vector, {p}: not cumsum")
+        with precision_override(p):
+            check(torch.equal(scan(xv), torch.cumsum(xv, -1)),
+                  f"scan auto->vector under precision_override({p}): not cumsum")
+    want, _ = _counted_call(lambda: scan(xk, method="kernel"))
+    for p in PRECISIONS:
+        got, counts = _counted_call(lambda **kw: scan(xk, **kw), precision=p)
+        expect_counts(counts, f"scan auto->kernel, {p}", scan_mm=1)
+        check(torch.equal(got, want), f"scan auto->kernel, {p}: not highest's bits")
+    explicit = {p: scan(xk, method="matmul", precision=p) for p in PRECISIONS}
+    check(not torch.equal(explicit["compensated"], explicit["highest"]),
+          "scan(matmul): compensated gives highest's bits")
+    seen = {}
+    with method_override("matmul"):
+        with precision_override("compensated"):
+            seen["override"] = torch.equal(scan(xk), explicit["compensated"])
+        os.environ[PRECISION_ENV] = "fast"
+        try:
+            seen["env"] = torch.equal(scan(xk), explicit["fast"])
+            with precision_override("compensated"):
+                seen["override_over_env"] = torch.equal(scan(xk), explicit["compensated"])
+        finally:
+            del os.environ[PRECISION_ENV]
+    check(all(seen.values()), f"the precision chain on an auto call: {seen}")
+    try:
+        scan(xv, method="vector", precision="fast")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "scan(method='vector', precision='fast') did not raise")
+    return {"auto_vector_n": xv.shape[-1], "auto_kernel_n": xk.shape[-1], **seen,
+            "explicit_vector_fast_raises": refused}
+
+
+def phase_precision(smi: str) -> dict:
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(PRECISION_SEED)
+    res = {"card": smi, "kernels": precision_kernels(gen)}
+    _free_card()
+    res["matmul"] = precision_matmul(gen)
+    res["matmul_card_vs_cpu"] = precision_card_vs_cpu(gen)
+    res["split_f16"] = precision_split()
+    res["resolution"] = precision_resolution(gen)
+    emit({"phase": "precision", "shape": list(SCAN_SHAPE),
+          "matmul_shape": list(PRECISION_MATMUL_SHAPE), **res,
+          "seconds": time.perf_counter() - t0})
+    return res
+
+
 def alloc_launches(eng) -> dict:
     """The launches of one page allocation of ``eng``: a ``compress`` over the page
     ids on the method its ``alloc_method`` resolves to (counted here, outside any
@@ -3793,6 +4092,17 @@ def dist_rank(shape, vocab, seed, time_reps):
         res["max_ulp"][f"dist_linear_scan_{method}"] = e = max_ulp_dev(
             y, ref[:, lo:hi], scale[:, lo:hi])
         check(e <= B1_F32_ULP, f"dist_linear_scan({method}) on rank {me}: {e} ulp")
+        if d == 2 and method == "kernel":
+            # the precision phase's distributed call: "highest"'s launches and bits
+            yc = main_call("dist_linear_scan_compensated_kernel",
+                           lambda: dist_linear_scan(a[:, lo:hi], bb[:, lo:hi], n,
+                                                    method=method, precision="compensated"),
+                           want, lin_model)
+            res["max_ulp"]["dist_linear_scan_compensated_kernel"] = e = max_ulp_dev(
+                yc, ref[:, lo:hi], scale[:, lo:hi])
+            check(e <= ulp.ulp_bound("compensated", n) and torch.equal(yc, y),
+                  f"dist_linear_scan(kernel, compensated) on rank {me}: {e} ulp, or not "
+                  "highest's bits")
         yi = main_call(f"dist_linear_scan_int_{method}",
                        lambda: dist_linear_scan(ai[:, lo:hi], bi[:, lo:hi], n, method=method),
                        want, lin_model)
@@ -3817,6 +4127,16 @@ def dist_rank(shape, vocab, seed, time_reps):
         res["max_ulp"][f"dist_segment_scan_{method}"] = e = max_ulp_dev(
             y, ref[:, lo:hi], scale[:, lo:hi])
         check(e <= B1_F32_ULP, f"dist_segment_scan({method}) on rank {me}: {e} ulp")
+        if d == 2 and method == "kernel":
+            yc = main_call("dist_segment_scan_compensated_kernel",
+                           lambda: dist_segment_scan(xs["f32rand"][:, lo:hi], off, n,
+                                                     method=method, precision="compensated"),
+                           want, seg_model)
+            res["max_ulp"]["dist_segment_scan_compensated_kernel"] = e = max_ulp_dev(
+                yc, ref[:, lo:hi], scale[:, lo:hi])
+            check(e <= ulp.ulp_bound("compensated", n) and torch.equal(yc, y),
+                  f"dist_segment_scan(kernel, compensated) on rank {me}: {e} ulp, or not "
+                  "highest's bits")
         yi = main_call(f"dist_segment_scan_int8_{method}",
                        lambda: dist_segment_scan(xs["int8"][:, lo:hi], off, n, method=method),
                        want, seg_model)
@@ -4591,6 +4911,7 @@ def main() -> int:
     segmented_counts = main_segmented(gen)
     linrec_counts = main_linrec(gen)
     phase_auto(gen, smi[0])
+    phase_precision(smi[0])
     ref = smoke_reference(gen)
     emit({"phase": "smoke_reference", **ref})
     serve_counts, serve_b_counts, serve_s_counts, llama = main_serve(gen)

@@ -13,7 +13,7 @@ from repro_torch.core.guards import (
     guards_disabled, nonfinite_override, resolve_nonfinite,
 )
 from repro_torch.core.linrec import cummax, cumprod, linear_scan, linrec_accum_dtype_for
-from repro_torch.core.precision import PRECISIONS, pdot, resolve_precision
+from repro_torch.core.precision import PRECISIONS, pdot, precision_override, resolve_precision
 from repro_torch.core.primitives import (
     multi_split, radix_sort, sort, top_p_sample, topk, weighted_sample,
 )

@@ -58,6 +58,7 @@ from repro_torch.core import comm, guards
 from repro_torch.core.autotune import maybe_resolve
 from repro_torch.core.distributed import mcscan_local
 from repro_torch.core.linrec import cumprod, linear_scan, linrec_accum_dtype_for
+from repro_torch.core.precision import resolve_precision
 from repro_torch.core.primitives import (_encode_for_sort, _multi_split_dest,
                                          _scatter_payloads, _take_along_last, _uniforms,
                                          radix_sort, top_p_sample)
@@ -375,7 +376,10 @@ def dist_linear_scan(a: torch.Tensor, b: torch.Tensor, n: int, group=None, *,
         initial: Scalar initial carry (``y_{-1}``); defaults to 0.
         method: One of ``METHODS`` for the local recurrence (``"kernel"``:
             B13; ``"blocked"``: B14–B16).
-        precision: Only ``"highest"`` is ported.
+        precision: ``"highest"``, ``"compensated"`` or ``"fast"`` for the local
+            recurrences, resolved once against the resolved method
+            (``precision_override`` > ``REPRO_SCAN_PRECISION`` > this argument)
+            and passed on.
         tile_s: Tile side ``s``.
         block_tiles: Tiles per block for ``method="blocked"``.
         accum_dtype: Accumulation dtype; defaults to ``linrec_accum_dtype_for``.
@@ -393,7 +397,10 @@ def dist_linear_scan(a: torch.Tensor, b: torch.Tensor, n: int, group=None, *,
     b = _pad_last(b, L, 0)
     dtype = torch.result_type(a, b)
     acc = accum_dtype if accum_dtype is not None else linrec_accum_dtype_for(dtype)
+    explicit_method = method != "auto"
     method = maybe_resolve(method, "dist_linear_scan", L, dtype, device=a.device)
+    precision = resolve_precision(precision, method=method,
+                                  explicit_method=explicit_method)
     s0 = 0 if initial is None else initial
     y = linear_scan(a, b, exclusive=exclusive, method=method, precision=precision,
                     tile_s=tile_s, block_tiles=block_tiles, accum_dtype=acc)
@@ -440,7 +447,9 @@ def dist_segment_scan(values: torch.Tensor, offsets, n: int, group=None, *,
         tile_s: Tile side ``s``.
         block_tiles: Tiles per block for ``method="blocked"``.
         accum_dtype: Accumulation dtype override.
-        precision: Only ``"highest"`` is ported.
+        precision: ``"highest"``, ``"compensated"`` or ``"fast"`` for the local
+            segmented scan, resolved once against the resolved method and
+            passed on.
 
     Returns:
         This rank's shard of the per-segment scan, in the accumulation dtype.
@@ -458,8 +467,11 @@ def dist_segment_scan(values: torch.Tensor, offsets, n: int, group=None, *,
         # prefixes are unchanged; the tail is cut off)
         offsets = offsets.clone()
         offsets[-1] = d * L
+    explicit_method = method != "auto"
     method = maybe_resolve(method, "dist_segment_scan", L, values.dtype,
                            device=values.device)
+    precision = resolve_precision(precision, method=method,
+                                  explicit_method=explicit_method)
     start = me * L
     y = segment_scan(values, torch.clamp(offsets - start, 0, L), exclusive=exclusive,
                      method=method, tile_s=tile_s, block_tiles=block_tiles,

@@ -8,9 +8,9 @@ Its three layers, in the order an entry point runs them:
    ``ValueError``/``TypeError`` at the call site.  PyTorch runs eagerly, so
    there is no traced half.
 2. **The non-finite policy** -- ``nonfinite="propagate" | "raise" |
-   "sanitize"`` on the scan and sampler family, resolved like ``method``: an
-   active :func:`nonfinite_override` wins, else ``REPRO_NONFINITE``, else the
-   argument.  ``"propagate"`` (the default) adds no operation; ``"raise"``
+   "sanitize"`` on the scan and sampler family, resolved like ``method``
+   (rule 8) and ``precision`` (rule 9): an active :func:`nonfinite_override`
+   wins, else ``REPRO_NONFINITE``, else the argument.  ``"propagate"`` (the default) adds no operation; ``"raise"``
    reads one ``isfinite(x).all()`` on the host before any kernel launches and
    raises :class:`NonFiniteError`; ``"sanitize"`` writes the operator's
    identity over every non-finite element with one ``torch.where`` before the
@@ -22,6 +22,18 @@ Its three layers, in the order an entry point runs them:
    sync happens.
 
 :func:`guards_disabled` turns all three off, and the backend probe with them.
+
+The three override chains, each resolved once a call before any launch: the
+method (``method_override`` > ``REPRO_SCAN_METHOD`` > the tuning table,
+:func:`repro_torch.core.autotune.maybe_resolve`); the precision
+(``precision_override`` > ``REPRO_SCAN_PRECISION`` > the argument,
+:func:`repro_torch.core.precision.resolve_precision`), after the method and
+against it, so that a call landing on ``"vector"`` runs ``"highest"``; and
+the non-finite policy (:func:`nonfinite_override` > ``REPRO_NONFINITE`` > the
+argument, :func:`resolve_nonfinite`).  The entry points resolve them
+(``scan``, ``segment_scan``, ``linear_scan``, ``segment_linear_scan``,
+``dist_linear_scan``, ``dist_segment_scan``); the kernel wrappers below them
+only validate what they are handed.
 
 **The backend probe** (:func:`ensure_available`, dispatch rule 10).  Method
 resolution (:func:`repro_torch.core.autotune.maybe_resolve`) passes every
@@ -120,7 +132,9 @@ def _unknown_policy(policy, op: str) -> ValueError:
 def nonfinite_override(policy: str):
     """Force every non-finite-policy resolution to ``policy`` inside the block.
 
-    The in-process form of ``REPRO_NONFINITE``, and it wins over it.
+    The in-process form of ``REPRO_NONFINITE``, and it wins over it; the
+    non-finite counterpart of :func:`repro_torch.core.autotune.method_override`
+    and :func:`repro_torch.core.precision.precision_override`.
 
     Example:
         >>> with nonfinite_override("sanitize"):

@@ -27,7 +27,10 @@ walked where it lies, one launch of B13's or B16's column walk
 
 The two kernel methods run their plain PyTorch versions on CPU tensors.
 Integer and bool inputs accumulate in fp32 (:func:`linrec_accum_dtype_for`).
-Only ``precision="highest"`` is ported.
+``precision=`` reaches every ``W @ b`` product (:func:`_w_matvec`, the one
+data×data contraction: under ``"compensated"`` both operands split); the CUDA
+kernels and the column walk form no triangle and return the bits of
+``"highest"`` under every precision.
 
 There is no gradient yet: with grad mode on, an input that requires grad
 raises ``NotImplementedError`` (the analytic reverse-recurrence adjoint comes
@@ -101,26 +104,29 @@ def _pair_w(a: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
 
 
 def _w_matvec(w: torch.Tensor, b: torch.Tensor, acc: torch.dtype,
-              precision: str = "highest") -> torch.Tensor:
+              precision: str) -> torch.Tensor:
     """``(W @ b)[..., i] = Σ_j W[..., i, j] b[..., j]`` in ``acc``.
 
     ``w`` is ``(..., s, s)`` and ``b`` ``(..., s)``, rank-aligned.  Where ``w``
     has size 1 and ``b`` does not (a decay shared across payload dims), those
     dims become the columns of one product, so the triangle is never copied
-    per payload element.
+    per payload element.  Both operands are data (``exact="none"``): under
+    ``"compensated"`` ``W`` splits per row and ``b`` per vector (per column
+    of the shared product), three products with ``lo×lo`` dropped.
     """
     b = b.to(acc)
     nd = b.dim() - 1
     pay = [d for d in range(nd) if w.shape[d] == 1 and b.shape[d] != 1]
     if not pay:
-        return pdot(w, b[..., None], acc=acc, precision=precision)[..., 0].to(acc)
+        return pdot(w, b[..., None], acc=acc, precision=precision,
+                    exact="none")[..., 0].to(acc)
     keep = [d for d in range(nd) if d not in pay]
     perm = keep + [nd] + pay
     bp = b.permute(*perm)                                   # (...keep, s, *pay)
     pshape = bp.shape[len(keep) + 1:]
     bp = bp.reshape(*bp.shape[:len(keep) + 1], -1)
     wk = w.reshape([w.shape[d] for d in keep] + list(w.shape[-2:]))
-    out = pdot(wk, bp, acc=acc, precision=precision).to(acc)
+    out = pdot(wk, bp, acc=acc, precision=precision, exact="none").to(acc)
     out = out.reshape(*out.shape[:-1], *pshape)
     return out.permute(*[perm.index(d) for d in range(nd + 1)])
 
@@ -131,7 +137,7 @@ def _shift_in(x: torch.Tensor, value: float) -> torch.Tensor:
 
 
 def _linrec_block(a2: torch.Tensor, b2: torch.Tensor, acc: torch.dtype,
-                  precision: str = "highest"):
+                  precision: str):
     """Linear recurrence of ``(..., m, s)`` row-major blocks with zero incoming state.
 
     Per-row ``W @ b`` contractions give the ``m`` row-local recurrences; the
@@ -161,7 +167,7 @@ def _linrec_block(a2: torch.Tensor, b2: torch.Tensor, acc: torch.dtype,
 
 
 @_register("linear_scan", "vector")
-def _linrec_vector(a, b, *, method, tile_s, block_tiles, accum_dtype, precision="highest"):
+def _linrec_vector(a, b, *, method, tile_s, block_tiles, accum_dtype, precision):
     """The affine-pair scan as a log-step doubling (the correctness oracle).
 
     At distance ``d`` each element from ``d`` on composes with the element
@@ -183,7 +189,7 @@ def _linrec_vector(a, b, *, method, tile_s, block_tiles, accum_dtype, precision=
 
 
 @_register("linear_scan", "matmul")
-def _linrec_matmul(a, b, *, method, tile_s, block_tiles, accum_dtype, precision="highest"):
+def _linrec_matmul(a, b, *, method, tile_s, block_tiles, accum_dtype, precision):
     """Chunked ``W @ b`` contractions plus a recursive cross-chunk affine carry scan.
 
     ``a`` and ``b`` are rank-aligned with equal scan lengths; ``W`` is built
@@ -219,7 +225,7 @@ def _broadcast_pair(a, b):
 
 
 @_register("linear_scan", "kernel")
-def _linrec_kernel(a, b, *, method, tile_s, block_tiles, accum_dtype, precision="highest"):
+def _linrec_kernel(a, b, *, method, tile_s, block_tiles, accum_dtype, precision):
     """B13: one ordered walk per row (``linrec_mm.linrec_scan_tiles``)."""
     from repro_torch.kernels.linrec_mm import linrec_scan_tiles  # no import cycle
     a, b = _broadcast_pair(a, b)
@@ -227,7 +233,7 @@ def _linrec_kernel(a, b, *, method, tile_s, block_tiles, accum_dtype, precision=
 
 
 @_register("linear_scan", "blocked")
-def _linrec_blocked(a, b, *, method, tile_s, block_tiles, accum_dtype, precision="highest"):
+def _linrec_blocked(a, b, *, method, tile_s, block_tiles, accum_dtype, precision):
     """B14–B16: the §4 pipeline with an affine phase-2 carry scan."""
     from repro_torch.kernels.linrec_mm import linrec_blocked_scan  # no import cycle
     a, b = _broadcast_pair(a, b)
@@ -256,7 +262,12 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
         reverse: Scan from the end (``y_t = a_t * y_{t+1} + b_t``).
         method: ``"auto"`` (tuning table), ``"vector"``, ``"matmul"``,
             ``"kernel"`` (B13) or ``"blocked"`` (B14–B16).
-        precision: Only ``"highest"`` is ported (ROADMAP Queue A item 2).
+        precision: ``"highest"``, ``"compensated"`` or ``"fast"``
+            (``precision_override`` > ``REPRO_SCAN_PRECISION`` > this
+            argument): the ``W @ b`` products of ``"matmul"`` and of the
+            kernels' plain versions follow it; the CUDA kernels and the column
+            walk return the bits of ``"highest"``.  An explicit non-default
+            precision with ``method="vector"`` raises ``ValueError``.
         initial: Optional starting state ``y_{-1}`` (scalar, or a tensor
             broadcastable to ``a``/``b`` without the scan axis), folded into
             the first step as ``b_0 + a_0 * initial``.  A length-1 scan is then
@@ -276,10 +287,10 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
         accumulation dtype.
 
     Raises:
-        ValueError: An unknown ``method``, ``tile_s`` out of range, or an
-            axis out of bounds.
-        NotImplementedError: An input requires grad while grad mode is on,
-            or an unported ``precision``.
+        ValueError: An unknown ``method`` or ``precision``, ``tile_s`` out
+            of range, an axis out of bounds, or an explicit non-default
+            ``precision`` with an explicit ``method="vector"``.
+        NotImplementedError: An input requires grad while grad mode is on.
         NonFiniteError: ``nonfinite="raise"`` and ``a`` or ``b`` holds a
             non-finite value.
 
@@ -313,13 +324,18 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
     n = max(a.shape[axis], b.shape[axis])
     explicit_method = method != "auto"
     method = maybe_resolve(method, "linear_scan", n, dtype, device=b.device)
-    resolve_precision(precision, method=method, explicit_method=explicit_method)
+    precision = resolve_precision(precision, method=method,
+                                  explicit_method=explicit_method)
     nonfinite = guards.resolve_nonfinite(nonfinite, op="linear_scan")
     a = guards.apply_nonfinite(a, nonfinite, op="linear_scan", identity=1.0)
     b = guards.apply_nonfinite(b, nonfinite, op="linear_scan", identity=0.0)
     from repro_torch.kernels import linrec_mm  # no import cycle
-    if linrec_mm.column_walk_applies(method, nd, axis, n, tile_s, block_tiles):
-        # a short axis that is not the last: walked where it lies, nothing moved
+    walk = linrec_mm.column_walk_applies(method, nd, axis, n, tile_s, block_tiles)
+    if walk and (b.is_cuda or precision == "highest"):
+        # a short axis that is not the last: walked where it lies, nothing moved.
+        # The walk forms no product, so on the card every precision gets
+        # "highest"'s bits; on the CPU a split precision takes the rows' tile
+        # products below, as JAX's Pallas kernel does after moving the axis
         init = None if initial is None else torch.as_tensor(initial, dtype=acc,
                                                             device=b.device)
         return linrec_mm.linrec_columns(a.to(acc), b.to(acc), axis, exclusive=exclusive,

@@ -83,7 +83,7 @@ def tile_scan_scanu(a: torch.Tensor, *, accum_dtype=None,
     s = a.shape[-1]
     acc = accum_dtype or accum_dtype_for(a.dtype)
     u = upper_ones(s, _operand_dtype(a.dtype), a.device)
-    local = pdot(a, u, acc=acc, precision=precision)
+    local = pdot(a, u, acc=acc, precision=precision, exact="right")
     row_sums = local[..., :, -1]
     row_prefix = torch.cumsum(row_sums, dim=-1, dtype=acc) - row_sums
     return local + row_prefix[..., :, None]
@@ -102,18 +102,18 @@ def tile_scan_scanul1(a: torch.Tensor, *, accum_dtype=None,
     od = _operand_dtype(a.dtype)
     u = upper_ones(s, od, a.device)
     lm = strictly_lower_ones(s, od, a.device)
-    c2 = pdot(a, u, acc=acc, precision=precision)
+    c2 = pdot(a, u, acc=acc, precision=precision, exact="right")
     # C1 = A @ 1_s == the row sums broadcast along the columns
     c1 = torch.sum(a.to(acc), dim=-1, keepdim=True, dtype=acc).expand(
         *a.shape[:-1], s)
-    return c2 + pdot(lm.to(acc), c1, acc=acc, precision=precision)
+    return c2 + pdot(lm.to(acc), c1, acc=acc, precision=precision, exact="left")
 
 
 _TILE_FNS = {"scanu": tile_scan_scanu, "scanul1": tile_scan_scanul1}
 
 
 def _scan_last_axis_matmul(x: torch.Tensor, s: int, variant: str, acc,
-                           precision: str = "highest") -> torch.Tensor:
+                           precision: str) -> torch.Tensor:
     """Multi-level block scan over the last axis using matmul tile scans."""
     *lead, n = x.shape
     ell = s * s
@@ -121,7 +121,8 @@ def _scan_last_axis_matmul(x: torch.Tensor, s: int, variant: str, acc,
         if n == 1:
             return x.to(acc)
         u = upper_ones(n, _operand_dtype(x.dtype), x.device)
-        return pdot(x[..., None, :], u, acc=acc, precision=precision)[..., 0, :]
+        return pdot(x[..., None, :], u, acc=acc, precision=precision,
+                    exact="right")[..., 0, :]
     n_pad = (-n) % ell
     xp = torch.nn.functional.pad(x, (0, n_pad)) if n_pad else x
     nt = xp.shape[-1] // ell
@@ -152,8 +153,13 @@ def scan(x: torch.Tensor, axis: int = -1, *, exclusive: bool = False,
         reverse: Scan from the end (suffix sums).
         method: ``"auto"`` (tuning table), ``"vector"``, ``"matmul"``,
             ``"kernel"`` or ``"blocked"``.
-        precision: Only ``"highest"`` is ported; any other value raises
-            ``NotImplementedError`` (ROADMAP Queue A item 2).
+        precision: ``"highest"``, ``"compensated"`` or ``"fast"``
+            (:mod:`repro_torch.core.precision`; ``precision_override`` >
+            ``REPRO_SCAN_PRECISION`` > this argument).  On ``"matmul"`` and the
+            kernels' plain versions (CPU tensors) the tile products follow it;
+            the CUDA kernels sum in IEEE fp32 and return the bits of
+            ``"highest"`` under every precision.  Only fp32 inputs are affected;
+            an explicit non-default precision with ``method="vector"`` raises.
         variant: ``"scanu"`` (Alg. 1) or ``"scanul1"`` (Alg. 2).
         tile_s: Tile side ``s``; a tile covers ``s²`` elements.
         block_tiles: Tiles per block for ``method="blocked"`` (ignored

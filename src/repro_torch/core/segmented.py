@@ -28,10 +28,12 @@ method: offsets, permutations and counts come from exact int8 -> int32 mask
 scans.
 
 Every entry point validates the offsets on the host (``guards.validate_offsets``),
-one read per call.  ``precision`` other than ``"highest"`` raises as elsewhere
-in the port.  :func:`segment_scan`, :func:`segment_linear_scan` and
-:func:`segment_top_p_sample` take the non-finite policy of
-:mod:`repro_torch.core.guards` (``nonfinite=``).
+one read per call.  :func:`segment_scan`, :func:`segment_sums` and
+:func:`segment_linear_scan` take ``precision=`` (``"highest"``,
+``"compensated"``, ``"fast"``; :mod:`repro_torch.core.precision`), resolved
+once against the resolved method and passed on.  :func:`segment_scan`,
+:func:`segment_linear_scan` and :func:`segment_top_p_sample` take the
+non-finite policy of :mod:`repro_torch.core.guards` (``nonfinite=``).
 """
 from __future__ import annotations
 
@@ -205,7 +207,8 @@ def _segment_ends(per_element: torch.Tensor, offsets: torch.Tensor) -> torch.Ten
 
 
 @_register("segment_scan", "matmul", "vector")
-def _segment_scan_unfused(values, offsets, *, method, tile_s, block_tiles, accum_dtype):
+def _segment_scan_unfused(values, offsets, *, method, tile_s, block_tiles, accum_dtype,
+                          precision):
     """Full unsegmented scan, minus the scan value before each segment start.
 
     ``seg[i] = scan(values)[i] - scan(values)[start(i) - 1]``: exact whenever
@@ -213,7 +216,7 @@ def _segment_scan_unfused(values, offsets, *, method, tile_s, block_tiles, accum
     """
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(values.dtype)
     full = scan(values, axis=-1, method=method, tile_s=tile_s, block_tiles=block_tiles,
-                accum_dtype=acc)
+                accum_dtype=acc, precision=precision)
     n = values.shape[-1]
     starts = offsets.index_select(0, segment_ids(offsets, n).to(torch.int64))
     base = full.index_select(-1, torch.clamp(starts - 1, 0, n - 1).to(torch.int64))
@@ -222,20 +225,23 @@ def _segment_scan_unfused(values, offsets, *, method, tile_s, block_tiles, accum
 
 
 @_register("segment_scan", "kernel")
-def _segment_scan_fused(values, offsets, *, method, tile_s, block_tiles, accum_dtype):
+def _segment_scan_fused(values, offsets, *, method, tile_s, block_tiles, accum_dtype,
+                        precision):
     """One B9 launch for the whole packed batch (every leading row shares the flags)."""
     from repro_torch.kernels.segscan_mm import seg_scan_tiles
     flags = boundary_flags(offsets, values.shape[-1])
-    return seg_scan_tiles(values, flags, s=tile_s, accum_dtype=accum_dtype)
+    return seg_scan_tiles(values, flags, s=tile_s, accum_dtype=accum_dtype,
+                          precision=precision)
 
 
 @_register("segment_scan", "blocked")
-def _segment_scan_blocked(values, offsets, *, method, tile_s, block_tiles, accum_dtype):
+def _segment_scan_blocked(values, offsets, *, method, tile_s, block_tiles, accum_dtype,
+                          precision):
     """The segmented §4 pipeline (B10, B11, B12; B12 alone for one block a row)."""
     from repro_torch.kernels.segscan_mm import seg_blocked_scan
     flags = boundary_flags(offsets, values.shape[-1])
     return seg_blocked_scan(values, flags, s=tile_s, block_tiles=block_tiles,
-                            accum_dtype=accum_dtype)
+                            accum_dtype=accum_dtype, precision=precision)
 
 
 def segment_scan(values, offsets=None, *, exclusive: bool = False,
@@ -258,7 +264,12 @@ def segment_scan(values, offsets=None, *, exclusive: bool = False,
         tile_s: Tile side ``s`` of the matmul scans and the kernels' geometry.
         block_tiles: Tiles per block for ``method="blocked"``.
         accum_dtype: Accumulation dtype override.
-        precision: Only ``"highest"`` is ported.
+        precision: ``"highest"``, ``"compensated"`` or ``"fast"``
+            (``precision_override`` > ``REPRO_SCAN_PRECISION`` > this
+            argument): the masked products on ``"matmul"`` and the kernels'
+            plain versions follow it; the CUDA kernels return the bits of
+            ``"highest"``.  An explicit non-default precision with
+            ``method="vector"`` raises ``ValueError``.
         nonfinite: Non-finite input policy (:mod:`repro_torch.core.guards`):
             ``"propagate"``, ``"raise"`` or ``"sanitize"`` (non-finite -> 0).
 
@@ -289,7 +300,8 @@ def _segment_scan(values, offsets, *, exclusive, reverse, method, tile_s, block_
     n = values.shape[-1]
     explicit_method = method != "auto"
     method = maybe_resolve(method, "segment_scan", n, values.dtype, device=values.device)
-    resolve_precision(precision, method=method, explicit_method=explicit_method)
+    precision = resolve_precision(precision, method=method,
+                                  explicit_method=explicit_method)
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(values.dtype)
     if n == 0:
         return torch.zeros(values.shape, dtype=acc, device=values.device)
@@ -301,7 +313,8 @@ def _segment_scan(values, offsets, *, exclusive, reverse, method, tile_s, block_
                             precision=precision)
         return torch.flip(out, dims=(-1,))
     out = dispatch("segment_scan", method)(values, offsets, method=method, tile_s=tile_s,
-                                           block_tiles=block_tiles, accum_dtype=acc)
+                                           block_tiles=block_tiles, accum_dtype=acc,
+                                           precision=precision)
     if exclusive:
         shifted = torch.cat([torch.zeros_like(out[..., :1]), out[..., :-1]], dim=-1)
         out = torch.where(boundary_flags(offsets, n) > 0,
@@ -369,7 +382,8 @@ def segment_linear_scan(a, b, offsets=None, *, exclusive: bool = False,
     dtype = torch.promote_types(a.dtype, b.dtype)
     explicit_method = method != "auto"
     method = maybe_resolve(method, "segment_linear_scan", n, dtype, device=a.device)
-    resolve_precision(precision, method=method, explicit_method=explicit_method)
+    precision = resolve_precision(precision, method=method,
+                                  explicit_method=explicit_method)
     acc = accum_dtype if accum_dtype is not None else linrec_accum_dtype_for(dtype)
     if n == 0:
         return torch.zeros(shp, dtype=acc, device=a.device)

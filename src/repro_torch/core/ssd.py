@@ -20,7 +20,10 @@ runs chunk by chunk (``chunk`` = Q tokens):
 * the off-diagonal term ``Y_o = (C ∘ decay-from-start) H_in``.
 
 The dense within-chunk products contract in fp32; on the card they refuse to
-run while TF32 is allowed (``require_ieee_fp32``).  ``mlstm_chunked`` waits
+run while TF32 is allowed (``require_ieee_fp32``).  ``precision`` rides into
+the two scan-shaped phases, the log-decay cumsum and the cross-chunk
+``linear_scan``, which resolve it against ``scan_method`` as their direct
+callers would; B17 takes none, as in JAX.  ``mlstm_chunked`` waits
 for the xLSTM models.
 """
 from __future__ import annotations
@@ -58,7 +61,9 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, b_mat: torch.Tensor,
             no input), which leaves the state unchanged.
         scan_method: Method of the two scans: the log-decay cumsum and the
             cross-chunk ``linear_scan``.
-        precision: Only ``"highest"`` is ported.
+        precision: ``"highest"``, ``"compensated"`` or ``"fast"``, for the
+            two scans (each resolves it against ``scan_method``); the
+            within-chunk einsums always contract in fp32.
         initial_state: Optional ``(B, H, N, P)`` state entering the sequence.
         return_final_state: Also return the ``(B, H, N, P)`` fp32 state after
             the last token.

@@ -37,6 +37,11 @@ triangles of ``core.linrec._linrec_block``, suffix products for the
 summaries, the chunked ``W @ b`` scan for the carries, and the running state
 across ordered tiles.  They build ``(…, s, s)`` triangles per row of ``s``, so
 they work a bounded number of tiles or blocks at a time.
+
+``precision`` reaches the ``W @ b`` products of B13, B15 and B16, as in JAX;
+B14 (suffix products) and the column walk take none.  On the card the
+kernels walk affine pairs in IEEE fp32 under every precision, so their
+result is the bits of ``"highest"``.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import guards
 from repro_torch.core.linrec import _linrec_block, _linrec_matmul, linrec_accum_dtype_for
-from repro_torch.core.precision import resolve_precision
+from repro_torch.core.precision import PRECISIONS
 from repro_torch.kernels import _build, lookback
 from repro_torch.kernels.scan_pipeline import block_geometry
 
@@ -447,7 +452,8 @@ def linrec_scan_tiles(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
         s: Tile side of the plain version's ``s×s`` tiles (the kernel walks
             elements and reads no tile side).
         accum_dtype: Accumulation dtype; defaults to ``linrec_accum_dtype_for``.
-        precision: Only ``"highest"`` is ported.
+        precision: One of ``PRECISIONS``, already resolved: the plain
+            version's products follow it; the kernel's sums do not.
 
     Returns:
         The inclusive recurrence from a zero state, in the accumulation dtype.
@@ -458,7 +464,7 @@ def linrec_scan_tiles(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
     """
     _check_pair("linrec_scan_tiles", a, b)
     s = guards.validate_positive(s, name="s", op="linrec_scan_tiles")
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision", op="linrec_scan_tiles")
     acc = _acc_of(a, b, accum_dtype)
     if a.numel() == 0:
         return torch.zeros(a.shape, dtype=acc, device=a.device)
@@ -494,7 +500,7 @@ def linrec_carry_scan(prods: torch.Tensor, lasts: torch.Tensor, *,
     ``carry[c] = Σ_{q<c} lasts[q] · Π_{r=q+1..c-1} prods[r]``, the exclusive
     scan of the summaries under affine composition.
     """
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision", op="linrec_carry_scan")
     _check_pair("linrec_carry_scan", prods, lasts, ndim=2)
     if not prods.is_cuda or prods.numel() == 0:
         return linrec_carry_scan_plain(prods, lasts, precision=precision)
@@ -511,12 +517,14 @@ def linrec_block_scan_carry(ablocks: torch.Tensor, bblocks: torch.Tensor,
         ablocks, bblocks: ``(rows, nb, m, s)`` row-major block views.
         carries: ``(rows, nb)`` states entering the blocks.
         accum_dtype: Accumulation dtype; defaults to ``linrec_accum_dtype_for``.
-        precision: Only ``"highest"`` is ported.
+        precision: One of ``PRECISIONS``, already resolved: the plain
+            version's products follow it; the kernel's sums do not.
 
     Returns:
         ``(rows, nb, m, s)`` in the accumulation dtype.
     """
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision",
+                           op="linrec_block_scan_carry")
     _check_pair("linrec_block_scan_carry", ablocks, bblocks, ndim=4)
     rows, nb, m, s = ablocks.shape
     guards.validate_same_shape((rows, nb), carries.shape, op="linrec_block_scan_carry",
@@ -544,7 +552,7 @@ def linrec_blocked_scan(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
     s = guards.validate_positive(s, name="s", op="linrec_blocked_scan")
     block_tiles = guards.validate_positive(block_tiles, name="block_tiles",
                                            op="linrec_blocked_scan")
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision", op="linrec_blocked_scan")
     acc = _acc_of(a, b, accum_dtype)
     if a.numel() == 0:
         return torch.zeros(a.shape, dtype=acc, device=a.device)

@@ -7,14 +7,21 @@ over many CTAs a row: each CTA scans a group of ``g`` tiles
 (:func:`group_geometry`) and takes its carry-in from the decoupled look-back
 (:mod:`.lookback`).  On a CPU tensor it runs :func:`scan_tiles_plain`, the
 same tile algebra in plain PyTorch, whose ``tile=`` models that split.
+
+``precision`` (:mod:`repro_torch.core.precision`) reaches the plain
+version's tile products, as it reaches the Pallas kernel's.  The CUDA kernel
+forms no triangle: it adds one element at a time in IEEE fp32, so its
+result under ``"compensated"`` and ``"fast"`` is the bits of ``"highest"``,
+which lie inside both looser bounds.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import guards
-from repro_torch.core.scan import (accum_dtype_for, tile_scan_scanu,
-                                   tile_scan_scanul1)
+from repro_torch.core.precision import PRECISIONS, pdot
+from repro_torch.core.scan import (accum_dtype_for, strictly_lower_ones,
+                                   tile_scan_scanu, upper_ones)
 from repro_torch.kernels import _build, lookback
 
 __all__ = ["scan_tiles", "scan_tiles_plain", "kernel_operand", "group_geometry",
@@ -55,8 +62,26 @@ def group_geometry(s: int, n: int):
     return g, elems, -(-n // elems)
 
 
+def _tile_scanul1(a: torch.Tensor, *, accum_dtype: torch.dtype,
+                  precision: str) -> torch.Tensor:
+    """The Pallas kernel's ScanUL1 tile step, ``A@U_s + L⁻_s @ (A@1_s)``.
+
+    Unlike :func:`repro_torch.core.scan.tile_scan_scanul1`, which sums the
+    rows in ``accum_dtype``, the kernel forms ``C1 = A@1_s`` as a product
+    too, so under ``"fast"`` its row sums are of the bf16 operands.
+    """
+    s = a.shape[-1]
+    u = upper_ones(s, a.dtype, a.device)
+    ones = torch.ones((s, s), dtype=a.dtype, device=a.device)
+    lm = strictly_lower_ones(s, accum_dtype, a.device)
+    c2 = pdot(a, u, acc=accum_dtype, precision=precision, exact="right")
+    c1 = pdot(a, ones, acc=accum_dtype, precision=precision, exact="right")
+    return c2 + pdot(lm, c1, acc=accum_dtype, precision=precision, exact="left")
+
+
 def scan_tiles_plain(xb: torch.Tensor, *, s: int, variant: str,
-                     acc: torch.dtype, tile: int | None = None) -> torch.Tensor:
+                     acc: torch.dtype, tile: int | None = None,
+                     precision: str = "highest") -> torch.Tensor:
     """Plain version of the kernel on a ``(b, n)`` tensor.
 
     Per tile ``local = A@U_s (+ L⁻_s@(A@1_s))``, then the carry, the sum of the
@@ -69,17 +94,18 @@ def scan_tiles_plain(xb: torch.Tensor, *, s: int, variant: str,
     ``E_i`` folds the group's earlier tile totals from 0, the group's total
     ``A_k`` is ``E_g`` and ``P_k = P_{k-1} + A_k`` is the look-back's strict
     fold (:func:`.lookback.fold_exclusive`).  Integer sums are the same for
-    every tile.
+    every tile.  ``precision`` reaches every tile product.
     """
     b, n = xb.shape
     ell = s * s
-    fn = tile_scan_scanul1 if variant == "scanul1" else tile_scan_scanu
+    fn = _tile_scanul1 if variant == "scanul1" else tile_scan_scanu
     if tile is not None:
         if tile % ell:
             raise ValueError(f"scan_tiles_plain: tile={tile} is not a multiple of s*s={ell}")
         pad = (-n) % tile
         xp = torch.nn.functional.pad(xb.to(acc), (0, pad)) if pad else xb
-        local = fn(xp.reshape(b, -1, tile // ell, s, s), accum_dtype=acc)  # (b, K, g, s, s)
+        local = fn(xp.reshape(b, -1, tile // ell, s, s), accum_dtype=acc,
+                   precision=precision)                      # (b, K, g, s, s)
         totals = local[..., -1, -1]
         run = torch.zeros_like(totals[..., 0])
         offsets = torch.empty_like(totals)
@@ -91,7 +117,7 @@ def scan_tiles_plain(xb: torch.Tensor, *, s: int, variant: str,
     pad = (-n) % ell
     xp = torch.nn.functional.pad(xb.to(acc), (0, pad)) if pad else xb
     tiles = xp.reshape(b, -1, s, s)
-    local = fn(tiles, accum_dtype=acc)                       # (b, nt, s, s)
+    local = fn(tiles, accum_dtype=acc, precision=precision)  # (b, nt, s, s)
     totals = local[:, :, -1, -1]
     carry = torch.cumsum(totals, dim=-1, dtype=acc)
     carry = torch.cat([torch.zeros_like(carry[:, :1]), carry[:, :-1]], dim=-1)
@@ -146,19 +172,18 @@ def scan_tiles(x: torch.Tensor, *, s: int = 128, variant: str = "scanul1",
         s: Tile side, ``1 <= s <= 128``.
         variant: ``"scanul1"`` or ``"scanu"``.
         accum_dtype: Accumulation dtype; defaults to ``accum_dtype_for``.
-        precision: Only ``"highest"`` is ported.
+        precision: One of ``PRECISIONS``, already resolved: the plain
+            version's tile products follow it; the kernel's sums do not.
 
     Returns:
         The inclusive scan in the accumulation dtype, shaped like ``x``.
     """
     variant = guards.validate_choice(variant, VARIANTS, name="variant",
                                      op="scan_tiles")
+    guards.validate_choice(precision, PRECISIONS, name="precision", op="scan_tiles")
     s = guards.validate_positive(s, name="s", op="scan_tiles")
     if s > MAX_TILE:
         raise ValueError(f"scan_tiles: s must be <= {MAX_TILE}, got {s}")
-    if precision != "highest":
-        raise NotImplementedError(f"scan_tiles: precision={precision!r} is not "
-                                  "ported yet (ROADMAP Queue A item 2)")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(x.dtype)
     *lead, n = x.shape
     xb = x.reshape(-1, n)
@@ -167,5 +192,5 @@ def scan_tiles(x: torch.Tensor, *, s: int = 128, variant: str = "scanul1",
     if xb.is_cuda:
         out = _scan_tiles_cuda(xb, s=s, variant=variant, acc=acc)
     else:
-        out = scan_tiles_plain(xb, s=s, variant=variant, acc=acc)
+        out = scan_tiles_plain(xb, s=s, variant=variant, acc=acc, precision=precision)
     return out.reshape(x.shape)

@@ -21,13 +21,17 @@ they run the plain versions (``*_plain``) on the zero-padded ``(b, nb, m, s)``
 block view, as the JAX code does.  The plain versions build on the port's
 ``tile_scan_scanu`` and ``pdot``, so an integer product never goes through
 torch's wrapping ``int8 @ int8``.  dtype rules follow ``accum_dtype_for``.
+
+``precision`` reaches B4's products, as in JAX; B2 and B3 take none (their
+Pallas kernels form no triangle).  On the card B4 sums in IEEE fp32 under
+every precision, so its result is the bits of ``"highest"``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import guards
-from repro_torch.core.precision import pdot, resolve_precision
+from repro_torch.core.precision import PRECISIONS, pdot
 from repro_torch.core.scan import (_operand_dtype, accum_dtype_for,
                                    strictly_lower_ones, tile_scan_scanu,
                                    upper_ones)
@@ -71,7 +75,8 @@ def carry_scan_plain(sums: torch.Tensor) -> torch.Tensor:
 
 
 def block_scan_carry_plain(blocks: torch.Tensor, carries: torch.Tensor, *,
-                           variant: str, acc: torch.dtype) -> torch.Tensor:
+                           variant: str, acc: torch.dtype,
+                           precision: str = "highest") -> torch.Tensor:
     """Each ``(m, s)`` block scanned as ``A@U_s`` plus its row prefix, plus its carry.
 
     The row prefix is the exclusive prefix of the block's ``m`` row sums:
@@ -79,20 +84,21 @@ def block_scan_carry_plain(blocks: torch.Tensor, carries: torch.Tensor, *,
     rectangular block), the ``L⁻_m`` product for ``scanul1``.
     """
     if variant == "scanu":
-        local = tile_scan_scanu(blocks, accum_dtype=acc)
+        local = tile_scan_scanu(blocks, accum_dtype=acc, precision=precision)
     else:
         m, s = blocks.shape[-2:]
         u = upper_ones(s, _operand_dtype(blocks.dtype), blocks.device)
-        local = pdot(blocks, u, acc=acc)
+        local = pdot(blocks, u, acc=acc, precision=precision, exact="right")
         lm = strictly_lower_ones(m, acc, blocks.device)
         # (L⁻_m @ row_sums) for every block, as row vectors times L⁻_mᵀ
-        row_prefix = pdot(local[..., -1], lm.t(), acc=acc)
+        row_prefix = pdot(local[..., -1], lm.t(), acc=acc, precision=precision,
+                          exact="right")
         local = local + row_prefix[..., None]
     return local + carries.to(acc)[..., None, None]
 
 
 def blocked_scan_plain(xb: torch.Tensor, *, s: int, block_tiles: int, variant: str,
-                       acc: torch.dtype) -> torch.Tensor:
+                       acc: torch.dtype, precision: str = "highest") -> torch.Tensor:
     """Plain version of the whole pipeline on ``(b, n)`` rows.
 
     Zero-pads the rows to whole blocks, runs the three plain phases on the
@@ -108,7 +114,8 @@ def blocked_scan_plain(xb: torch.Tensor, *, s: int, block_tiles: int, variant: s
         carries = torch.zeros((b, 1), dtype=acc, device=xb.device)
     else:
         carries = carry_scan_plain(block_partial_sums_plain(blocks, acc))
-    out = block_scan_carry_plain(blocks, carries, variant=variant, acc=acc)
+    out = block_scan_carry_plain(blocks, carries, variant=variant, acc=acc,
+                                 precision=precision)
     return out.reshape(b, nb * block_len)[:, :n]
 
 
@@ -191,14 +198,16 @@ def block_scan_carry(blocks: torch.Tensor, carries: torch.Tensor, *,
         carries: ``(b, nb)`` exclusive block prefixes from :func:`carry_scan`.
         variant: ``"scanul1"`` or ``"scanu"``.
         accum_dtype: Accumulation dtype; defaults to ``accum_dtype_for``.
-        precision: Only ``"highest"`` is ported.
+        precision: One of ``PRECISIONS``, already resolved: the plain
+            version's products follow it; the kernels' sums do not.
 
     Returns:
         ``(b, nb, m, s)`` in the accumulation dtype.
     """
     variant = guards.validate_choice(variant, VARIANTS, name="variant",
                                      op="block_scan_carry")
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision",
+                           op="block_scan_carry")
     if blocks.dim() != 4:
         raise ValueError(f"block_scan_carry: blocks must be (b, nb, m, s), got "
                          f"{tuple(blocks.shape)}")
@@ -207,7 +216,8 @@ def block_scan_carry(blocks: torch.Tensor, carries: torch.Tensor, *,
                                a_name="blocks (b, nb)", b_name="carries")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
     if not blocks.is_cuda or blocks.numel() == 0:
-        return block_scan_carry_plain(blocks, carries, variant=variant, acc=acc)
+        return block_scan_carry_plain(blocks, carries, variant=variant, acc=acc,
+                                      precision=precision)
     if s > MAX_TILE:
         raise ValueError(f"block_scan_carry: s must be <= {MAX_TILE}, got {s}")
     xb, code = kernel_operand(blocks.reshape(b, nb * m * s), acc, op="block_scan_carry")
@@ -228,7 +238,8 @@ def blocked_scan(x: torch.Tensor, *, s: int = 128, block_tiles: int = 8,
         block_tiles: Tiles per block (``>= 1``), clamped to the row's tiles.
         variant: ``"scanul1"`` or ``"scanu"``.
         accum_dtype: Accumulation dtype; defaults to ``accum_dtype_for``.
-        precision: Only ``"highest"`` is ported.
+        precision: One of ``PRECISIONS``, already resolved: the plain
+            version's products follow it; the kernels' sums do not.
 
     Returns:
         The inclusive scan in the accumulation dtype, shaped like ``x``.
@@ -243,7 +254,7 @@ def blocked_scan(x: torch.Tensor, *, s: int = 128, block_tiles: int = 8,
         raise ValueError(f"blocked_scan: s must be <= {MAX_TILE}, got {s}")
     block_tiles = guards.validate_positive(block_tiles, name="block_tiles",
                                            op="blocked_scan")
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision", op="blocked_scan")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(x.dtype)
     if x.numel() == 0:
         return torch.zeros(x.shape, dtype=acc, device=x.device)
@@ -252,7 +263,7 @@ def blocked_scan(x: torch.Tensor, *, s: int = 128, block_tiles: int = 8,
     b = xb.shape[0]
     if not xb.is_cuda:
         return blocked_scan_plain(xb, s=s, block_tiles=block_tiles, variant=variant,
-                                  acc=acc).reshape(x.shape)
+                                  acc=acc, precision=precision).reshape(x.shape)
     _, block_len, nb = block_geometry(n, s, block_tiles)
     xk, code = kernel_operand(xb, acc, op="blocked_scan")
     if nb == 1:

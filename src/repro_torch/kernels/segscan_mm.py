@@ -39,13 +39,18 @@ in the JAX code, and is sliced off.
 Flags count as set where they are nonzero (the JAX kernels test ``> 0`` after
 an int8 cast; the two agree on boolean and non-negative flags), and the
 has-boundary output of B10 is 0 or 1.
+
+``precision`` reaches the masked products of B9, B11 and B12 (each masked
+triangle an exact operand, as in JAX); B10 takes none.  On the card those
+kernels sum in IEEE fp32 under every precision, so their result is the bits
+of ``"highest"``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import guards
-from repro_torch.core.precision import pdot, resolve_precision
+from repro_torch.core.precision import PRECISIONS, pdot
 from repro_torch.core.scan import _operand_dtype, accum_dtype_for
 from repro_torch.kernels import _build, lookback
 from repro_torch.kernels.scan_mm import kernel_operand
@@ -82,7 +87,8 @@ def _row_starts(f: torch.Tensor) -> torch.Tensor:
     return torch.cummax(torch.where(f, pos, 0), dim=-1).values
 
 
-def _seg_rows_masked(a: torch.Tensor, startc: torch.Tensor, acc) -> torch.Tensor:
+def _seg_rows_masked(a: torch.Tensor, startc: torch.Tensor, acc,
+                     precision: str) -> torch.Tensor:
     """Row-local segmented scans as one flag-masked ``A @ U_s`` contraction.
 
     ``mask[r, i, j] = start[r, j] <= i <= j`` folds the flags into the upper
@@ -92,10 +98,12 @@ def _seg_rows_masked(a: torch.Tensor, startc: torch.Tensor, acc) -> torch.Tensor
     ri = torch.arange(s, device=a.device)[:, None]
     cj = torch.arange(s, device=a.device)[None, :]
     mseg = (ri <= cj) & (ri >= startc[..., None, :])            # (..., m, s, s)
-    return pdot(a[..., None, :], mseg.to(_operand_dtype(a.dtype)), acc=acc)[..., 0, :]
+    return pdot(a[..., None, :], mseg.to(_operand_dtype(a.dtype)), acc=acc,
+                precision=precision, exact="right")[..., 0, :]
 
 
-def _seg_rows_gather(a: torch.Tensor, startc: torch.Tensor, acc) -> torch.Tensor:
+def _seg_rows_gather(a: torch.Tensor, startc: torch.Tensor, acc,
+                     precision: str) -> torch.Tensor:
     """Row-local segmented scans as ``A @ U_s`` minus the value before each start.
 
     ``local[r, j] = (A @ U_s)[r, j] - exclusive(A @ U_s)[r, start[r, j]]``:
@@ -103,12 +111,13 @@ def _seg_rows_gather(a: torch.Tensor, startc: torch.Tensor, acc) -> torch.Tensor
     """
     s = a.shape[-1]
     u = torch.triu(torch.ones((s, s), dtype=_operand_dtype(a.dtype), device=a.device))
-    full = pdot(a, u, acc=acc).to(acc)
+    full = pdot(a, u, acc=acc, precision=precision, exact="right").to(acc)
     ex = full - a.to(acc)
     return full - torch.gather(ex, -1, startc)
 
 
-def _seg_row_carries(ts: torch.Tensor, hrow: torch.Tensor, acc) -> torch.Tensor:
+def _seg_row_carries(ts: torch.Tensor, hrow: torch.Tensor, acc,
+                     precision: str) -> torch.Tensor:
     """Exclusive segmented carry over rows: ``c[r] = Σ ts[lastb[r] .. r-1]``.
 
     ``lastb[r]`` is the last row before ``r`` that holds a flag (0 if none);
@@ -120,19 +129,21 @@ def _seg_row_carries(ts: torch.Tensor, hrow: torch.Tensor, acc) -> torch.Tensor:
     lastb_ex = torch.cat([torch.zeros_like(lastb[..., :1]), lastb[..., :-1]], dim=-1)
     qi, rj = rowi[:, None], rowi[None, :]
     m2 = (qi < rj) & (qi >= lastb_ex[..., None, :])              # (..., m, m)
-    return pdot(ts[..., None, :], m2.to(acc), acc=acc)[..., 0, :]
+    return pdot(ts[..., None, :], m2.to(acc), acc=acc, precision=precision,
+                exact="right")[..., 0, :]
 
 
-def _seg_block_scan(a: torch.Tensor, f: torch.Tensor, acc, *, masked: bool):
+def _seg_block_scan(a: torch.Tensor, f: torch.Tensor, acc, *, masked: bool,
+                    precision: str):
     """Segmented scan of ``(K, m, s)`` row-major blocks, with no incoming carry.
 
     Returns ``(out, seen)``; ``seen`` is true where a flag lies at or before the
     element within its block — where an incoming carry must not reach.
     """
     startc = _row_starts(f)
-    local = (_seg_rows_masked if masked else _seg_rows_gather)(a, startc, acc)
+    local = (_seg_rows_masked if masked else _seg_rows_gather)(a, startc, acc, precision)
     hrow = f.any(dim=-1)
-    c = _seg_row_carries(local[..., -1], hrow, acc)
+    c = _seg_row_carries(local[..., -1], hrow, acc, precision)
     seen_row = torch.cummax(f.to(torch.int32), dim=-1).values > 0
     out = local + torch.where(seen_row, torch.zeros((), dtype=acc, device=a.device),
                               c[..., None])
@@ -141,13 +152,15 @@ def _seg_block_scan(a: torch.Tensor, f: torch.Tensor, acc, *, masked: bool):
     return out, seen_row | (prev[..., None] > 0)
 
 
-def _seg_blocks(a: torch.Tensor, f: torch.Tensor, acc, *, masked: bool):
+def _seg_blocks(a: torch.Tensor, f: torch.Tensor, acc, *, masked: bool,
+                precision: str):
     """:func:`_seg_block_scan` over ``(..., m, s)`` blocks, a bounded number at a time."""
     *lead, m, s = a.shape
     a2, f2 = a.reshape(-1, m, s), f.reshape(-1, m, s)
     per = max(m * s * s if masked else m * s, m * m)
     step = max(1, _CHUNK_ELEMS // per)
-    parts = [_seg_block_scan(a2[i:i + step], f2[i:i + step], acc, masked=masked)
+    parts = [_seg_block_scan(a2[i:i + step], f2[i:i + step], acc, masked=masked,
+                             precision=precision)
              for i in range(0, a2.shape[0], step)]
     out = torch.cat([p[0] for p in parts]).reshape(*lead, m, s)
     seen = torch.cat([p[1] for p in parts]).reshape(*lead, m, s)
@@ -183,7 +196,8 @@ def seg_scan_tile(n: int) -> int:
 
 
 def seg_scan_tiles_plain(xb: torch.Tensor, fb: torch.Tensor, *, s: int,
-                         acc: torch.dtype, tile: int | None = None) -> torch.Tensor:
+                         acc: torch.dtype, tile: int | None = None,
+                         precision: str = "highest") -> torch.Tensor:
     """Plain version of B9 on ``(b, n)`` values and ``(b, n)`` bool flags.
 
     Each ``s×s`` tile is scanned with the flag-masked contraction, its rows
@@ -205,7 +219,8 @@ def seg_scan_tiles_plain(xb: torch.Tensor, fb: torch.Tensor, *, s: int,
         pad = (-n) % tile
         xt = torch.nn.functional.pad(xb.to(acc), (0, pad)).reshape(-1, tile)
         ft = torch.nn.functional.pad(fb, (0, pad)).reshape(-1, tile)
-        local = seg_scan_tiles_plain(xt, ft, s=s, acc=acc).reshape(b, -1, tile)
+        local = seg_scan_tiles_plain(xt, ft, s=s, acc=acc,
+                                     precision=precision).reshape(b, -1, tile)
         ft = ft.reshape(b, -1, tile)
         cin = lookback.fold_exclusive(local[..., -1], ft.any(dim=-1))
         seen = torch.cummax(ft.to(torch.int32), dim=-1).values > 0
@@ -216,7 +231,7 @@ def seg_scan_tiles_plain(xb: torch.Tensor, fb: torch.Tensor, *, s: int,
     tiles = torch.nn.functional.pad(xb.to(acc), (0, pad)).reshape(b, -1, s, s)
     # padding joins the last segment
     ftiles = torch.nn.functional.pad(fb, (0, pad)).reshape(b, -1, s, s)
-    out, seen = _seg_blocks(tiles, ftiles, acc, masked=True)
+    out, seen = _seg_blocks(tiles, ftiles, acc, masked=True, precision=precision)
     cin = _seg_pair_exclusive(out[..., -1, -1], ftiles.flatten(-2).any(dim=-1))
     out = out + torch.where(seen, torch.zeros((), dtype=acc, device=xb.device),
                             cin[..., None, None])
@@ -296,7 +311,8 @@ def seg_block_summaries_plain(blocks: torch.Tensor, fblocks: torch.Tensor,
 
 
 def seg_carry_scan_plain(sums: torch.Tensor, has_boundary: torch.Tensor, *,
-                         tile: int | None = None, s: int = 8) -> torch.Tensor:
+                         tile: int | None = None, s: int = 8,
+                         precision: str = "highest") -> torch.Tensor:
     """Exclusive segmented scan of each row of the ``(b, nb)`` summaries.
 
     ``tile`` (a multiple of ``s²``) models the kernel's pass instead of the one
@@ -306,21 +322,24 @@ def seg_carry_scan_plain(sums: torch.Tensor, has_boundary: torch.Tensor, *,
     then the shift to exclusive, block 0's carry being zero.
     """
     if tile is None:
-        return _seg_row_carries(sums, has_boundary != 0, sums.dtype)
-    inc = seg_scan_tiles_plain(sums, has_boundary != 0, s=s, acc=sums.dtype, tile=tile)
+        return _seg_row_carries(sums, has_boundary != 0, sums.dtype, precision)
+    inc = seg_scan_tiles_plain(sums, has_boundary != 0, s=s, acc=sums.dtype, tile=tile,
+                               precision=precision)
     return torch.cat([torch.zeros_like(inc[:, :1]), inc[:, :-1]], dim=-1)
 
 
 def seg_block_scan_carry_plain(blocks: torch.Tensor, fblocks: torch.Tensor,
-                               carries: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+                               carries: torch.Tensor, acc: torch.dtype,
+                               precision: str = "highest") -> torch.Tensor:
     """Each ``(m, s)`` block's segmented scan (gather form) plus its gated carry."""
-    out, seen = _seg_blocks(blocks, fblocks != 0, acc, masked=False)
+    out, seen = _seg_blocks(blocks, fblocks != 0, acc, masked=False, precision=precision)
     return out + torch.where(seen, torch.zeros((), dtype=acc, device=blocks.device),
                              carries.to(acc)[..., None, None])
 
 
 def seg_blocked_scan_plain(xb: torch.Tensor, fb: torch.Tensor, *, s: int,
-                           block_tiles: int, acc: torch.dtype) -> torch.Tensor:
+                           block_tiles: int, acc: torch.dtype,
+                           precision: str = "highest") -> torch.Tensor:
     """Plain version of the segmented pipeline on ``(b, n)`` rows and bool flags."""
     b, n = xb.shape
     m, block_len, nb = block_geometry(n, s, block_tiles)
@@ -330,8 +349,9 @@ def seg_blocked_scan_plain(xb: torch.Tensor, fb: torch.Tensor, *, s: int,
     if nb == 1:
         carries = torch.zeros((b, 1), dtype=acc, device=xb.device)
     else:
-        carries = seg_carry_scan_plain(*seg_block_summaries_plain(blocks, fblocks, acc))
-    out = seg_block_scan_carry_plain(blocks, fblocks, carries, acc)
+        carries = seg_carry_scan_plain(*seg_block_summaries_plain(blocks, fblocks, acc),
+                                       precision=precision)
+    out = seg_block_scan_carry_plain(blocks, fblocks, carries, acc, precision)
     return out.reshape(b, nb * block_len)[:, :n]
 
 
@@ -430,7 +450,8 @@ def seg_scan_tiles(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
         s: Tile side of the plain version's ``s×s`` tiles (the kernel cuts a
             row into tiles of ``seg_scan_tile(n)`` elements and reads no side).
         accum_dtype: Accumulation dtype; defaults to ``accum_dtype_for``.
-        precision: Only ``"highest"`` is ported.
+        precision: One of ``PRECISIONS``, already resolved: the plain
+            version's products follow it; the kernel's sums do not.
 
     Returns:
         The per-segment inclusive scan in the accumulation dtype, shaped like ``x``.
@@ -442,7 +463,7 @@ def seg_scan_tiles(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
     """
     guards.validate_broadcastable_to(flags.shape, x.shape, op="seg_scan_tiles")
     s = guards.validate_positive(s, name="s", op="seg_scan_tiles")
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision", op="seg_scan_tiles")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(x.dtype)
     if x.numel() == 0:
         return torch.zeros(x.shape, dtype=acc, device=x.device)
@@ -450,7 +471,8 @@ def seg_scan_tiles(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
     xb = x.reshape(-1, n)
     if not xb.is_cuda:
         fb = (flags != 0).expand(x.shape).reshape(xb.shape)
-        return seg_scan_tiles_plain(xb, fb, s=s, acc=acc).reshape(x.shape)
+        return seg_scan_tiles_plain(xb, fb, s=s, acc=acc,
+                                    precision=precision).reshape(x.shape)
     xk, code = kernel_operand(xb, acc, op="seg_scan_tiles")
     fk, fstride = _flag_rows(flags, x.shape)
     return _seg_scan_cuda(xk, code, fk, fstride, acc).reshape(x.shape)
@@ -481,13 +503,13 @@ def seg_carry_scan(sums: torch.Tensor, has_boundary: torch.Tensor, *,
     The carry into block ``i`` is the sum of ``sums`` from the last block
     before ``i`` that has a boundary (the first block if none) up to ``i-1``.
     """
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision", op="seg_carry_scan")
     if sums.dim() != 2:
         raise ValueError(f"seg_carry_scan: sums must be (b, nb), got {tuple(sums.shape)}")
     guards.validate_same_shape(sums.shape, has_boundary.shape, op="seg_carry_scan",
                                a_name="sums", b_name="has_boundary")
     if not sums.is_cuda or sums.numel() == 0:
-        return seg_carry_scan_plain(sums, has_boundary)
+        return seg_carry_scan_plain(sums, has_boundary, precision=precision)
     if sums.dtype not in _CARRY_CODES:
         raise TypeError(f"seg_carry_scan: the CUDA kernel takes {list(_CARRY_CODES)}, "
                         f"got {sums.dtype}")
@@ -505,19 +527,21 @@ def seg_block_scan_carry(blocks: torch.Tensor, fblocks: torch.Tensor,
         carries: ``(b, nb)`` from :func:`seg_carry_scan`; block ``i``'s carry
             reaches only its elements with no flag at or before them.
         accum_dtype: Accumulation dtype; defaults to ``accum_dtype_for``.
-        precision: Only ``"highest"`` is ported.
+        precision: One of ``PRECISIONS``, already resolved: the plain
+            version's products follow it; the kernel's sums do not.
 
     Returns:
         ``(b, nb, m, s)`` in the accumulation dtype.
     """
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision",
+                           op="seg_block_scan_carry")
     _check_blocks("seg_block_scan_carry", blocks, fblocks)
     b, nb, m, s = blocks.shape
     guards.validate_same_shape((b, nb), carries.shape, op="seg_block_scan_carry",
                                a_name="blocks (b, nb)", b_name="carries")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
     if not blocks.is_cuda or blocks.numel() == 0:
-        return seg_block_scan_carry_plain(blocks, fblocks, carries, acc)
+        return seg_block_scan_carry_plain(blocks, fblocks, carries, acc, precision)
     xk, code = kernel_operand(blocks.reshape(b, nb * m * s), acc, op="seg_block_scan_carry")
     fk, fstride = _flag_rows(fblocks.reshape(b, nb * m * s), xk.shape)
     out = _seg_block_scan_cuda(xk, code, fk, fstride, carries.to(acc).contiguous(), acc,
@@ -543,7 +567,7 @@ def seg_blocked_scan(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
     s = guards.validate_positive(s, name="s", op="seg_blocked_scan")
     block_tiles = guards.validate_positive(block_tiles, name="block_tiles",
                                            op="seg_blocked_scan")
-    resolve_precision(precision)
+    guards.validate_choice(precision, PRECISIONS, name="precision", op="seg_blocked_scan")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(x.dtype)
     if x.numel() == 0:
         return torch.zeros(x.shape, dtype=acc, device=x.device)
@@ -552,7 +576,7 @@ def seg_blocked_scan(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
     if not xb.is_cuda:
         fb = (flags != 0).expand(x.shape).reshape(xb.shape)
         return seg_blocked_scan_plain(xb, fb, s=s, block_tiles=block_tiles,
-                                      acc=acc).reshape(x.shape)
+                                      acc=acc, precision=precision).reshape(x.shape)
     _, block_len, nb = block_geometry(n, s, block_tiles)
     xk, code = kernel_operand(xb, acc, op="seg_blocked_scan")
     fk, fstride = _flag_rows(flags, x.shape)

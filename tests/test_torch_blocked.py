@@ -231,5 +231,6 @@ def test_blocked_errors():
         port_sp.blocked_scan(x, s=129)
     with pytest.raises(ValueError, match="carries"):
         port_sp.block_scan_carry(x.reshape(2, 1, 5, 2), torch.zeros((2, 2)))
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        port_sp.blocked_scan(x, precision="fast")
+    with pytest.raises(ValueError, match="precision"):
+        port_sp.blocked_scan(x, precision="exact")
+    assert port_sp.blocked_scan(x, s=2, precision="fast")[:, -1].tolist() == [10.0, 10.0]

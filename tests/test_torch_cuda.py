@@ -1870,3 +1870,100 @@ def test_forced_probe_failure_raises_before_any_launch(dev):
         torch.cuda.synchronize()
         assert ops.launch_counts() == _counts()
         assert scan(x, method=m).shape == x.shape          # the real probe passes
+
+
+# ---- the precision axis: the kernels' bits are "highest"'s under every precision ----
+
+
+def _precision_calls(dev, n=70001):
+    g = _gen(dev, 7)
+    x = torch.randn((3, n), generator=g, device=dev)
+    a = 0.9 + 0.1 * torch.rand((3, n), generator=g, device=dev)
+    off = torch.tensor([0, 5, 5, 4100, 4101, 60000, n], dtype=torch.int32, device=dev)
+    return {"scan": lambda **kw: scan(x, **kw),
+            "segment_scan": lambda **kw: segment_scan(x, off, **kw),
+            "linear_scan": lambda **kw: linear_scan(a, x, **kw),
+            "segment_linear_scan": lambda **kw: segment_linear_scan(a, x, off, **kw)}
+
+
+@pytest.mark.parametrize("method", ["kernel", "blocked"])
+@pytest.mark.parametrize("op", ["scan", "segment_scan", "linear_scan", "segment_linear_scan"])
+def test_kernel_paths_return_highest_bits_under_every_precision(dev, op, method):
+    """The CUDA kernels form no triangle: "compensated" and "fast" launch what
+    "highest" launches and return its bits."""
+    fn = _precision_calls(dev)[op]
+    ops.reset_launch_counts()
+    want = fn(method=method)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert sum(launches.values()) > 0
+    for p in ("compensated", "fast"):
+        ops.reset_launch_counts()
+        got = fn(method=method, precision=p)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == launches, (op, method, p)
+        assert torch.equal(got, want), (op, method, p)
+
+
+def test_ssd_scan_kernel_bits_under_every_precision(dev):
+    g = _gen(dev, 8)
+    args = (torch.randn((2, 256, 4, 8), generator=g, device=dev),
+            -(torch.randn((2, 256, 4), generator=g, device=dev) * 0.01).abs(),
+            torch.randn((2, 256, 4, 8), generator=g, device=dev) * 0.3,
+            torch.randn((2, 256, 4, 8), generator=g, device=dev) * 0.3)
+    for method in ("kernel", "blocked"):
+        want = ssd_scan(*args, chunk=64, scan_method=method)
+        for p in ("compensated", "fast"):
+            assert torch.equal(ssd_scan(*args, chunk=64, scan_method=method, precision=p),
+                               want)
+
+
+def test_split_f16_on_the_card_equals_the_cpu(dev):
+    """``(hi, lo, e)`` bit-equal on the card and the CPU, on rows with a max near
+    2^±126, subnormal elements and maxima, values past fp16's range, zeros, NaN
+    and ±inf (a NaN's fp16 payload is the device's: NaN in the same place);
+    22-bit mantissas come back exactly."""
+    from repro_torch.core.precision import SPLIT_SHIFT, ldexp, split_f16
+    g = torch.Generator().manual_seed(3)
+    mag = 0.5 + torch.randn((8, 64), generator=g).abs()
+    rows = torch.cat([mag * 2.0 ** 125, mag * 2.0 ** -125, mag * 2.0 ** -140,
+                      mag * 65504.0 * 3, torch.zeros((1, 64)),
+                      torch.randint(-(1 << 21), 1 << 21, (4, 64), generator=g).float()
+                      * 2.0 ** -20])
+    rows[-1, 3], rows[-2, 7], rows[-3, [1, 9]] = float("nan"), float("inf"), float("-inf")
+    for axis in (-1, -2):
+        cpu = split_f16(rows, axis=axis)
+        card = split_f16(rows.to(dev), axis=axis)
+        for c, k in zip(cpu, card):
+            k = k.cpu()
+            view = torch.int16 if c.dtype == torch.float16 else c.dtype
+            nan = torch.isnan(c) if c.is_floating_point() else torch.zeros_like(c, dtype=bool)
+            assert torch.equal(nan, torch.isnan(k) if k.is_floating_point() else nan), axis
+            assert torch.equal(c.view(view)[~nan], k.view(view)[~nan]), axis
+    hi, lo, e = split_f16(rows[-4:-3].to(dev), axis=-1)
+    shift = torch.tensor(-SPLIT_SHIFT, device=dev)
+    assert torch.equal(ldexp(hi.float() + ldexp(lo.float(), shift), e), rows[-4:-3].to(dev))
+
+
+@pytest.mark.parametrize("precision", ["highest", "compensated", "fast"])
+def test_matmul_method_on_the_card_within_the_precision_bound(dev, precision):
+    """``"matmul"`` runs the real split on the card: within the precision's bound of
+    fp64, within twice ``"highest"``'s bound of the same call on the CPU (whose
+    plain products the CPU tests hold to JAX's), ``"fast"`` further than that from
+    ``"highest"``; integer-valued rows exact."""
+    from repro_torch.analysis import ulp
+    g = _gen(dev, 7)
+    xr = torch.randn((3, 4096), generator=g, device=dev)
+    got = scan(xr, method="matmul", precision=precision)
+    xn = xr.double().cpu().numpy()
+    e = ulp.max_ulp(got.cpu().numpy(), ulp.scan_ref(xn), ulp.scan_scale(xn))
+    assert e <= ulp.ulp_bound(precision, 4096), e
+    tight = 2 * ulp.ulp_bound("highest", 4096)
+    cpu = scan(xr.cpu(), method="matmul", precision=precision).double().numpy()
+    assert ulp.max_ulp(got.cpu().numpy(), cpu, ulp.scan_scale(xn)) <= tight
+    if precision == "fast":
+        hi = scan(xr, method="matmul").double().cpu().numpy()
+        assert ulp.max_ulp(got.cpu().numpy(), hi, ulp.scan_scale(xn)) > tight
+    xi = torch.randint(-3, 4, (3, 4096), generator=g, device=dev).float()
+    assert torch.equal(scan(xi, method="matmul", precision=precision),
+                       xi.double().cumsum(-1).float())

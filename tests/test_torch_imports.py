@@ -156,10 +156,11 @@ def test_guard_helpers():
 
 
 def test_precision_highest_only_and_no_tf32():
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        precision.resolve_precision("compensated", method="matmul")
+    assert precision.resolve_precision("compensated", method="matmul") == "compensated"
     with pytest.raises(ValueError):
         precision.resolve_precision("fast", method="vector")
+    with pytest.raises(ValueError, match="unknown precision"):
+        precision.resolve_precision("exact", method="matmul")
     prev = torch.backends.cuda.matmul.allow_tf32
     try:
         torch.backends.cuda.matmul.allow_tf32 = True

@@ -150,6 +150,8 @@ def test_wrappers_validate_shapes():
     with pytest.raises(ValueError):
         port_lin.linrec_block_scan_carry(x.reshape(1, 2, 2, 4), x.reshape(1, 2, 2, 4),
                                          torch.zeros((1, 3)))
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        port_lin.linrec_scan_tiles(x, x, precision="compensated")
+    with pytest.raises(ValueError, match="precision"):
+        port_lin.linrec_scan_tiles(x, x, precision="exact")
+    assert torch.equal(port_lin.linrec_scan_tiles(x, x, s=2, precision="compensated"),
+                       port_lin.linrec_scan_tiles(x, x, s=2))
     assert port_lin.linrec_scan_tiles(torch.ones((3, 0)), torch.ones((3, 0))).shape == (3, 0)

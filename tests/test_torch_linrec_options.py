@@ -175,8 +175,10 @@ def test_validation_and_grad_refusal():
         linear_scan(a, b, tile_s=1)
     with pytest.raises(ValueError):
         linear_scan(a, b, axis=1)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        linear_scan(a, b, method="matmul", precision="compensated")
+    with pytest.raises(ValueError, match="precision"):
+        linear_scan(a, b, method="vector", precision="compensated")
+    assert linear_scan(a, b, method="matmul", precision="compensated").tolist() == \
+        [1.0, 2.0, 3.0, 4.0]
     # the non-finite policies: JAX's outcome and values (a -> 1, b -> 0)
     an = np.asarray([1.0, np.nan, 2.0, np.inf], np.float32)
     bn = np.asarray([1.0, 2.0, -np.inf, 3.0], np.float32)

@@ -119,11 +119,12 @@ def test_bf16_scan_accumulates_in_fp32_like_jax():
 
 
 def test_blocked_and_unknown_methods_raise():
-    """``blocked`` runs now; what it has not ported (other precisions) raises."""
+    """``blocked`` runs, under every precision; unknown methods and precisions raise."""
     x = torch.ones(10)
     assert port_scan(x, method="blocked", tile_s=8)[-1].item() == 10.0
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        port_scan(x, method="blocked", precision="compensated")
+    assert port_scan(x, method="blocked", tile_s=8, precision="compensated")[-1].item() == 10.0
+    with pytest.raises(ValueError, match="unknown precision"):
+        port_scan(x, method="blocked", precision="exact")
     with pytest.raises(ValueError, match="block_tiles"):
         port_scan(x, method="blocked", block_tiles=0)
     with pytest.raises(ValueError):

@@ -123,15 +123,17 @@ def test_validate_offsets_refuses_floats_and_keeps_good_offsets():
 
 def test_unported_options_raise():
     x, off = torch.ones(5), [0, 2, 5]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        T.segment_linear_scan(x, x, off, method="matmul", precision="compensated")
+    np.testing.assert_array_equal(
+        T.segment_linear_scan(x, x, off, method="matmul", precision="compensated").numpy(),
+        np.asarray(J.segment_linear_scan(jnp.ones(5), jnp.ones(5), jnp.asarray(off),
+                                         method="matmul", precision="compensated")))
     xn = torch.tensor([1.0, float("nan"), 1.0, float("inf"), 1.0])
     jn = jnp.asarray(xn.numpy())
     np.testing.assert_array_equal(
         T.segment_linear_scan(xn, xn, off, nonfinite="sanitize").numpy(),
         np.asarray(J.segment_linear_scan(jn, jn, jnp.asarray(off), nonfinite="sanitize")))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        T.segment_scan(x, off, method="matmul", precision="compensated")
+    with pytest.raises(ValueError, match="precision"):
+        T.segment_scan(x, off, method="vector", precision="compensated")
     np.testing.assert_array_equal(
         T.segment_scan(xn, off, nonfinite="sanitize").numpy(),
         np.asarray(J.segment_scan(jn, jnp.asarray(off), nonfinite="sanitize")))

@@ -222,8 +222,9 @@ def test_wrappers_validate_their_arguments():
         port_seg.seg_blocked_scan(x, torch.ones(10), s=0)
     with pytest.raises(ValueError, match="block_tiles"):
         port_seg.seg_blocked_scan(x, torch.ones(10), block_tiles=0)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        port_seg.seg_scan_tiles(x, torch.ones(10), precision="fast")
+    with pytest.raises(ValueError, match="precision"):
+        port_seg.seg_scan_tiles(x, torch.ones(10), precision="exact")
+    assert port_seg.seg_scan_tiles(x, torch.ones(10), s=2, precision="fast").sum() == 20
     blocks = torch.ones((1, 2, 4, 4))
     with pytest.raises(ValueError, match="fblocks"):
         port_seg.seg_block_summaries(blocks, torch.ones((1, 2, 4, 3)))
