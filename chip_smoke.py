@@ -147,12 +147,35 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               "kernel", 38 B4 + 38 B16 on "blocked", none on "vector"; the SMOKE
               model's fp32 forward on the card against the CPU, and against B17's
               plain version on two inputs (one the card tests');
-20. b7h    -- the radix pass that exports its histogram against its plain version at
+20. models -- the families of ROADMAP Queue A items 7.1 and 7.2 at full width, bf16,
+              random weights from seed 0, each model freed before the next:
+              (a) deepseek-moe-16b (arXiv:2401.06066; 28 layers, 1 dense + 27 MoE of
+              64 experts top-6) serving batch 4, prompt 128, 32 new tokens with
+              ``topp_kernel`` under ``scan_method="kernel"`` (27 B9 a pass: the MoE
+              dispatch's exclusive int8 mask scan, one segmented scan a layer) and
+              ``"blocked"`` (27 B12: every one-hot row is one block, so B10 and B11
+              do not launch), plus 4 B7 + 1 B8 a token, every token in its window;
+              (b) its ``forward`` / ``loss`` on 4 x 2048 tokens under "kernel",
+              "blocked" and "vector": 27 B9, 27 B12 and no launch a pass, the logits,
+              ``ce`` and ``aux`` bit-equal across the three; one layer's real routing
+              dispatched in both modes (B9, B1; B12, B4) bit-equal to an int64
+              cumsum, B9 and B12 equal to B9's plain version on its one-hot, and the
+              dispatch's ms beside the expert GEMMs'; (e) ``ContinuousEngine``
+              (greedy, the dispatch on "kernel") on a 4-request Poisson trace, every
+              decode step's logits bit-equal to ``DenseReplay``, one B9 a MoE layer
+              a prefill and a decode step; (c) llama4-scout-17b-16e at full width,
+              2 of its 48 layers (``"reduced"``), serving 8 new tokens on "kernel"
+              (2 B9 a pass); (d) qwen3-4b (qk-norm) and gemma2-2b (local/global
+              layers, window 4096) at full depth serving ``topp_kernel``, gemma2 at
+              batch 2 and a prompt of 4160, and a local layer's ``attn_decode`` and
+              ``attn_decode_paged`` at position 4173 bit-equal after the cache
+              outside the window is overwritten;
+21. b7h    -- the radix pass that exports its histogram against its plain version at
               (4, 2^22) int32 keys (one shard of a 2^24 row at D = 4): every shift of
               the 8 radix-16 passes, chained into a stable sort; a ragged row and
               16-bit keys; the tile-edge cases of ``b7``; keys, permutation and counts
               exact, counts equal to a bincount of the digits;
-21. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
+22. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
               card (a process a rank): dist_sort / dist_topk (method="kernel") of
               (4, 2^24) fp32 and bf16 keys bit-equal to the local kernel sort, exactly
               8 (fp32) or 4 (bf16) B7h launches a rank and no B7; dist_top_p_sample
@@ -163,12 +186,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (method="kernel", nonfinite="sanitize") on the guards phase's sampler
               rows, the poisoned rows' greedy tokens; every call's collective calls
               and bytes equal to modeled_dist_traffic;
-22. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
+23. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
               and depth (bf16, random weights from seed 0), batch 4, prompt 128, 32
               new tokens, in a world of 2 ranks on the card: the same stream on both
               ranks, every token inside the window of the solo sampler, the decode
               step's ms and collectives;
-23. timing -- kernel, plain-version and library times beside each kernel's bound, and
+24. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
@@ -264,6 +287,17 @@ B8_ROWS = (1, 2, 7, 8, 9, 4096, 32000, 64128, 128255, 128256, 128257, 257216, 1 
 # B11 at one tile (the pipeline's nb = 128, 8192) and over many (look-back)
 B11_ROWS = (128, 8192, 8193, 70001, 1 << 20)
 B11_LARGE = (4, 1 << 20)            # B11 timed where the look-back works
+# models: deepseek-moe-16b serving and forward (its MoE layers' dispatch is the
+# paper's int8 mask scan), llama4-scout cut to 2 of its 48 layers (~109 B
+# parameters do not fit one card), qwen3-4b and gemma2-2b at full size; gemma2's
+# prompt of 4160 reaches past its local layers' window of 4096
+MODELS_SERVE = dict(batch=4, prompt=128, new=32, seed=0)
+MODELS_FORWARD = dict(batch=4, seq=2048, seed=0)
+SCOUT = dict(layers=2, batch=4, prompt=128, new=8)
+QWEN = dict(batch=4, prompt=128, new=32)
+GEMMA = dict(batch=2, prompt=4160, new=16)
+MOE_CONTINUOUS = dict(max_batch=4, page_size=16, n_pages=37, max_len=144, tick_tokens=8)
+MOE_TRACE = dict(n_requests=4, rate=0.25, prompt_len=(32, 128), max_new=(8, 16), seed=17)
 # relative fp32 rounding allowed on top of the bound that the logits put on the
 # methods' ce (forward_zamba2): a few roundings of each ~10-nat term and a tree sum
 CE_SLACK = 1e-5
@@ -335,7 +369,9 @@ from repro_torch.core.ssd import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels import (_build, linrec_mm, lookback, ops,  # noqa: E402
                                  scan_mm, scan_pipeline, segscan_mm, split_mm, ssd_chunk)
 from repro_torch.launch.world import run_world  # noqa: E402
+from repro_torch.models import attention as att_model  # noqa: E402
 from repro_torch.models import mamba as mamba_model  # noqa: E402
+from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models.model import build_model, get_config  # noqa: E402
 from repro_torch.serving import paged_kv  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -3887,6 +3923,373 @@ def smoke_forward():
 
 
 # ---------------------------------------------------------------------------
+# models: the MoE, qk-norm and local/global families at full width
+# ---------------------------------------------------------------------------
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _first(tree):
+    """Layer 0 of a stacked parameter tree."""
+    return {k: _first(v) for k, v in tree.items()} if isinstance(tree, dict) else tree[0]
+
+
+def _sum_counts(*counts) -> dict:
+    return {k: sum(c.get(k, 0) for c in counts) for k in ops.KERNELS}
+
+
+def _init_bf16(cfg, seed: int):
+    sync()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(seed, device=DEV, dtype=torch.bfloat16)
+    sync()
+    return params, time.perf_counter() - t0, sum(t.numel() for t in _leaves(params))
+
+
+def host_syncs(fn) -> int:
+    """Host syncs that ``fn`` makes (``torch.cuda.set_sync_debug_mode`` warnings)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def serve_family(cfg, params, gen, *, batch: int, prompt: int, new: int, method: str,
+                 per_pass) -> dict:
+    """``ServeEngine(sampler="topp_kernel")`` on ``cfg`` under ``scan_method=method``:
+    a warm-up, then the timed run with the counters zeroed just before and read just
+    after, exact against ``per_pass(n)`` (the model's launches of one pass over ``n``
+    tokens) plus the sampler's 4 B7 + 1 B8 a token; a prefill and one sample alone,
+    likewise; the prefill timed alone; every sampled token held to its window."""
+    toks = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                                    device=DEV)}
+    uniforms = torch.rand((new, batch), generator=gen, device=DEV)
+    eng = ServeEngine(cfg, params, max_len=prompt + new, sampler="topp_kernel",
+                      scan_method=method)
+    eng.generate(toks, 2, uniforms=uniforms[:2])                        # warm-up
+    ops.reset_launch_counts()
+    out, t_full = _timed_generate(eng, toks, new, uniforms=uniforms)
+    counts = ops.launch_counts()
+    want = _sum_counts(per_pass(batch * prompt), *[per_pass(batch)] * (new - 1),
+                       {"radix_pass": 4 * new, "topp_tail": new})
+    expect_counts(counts, f"{cfg.name} serving under scan_method={method!r}", **want)
+    check(tuple(out.shape) == (batch, new) and bool(((out >= 0) & (out < cfg.vocab_size))
+                                                   .all()),
+          f"{cfg.name} {method}: tokens of shape {tuple(out.shape)} or out of range")
+    ops.reset_launch_counts()
+    _, t_one = _timed_generate(eng, toks, 1, uniforms=uniforms[:1])
+    expect_counts(ops.launch_counts(), f"{cfg.name} {method}: prefill and one sample",
+                  **_sum_counts(per_pass(batch * prompt), {"radix_pass": 4, "topp_tail": 1}))
+    sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, caches = eng.model.prefill(params, toks, cache_len=prompt + new)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = torch.argmax(logits, -1)[:, None]
+        syncs = host_syncs(lambda: eng.model.decode_step(params, tok, caches, prompt))
+    sampled = check_sampled(eng, toks, uniforms, out, new)
+    return {"launches": {k: v for k, v in counts.items() if v}, "counts": counts,
+            "batch": batch, "prompt": prompt, "new_tokens": new, "prefill_ms": prefill_ms,
+            "prefill_plus_first_sample_ms": t_one * 1e3,
+            "decode_step_ms": (t_full - t_one) / (new - 1) * 1e3,
+            "model_host_syncs_per_decode_step": syncs,
+            "tokens_per_s": batch * new / t_full, "generate_s": t_full, **sampled}
+
+
+def moe_per_pass(cfg, method: str):
+    """The launches of one pass of ``cfg``'s MoE layers over ``n`` tokens: one
+    segmented mask scan a layer over the (E, n·K) one-hot (``seg_counts``)."""
+    layers = cfg.n_layers - cfg.moe.first_k_dense
+
+    def per_pass(n):
+        return seg_counts(method, n * cfg.moe.top_k, layers) if method != "vector" else {}
+    return per_pass
+
+
+def moe_dispatch_check(cfg, params, eidx) -> dict:
+    """One layer's real routing (``eidx``, (1, T·K)): the positions of both dispatch
+    modes on "kernel" (B9, B1) and "blocked" (B12, B4, one block a row), each one
+    launch, bit-equal to one another and to an int64 cumsum of the one-hot; B9 and
+    B12 also against their plain versions on the same one-hot on the card.  Then the
+    dispatch scan's ms beside the layer's expert GEMMs' ms at this routing's capacity."""
+    e = cfg.moe.n_experts
+    onehot = torch.nn.functional.one_hot(eidx.to(torch.int64), e)              # (1, N, E)
+    ref = torch.gather(torch.cumsum(onehot, 1) - onehot, 2,
+                       eidx.to(torch.int64)[..., None])[..., 0]
+    wants = {("kernel", "segmented"): {"seg_scan": 1}, ("kernel", "grouped"): {"scan_mm": 1},
+             ("blocked", "segmented"): seg_counts("blocked", eidx.shape[1], 1),
+             ("blocked", "grouped"): {"block_scan": 1}}
+    if scan_pipeline.block_geometry(eidx.shape[1], 128, 8)[2] > 1:
+        wants[("blocked", "grouped")] = {"block_sums": 1, "carry_scan": 1, "block_scan": 1}
+    pos = {}
+    for (method, mode), want in wants.items():
+        ops.reset_launch_counts()
+        pos[(method, mode)] = moe_model.dispatch_positions(eidx, e, scan_method=method,
+                                                           mode=mode)
+        sync()
+        expect_counts(ops.launch_counts(), f"MoE dispatch {method}/{mode}", **want)
+        check(torch.equal(pos[(method, mode)].to(torch.int64), ref),
+              f"MoE dispatch {method}/{mode}: positions != the int64 cumsum")
+    oh8 = (eidx[0][None, :] == torch.arange(e, device=DEV)[:, None]).to(torch.int8)
+    flags = torch.zeros(oh8.shape[1], dtype=torch.int8, device=DEV)
+    flags[0] = 1
+    b9 = segscan_mm.seg_scan_tiles(oh8, flags)
+    b12 = segscan_mm.seg_blocked_scan(oh8, flags)
+    plain = segscan_mm.seg_scan_tiles_plain(oh8, (flags != 0).expand(oh8.shape), s=128,
+                                            acc=torch.int32)
+    check(torch.equal(b9, plain) and torch.equal(b12, plain),
+          "MoE one-hot: B9 / B12 differ from B9's plain version")
+    scan_ms = cuda_ms(lambda: moe_model.dispatch_positions(
+        eidx, e, scan_method="kernel", mode="segmented"), 20)
+    syncs = host_syncs(lambda: moe_model.dispatch_positions(
+        eidx, e, scan_method="kernel", mode="segmented"))
+    b9_ms = cuda_ms(lambda: segscan_mm.seg_scan_tiles(oh8, flags), 20)
+    b9_device_ms = graph_ms(lambda: segscan_mm.seg_scan_tiles(oh8, flags), 20)
+    b9_bound_ms, _ = bound(oh8.numel() + flags.numel() + 4 * oh8.numel())
+    cap = moe_model.capacity_of(eidx.shape[1] // cfg.moe.top_k, cfg)
+    w = _first(params["stack"]["sub0"]["moe"]["experts"])
+    ex_in = torch.randn((e, cap, cfg.d_model), generator=torch.Generator(DEV).manual_seed(5),
+                        device=DEV).to(torch.bfloat16)
+    gemm_ms = cuda_ms(lambda: moe_model._expert_ffn(ex_in, w, cfg.act), 5)
+    return {"assignments": int(eidx.shape[1]), "capacity": cap,
+            "positions_equal_int64_cumsum": True, "grouped_equal_segmented": True,
+            "max_position": int(ref.max()),
+            "dropped": int((ref >= cap).sum()),
+            "dispatch_scan_ms": scan_ms, "dispatch_host_syncs": syncs,
+            "b9_ms": b9_ms, "b9_device_ms": b9_device_ms, "b9_bound_ms": b9_bound_ms,
+            "expert_gemms_ms": gemm_ms,
+            "dispatch_share_of_layer_moe": scan_ms / (scan_ms + gemm_ms)}
+
+
+def forward_moe(cfg, params) -> dict:
+    """``forward`` / ``loss`` of ``cfg`` on ``MODELS_FORWARD``'s tokens under "kernel",
+    "blocked" and "vector": exact launches a pass (27 B9, 27 B12, none), the logits,
+    ``ce`` and ``aux`` bit-equal across the three (the positions are exact integers),
+    and one layer's routing recorded for ``moe_dispatch_check``."""
+    b, s = MODELS_FORWARD["batch"], MODELS_FORWARD["seq"]
+    rng = np.random.default_rng(MODELS_FORWARD["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
+    mask = torch.from_numpy((rng.random((b, s)) < 0.9).astype(np.int32))
+    batch = {"tokens": toks.to(DEV), "loss_mask": mask.to(DEV)}
+    out, ref, launched, routing = {}, None, {k: 0 for k in ops.KERNELS}, []
+    real_dispatch = moe_model.dispatch
+
+    def record(expert_idx, *a, **kw):
+        if not routing:
+            routing.append(expert_idx.reshape(1, -1).clone())
+        return real_dispatch(expert_idx, *a, **kw)
+
+    for method in ("vector", "kernel", "blocked"):
+        model = build_model(dataclasses.replace(cfg, scan_method=method))
+        moe_model.dispatch = record
+        try:
+            model.forward(params, batch)                                   # warm-up
+        finally:
+            moe_model.dispatch = real_dispatch
+        want = moe_per_pass(cfg, method)(b * s)
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        lg = model.forward(params, batch)
+        sync()
+        fwd_s = time.perf_counter() - t0
+        c_fwd = ops.launch_counts()
+        expect_counts(c_fwd, f"{cfg.name} forward under scan_method={method!r}", **want)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        total, parts = model.loss(params, batch)
+        sync()
+        loss_s = time.perf_counter() - t0
+        c_loss = ops.launch_counts()
+        expect_counts(c_loss, f"{cfg.name} loss under scan_method={method!r}", **want)
+        check(tuple(lg.shape) == (b, s, cfg.padded_vocab) and bool(lg.isfinite().all())
+              and bool(torch.isfinite(total)) and float(parts["aux"]) > 0,
+              f"{cfg.name} forward {method}: logits {tuple(lg.shape)} or loss {parts}")
+        launched = _sum_counts(launched, c_fwd, c_loss)
+        got = (lg, parts["ce"], parts["aux"], total)
+        if ref is None:
+            ref = got
+        else:
+            check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                  f"{cfg.name} forward {method}: logits, ce or aux differ from 'vector'")
+        out[method] = {"launches_per_pass": {k: v for k, v in c_fwd.items() if v},
+                       "forward_ms": fwd_s * 1e3, "loss_ms": loss_s * 1e3,
+                       "tokens_per_s": b * s / fwd_s, "ce": float(parts["ce"]),
+                       "aux": float(parts["aux"])}
+        del lg, got
+    del ref
+    _free()
+    out["bit_equal_across_methods"] = True
+    out["dispatch"] = moe_dispatch_check(cfg, params, routing[0])
+    return {"batch": b, "seq": s, **out, "counts": launched}
+
+
+def continuous_moe(cfg, params) -> dict:
+    """``ContinuousEngine`` (greedy) on ``cfg`` under ``scan_method="kernel"`` and
+    ``MOE_TRACE``: a warm-up run under ``DenseReplay`` (every decode step's logits
+    bit-equal to the dense replay), then the timed run with the counters zeroed
+    just before: one B9 a MoE layer in each prefill and each decode step run."""
+    kcfg = dataclasses.replace(cfg, scan_method="kernel")
+    trace = poisson_trace(vocab_size=cfg.vocab_size, **MOE_TRACE)
+    eng = ContinuousEngine(kcfg, params, sampler="greedy", **MOE_CONTINUOUS)
+    per_alloc = alloc_launches(eng)
+    with DenseReplay(eng) as rep:
+        first = eng.run(trace)
+    replay = rep.result()
+    check(replay["bit_equal"] and replay["row_steps"] > 0,
+          f"{cfg.name} continuous: paged decode differs from its dense replay: {replay}")
+    probe = TickProbe(eng, profile=-1)
+    probe.count = False
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = eng.run(trace)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps_run = len(probe.ms) * eng.tick_tokens
+    layers = cfg.n_layers - cfg.moe.first_k_dense
+    expect_counts(counts, f"{cfg.name} continuous", **_sum_counts(
+        {"seg_scan": layers * (len(trace) + steps_run)},
+        {k: v * eng.alloc.calls for k, v in per_alloc.items()}))
+    check(_same_run(first, res), f"{cfg.name} continuous: two runs of the trace differ")
+    st = res["stats"]
+    return {"geometry": MOE_CONTINUOUS, "trace": MOE_TRACE, "dense_replay": replay,
+            "seconds": wall, "tokens_per_s": st["total_tokens"] / wall, **st,
+            "decode_ticks": len(probe.ms), "ms_per_tick": float(np.mean(probe.ms)),
+            "decode_steps_run": steps_run, "launches": {k: v for k, v in counts.items() if v},
+            "counts": counts}
+
+
+def gemma2_window_check(cfg, params, gen) -> dict:
+    """A local layer's ``attn_decode`` (scalar and per-row positions) and
+    ``attn_decode_paged`` at a position past the window: the same bits after every
+    cache entry outside the window (before it, and after the position) is
+    overwritten with random values; paged equal to dense; without the window, not."""
+    p = _first(params["stack"]["sub0"]["attn"])
+    w, b, ps = cfg.local_window, 2, 16
+    t = GEMMA["prompt"] + GEMMA["new"]
+    pos = t - 3
+    kh, hd, cdt = cfg.n_kv_heads, cfg.head_dim_, torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(cdt)
+
+    x, k, v = rnd(b, 1, cfg.d_model), rnd(b, t, kh, hd), rnd(b, t, kh, hd)
+    outside = torch.ones(t, dtype=torch.bool, device=DEV)
+    outside[pos - w + 1:pos + 1] = False
+    nblk = t // ps
+    perm = torch.randperm(nblk * b, generator=gen, device=DEV) + 1    # page 0: scratch
+    table = perm.reshape(b, nblk).to(torch.int32)
+
+    def paged(kk, vv):
+        pool_k = torch.zeros((nblk * b + 1, ps, kh, hd), dtype=cdt, device=DEV)
+        pool_v = torch.zeros_like(pool_k)
+        pool_k[table.to(torch.int64)] = kk.reshape(b, nblk, ps, kh, hd)
+        pool_v[table.to(torch.int64)] = vv.reshape(b, nblk, ps, kh, hd)
+        return {"k": pool_k, "v": pool_v, "pages": table}
+
+    res = {}
+    with torch.inference_mode():
+        for name, at in (("scalar", pos), ("per_row", torch.full((b,), pos, device=DEV))):
+            y0 = att_model.attn_decode(p, x, cfg, {"k": k.clone(), "v": v.clone()}, at,
+                                       cdt=cdt, window=w)[0]
+            k2, v2 = k.clone(), v.clone()
+            k2[:, outside], v2[:, outside] = rnd(b, int(outside.sum()), kh, hd), \
+                rnd(b, int(outside.sum()), kh, hd)
+            y1 = att_model.attn_decode(p, x, cfg, {"k": k2, "v": v2}, at, cdt=cdt,
+                                       window=w)[0]
+            yp0 = att_model.attn_decode_paged(p, x, cfg, paged(k, v), at, cdt=cdt,
+                                              window=w)[0]
+            yp1 = att_model.attn_decode_paged(p, x, cfg, paged(k2, v2), at, cdt=cdt,
+                                              window=w)[0]
+            wide = att_model.attn_decode(p, x, cfg, {"k": k.clone(), "v": v.clone()}, at,
+                                         cdt=cdt)[0]
+            res[name] = {"dense_equal_after_overwrite": torch.equal(y0, y1),
+                         "paged_equal_after_overwrite": torch.equal(yp0, yp1),
+                         "paged_equal_dense": torch.equal(y0, yp0),
+                         "no_window_max_abs_diff": float((wide - y0).abs().max())}
+            check(res[name]["dense_equal_after_overwrite"]
+                  and res[name]["paged_equal_after_overwrite"]
+                  and res[name]["paged_equal_dense"]
+                  and res[name]["no_window_max_abs_diff"] > 0,
+                  f"gemma2 window ({name} position {pos}): {res[name]}")
+    return {"window": w, "position": pos, "cache_len": t, "overwritten": int(outside.sum()),
+            **res}
+
+
+def phase_models(gen) -> dict:
+    """deepseek-moe-16b (28 layers, bf16): serving under "kernel" and "blocked",
+    forward / loss under three methods, the dispatch's routing checks and continuous
+    batching; llama4-scout-17b-16e at full width, 2 of its 48 layers; qwen3-4b and
+    gemma2-2b at full width and depth, gemma2's window bit for bit.  Returns the
+    launches of the main-path runs (zeroed before and read after each)."""
+    t_phase = time.perf_counter()
+    launched, out = {k: 0 for k in ops.KERNELS}, {}
+    torch.cuda.reset_peak_memory_stats(DEV)
+
+    cfg = get_config("deepseek-moe-16b")
+    params, init_s, n_params = _init_bf16(cfg, MODELS_SERVE["seed"])
+    ds = {"n_layers": cfg.n_layers, "moe_layers": cfg.n_layers - cfg.moe.first_k_dense,
+          "params": n_params, "init_s": init_s}
+    for method in ("kernel", "blocked"):
+        r = serve_family(cfg, params, gen, batch=MODELS_SERVE["batch"],
+                         prompt=MODELS_SERVE["prompt"], new=MODELS_SERVE["new"],
+                         method=method, per_pass=moe_per_pass(cfg, method))
+        launched = _sum_counts(launched, r.pop("counts"))
+        ds[f"serve_{method}"] = r
+    fwd = forward_moe(cfg, params)
+    launched = _sum_counts(launched, fwd.pop("counts"))
+    ds["forward"] = fwd
+    cont = continuous_moe(cfg, params)
+    launched = _sum_counts(launched, cont.pop("counts"))
+    ds["continuous"] = cont
+    ds["peak_mem_gb"] = torch.cuda.max_memory_allocated(DEV) / 1e9
+    out[cfg.name] = ds
+    del params
+    _free()
+
+    full = get_config("llama4-scout-17b-16e")
+    cfg = dataclasses.replace(full, n_layers=SCOUT["layers"])
+    torch.cuda.reset_peak_memory_stats(DEV)
+    params, init_s, n_params = _init_bf16(cfg, MODELS_SERVE["seed"])
+    r = serve_family(cfg, params, gen, batch=SCOUT["batch"], prompt=SCOUT["prompt"],
+                     new=SCOUT["new"], method="kernel", per_pass=moe_per_pass(cfg, "kernel"))
+    launched = _sum_counts(launched, r.pop("counts"))
+    out[cfg.name] = {"n_layers": cfg.n_layers,
+                     "reduced": {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"},
+                     "params": n_params, "init_s": init_s, "serve_kernel": r,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated(DEV) / 1e9}
+    del params
+    _free()
+
+    for arch, geo in (("qwen3-4b", QWEN), ("gemma2-2b", GEMMA)):
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        params, init_s, n_params = _init_bf16(cfg, MODELS_SERVE["seed"])
+        r = serve_family(cfg, params, gen, batch=geo["batch"], prompt=geo["prompt"],
+                         new=geo["new"], method="auto", per_pass=lambda n: {})
+        launched = _sum_counts(launched, r.pop("counts"))
+        out[arch] = {"n_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
+                     "serve": r, "peak_mem_gb": torch.cuda.max_memory_allocated(DEV) / 1e9}
+        if arch == "gemma2-2b":
+            out[arch]["window_check"] = gemma2_window_check(cfg, params, gen)
+        del params
+        _free()
+    emit({"phase": "models", **out, "launches": {k: v for k, v in launched.items() if v},
+          "seconds": time.perf_counter() - t_phase})
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # B7h: the radix pass that exports its histogram
 # ---------------------------------------------------------------------------
 
@@ -4925,11 +5328,13 @@ def main() -> int:
     b17_err = phase_b17(gen)
     multisplit_counts = main_multisplit(gen)
     forward_counts = forward_zamba2(gen)
+    models_counts = phase_models(gen)
     b7h_err = phase_b7h(gen)
     dist_counts, dist_sort_ms, dist_worlds = phase_dist()
     sharded_counts = phase_serve_sharded()
     timing = phase_timing(gen, dist_sort_ms)
-    seg_launches = {k: segmented_counts[k] + serve_s_counts[k] for k in ops.KERNELS}
+    seg_launches = {k: segmented_counts[k] + serve_s_counts[k] + models_counts[k]
+                    for k in ops.KERNELS}
     lin_launches = {k: linrec_counts[k] + zamba_counts[k] + forward_counts[k]
                     for k in ops.KERNELS}
 
@@ -4964,18 +5369,22 @@ def main() -> int:
          multisplit_counts["multi_split"], float(b6_err), timing["B6"]),
         ("B7 radix_pass_multibit (radix-16 pass; times are the 4-pass bf16 sort chain and "
          "a stable torch.sort, eager; launches: topp_kernel "
-         "serving of llama3-8b and zamba2)", "radix_pass.cu",
-         "src/repro/kernels/split_mm.py:262",
-         serve_counts["radix_pass"] + zamba_counts["radix_pass"], float(b7_err), timing["B7"]),
+         "serving of llama3-8b, zamba2 and the models phase's four families)",
+         "radix_pass.cu", "src/repro/kernels/split_mm.py:262",
+         serve_counts["radix_pass"] + zamba_counts["radix_pass"] + models_counts["radix_pass"],
+         float(b7_err), timing["B7"]),
         ("B7h radix_pass_multibit(with_counts=True) (radix-16 pass exporting its digit "
          "histogram; launches: the dist phase's sorts and samplers, summed over the ranks "
          "of both worlds)", "radix_pass_hist.cu", "src/repro/kernels/split_mm.py:273", 0,
          float(b7h_err), timing["B7h"]),
         ("B8 topp_mask_sample_tiles (fused top-p tail)", "topp_tail.cu",
          "src/repro/kernels/split_mm.py:360",
-         serve_counts["topp_tail"] + zamba_counts["topp_tail"], float(b8_err), timing["B8"]),
+         serve_counts["topp_tail"] + zamba_counts["topp_tail"] + models_counts["topp_tail"],
+         float(b8_err), timing["B8"]),
         ("B9 seg_scan_tiles (segmented tile scan; launches: segment_compress, "
-         "topp_segmented serving and sample_packed under method_override('kernel'))",
+         "topp_segmented serving and sample_packed under method_override('kernel'), and "
+         "the MoE dispatch of deepseek-moe-16b and llama4-scout under "
+         "scan_method='kernel': one a MoE layer a pass)",
          "seg_scan.cu", "src/repro/kernels/segscan_mm.py:186", seg_launches["seg_scan"],
          seg_err["B9"], timing["B9"]),
         ("B10 seg_block_summaries (trailing-segment sums and has-boundary per block; "
@@ -4985,7 +5394,8 @@ def main() -> int:
         ("B11 seg_carry_scan (segmented exclusive scan of the block summaries)",
          "seg_carry.cu", "src/repro/kernels/segscan_mm.py:293", seg_launches["seg_carry"],
          seg_err["B11"], timing["B11"]),
-        ("B12 seg_block_scan_carry (segmented block scan plus gated carry)",
+        ("B12 seg_block_scan_carry (segmented block scan plus gated carry; launches also "
+         "deepseek-moe-16b's MoE dispatch under scan_method='blocked', one block a row)",
          "seg_block_scan.cu", "src/repro/kernels/segscan_mm.py:325",
          seg_launches["seg_block_scan"], seg_err["B12"], timing["B12"]),
         ("B13 linrec_scan_tiles (linear-recurrence scan, a single pass with the affine "

@@ -128,14 +128,21 @@ class DenseReplay:
 
     def _on_insert(self, caches, dense, row, page_ids):
         self._flush()
-        for name in ("k", "v"):
-            src = dense["stack"]["sub0"][name]
-            self.dense["stack"]["sub0"][name][:, row, :src.shape[2]] = src[:, 0]
+
+        def copy(dst, src):                  # every {"k", "v"} leaf of the caches
+            for key, val in src.items():
+                if isinstance(val, dict):
+                    copy(dst[key], val)
+                else:
+                    dst[key][:, row, :val.shape[2]] = val[:, 0]
+
+        copy(self.dense, dense)
         return self._insert(caches, dense, row, page_ids)
 
     def _on_step(self, params, tokens, caches, pos):
         logits, caches = self._step(params, tokens, caches, pos)
-        held = caches["stack"]["sub0"]["pages"][0, :, 0] != 0   # page 0: no request
+        # every layer holds the same page table; page 0: no request
+        held = caches["stack"]["sub0"]["pages"][0, :, 0] != 0
         self.pending.append((tokens, pos, logits, held))
         return logits, caches
 

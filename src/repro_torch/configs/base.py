@@ -2,7 +2,8 @@
 
 The port's own copy of ``repro/configs/base.py`` (that module imports
 ``jax.numpy``).  The fields and defaults are the same, so a config reads the
-same in both packages; the port builds only the dense decoder so far.
+same in both packages; the port builds the dense, local/global, MoE and hybrid
+stacks so far.
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ninit", "linear", "rmsnorm", "embed_lookup", "unembed", "mlp",
-           "rope_freqs", "apply_rope", "softcap", "matmul_f32"]
+           "rope_freqs", "apply_rope", "softcap", "matmul_f32", "bmm_f32", "ACTS"]
 
 
 def ninit(gen: torch.Generator, shape, *, n: Optional[int] = None, scale=None,
@@ -70,16 +70,29 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(torch.float32), b.to(torch.float32))
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` (``(E, M, K) @ (E, K, N)``) with fp32 accumulation and an
+    fp32 result: :func:`matmul_f32` for a batch of products (the MoE experts)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and a.dtype == b.dtype:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+
 def unembed(p, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """fp32 logits ``x @ E^T`` from compute-dtype operands."""
     return matmul_f32(x.to(cdt), p["embed"].to(cdt).t())
 
 
-ACTS = {"silu": F.silu}
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+# JAX's ``jax.nn.gelu(x, approximate=True)`` is the tanh approximation
+ACTS = {"silu": F.silu, "gelu": _gelu_tanh, "gelu_nogate": _gelu_tanh, "relu": F.relu}
 
 
 def mlp(p, x: torch.Tensor, cdt: torch.dtype, act: str = "silu") -> torch.Tensor:
-    """Gated MLP: ``down(act(gate(x)) * up(x))``."""
+    """Gated MLP ``down(act(gate(x)) * up(x))``; ``down(act(up(x)))`` without a gate."""
     up = linear({"w": p["w_up"]}, x, cdt)
     if "w_gate" in p:
         h = ACTS[act](linear({"w": p["w_gate"]}, x, cdt)) * up

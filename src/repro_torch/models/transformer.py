@@ -1,19 +1,30 @@
 """The decoder LMs: init, prefill and decode.
 
-Port of the ``"dense"`` pattern and the ``"hybrid"`` family of
-``repro/models/transformer.py``.  Parameters keep the JAX pytree layout:
+Port of ``repro/models/transformer.py`` for the decoder families (dense,
+local/global, MoE) and the ``"hybrid"`` family.  Parameters keep the JAX
+pytree layout:
 
-* dense: ``{"embed": {"embed"}, "final_norm": {"g"}, "stack": {"sub0": {...}}}``
-  with every ``stack`` leaf stacked over a leading ``n_layers`` axis;
+* decoders: ``{"embed": {"embed"}, "final_norm": {"g"}, "stack": {"sub0": ...,
+  "sub{g-1}": ...}}``, one ``sub{i}`` a kind of the layer pattern
+  (:func:`layer_pattern`: the config's ``layer_pattern``, e.g. gemma2's
+  ``("local", "global")``; ``("moe",)`` for the MoE family; else
+  ``("dense",)``), every leaf stacked over the ``(n_layers - pre) // g``
+  pattern groups; MoE configs with ``first_k_dense`` layers also hold ``pre``,
+  ``{"sub0": dense block}`` stacked over those leading layers;
 * hybrid (zamba2): ``stack`` holds ``n_layers // iv`` groups of Mamba2 blocks
   ``sub0 … sub{iv-1}`` (``iv = shared_attn_interval``), each leaf stacked over
   the groups; ``shared`` is one dense block, unstacked, that runs after every
   group with its own KV cache per invocation; ``tail`` holds the trailing
   Mamba2 blocks (``{"sub0": ...}`` stacked over them).
 
-The layers run in Python loops over those axes (the JAX package's
-``lax.scan``).  Other layer kinds (MoE, MLA, xLSTM, enc-dec) raise
-``NotImplementedError`` until they are ported.
+A block of kind ``local`` attends within ``cfg.local_window``; ``moe`` blocks
+replace the MLP with :func:`repro_torch.models.moe.moe_apply` (its dispatch is
+the paper's int8 mask scan, under ``cfg.scan_method``), dropping no token in
+decode, as JAX's ``_block_apply`` asks; gemma2 configs (keyed on the name, as
+in JAX) add the sandwich norms ``post_norm1`` / ``post_norm2``.  The layers run
+in Python loops over the stacked axes (the JAX package's ``lax.scan``).  MLA,
+xLSTM, enc-dec and VLM configs raise ``NotImplementedError`` until they are
+ported.
 
 Interface:
   init(seed, device=None, dtype=float32)        -> params
@@ -21,17 +32,18 @@ Interface:
   loss(params, batch)                           -> (total, {"ce", "aux"})
   prefill(params, batch, cache_len=None)        -> (last-position logits, caches)
   decode_step(params, tokens, caches, pos)      -> (logits, caches)
-  empty_caches(batch_size, cache_len)           -> zero dense caches (dense stack)
+  empty_caches(batch_size, cache_len)           -> zero dense caches (decoders)
 
-``decode_step`` on the dense stack takes ``pos`` as an int or a (B,) tensor
-of per-row positions, and runs paged attention (``attn_decode_paged``) when
-the caches hold a ``"pages"`` table (``serving/paged_kv.py``), as the JAX
+``decode_step`` on a decoder takes ``pos`` as an int or a (B,) tensor of
+per-row positions, and runs paged attention (``attn_decode_paged``) when the
+caches hold a ``"pages"`` table (``serving/paged_kv.py``), as the JAX
 package's ``_block`` dispatches on that leaf.
 
 ``forward`` and ``loss`` are the JAX package's ``mode="train"`` pass: no
-caches, and the hybrid's Mamba2 layers on the SSD chunk kernel B17 under
-``scan_method="kernel"``.  They run under ``torch.no_grad()``: the port has no
-gradients yet (training is ROADMAP Queue A item 11).
+caches, the hybrid's Mamba2 layers on the SSD chunk kernel B17 under
+``scan_method="kernel"``, and the MoE layers' load-balancing losses summed
+into ``aux``.  They run under ``torch.no_grad()``: the port has no gradients
+yet (training is ROADMAP Queue A item 11).
 """
 from __future__ import annotations
 
@@ -44,11 +56,31 @@ from repro_torch.models import attention as att
 from repro_torch.models.layers import (ACTS, embed_lookup, mlp, ninit, rmsnorm,
                                        softcap, unembed)
 from repro_torch.models.mamba import mamba_full, mamba_init, mamba_step
+from repro_torch.models.moe import moe_apply, moe_init
 
-__all__ = ["TransformerLM"]
+__all__ = ["TransformerLM", "layer_pattern", "ATTENTION_KINDS"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+F32 = torch.float32
+# the block kinds whose only decode state is an attention KV cache
+ATTENTION_KINDS = frozenset({"dense", "local", "global", "moe"})
+
+
+def layer_pattern(cfg) -> tuple:
+    """The kinds of one pattern group, as JAX's ``TransformerLM._pattern``."""
+    if cfg.layer_pattern:
+        return tuple(cfg.layer_pattern)
+    if cfg.family == "xlstm":
+        k = cfg.xlstm.slstm_every
+        return tuple(["mlstm"] * (k - 1) + ["slstm"])
+    if cfg.family == "moe":
+        return ("moe",)
+    if cfg.family == "encdec":
+        return ("dec",)
+    if cfg.mla is not None:
+        return ("mla",)
+    return ("dense",)
 
 
 def _layer(tree, i: int):
@@ -65,19 +97,34 @@ def _stacked(caches):
     return torch.stack(caches)
 
 
+def _depth(tree) -> int:
+    """The leading (stacked) axis of a parameter tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
 class TransformerLM:
     def __init__(self, cfg):
-        dense = cfg.family == "decoder" and cfg.ssm is None
         self.hybrid = (cfg.family == "hybrid" and cfg.ssm is not None
                        and bool(cfg.shared_attn_interval))
-        if not (dense or self.hybrid) or cfg.moe or cfg.mla or cfg.xlstm \
-                or cfg.layer_pattern or cfg.qk_norm or cfg.local_window \
+        self.pattern = layer_pattern(cfg)
+        decoder = (cfg.family in ("decoder", "moe") and cfg.ssm is None
+                   and set(self.pattern) <= ATTENTION_KINDS
+                   and (cfg.moe is not None) == ("moe" in self.pattern))
+        if not (decoder or self.hybrid) or cfg.mla or cfg.xlstm \
                 or cfg.act not in ACTS:
             raise NotImplementedError(
-                f"{cfg.name}: only the llama-style dense decoder and the zamba2-style "
-                "hybrid are ported so far")
+                f"{cfg.name}: MLA, xLSTM, enc-dec and VLM stacks are not ported yet; "
+                "the port builds the dense, local/global and MoE decoders and the "
+                "zamba2-style hybrid")
         self.cfg = cfg
         self.cdt = _DTYPES[cfg.dtype]
+        self.n_pre = cfg.moe.first_k_dense if cfg.moe else 0
+        self.group = len(self.pattern)
+        if not self.hybrid and (cfg.n_layers - self.n_pre) % self.group:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers - self.n_pre} layers do not "
+                             f"fill groups of the pattern {self.pattern}")
 
     # ---- init ----
     def init(self, seed: int = 0, *, device=None, dtype=torch.float32) -> Dict:
@@ -86,7 +133,9 @@ class TransformerLM:
         ``device=None`` means ``"cuda"`` (raises without a GPU).  The draws
         come from a ``torch.Generator`` and differ from JAX's; to hold the
         port against the JAX package, convert the JAX parameters with
-        :func:`repro_torch.convert.params_from_jax` instead.
+        :func:`repro_torch.convert.params_from_jax` instead.  Every stacked
+        leaf is drawn one layer at a time, so a full-size init in bf16 never
+        holds more than one layer of a leaf in fp32.
         """
         cfg = self.cfg
         dev = guards.resolve_device(device, op="TransformerLM.init")
@@ -98,28 +147,40 @@ class TransformerLM:
             trailing = cfg.n_layers - n_groups * iv
             body = {"stack": {f"sub{i}": self._mamba_init(gen, n_groups, kw)
                               for i in range(iv)},
-                    "shared": self._dense_init(gen, None, kw)}
+                    "shared": self._block_init(gen, "dense", None, kw)}
             if trailing:
                 body["tail"] = {"sub0": self._mamba_init(gen, trailing, kw)}
         else:
-            body = {"stack": {"sub0": self._dense_init(gen, cfg.n_layers, kw)}}
+            body = {}
+            if self.n_pre:
+                body["pre"] = {"sub0": self._block_init(gen, "dense", self.n_pre, kw)}
+            n_groups = (cfg.n_layers - self.n_pre) // self.group
+            body["stack"] = {f"sub{i}": self._block_init(gen, kind, n_groups, kw)
+                             for i, kind in enumerate(self.pattern)}
         d = cfg.d_model
         return {"embed": {"embed": ninit(gen, (cfg.padded_vocab, d),
                                          scale=d ** -0.5, **kw)},
                 "final_norm": {"g": torch.zeros((d,), **kw)}, **body}
 
-    def _dense_init(self, gen, n, kw):
-        """A dense block's weights, stacked over ``n`` layers (unstacked for None)."""
+    def _block_init(self, gen, kind, n, kw):
+        """One attention block's weights of ``kind``, stacked over ``n`` layers
+        (unstacked for None): JAX's ``_block_init``."""
         cfg, d = self.cfg, self.cfg.d_model
         lead = () if n is None else (n,)
-        return {
-            "norm1": {"g": torch.zeros((*lead, d), **kw)},
-            "norm2": {"g": torch.zeros((*lead, d), **kw)},
-            "attn": att.attn_init(gen, cfg, n=n, **kw),
-            "mlp": {"w_up": ninit(gen, (d, cfg.d_ff), n=n, **kw),
-                    "w_down": ninit(gen, (cfg.d_ff, d), n=n, **kw),
-                    "w_gate": ninit(gen, (d, cfg.d_ff), n=n, **kw)},
-        }
+        p = {"norm1": {"g": torch.zeros((*lead, d), **kw)},
+             "norm2": {"g": torch.zeros((*lead, d), **kw)},
+             "attn": att.attn_init(gen, cfg, n=n, **kw)}
+        if kind == "moe":
+            p["moe"] = moe_init(gen, cfg, n=n, **kw)
+        else:
+            p["mlp"] = {"w_up": ninit(gen, (d, cfg.d_ff), n=n, **kw),
+                        "w_down": ninit(gen, (cfg.d_ff, d), n=n, **kw)}
+            if cfg.act != "gelu_nogate":
+                p["mlp"]["w_gate"] = ninit(gen, (d, cfg.d_ff), n=n, **kw)
+        if cfg.name.startswith("gemma2"):               # sandwich norms
+            p["post_norm1"] = {"g": torch.zeros((*lead, d), **kw)}
+            p["post_norm2"] = {"g": torch.zeros((*lead, d), **kw)}
+        return p
 
     def _mamba_init(self, gen, n, kw):
         """A Mamba2 block's weights, stacked over ``n`` layers."""
@@ -127,25 +188,65 @@ class TransformerLM:
                 "mixer": mamba_init(gen, self.cfg, n=n, **kw)}
 
     # ---- one residual block ----
-    def _block(self, p, h, *, mode, positions=None, cache=None, pos=None,
-               cache_len=None):
-        """One dense residual block; returns ``(h, cache)`` (no cache in ``"train"``)."""
+    def _block(self, p, h, kind="dense", *, mode, positions=None, cache=None,
+               pos=None, cache_len=None):
+        """One attention block of ``kind``; returns ``(h, cache, aux)`` (no cache
+        in ``"train"``; ``aux`` is the MoE load-balancing loss, else 0)."""
         cfg, cdt = self.cfg, self.cdt
+        window = cfg.local_window if kind == "local" else None
         hin = rmsnorm(p["norm1"], h, cfg.norm_eps)
         if mode == "decode":
             # a "pages" leaf marks the paged KV layout (continuous batching)
             dec = att.attn_decode_paged if "pages" in cache else att.attn_decode
-            y, new_cache = dec(p["attn"], hin, cfg, cache, pos, cdt=cdt)
+            y, new_cache = dec(p["attn"], hin, cfg, cache, pos, cdt=cdt, window=window)
         elif mode == "prefill":
             y, new_cache = att.attn_full(p["attn"], hin, cfg, positions=positions,
-                                         cdt=cdt, return_cache=True,
+                                         cdt=cdt, window=window, return_cache=True,
                                          cache_len=cache_len)
         else:
             y, new_cache = att.attn_full(p["attn"], hin, cfg, positions=positions,
-                                         cdt=cdt), None
+                                         cdt=cdt, window=window), None
+        if "post_norm1" in p:
+            y = rmsnorm(p["post_norm1"], y, cfg.norm_eps)
         h = h + y
         hin = rmsnorm(p["norm2"], h, cfg.norm_eps)
-        return h + mlp(p["mlp"], hin, cdt, act=cfg.act), new_cache
+        if kind == "moe":
+            y, aux = moe_apply(p["moe"], hin, cfg, cdt=cdt, no_drop=mode == "decode")
+        else:
+            y, aux = mlp(p["mlp"], hin, cdt, act=cfg.act), None
+        if "post_norm2" in p:
+            y = rmsnorm(p["post_norm2"], y, cfg.norm_eps)
+        return h + y, new_cache, aux
+
+    def _stack(self, params, h, *, mode, positions=None, caches=None, pos=None,
+               cache_len=None):
+        """The decoder's layers: ``pre``, then each pattern group's ``sub{i}``.
+
+        Returns ``(h, caches, aux)``: prefill builds the caches in JAX's layout
+        (``pre``/``stack`` -> ``sub{i}`` -> ``{"k", "v"}`` stacked over layers);
+        decode writes ``caches`` in place and returns them; ``"train"`` builds
+        none.  ``aux`` sums the MoE layers' losses (fp32 scalar)."""
+        aux = torch.zeros((), dtype=F32, device=h.device)
+        new = {}
+        parts = [("pre", ("dense",))] if "pre" in params else []
+        for part, kinds in parts + [("stack", self.pattern)]:
+            out = {f"sub{i}": [] for i in range(len(kinds))}
+            for g in range(_depth(params[part])):
+                for i, kind in enumerate(kinds):
+                    sub = f"sub{i}"
+                    c = None if caches is None else _layer(caches[part][sub], g)
+                    h, nc, a = self._block(_layer(params[part][sub], g), h, kind,
+                                           mode=mode, positions=positions, cache=c,
+                                           pos=pos, cache_len=cache_len)
+                    if a is not None:
+                        aux = aux + a
+                    if mode == "prefill":
+                        out[sub].append(nc)
+            if mode == "prefill":
+                new[part] = {sub: _stacked(cs) for sub, cs in out.items()}
+        if caches is not None:
+            return h, caches, aux
+        return h, (new if mode == "prefill" else None), aux
 
     def _mamba(self, p, h, *, mode, cache=None):
         """One Mamba2 residual block; returns ``(h, cache)`` (no cache in ``"train"``,
@@ -186,8 +287,8 @@ class TransformerLM:
                 c = None if caches is None else _layer(_layer(caches["stack"], g), i)
                 h = mamba(_layer(stack[f"sub{i}"], g), h, c, subs)
             c = None if caches is None else _layer(caches["shared"], g)
-            h, nc = self._block(params["shared"], h, mode=mode, positions=positions,
-                                cache=c, pos=pos, cache_len=cache_len)
+            h, nc, _ = self._block(params["shared"], h, mode=mode, positions=positions,
+                                   cache=c, pos=pos, cache_len=cache_len)
             if nc is not None and caches is None:
                 groups.append(_stacked(subs))
                 shared.append(nc)
@@ -207,8 +308,8 @@ class TransformerLM:
 
     def _embed(self, params, tokens):
         h = embed_lookup(params["embed"], tokens, self.cdt)
-        if self.cfg.scale_embed:
-            h = h * self.cfg.d_model ** 0.5
+        if self.cfg.scale_embed:        # JAX scales by sqrt(d) in the compute dtype
+            h = h * torch.tensor(self.cfg.d_model ** 0.5, dtype=h.dtype)
         return h
 
     def _logits(self, params, h):
@@ -220,6 +321,19 @@ class TransformerLM:
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
         return logits
 
+    def _train(self, params, batch):
+        """The ``mode="train"`` pass: ``(logits, aux)``."""
+        tokens = batch["tokens"]
+        h = self._embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=h.device)[None, :]
+        if self.hybrid:
+            h, _ = self._hybrid(params, h, mode="train", positions=positions)
+            aux = torch.zeros((), dtype=F32, device=h.device)
+        else:
+            h, _, aux = self._stack(params, h, mode="train", positions=positions)
+        return self._logits(params, h), aux
+
     # ---- public API ----
     @torch.no_grad()
     def forward(self, params, batch) -> torch.Tensor:
@@ -227,20 +341,10 @@ class TransformerLM:
 
         The JAX package's ``mode="train"`` pass: no caches; under
         ``scan_method="kernel"`` each Mamba2 layer runs the SSD chunk kernel
-        B17 once.  Runs under ``torch.no_grad()`` (no gradients yet).
+        B17 once and each MoE layer's dispatch one segmented scan (B9).  Runs
+        under ``torch.no_grad()`` (no gradients yet).
         """
-        cfg = self.cfg
-        tokens = batch["tokens"]
-        h = self._embed(params, tokens)
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=h.device)[None, :]
-        if self.hybrid:
-            h, _ = self._hybrid(params, h, mode="train", positions=positions)
-        else:
-            stack = params["stack"]["sub0"]
-            for i in range(cfg.n_layers):
-                h, _ = self._block(_layer(stack, i), h, mode="train", positions=positions)
-        return self._logits(params, h)
+        return self._train(params, batch)[0]
 
     @torch.no_grad()
     def loss(self, params, batch):
@@ -248,10 +352,11 @@ class TransformerLM:
 
         ``ce`` is ``logsumexp`` minus the target logit, in fp32, averaged over
         the positions where ``batch["loss_mask"]`` (optional, ``(B, S)``) is
-        set at the target; ``aux`` is 0 (no MoE layer is ported) and
-        ``total = ce + 0.01·aux``.  Runs under ``torch.no_grad()``.
+        set at the target; ``aux`` is the MoE layers' load-balancing losses
+        summed (0 without MoE layers) and ``total = ce + 0.01·aux``.  Runs under
+        ``torch.no_grad()``.
         """
-        logits = self.forward(params, batch)
+        logits, aux = self._train(params, batch)
         targets = batch["tokens"][:, 1:].to(torch.int64)
         lg = logits[:, :-1].to(torch.float32)
         nll = torch.logsumexp(lg, dim=-1) - torch.gather(lg, -1, targets[..., None])[..., 0]
@@ -261,44 +366,37 @@ class TransformerLM:
             ce = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
         else:
             ce = torch.mean(nll)
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, batch, *, cache_len: Optional[int] = None):
         """Run the prompt ``batch["tokens"]`` (B, S); return the last logits and caches.
 
-        Dense caches are ``{"stack": {"sub0": {"k", "v"}}}`` stacked over
-        layers, each ``(n_layers, B, cache_len, K, D)``.  Hybrid caches are the
-        JAX package's: ``stack`` ``{"conv", "ssm"}`` of ``(groups, iv, B, ...)``,
+        Decoder caches are JAX's: ``{"stack": {"sub{i}": {"k", "v"}}}`` (and
+        ``"pre"`` for leading dense layers), each ``(layers, B, cache_len, K,
+        D)`` over the part's stacked layers.  Hybrid caches are the JAX
+        package's: ``stack`` ``{"conv", "ssm"}`` of ``(groups, iv, B, ...)``,
         ``shared`` ``{"k", "v"}`` of ``(groups, B, cache_len, K, D)`` and
         ``tail`` ``{"sub0": {"conv", "ssm"}}`` of ``(trailing, B, ...)``.
         """
-        cfg = self.cfg
         tokens = batch["tokens"]
         h = self._embed(params, tokens)
-        b, s = tokens.shape
-        positions = torch.arange(s, dtype=torch.int32, device=h.device)[None, :]
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=h.device)[None, :]
         if self.hybrid:
             h, caches = self._hybrid(params, h, mode="prefill", positions=positions,
                                      cache_len=cache_len)
-            return self._logits(params, h[:, -1:])[:, -1], caches
-        stack = params["stack"]["sub0"]
-        ks, vs = [], []
-        for i in range(cfg.n_layers):
-            h, c = self._block(_layer(stack, i), h, mode="prefill",
-                               positions=positions, cache_len=cache_len)
-            ks.append(c["k"])
-            vs.append(c["v"])
-        caches = {"stack": {"sub0": {"k": torch.stack(ks), "v": torch.stack(vs)}}}
+        else:
+            h, caches, _ = self._stack(params, h, mode="prefill", positions=positions,
+                                       cache_len=cache_len)
         return self._logits(params, h[:, -1:])[:, -1], caches
 
     def decode_step(self, params, tokens, caches, pos):
         """One token per row (``tokens``: (B, 1)) written at position ``pos``.
 
-        ``pos`` is an int, or for the dense stack a (B,) integer tensor of
-        per-row positions (continuous batching); the hybrid takes an int only.
-        Dense caches may be the paged layout of ``serving/paged_kv.py``.
-        Updates ``caches`` in place and returns ``(logits (B, V), caches)``.
+        ``pos`` is an int, or for a decoder a (B,) integer tensor of per-row
+        positions (continuous batching); the hybrid takes an int only.  Decoder
+        caches may be the paged layout of ``serving/paged_kv.py``.  Updates
+        ``caches`` in place and returns ``(logits (B, V), caches)``.
         """
         cfg = self.cfg
         h = self._embed(params, tokens)
@@ -310,26 +408,27 @@ class TransformerLM:
                     "are for attention-only stacks (its SSM state has no position)")
             h, _ = self._hybrid(params, h, mode="decode", caches=caches, pos=int(pos))
             return self._logits(params, h)[:, -1], caches
-        if not per_row:
-            pos = int(pos)
-        stack = params["stack"]["sub0"]
-        cache = caches["stack"]["sub0"]
-        for i in range(cfg.n_layers):
-            h, _ = self._block(_layer(stack, i), h, mode="decode",
-                               cache=_layer(cache, i), pos=pos)
+        h, _, _ = self._stack(params, h, mode="decode", caches=caches,
+                              pos=pos if per_row else int(pos))
         return self._logits(params, h)[:, -1], caches
 
     def empty_caches(self, batch_size: int, cache_len: int, *, device=None) -> Dict:
-        """Zero dense decode caches of the dense stack, shaped and typed as
-        :meth:`prefill` returns them: ``{"stack": {"sub0": {"k", "v"}}}``, each
-        ``(n_layers, batch_size, cache_len, K, D)`` in the config's dtype.
+        """Zero dense decode caches of a decoder, shaped and typed as
+        :meth:`prefill` returns them: ``{"pre"?, "stack": {"sub{i}": {"k", "v"}}}``,
+        each ``(layers, batch_size, cache_len, K, D)`` in the config's dtype.
         ``device=None`` means ``"cuda"``; ``"meta"`` gives the shapes alone."""
         cfg = self.cfg
         if self.hybrid:
             raise NotImplementedError(
-                f"empty_caches: {cfg.name} is a hybrid stack; only the dense "
-                "decoder's caches are built here")
+                f"empty_caches: {cfg.name} is a hybrid stack; only the decoders' "
+                "caches are built here")
         dev = guards.resolve_device(device, op="TransformerLM.empty_caches")
-        shape = (cfg.n_layers, batch_size, cache_len, cfg.n_kv_heads, cfg.head_dim_)
-        return {"stack": {"sub0": {name: torch.zeros(shape, dtype=self.cdt, device=dev)
-                                   for name in ("k", "v")}}}
+
+        def part(n, kinds):
+            shape = (n, batch_size, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+            return {f"sub{i}": {name: torch.zeros(shape, dtype=self.cdt, device=dev)
+                                for name in ("k", "v")} for i in range(len(kinds))}
+
+        c = {"pre": part(self.n_pre, ("dense",))} if self.n_pre else {}
+        c["stack"] = part((cfg.n_layers - self.n_pre) // self.group, self.pattern)
+        return c

@@ -5,8 +5,8 @@ a rectangular ``(max_len, K, D)`` cache whether its request uses it or not.
 Here the time axis is cut into ``page_size`` blocks drawn from a shared pool:
 
 * one ``(n_pages, page_size, K, D)`` pool for k and one for v a layer, stacked
-  over the layers as the dense caches are
-  (``{"stack": {"sub0": {"k", "v", "pages"}}}``);
+  over the layers as the dense caches are (``{"stack": {"sub{i}": {"k", "v",
+  "pages"}}}``, and ``"pre"`` for a MoE stack's leading dense layers);
 * a ``"pages"`` leaf of ``(n_layers, B, n_blocks)`` int32 beside them: each
   row's page table, mapping logical block ``t // page_size`` to a pool page
   (the same table in every layer);

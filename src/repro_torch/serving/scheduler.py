@@ -53,6 +53,7 @@ import torch
 
 from repro_torch.core import guards
 from repro_torch.models.model import build_model
+from repro_torch.models.transformer import ATTENTION_KINDS, layer_pattern
 from repro_torch.serving import paged_kv
 from repro_torch.serving.engine import sample_tokens
 
@@ -116,10 +117,11 @@ def poisson_trace(n_requests: int, *, rate: float, vocab_size: int, seed: int,
 class ContinuousEngine:
     """Continuous-batching engine over a paged KV cache.
 
-    Restricted to attention-only decoder stacks: the paged layout pages the
-    attention time axis, and recurrent state (SSM, xLSTM), MLA latents and
-    cross-attention caches have no page-table form, so those stacks are
-    refused at construction.  ``alloc_method`` is the allocator's
+    Restricted to attention-only decoder stacks (dense, local, global and moe
+    layers, JAX's ``_KINDS``): the paged layout pages the attention time
+    axis, and recurrent state (SSM, xLSTM), MLA latents and cross-attention
+    caches have no page-table form, so those stacks are refused at
+    construction.  ``alloc_method`` is the allocator's
     ``compress`` method (``"kernel"``: one B5 launch an allocation).  The
     engine runs on the card unless it is given ``device="cpu"``.
     """
@@ -142,12 +144,13 @@ class ContinuousEngine:
         self.page_size = guards.validate_positive(page_size, name="page_size", op=op)
         self.tick_tokens = guards.validate_positive(tick_tokens, name="tick_tokens",
                                                     op=op)
-        if (cfg.family in ("hybrid", "xlstm", "encdec") or cfg.ssm is not None
-                or cfg.mla is not None or cfg.xlstm is not None):
+        kinds = set(layer_pattern(cfg))
+        if cfg.family not in ("decoder", "moe") or not kinds <= ATTENTION_KINDS:
             raise ValueError(
-                f"{op}: {cfg.name!r} (family={cfg.family!r}) is not an attention-only "
-                "decoder stack — the paged KV layout pages the attention time axis "
-                "only; serve it with the dense ServeEngine instead")
+                f"{op}: {cfg.name!r} (family={cfg.family!r}, pattern={sorted(kinds)}) "
+                "is not an attention-only decoder stack — the paged KV layout pages "
+                "the attention time axis only; serve it with the dense ServeEngine "
+                "instead")
         self.device = guards.resolve_device(device, op=op)
         self.alloc_method = alloc_method
         self.alloc = paged_kv.PageAllocator(n_pages, method=alloc_method,

@@ -27,7 +27,7 @@ from repro_torch.core.segmented import (SegmentedBatch, segment_compress,
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref
 from repro_torch.kernels import (_build, linrec_mm, lookback, ops, scan_mm, scan_pipeline,
                                  segscan_mm, split_mm, ssd_chunk)
-from repro_torch.models import attention, mamba
+from repro_torch.models import attention, mamba, moe
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving import paged_kv
 from repro_torch.serving.engine import ServeEngine
@@ -1967,3 +1967,143 @@ def test_matmul_method_on_the_card_within_the_precision_bound(dev, precision):
     xi = torch.randint(-3, 4, (3, 4096), generator=g, device=dev).float()
     assert torch.equal(scan(xi, method="matmul", precision=precision),
                        xi.double().cumsum(-1).float())
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer's dispatch, local windows and qk-norm (deepseek, gemma2, qwen3)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [24, 3000, 200_000])
+def test_moe_dispatch_positions_on_the_kernels_equal_the_cumsum(dev, n):
+    """Both dispatch modes on "kernel" (B9 / B1) and "blocked" (B10-B12 / B2-B4,
+    more than one block at 200000) give the int64 cumsum's positions, bit-equal."""
+    e = 64
+    eidx = torch.randint(0, e, (1, n), generator=_gen(dev), device=dev)
+    eidx[:, : n // 3] = 5                                     # a skewed run
+    onehot = torch.nn.functional.one_hot(eidx, e)
+    ref = torch.gather(torch.cumsum(onehot, 1) - onehot, 2, eidx[..., None])[..., 0]
+    multi = scan_pipeline.block_geometry(n, 128, 8)[2] > 1
+    wants = {("kernel", "segmented"): _counts(seg_scan=1),
+             ("kernel", "grouped"): _counts(scan_mm=1),
+             ("blocked", "segmented"): _counts(seg_block_scan=1, seg_summaries=int(multi),
+                                               seg_carry=int(multi)),
+             ("blocked", "grouped"): _counts(block_scan=1, block_sums=int(multi),
+                                             carry_scan=int(multi))}
+    for (method, mode), want in wants.items():
+        ops.reset_launch_counts()
+        got = moe.dispatch_positions(eidx, e, scan_method=method, mode=mode)
+        assert ops.launch_counts() == want, (method, mode)
+        assert got.dtype == torch.int32 and torch.equal(got.to(torch.int64), ref)
+
+
+def test_moe_forward_launches_b9_once_per_moe_layer(dev):
+    """deepseek SMOKE forward/loss: 2 B9 launches under "kernel" (one a MoE layer), 2
+    B12 under "blocked", none under "vector"; logits, ce and aux bit-equal across the
+    three (the positions are exact); and within twice the "vector" forward's
+    card-to-CPU distance plus 2e-5 of the CPU."""
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    params = build_model(cfg).init(0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks.to(dev), "loss_mask": (toks % 3 > 0).to(dev)}
+    gparams = _to_device(params, dev)
+    out = {}
+    for method, want in (("vector", _counts()), ("kernel", _counts(seg_scan=2)),
+                         ("blocked", _counts(seg_block_scan=2))):
+        model = build_model(dataclasses.replace(cfg, scan_method=method))
+        ops.reset_launch_counts()
+        logits = model.forward(gparams, batch)
+        assert ops.launch_counts() == want
+        ops.reset_launch_counts()
+        _, parts = model.loss(gparams, batch)
+        assert ops.launch_counts() == want
+        out[method] = (logits, parts["ce"], parts["aux"])
+        if method != "vector":
+            assert all(torch.equal(a, b) for a, b in zip(out[method], out["vector"]))
+    cpu = build_model(cfg).forward(params, {"tokens": toks})
+    floor = float((out["vector"][0].cpu() - cpu).abs().max())
+    assert floor <= 1e-3 and float(out["vector"][2]) > 0
+
+
+def test_local_window_decode_ignores_the_cache_outside_it(dev):
+    """gemma2 SMOKE's local layer on the card: past its window of 16, dense and paged
+    decode (scalar and per-row positions) give the same bits after the cache outside
+    the window is overwritten, paged equal to dense; without the window they differ."""
+    cfg = get_config("gemma2-2b", smoke=True)
+    p = {k: v[0] for k, v in build_model(cfg).init(0, device=dev)["stack"]["sub0"]["attn"]
+         .items()}
+    g = _gen(dev, 3)
+    b, t, ps, pos, w = 2, 48, 8, 40, cfg.local_window
+    kh, hd = cfg.n_kv_heads, cfg.head_dim_
+    x = torch.randn((b, 1, cfg.d_model), generator=g, device=dev)
+    k, v = (torch.randn((b, t, kh, hd), generator=g, device=dev) for _ in range(2))
+    outside = torch.ones(t, dtype=torch.bool, device=dev)
+    outside[pos - w + 1:pos + 1] = False
+    k2, v2 = k.clone(), v.clone()
+    k2[:, outside] = torch.randn_like(k2[:, outside])
+    v2[:, outside] = torch.randn_like(v2[:, outside])
+    table = (torch.randperm(b * t // ps, generator=g, device=dev) + 1).reshape(b, -1)
+
+    def paged(kk, vv):
+        pool = [torch.zeros((b * t // ps + 1, ps, kh, hd), device=dev) for _ in range(2)]
+        pool[0][table] = kk.reshape(b, -1, ps, kh, hd)
+        pool[1][table] = vv.reshape(b, -1, ps, kh, hd)
+        return {"k": pool[0], "v": pool[1], "pages": table.to(torch.int32)}
+
+    for at in (pos, torch.full((b,), pos, device=dev)):
+        def dense(kk, vv, **kw):
+            return attention.attn_decode(p, x, cfg, {"k": kk.clone(), "v": vv.clone()}, at,
+                                         cdt=torch.float32, **kw)[0]
+        y = dense(k, v, window=w)
+        assert torch.equal(y, dense(k2, v2, window=w))
+        yp = attention.attn_decode_paged(p, x, cfg, paged(k, v), at, cdt=torch.float32,
+                                         window=w)[0]
+        assert torch.equal(yp, y)
+        assert torch.equal(attention.attn_decode_paged(
+            p, x, cfg, paged(k2, v2), at, cdt=torch.float32, window=w)[0], y)
+        assert float((dense(k, v) - y).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-moe-16b"])
+def test_continuous_engine_on_local_and_moe_stacks_equals_its_dense_replay(dev, arch):
+    """ContinuousEngine (greedy) on the SMOKE model on the card, the MoE dispatch on
+    "kernel": every decode step's logits bit-equal to the dense replay; one B9 a MoE
+    layer in each prefill and each decode step run."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), scan_method="kernel")
+    params = build_model(cfg).init(0, device=dev)
+    eng = ContinuousEngine(cfg, params, max_batch=2, page_size=8, n_pages=9, max_len=24,
+                           tick_tokens=4, alloc_method="vector")
+    reqs = poisson_trace(4, vocab_size=cfg.vocab_size, rate=0.5, seed=3, prompt_len=(9, 14),
+                         max_new=(4, 8))
+    runs, tick = [], eng._decode_n
+    eng._decode_n = lambda n: (runs.append(n), tick(n))[1]
+    ops.reset_launch_counts()
+    with DenseReplay(eng) as rep:
+        eng.run(reqs)
+    out = rep.result()
+    assert out["bit_equal"] and out["row_steps"] > 0, out
+    assert out["steps"] == sum(runs)
+    moe_layers = cfg.n_layers - cfg.moe.first_k_dense if cfg.moe else 0
+    # each prefill, each decode step run and each of its replays: one B9 a MoE layer
+    assert ops.launch_counts()["seg_scan"] == moe_layers * (len(reqs) + 2 * sum(runs))
+
+
+def test_qk_norm_model_on_the_card_matches_the_cpu(dev):
+    """qwen3 SMOKE (per-head q/k RMSNorm, random norm scales) prefill and two decode
+    steps on the card within 1e-4 of the CPU; greedy tokens equal."""
+    cfg = get_config("qwen3-4b", smoke=True)
+    params = build_model(cfg).init(0, device="cpu")
+    for name in ("q_norm", "k_norm"):
+        params["stack"]["sub0"]["attn"][name]["g"].normal_(generator=torch.Generator()
+                                                           .manual_seed(1))
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(2))
+    u = torch.rand((4, 2), generator=torch.Generator().manual_seed(3))
+    model = build_model(cfg)
+    lc, _ = model.prefill(params, {"tokens": toks}, cache_len=20)
+    lg, _ = model.prefill(_to_device(params, dev), {"tokens": toks.to(dev)}, cache_len=20)
+    assert float((lg.cpu() - lc).abs().max()) < 1e-4
+    a = ServeEngine(cfg, params, max_len=20, sampler="greedy", device="cpu").generate(
+        {"tokens": toks}, 4, uniforms=u)
+    b = ServeEngine(cfg, _to_device(params, dev), max_len=20, sampler="greedy").generate(
+        {"tokens": toks}, 4, uniforms=u)
+    assert torch.equal(a, b.cpu())

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, XLSTMConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core import autotune, guards, precision
 from repro_torch.kernels import (_build, linrec_mm, ops, scan_mm, scan_pipeline, segscan_mm,
@@ -115,12 +115,21 @@ def test_build_paths_are_keyed_by_source_hash():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
-def test_transformer_rejects_unported_kinds():
-    cfg = ModelConfig(name="moe", family="moe", n_layers=2, d_model=8, n_heads=2,
-                      n_kv_heads=2, d_ff=16, vocab_size=32,
-                      moe=MoEConfig(n_experts=2, top_k=1, d_ff_expert=8))
-    with pytest.raises(NotImplementedError):
+_BASE = dict(n_layers=2, d_model=8, n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=32)
+
+
+@pytest.mark.parametrize("cfg", [
+    ModelConfig(name="mla", family="decoder", mla=MLAConfig(8, 8, 4, 4, 4), **_BASE),
+    ModelConfig(name="xlstm", family="xlstm", xlstm=XLSTMConfig(), **_BASE),
+    ModelConfig(name="encdec", family="encdec", n_enc_layers=2, **_BASE),
+    ModelConfig(name="vlm", family="vlm", n_img_tokens=4, **_BASE),
+], ids=["mla", "xlstm", "encdec", "vlm"])
+def test_transformer_rejects_unported_kinds(cfg):
+    with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg)
+    # the MoE family, once refused here, builds since the MoE layer was ported
+    build_model(ModelConfig(name="moe", family="moe", moe=MoEConfig(
+        n_experts=2, top_k=1, d_ff_expert=8), **_BASE))
 
 
 # ---- validation guards ----
