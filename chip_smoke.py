@@ -170,12 +170,44 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               batch 2 and a prompt of 4160, and a local layer's ``attn_decode`` and
               ``attn_decode_paged`` at position 4173 bit-equal after the cache
               outside the window is overwritten;
-21. b7h    -- the radix pass that exports its histogram against its plain version at
+21. families -- the last four families at full width and depth, bf16 weights from seed
+              0, each model freed before the next: (a) xlstm-350m (arXiv:2405.04517; 24
+              layers, 18 mLSTM + 6 sLSTM, heads of 512): ``forward`` / ``loss`` on 4 x 2048
+              tokens under "kernel" (36 B1 + 36 B13 a pass: two chunked SSD scans a mLSTM
+              layer, their cross-chunk states on B13's column walk), "blocked" (36 B4 + 36
+              B16) and "vector" (none), each warmed up, each ``ce`` within ``XLSTM_CE_TOL`` of
+              "vector"'s, one sLSTM layer's ms alone (a Python loop over time); one
+              mLSTM layer's real inputs in fp32 on "kernel" (2 B1 + 2 B13) and
+              "blocked" (2 B4 + 2 B16): ``mlstm_chunked``'s two ``ssd_scan`` outputs
+              within ``SSD_REL``·max|y| of ``ssd_scan_ref`` in fp64 and the cell within
+              the bound those give of ``mlstm_ref`` in fp64, and B13's and B16's column
+              walks at (4, 16, 4, 512, 512) against their plain version and timed;
+              ``ServeEngine(sampler="topp_kernel")`` at batch 4, prompt 128, 32 new
+              tokens on "kernel" and "blocked" (a prompt of one chunk: 36 B1, or 36 B4,
+              a prefill and no recurrence launch; a decode step none); in fp32, a
+              prefill of 4 x 128 and 8 greedy decode steps against the forward over the
+              same 136 tokens at full width on 4 layers, within ``XLSTM_DECODE_TOL`` on
+              each of 4 seeds, with two faults planted in the prefill's state reading
+              above it (at 24 layers the random stack amplifies the cell epsilon's
+              share past use: printed, and the prefill held to the forward over its
+              own tokens);
+              (b) minicpm3-4b (hf:openbmb/MiniCPM3-4B; 62 MLA layers) serving
+              ``topp_kernel``, and one layer's absorbed ``mla_decode`` at position 128
+              within ``MLA_TOL`` of the expanded ``mla_full``'s last row, fp32; (c)
+              whisper-small (arXiv:2212.04356; 12 + 12 layers) with a (4, 1500, 768)
+              ``enc_embed``, prompt 32, 32 new tokens, the ``xkv`` cache bit-equal after
+              32 decode steps, one ``forward`` / ``loss``; (d) paligemma-3b
+              (arXiv:2407.07726; 18 layers, MQA, vocab 257216) with a (4, 256, 2048)
+              ``img_embed``: serving, the prefix mask on one layer's ``attn_full`` (image
+              outputs bit-equal after the last text token changes, the first image
+              output moved by the last image token) and ``loss`` on the text positions
+              only; every sampled token inside its band's window;
+22. b7h    -- the radix pass that exports its histogram against its plain version at
               (4, 2^22) int32 keys (one shard of a 2^24 row at D = 4): every shift of
               the 8 radix-16 passes, chained into a stable sort; a ragged row and
               16-bit keys; the tile-edge cases of ``b7``; keys, permutation and counts
               exact, counts equal to a bincount of the digits;
-22. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
+23. dist   -- the distributed operators in gloo worlds of 4 and of 2 ranks on the one
               card (a process a rank): dist_sort / dist_topk (method="kernel") of
               (4, 2^24) fp32 and bf16 keys bit-equal to the local kernel sort, exactly
               8 (fp32) or 4 (bf16) B7h launches a rank and no B7; dist_top_p_sample
@@ -186,12 +218,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (method="kernel", nonfinite="sanitize") on the guards phase's sampler
               rows, the poisoned rows' greedy tokens; every call's collective calls
               and bytes equal to modeled_dist_traffic;
-23. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
+24. serve_sharded -- ServeEngine(sampler="topp_sharded") on llama3-8b at full width
               and depth (bf16, random weights from seed 0), batch 4, prompt 128, 32
               new tokens, in a world of 2 ranks on the card: the same stream on both
               ranks, every token inside the window of the solo sampler, the decode
               step's ms and collectives;
-24. timing -- kernel, plain-version and library times beside each kernel's bound, and
+25. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
@@ -298,6 +330,32 @@ QWEN = dict(batch=4, prompt=128, new=32)
 GEMMA = dict(batch=2, prompt=4160, new=16)
 MOE_CONTINUOUS = dict(max_batch=4, page_size=16, n_pages=37, max_len=144, tick_tokens=8)
 MOE_TRACE = dict(n_requests=4, rate=0.25, prompt_len=(32, 128), max_new=(8, 16), seed=17)
+# families: xlstm-350m, minicpm3-4b, whisper-small and paligemma-3b at full size
+FAMILY_SEED = 0
+FAMILY_SERVE = dict(batch=4, prompt=128, new=32)
+XLSTM_FORWARD = dict(batch=4, seq=2048, seed=0)
+XLSTM_DECODE = dict(batch=4, prompt=128, steps=8, layers=4, seeds=(0, 1, 2, 3))
+# xlstm's forward ce under "kernel" and "blocked" against "vector"'s, bf16 at full
+# depth: the float scans round differently and the random stack amplifies it
+# (the cell's normaliser nearly cancels); an H100 (700 W) read 5.3e-3 on both
+# methods.  The scans themselves are held by the mLSTM cell check.
+XLSTM_CE_TOL = 2e-2
+# xlstm fp32 prefill + decode against the forward, 4 layers at full width: the
+# chunked pass shifts the cell by the sequence's max input gate, the replay and
+# the steps by the running max, which cancel but for the cell's epsilon's share of
+# the small normalisers.  The limit lies between the sound readings over
+# XLSTM_DECODE's seeds (an H100 at 700 W: 1.6e-3 to 1.04e-2) and those of the
+# faults planted in XLSTM_FAULTS (0.35 and 3.4), and each run checks that both
+# faults still read above it
+XLSTM_DECODE_TOL = 5e-2
+# the prefill's last logits against the forward over the same prompt: the same
+# chunked arithmetic
+XLSTM_PREFILL_TOL = 1e-4
+MLA_POS = 128
+# MLA absorbed decode against the expanded row, fp32, relative to the row's max: the
+# same products summed in another order (r = 256 latent terms against dn = 64)
+MLA_TOL = 1e-4
+WHISPER = dict(batch=4, prompt=32, new=32, forward_len=448)
 # relative fp32 rounding allowed on top of the bound that the logits put on the
 # methods' ce (forward_zamba2): a few roundings of each ~10-nat term and a tree sum
 CE_SLACK = 1e-5
@@ -365,6 +423,7 @@ from repro_torch.core.scan import cumsum as prim_cumsum  # noqa: E402
 from repro_torch.core.segmented import (SegmentedBatch, boundary_flags,  # noqa: E402
                                         segment_compress, segment_linear_scan,
                                         segment_scan, segment_top_p_sample)
+from repro_torch.core import ssd as ssd_core  # noqa: E402
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels import (_build, linrec_mm, lookback, ops,  # noqa: E402
                                  scan_mm, scan_pipeline, segscan_mm, split_mm, ssd_chunk)
@@ -372,6 +431,8 @@ from repro_torch.launch.world import run_world  # noqa: E402
 from repro_torch.models import attention as att_model  # noqa: E402
 from repro_torch.models import mamba as mamba_model  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
+from repro_torch.models import xlstm as xlstm_model  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.model import build_model, get_config  # noqa: E402
 from repro_torch.serving import paged_kv  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -3962,16 +4023,20 @@ def host_syncs(fn) -> int:
 
 
 def serve_family(cfg, params, gen, *, batch: int, prompt: int, new: int, method: str,
-                 per_pass) -> dict:
+                 per_pass, extra=None) -> dict:
     """``ServeEngine(sampler="topp_kernel")`` on ``cfg`` under ``scan_method=method``:
     a warm-up, then the timed run with the counters zeroed just before and read just
     after, exact against ``per_pass(n)`` (the model's launches of one pass over ``n``
-    tokens) plus the sampler's 4 B7 + 1 B8 a token; a prefill and one sample alone,
-    likewise; the prefill timed alone; every sampled token held to its window."""
+    tokens; a decode step is a pass over ``batch``) plus the sampler's 4 B7 + 1 B8 a
+    token; a prefill and one sample alone, likewise; the prefill timed alone and one
+    decode step's launches, exact; every sampled token held to its window.  ``extra``
+    holds the family's stub embeddings (``enc_embed``, ``img_embed``); a VLM's image
+    tokens count in ``max_len`` and in the decode positions."""
     toks = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
-                                    device=DEV)}
+                                    device=DEV), **(extra or {})}
     uniforms = torch.rand((new, batch), generator=gen, device=DEV)
-    eng = ServeEngine(cfg, params, max_len=prompt + new, sampler="topp_kernel",
+    off = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    eng = ServeEngine(cfg, params, max_len=prompt + off + new, sampler="topp_kernel",
                       scan_method=method)
     eng.generate(toks, 2, uniforms=uniforms[:2])                        # warm-up
     ops.reset_launch_counts()
@@ -3990,11 +4055,15 @@ def serve_family(cfg, params, gen, *, batch: int, prompt: int, new: int, method:
     sync()
     t0 = time.perf_counter()
     with torch.inference_mode():
-        logits, caches = eng.model.prefill(params, toks, cache_len=prompt + new)
+        logits, caches = eng.model.prefill(params, toks, cache_len=prompt + off + new)
         sync()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         tok = torch.argmax(logits, -1)[:, None]
-        syncs = host_syncs(lambda: eng.model.decode_step(params, tok, caches, prompt))
+        ops.reset_launch_counts()
+        syncs = host_syncs(lambda: eng.model.decode_step(params, tok, caches, prompt + off))
+        sync()
+        expect_counts(ops.launch_counts(), f"{cfg.name} {method}: one decode step",
+                      **per_pass(batch))
     sampled = check_sampled(eng, toks, uniforms, out, new)
     return {"launches": {k: v for k, v in counts.items() if v}, "counts": counts,
             "batch": batch, "prompt": prompt, "new_tokens": new, "prefill_ms": prefill_ms,
@@ -4285,6 +4354,459 @@ def phase_models(gen) -> dict:
         del params
         _free()
     emit({"phase": "models", **out, "launches": {k: v for k, v in launched.items() if v},
+          "seconds": time.perf_counter() - t_phase})
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# families: xLSTM, MLA, enc-dec and the prefix-LM VLM at full width
+# ---------------------------------------------------------------------------
+
+
+def xlstm_per_pass(cfg, method: str, batch: int):
+    """The launches of one xlstm pass over ``n`` tokens (``n // batch`` a row):
+    each mLSTM layer's cell is two chunked SSD scans (numerator and normaliser),
+    each one log-decay scan over rows of at most 128 (B1 on "kernel", B4 alone on
+    "blocked": a row is one block) and, where the sequence spans more than one
+    chunk of 128, one cross-chunk ``linear_scan`` on the column walk (B13, or
+    B16: the chunk axis is one block); one chunk is a length-1 recurrence, which
+    launches nothing.  The sLSTM layers launch nothing, and neither does a decode
+    step (one token a row: a length-1 ``linear_scan`` of the state)."""
+    layers = cfg.n_layers * (cfg.xlstm.slstm_every - 1) // cfg.xlstm.slstm_every
+    scan, walk = {"kernel": ("scan_mm", "linrec_scan"),
+                  "blocked": ("block_scan", "linrec_block_scan")}.get(method, (None, None))
+
+    def per_pass(n):
+        seq = n // batch
+        if scan is None or seq == 1:
+            return {}
+        chunks = -(-seq // 128)
+        check(chunks <= linrec_mm.LINREC_COLUMN_MAX, f"xlstm: {chunks} chunks")
+        return {scan: 2 * layers, **({walk: 2 * layers} if chunks > 1 else {})}
+    return per_pass
+
+
+def xlstm_forward(cfg, params) -> dict:
+    """xlstm-350m ``forward`` / ``loss`` on ``XLSTM_FORWARD``'s 4 x 2048 tokens under
+    "vector", "kernel" and "blocked", each warmed up before its timed passes: the
+    launches of each pass exact (:func:`xlstm_per_pass`), the ``ce`` of "kernel"
+    and "blocked" within ``XLSTM_CE_TOL`` of "vector"'s; one sLSTM layer (a Python
+    loop over time) timed alone on the same shape."""
+    b, s = XLSTM_FORWARD["batch"], XLSTM_FORWARD["seq"]
+    rng = np.random.default_rng(XLSTM_FORWARD["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
+    mask = torch.from_numpy((rng.random((b, s)) < 0.9).astype(np.int32))
+    batch = {"tokens": toks.to(DEV), "loss_mask": mask.to(DEV)}
+    out, launched = {}, {k: 0 for k in ops.KERNELS}
+    for method in ("vector", "kernel", "blocked"):
+        model = build_model(dataclasses.replace(cfg, scan_method=method))
+        want = xlstm_per_pass(cfg, method, b)(b * s)
+        model.forward(params, batch)                                       # warm-up
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        lg = model.forward(params, batch)
+        sync()
+        fwd_s = time.perf_counter() - t0
+        c_fwd = ops.launch_counts()
+        expect_counts(c_fwd, f"xlstm forward under scan_method={method!r}", **want)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        total, parts = model.loss(params, batch)
+        sync()
+        loss_s = time.perf_counter() - t0
+        c_loss = ops.launch_counts()
+        expect_counts(c_loss, f"xlstm loss under scan_method={method!r}", **want)
+        check(tuple(lg.shape) == (b, s, cfg.padded_vocab) and bool(lg.isfinite().all())
+              and bool(torch.isfinite(total)) and float(parts["aux"]) == 0.0,
+              f"xlstm forward {method}: logits {tuple(lg.shape)} or loss {parts}")
+        launched = _sum_counts(launched, c_fwd, c_loss)
+        out[method] = {"launches_per_pass": {k: v for k, v in c_fwd.items() if v},
+                       "forward_ms": fwd_s * 1e3, "loss_ms": loss_s * 1e3,
+                       "tokens_per_s": b * s / fwd_s, "ce": float(parts["ce"])}
+        del lg
+    ce_v = out["vector"]["ce"]
+    for method in ("kernel", "blocked"):
+        dce = abs(out[method]["ce"] - ce_v)
+        check(dce <= XLSTM_CE_TOL, f"xlstm ce under {method}: {out[method]['ce']} is {dce} "
+              f"from vector's {ce_v}, beyond {XLSTM_CE_TOL}")
+        out[method].update(ce_abs_diff_vs_vector=dce, ce_tol=XLSTM_CE_TOL)
+    layers = cfg.n_layers // cfg.xlstm.slstm_every
+    p = _first(params["stack"][f"sub{cfg.xlstm.slstm_every - 1}"]["mixer"])
+    x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(DEV).manual_seed(
+        FAMILY_SEED), device=DEV).to(torch.bfloat16)
+    with torch.inference_mode():
+        xlstm_model.slstm_block(p, x[:, :8], cfg, cdt=torch.bfloat16)     # warm-up
+        sync()
+        t0 = time.perf_counter()
+        xlstm_model.slstm_block(p, x, cfg, cdt=torch.bfloat16)
+        sync()
+    slstm_ms = (time.perf_counter() - t0) * 1e3
+    _free()
+    return {"batch": b, "seq": s, **out, "slstm_layer_ms": slstm_ms, "slstm_layers": layers,
+            "slstm_layers_ms": slstm_ms * layers, "counts": launched,
+            "tokens": batch["tokens"]}
+
+
+def mlstm_cell_check(cfg, params, tokens) -> dict:
+    """One mLSTM layer's real inputs (layer 0, the forward's tokens, fp32 at full
+    width, 4 x 2048 x 4 heads of 512), under "kernel" (2 B1 + 2 B13) and "blocked"
+    (2 B4 + 2 B16): ``mlstm_chunked`` and each of its two ``ssd_scan`` outputs within
+    ``SSD_REL``·max|y| of ``ssd_scan_ref`` in fp64; the cell's ``h`` held to
+    ``mlstm_ref`` in fp64 within the bound those two limits give, element by
+    element: ``|Δh| <= (|Δnum| + |h|·|Δden|) / (|den| + 1e-6)`` with ``|Δnum|``,
+    ``|Δden|`` at their limits.  Then B13's and B16's column walks at the
+    numerator's cross-chunk states."""
+    layer = {k: (v[0].float() if not isinstance(v, dict) else {"g": v["g"][0].float()})
+             for k, v in params["stack"]["sub0"]["mixer"].items()}
+    cdt = torch.float32
+    res = {}
+    with torch.inference_mode():
+        emb = torch.nn.functional.embedding(tokens.long(), params["embed"]["embed"]).float()
+        x = rmsnorm({"g": params["stack"]["sub0"]["norm"]["g"][0]}, emb, cfg.norm_eps)
+        q, k, v, i_pre, f_pre, _, _, _ = xlstm_model._mlstm_qkvif(layer, x, cfg, cdt)
+        del emb, x
+        f_log, gain, qs = ssd_core._mlstm_gates(q, i_pre, f_pre, torch.float32)
+        scans = {"numerator": (v * gain[..., None], f_log, k, qs),
+                 "normaliser": (gain[..., None], f_log, k, qs)}
+        ref = {name: ssd_scan_ref(*(t.double() for t in args)) for name, args in scans.items()}
+        top = {name: float(r.abs().max()) for name, r in ref.items()}
+        den = ref["normaliser"][..., 0]
+        h64 = ssd_core.mlstm_ref(q.double(), k.double(), v.double(), i_pre.double(),
+                                 f_pre.double())
+        limit = (SSD_REL * top["numerator"] + h64.abs() * SSD_REL * top["normaliser"]) / \
+            (torch.abs(den) + 1e-6)[..., None]
+        for method, want in (("kernel", dict(scan_mm=2, linrec_scan=2)),
+                             ("blocked", dict(block_scan=2, linrec_block_scan=2))):
+            ops.reset_launch_counts()
+            h = ssd_core.mlstm_chunked(q, k, v, i_pre, f_pre, chunk=128, scan_method=method)
+            sync()
+            expect_counts(ops.launch_counts(), f"mlstm_chunked on {method!r}", **want)
+            r = {}
+            for name, args in scans.items():
+                y = ssd_scan(*args, chunk=128, scan_method=method)
+                err = float((y.double() - ref[name]).abs().max())
+                check(err <= SSD_REL * top[name], f"mLSTM {name} scan on {method!r}: {err} "
+                      f"from fp64, beyond {SSD_REL} x {top[name]}")
+                r[name] = {"max_abs_err": err, "max_abs": top[name]}
+                del y
+            dh = (h.double() - h64).abs()
+            check(bool((dh <= limit).all()), f"mLSTM cell on {method!r}: "
+                  f"{int((dh > limit).sum())} elements beyond the bound its scans give "
+                  f"(max |dh| {float(dh.max())})")
+            r.update(cell_max_abs_err=float(dh.max()),
+                     cell_max_err_over_bound=float((dh / limit).max()))
+            res[method] = r
+            del h, dh
+        shape = [q.shape[0], q.shape[1] // 128, q.shape[2], q.shape[3], v.shape[3]]
+        res.update(cell_max_abs=float(h64.abs().max()), min_abs_den=float(den.abs().min()),
+                   cross_chunk_state=shape,
+                   column_walk_columns_per_batch_head=q.shape[3] * v.shape[3])
+    del q, k, v, i_pre, f_pre, f_log, gain, qs, scans, ref, den, h64, limit
+    _free()
+    for method, key, name in (("kernel", "linrec_scan", "b13_column_walk"),
+                              ("blocked", "linrec_block_scan", "b16_column_walk")):
+        res[name] = xlstm_column_walk(shape, method, key)
+    return res
+
+
+def xlstm_column_walk(shape, method: str, key: str) -> dict:
+    """The column walk of ``method`` (B13 on "kernel", B16 on "blocked") at the
+    numerator's cross-chunk states (B, S/128, H, hd, hd), fp32, a decay shared over
+    each (hd, hd) state, as ``ssd_scan`` calls it: one launch, equal to its plain
+    version within 2^-22·max|y|, its eager ms beside its bytes bound (the states
+    read once, the result written once) and the plain version's ms."""
+    g = torch.Generator(DEV).manual_seed(FAMILY_SEED)
+    a = torch.exp(-torch.rand((*shape[:3], 1, 1), generator=g, device=DEV))
+    bb = torch.randn(shape, generator=g, device=DEV)
+    tile = min(128, max(2, shape[1]))
+
+    def run():
+        return linear_scan(a, bb, axis=1, method=method, tile_s=tile)
+
+    ops.reset_launch_counts()
+    y = run()
+    sync()
+    expect_counts(ops.launch_counts(), f"xlstm column walk on {method!r}", **{key: 1})
+    plain = linrec_mm.linrec_columns_plain(a, bb, 1)
+    err = float((y - plain).abs().max())
+    check(err <= 2.0 ** -22 * float(plain.abs().max()),
+          f"xlstm column walk on {method!r} differs from its plain version by {err}")
+    ms, plain_ms = paired_ms(run, lambda: linrec_mm.linrec_columns_plain(a, bb, 1), 10)
+    bound_ms, by = bound(2 * bb.numel() * 4 + a.numel() * 4)
+    del a, bb, y, plain
+    _free()
+    return {"shape": list(shape), "columns": math.prod(shape) // math.prod(shape[:2]),
+            "max_abs_err_vs_plain": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def _clone_tree(t):
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_clone_tree(v) for v in t)
+    return t.clone() if isinstance(t, torch.Tensor) else t
+
+
+# faults planted in the mLSTM layers' prefill state before the first decode step:
+# the running max not carried (the state kept, its shift lost), and one step's
+# forget gate 1% too small on every head
+XLSTM_FAULTS = {
+    "running_max_not_carried": lambda c: {**c, "m": torch.zeros_like(c["m"])},
+    "forget_gate_1pct_short": lambda c: {**c, "c": c["c"] * 0.99, "n": c["n"] * 0.99},
+}
+
+
+def _xlstm_decode(kcfg, seed: int, faults: bool) -> dict:
+    """fp32 under "kernel", weights from ``seed``: a prefill of ``XLSTM_DECODE``'s
+    4 x 128 prompt tokens and 8 greedy decode steps, each step's logits against the
+    forward over the same 136 tokens (the prompt and the 8 it chose).  With
+    ``faults``, each of ``XLSTM_FAULTS`` planted in a copy of the prefill's caches
+    (the decode step updates them in place), the same 8 tokens fed."""
+    b, p, n = XLSTM_DECODE["batch"], XLSTM_DECODE["prompt"], XLSTM_DECODE["steps"]
+    v = kcfg.vocab_size
+    model = build_model(kcfg)
+    params = model.init(seed, device=DEV, dtype=torch.float32)
+    toks = torch.randint(0, v, (b, p), generator=torch.Generator(DEV).manual_seed(seed + 1),
+                         device=DEV)
+    with torch.inference_mode():
+        lg, caches = model.prefill(params, {"tokens": toks}, cache_len=p + n)
+        same = model.forward(params, {"tokens": toks})[:, -1, :v]
+        kept = _clone_tree(caches) if faults else None
+        steps = [lg]
+        for i in range(n):
+            toks = torch.cat([toks, torch.argmax(lg, -1)[:, None]], dim=1)
+            lg, caches = model.decode_step(params, toks[:, -1:], caches, p + i)
+            steps.append(lg)
+        full = model.forward(params, {"tokens": toks})[..., :v]
+        res = {"max_abs_err_by_step": [float((lg[:, :v] - full[:, p - 1 + i]).abs().max())
+                                       for i, lg in enumerate(steps)],
+               "prefill_vs_forward_same_tokens": float((steps[0][:, :v] - same).abs().max()),
+               "noncausal_drift_at_last_prompt_row": float((same - full[:, p - 1]).abs().max()),
+               "max_abs_logit": float(full.abs().max())}
+        for name, fault in (XLSTM_FAULTS.items() if faults else ()):
+            c = _clone_tree(kept)
+            c["stack"] = {k: fault(sub) if "m" in sub else sub for k, sub in c["stack"].items()}
+            errs = []
+            for i in range(n):
+                lg, c = model.decode_step(params, toks[:, p + i:p + i + 1], c, p + i)
+                errs.append(float((lg[:, :v] - full[:, p + i]).abs().max()))
+            res[f"fault_{name}"] = max(errs)
+    del params, caches, full, same, kept
+    _free()
+    return res
+
+
+def xlstm_decode_check(cfg) -> dict:
+    """fp32 prefill + 8 greedy decode steps against the forward over the same tokens
+    (:func:`_xlstm_decode`).  The chunked pass shifts the cell by the sequence's max
+    input gate, the replay and the steps by the running max; the shift cancels but
+    for the cell's ``MLSTM_EPS``'s share of the small normalisers.
+
+    At full width on ``XLSTM_DECODE["layers"]`` layers (3 mLSTM + 1 sLSTM), for each
+    of ``XLSTM_DECODE["seeds"]``: every step within ``XLSTM_DECODE_TOL``, and, on the
+    first seed, each planted fault above it.  At full depth the random 24-layer
+    stack amplifies that share past use (even the forward over 128 tokens and over
+    136 differ at row 127: ``noncausal_drift_at_last_prompt_row``), so there the
+    distances are printed.  In both, the prefill is held within
+    ``XLSTM_PREFILL_TOL`` of the forward over the same 128 tokens."""
+    kcfg = dataclasses.replace(cfg, scan_method="kernel", dtype="float32")
+    cut = dataclasses.replace(kcfg, n_layers=XLSTM_DECODE["layers"])
+    seeds = XLSTM_DECODE["seeds"]
+    runs = {f"cut_seed{s}": _xlstm_decode(cut, s, s == seeds[0]) for s in seeds}
+    runs["full_depth"] = _xlstm_decode(kcfg, seeds[0], False)
+    for name, r in runs.items():
+        check(r["prefill_vs_forward_same_tokens"] <= XLSTM_PREFILL_TOL,
+              f"xlstm {name}: prefill vs the forward over the same "
+              f"{XLSTM_DECODE['prompt']} tokens: {r['prefill_vs_forward_same_tokens']}")
+    sound = {name: max(r["max_abs_err_by_step"]) for name, r in runs.items()
+             if name != "full_depth"}
+    planted = {k[6:]: val for k, val in runs[f"cut_seed{seeds[0]}"].items()
+               if k.startswith("fault_")}
+    check(max(sound.values()) <= XLSTM_DECODE_TOL,
+          f"xlstm fp32 prefill + decode vs forward at {cut.n_layers} layers: {sound}, "
+          f"beyond {XLSTM_DECODE_TOL}")
+    check(min(planted.values()) > XLSTM_DECODE_TOL,
+          f"xlstm decode check is blind to a planted fault: {planted} within "
+          f"{XLSTM_DECODE_TOL}")
+    return {"batch": XLSTM_DECODE["batch"], "prompt": XLSTM_DECODE["prompt"],
+            "decode_steps": XLSTM_DECODE["steps"], "cut_layers": cut.n_layers,
+            "tol": XLSTM_DECODE_TOL, "prefill_tol": XLSTM_PREFILL_TOL,
+            "sound_max_by_seed": sound, "planted_fault_max": planted, **runs}
+
+
+def phase_xlstm(gen) -> tuple:
+    """xlstm-350m (arXiv:2405.04517) at full size: 24 layers, 18 mLSTM and 6 sLSTM."""
+    cfg = get_config("xlstm-350m")
+    torch.cuda.reset_peak_memory_stats(DEV)
+    params, init_s, n_params = _init_bf16(cfg, FAMILY_SEED)
+    res = {"n_layers": cfg.n_layers, "params": n_params, "init_s": init_s,
+           "mlstm_head_dim": int(cfg.xlstm.proj_factor * cfg.d_model) // cfg.xlstm.n_heads}
+    fwd = xlstm_forward(cfg, params)
+    launched, tokens = fwd.pop("counts"), fwd.pop("tokens")
+    res["forward"] = fwd
+    res["mlstm_cell"] = mlstm_cell_check(cfg, params, tokens)
+    for method in ("kernel", "blocked"):
+        r = serve_family(cfg, params, gen, method=method,
+                         per_pass=xlstm_per_pass(cfg, method, FAMILY_SERVE["batch"]),
+                         **FAMILY_SERVE)
+        launched = _sum_counts(launched, r.pop("counts"))
+        res[f"serve_{method}"] = r
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated(DEV) / 1e9
+    del params
+    _free()
+    res["fp32_prefill_decode_vs_forward"] = xlstm_decode_check(cfg)
+    return res, launched
+
+
+def mla_check(cfg, params, gen) -> dict:
+    """Layer 0's MLA in fp32 on random inputs (4 x 129): ``mla_decode`` (absorbed) at
+    position ``MLA_POS`` after a prefill of ``MLA_POS`` tokens against the last row
+    of ``mla_full`` (expanded) over all 129, within ``MLA_TOL``·max|row|."""
+    p = {k: (v[0].float() if not isinstance(v, dict) else {"g": v["g"][0].float()})
+         for k, v in params["stack"]["sub0"]["attn"].items()}
+    b, s = FAMILY_SERVE["batch"], MLA_POS
+    x = torch.randn((b, s + 1, cfg.d_model), generator=gen, device=DEV)
+    pos = torch.arange(s + 1, dtype=torch.int32, device=DEV)[None]
+    with torch.inference_mode():
+        _, cache = att_model.mla_full(p, x[:, :s], cfg, positions=pos[:, :s],
+                                      cdt=torch.float32, return_cache=True, cache_len=s + 1)
+        dec = att_model.mla_decode(p, x[:, s:], cfg, cache, s, cdt=torch.float32)[0][:, 0]
+        row = att_model.mla_full(p, x, cfg, positions=pos, cdt=torch.float32)[:, s]
+    err, top = float((dec - row).abs().max()), float(row.abs().max())
+    check(err <= MLA_TOL * top, f"MLA absorbed decode at {s}: {err} from the expanded "
+          f"row, beyond {MLA_TOL} x {top}")
+    m = cfg.mla
+    per_layer_latent = (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+    per_layer_kv = cfg.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim) * 2
+    return {"position": s, "max_abs_err": err, "max_abs": top, "tol": MLA_TOL,
+            "latent_cache_bytes_per_token": per_layer_latent * cfg.n_layers,
+            "expanded_kv_bytes_per_token": per_layer_kv * cfg.n_layers}
+
+
+def whisper_check(cfg, params, gen) -> dict:
+    """whisper-small's encoder timed alone, the ``xkv`` cache bit-equal after 32
+    greedy decode steps, and one ``forward`` / ``loss`` on 4 x 448 decoder tokens."""
+    b, p, n = WHISPER["batch"], WHISPER["prompt"], WHISPER["new"]
+    enc = torch.randn((b, cfg.enc_len, cfg.d_model), generator=gen, device=DEV
+                      ).to(torch.bfloat16)
+    model = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (b, WHISPER["forward_len"]), generator=gen,
+                         device=DEV)
+    with torch.inference_mode():
+        model._encode(params, enc)
+        enc_ms = cuda_ms(lambda: model._encode(params, enc), 5)
+        lg, caches = model.prefill(params, {"tokens": toks[:, :p], "enc_embed": enc},
+                                   cache_len=p + n)
+        xkv = {k: v.clone() for k, v in caches["stack"]["sub0"]["xkv"].items()}
+        tok = torch.argmax(lg, -1)[:, None]
+        for i in range(n):
+            lg, caches = model.decode_step(params, tok, caches, p + i)
+            tok = torch.argmax(lg, -1)[:, None]
+        same = all(torch.equal(caches["stack"]["sub0"]["xkv"][k], v) for k, v in xkv.items())
+        check(same, "whisper: the cross KV cache changed during decode")
+        batch = {"tokens": toks, "enc_embed": enc}
+        logits = model.forward(params, batch)
+        total, parts = model.loss(params, batch)
+    check(tuple(logits.shape) == (b, WHISPER["forward_len"], cfg.padded_vocab)
+          and bool(logits.isfinite().all()) and bool(torch.isfinite(total)),
+          f"whisper forward: logits {tuple(logits.shape)} or loss {parts}")
+    return {"encoder_ms": enc_ms, "enc_len": cfg.enc_len, "xkv_bit_equal_after_decode": same,
+            "xkv_shape": list(xkv["k"].shape), "decode_steps_checked": n,
+            "forward_tokens": [b, WHISPER["forward_len"]], "ce": float(parts["ce"])}
+
+
+def prefix_mask_check(cfg, params, gen) -> dict:
+    """paligemma's layer-0 ``attn_full`` on the card (bf16 weights, random bf16
+    input over 256 image + 16 text positions) under ``prefix_len = 256``: changing
+    the last text token leaves every image position's output bit-equal; changing
+    the last image token changes the first image position's output."""
+    p = _first(params["stack"]["sub0"]["attn"])
+    pl = cfg.n_img_tokens
+    x = torch.randn((2, pl + 16, cfg.d_model), generator=gen, device=DEV).to(torch.bfloat16)
+    pos = torch.arange(pl + 16, dtype=torch.int32, device=DEV)[None]
+
+    def run(xx):
+        return att_model.attn_full(p, xx, cfg, positions=pos, cdt=torch.bfloat16,
+                                   prefix_len=pl)
+
+    with torch.inference_mode():
+        y = run(x)
+        xt, xi = x.clone(), x.clone()
+        xt[:, -1] = torch.randn((2, cfg.d_model), generator=gen, device=DEV).to(x.dtype)
+        xi[:, pl - 1] = torch.randn((2, cfg.d_model), generator=gen, device=DEV).to(x.dtype)
+        yt, yi = run(xt), run(xi)
+    res = {"image_outputs_bit_equal_after_text_change": torch.equal(yt[:, :pl], y[:, :pl]),
+           "last_text_output_changed": not torch.equal(yt[:, -1], y[:, -1]),
+           "first_image_output_changed_by_last_image_token":
+               float((yi[:, 0] - y[:, 0]).abs().max())}
+    check(res["image_outputs_bit_equal_after_text_change"] and res["last_text_output_changed"]
+          and res["first_image_output_changed_by_last_image_token"] > 0,
+          f"paligemma prefix mask: {res}")
+    return res
+
+
+def vlm_loss_check(cfg, params, img, gen) -> dict:
+    """paligemma's ``loss`` over 4 x 128 text tokens after the image: its ``ce`` is
+    the text positions' alone, within ``CE_SLACK`` of the ``ce`` of the forward's
+    logits sliced past the image."""
+    b = FAMILY_SERVE["batch"]
+    toks = torch.randint(0, cfg.vocab_size, (b, FAMILY_SERVE["prompt"]), generator=gen,
+                         device=DEV)
+    batch = {"tokens": toks, "img_embed": img}
+    model = build_model(cfg)
+    with torch.inference_mode():
+        logits = model.forward(params, batch)
+        _, parts = model.loss(params, batch)
+        lg = logits[:, cfg.n_img_tokens:-1]
+        nll = torch.logsumexp(lg, -1) - torch.gather(lg, -1, toks[:, 1:, None].long())[..., 0]
+        ce_text = float(nll.mean())
+    ce = float(parts["ce"])
+    check(tuple(logits.shape)[1] == cfg.n_img_tokens + toks.shape[1]
+          and abs(ce - ce_text) <= CE_SLACK * abs(ce_text),
+          f"paligemma loss {ce} is not the text positions' {ce_text}")
+    return {"ce": ce, "ce_text_positions": ce_text, "logit_positions": logits.shape[1]}
+
+
+def phase_families(gen) -> dict:
+    """xlstm-350m, minicpm3-4b, whisper-small and paligemma-3b at full width and
+    depth, bf16 weights from ``FAMILY_SEED``, each freed before the next.  Returns
+    the launches of the main-path runs (zeroed before and read after each)."""
+    t_phase = time.perf_counter()
+    out = {}
+    out["xlstm-350m"], launched = phase_xlstm(gen)
+
+    for arch in ("minicpm3-4b", "whisper-small", "paligemma-3b"):
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats(DEV)
+        params, init_s, n_params = _init_bf16(cfg, FAMILY_SEED)
+        res = {"n_layers": cfg.n_layers, "params": n_params, "init_s": init_s}
+        geo, extra = dict(FAMILY_SERVE), {}
+        if arch == "whisper-small":
+            geo.update(prompt=WHISPER["prompt"], new=WHISPER["new"])
+            extra["enc_embed"] = torch.randn((geo["batch"], cfg.enc_len, cfg.d_model),
+                                             generator=gen, device=DEV).to(torch.bfloat16)
+            res["n_enc_layers"] = cfg.n_enc_layers
+        if arch == "paligemma-3b":
+            extra["img_embed"] = torch.randn((geo["batch"], cfg.n_img_tokens, cfg.d_model),
+                                             generator=gen, device=DEV).to(torch.bfloat16)
+        r = serve_family(cfg, params, gen, method="auto", per_pass=lambda n: {},
+                         extra=extra, **geo)
+        launched = _sum_counts(launched, r.pop("counts"))
+        res["serve"] = r
+        if arch == "minicpm3-4b":
+            res["mla"] = mla_check(cfg, params, gen)
+        elif arch == "whisper-small":
+            res["encdec"] = whisper_check(cfg, params, gen)
+        else:
+            res["prefix_mask"] = prefix_mask_check(cfg, params, gen)
+            res["loss"] = vlm_loss_check(cfg, params, extra["img_embed"], gen)
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated(DEV) / 1e9
+        out[arch] = res
+        del params, extra
+        _free()
+    emit({"phase": "families", **out, "launches": {k: v for k, v in launched.items() if v},
           "seconds": time.perf_counter() - t_phase})
     return launched
 
@@ -5329,6 +5851,7 @@ def main() -> int:
     multisplit_counts = main_multisplit(gen)
     forward_counts = forward_zamba2(gen)
     models_counts = phase_models(gen)
+    families_counts = phase_families(gen)
     b7h_err = phase_b7h(gen)
     dist_counts, dist_sort_ms, dist_worlds = phase_dist()
     sharded_counts = phase_serve_sharded()
@@ -5340,8 +5863,8 @@ def main() -> int:
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [
-        ("B1 scan_tiles (ScanU/ScanUL1 tile scan; launches include zamba2 serving under "
-         "scan_method='kernel')", "scan_mm.cu", "src/repro/kernels/scan_mm.py:36",
+        ("B1 scan_tiles (ScanU/ScanUL1 tile scan; launches include zamba2 serving and "
+         "xlstm-350m's forward, loss and serving under scan_method='kernel')", "scan_mm.cu", "src/repro/kernels/scan_mm.py:36",
          scan_counts["scan_mm"] + zamba_counts["scan_mm"], b1_err, timing["B1"]),
         ("B2 block_partial_sums (block sums of the blocked pipeline)", "block_sums.cu",
          "src/repro/kernels/scan_pipeline.py:71", blocked_counts["block_sums"],
@@ -5350,8 +5873,8 @@ def main() -> int:
          "src/repro/kernels/scan_pipeline.py:105", blocked_counts["carry_scan"],
          b2b4_err["B3"], timing["B3"]),
         ("B4 block_scan_carry (block scan plus carry; launches include topp_blocked "
-         "serving, zamba2 serving and zamba2 forward and loss under "
-         "scan_method='blocked')", "block_scan.cu",
+         "serving, zamba2 serving, zamba2 forward and loss, and xlstm-350m's forward, "
+         "loss and serving under scan_method='blocked')", "block_scan.cu",
          "src/repro/kernels/scan_pipeline.py:143",
          blocked_counts["block_scan"] + serve_b_counts["block_scan"]
          + zamba_counts["block_scan"] + forward_counts["block_scan"], b2b4_err["B4"],
@@ -5369,7 +5892,8 @@ def main() -> int:
          multisplit_counts["multi_split"], float(b6_err), timing["B6"]),
         ("B7 radix_pass_multibit (radix-16 pass; times are the 4-pass bf16 sort chain and "
          "a stable torch.sort, eager; launches: topp_kernel "
-         "serving of llama3-8b, zamba2 and the models phase's four families)",
+         "serving of llama3-8b, zamba2, the models phase's four families and the "
+         "families phase's four)",
          "radix_pass.cu", "src/repro/kernels/split_mm.py:262",
          serve_counts["radix_pass"] + zamba_counts["radix_pass"] + models_counts["radix_pass"],
          float(b7_err), timing["B7"]),
@@ -5377,7 +5901,8 @@ def main() -> int:
          "histogram; launches: the dist phase's sorts and samplers, summed over the ranks "
          "of both worlds)", "radix_pass_hist.cu", "src/repro/kernels/split_mm.py:273", 0,
          float(b7h_err), timing["B7h"]),
-        ("B8 topp_mask_sample_tiles (fused top-p tail)", "topp_tail.cu",
+        ("B8 topp_mask_sample_tiles (fused top-p tail; launches: topp_kernel serving, "
+         "paligemma-3b's rows of 257216 included)", "topp_tail.cu",
          "src/repro/kernels/split_mm.py:360",
          serve_counts["topp_tail"] + zamba_counts["topp_tail"] + models_counts["topp_tail"],
          float(b8_err), timing["B8"]),
@@ -5401,7 +5926,9 @@ def main() -> int:
         ("B13 linrec_scan_tiles (linear-recurrence scan, a single pass with the affine "
          "look-back; times at (4, 2^24); launches: main_linrec, zamba2 prefill's "
          "(4, 16, 64, 64, 64) cross-chunk states on the column walk under "
-         "scan_method='kernel' and dist_linear_scan's shards)", "linrec_scan.cu",
+         "scan_method='kernel', xlstm-350m's (4, 16, 4, 512, 512) and (4, 16, 4, 512, 1) "
+         "ones (numerator and normaliser) in its forward, loss and prefill, and "
+         "dist_linear_scan's shards)", "linrec_scan.cu",
          "src/repro/kernels/linrec_mm.py:72", lin_launches["linrec_scan"], lin_err["B13"],
          timing["B13"]),
         ("B14 linrec_block_summaries ((prod a, trailing sum) per block)",
@@ -5411,8 +5938,9 @@ def main() -> int:
          "linrec_carry.cu", "src/repro/kernels/linrec_mm.py:183",
          lin_launches["linrec_carry"], lin_err["B15"], timing["B15"]),
         ("B16 linrec_block_scan_carry (block recurrence seeded with its carry; launches: "
-         "main_linrec, zamba2 prefill and zamba2 forward and loss under "
-         "scan_method='blocked', their cross-chunk states on the column walk)",
+         "main_linrec, zamba2 prefill, zamba2 forward and loss, and xlstm-350m's "
+         "forward, loss and prefill under scan_method='blocked', their cross-chunk "
+         "states on the column walk)",
          "linrec_block_scan.cu", "src/repro/kernels/linrec_mm.py:219",
          lin_launches["linrec_block_scan"], lin_err["B16"], timing["B16"]),
         ("B17 ssd_chunk_scan (chunked SSD scan, one CTA a chunk with the state handed "
@@ -5422,11 +5950,12 @@ def main() -> int:
          timing["B17"]),
     ]
     # every row also counts the dist phase's checked calls on every rank (the kernel
-    # methods' scans, splits and passes), the topp_sharded run (none: "matmul") and
-    # the topp_auto run (the auto phase's serving default, on the "cuda" table)
+    # methods' scans, splits and passes), the topp_sharded run (none: "matmul"), the
+    # topp_auto run (the auto phase's serving default, on the "cuda" table) and the
+    # families phase (xlstm's mLSTM scans, the four families' topp_kernel sampling)
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
                     launches=n + dist_counts[f[:-3]] + sharded_counts[f[:-3]]
-                    + auto_counts.get(f[:-3], 0),
+                    + auto_counts.get(f[:-3], 0) + families_counts[f[:-3]],
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])

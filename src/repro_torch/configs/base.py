@@ -1,9 +1,9 @@
-"""Config system: the ``ModelConfig`` dataclass.
+"""Config system: the ``ModelConfig`` dataclass and the input shapes.
 
 The port's own copy of ``repro/configs/base.py`` (that module imports
 ``jax.numpy``).  The fields and defaults are the same, so a config reads the
-same in both packages; the port builds the dense, local/global, MoE and hybrid
-stacks so far.
+same in both packages; the port builds every family of the ten configs.
+``ShapeConfig`` names an input shape for ``models.model.input_specs``.
 """
 from __future__ import annotations
 
@@ -94,3 +94,11 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Embedding rows padded to a multiple of 256 (padded logits masked)."""
         return ((self.vocab_size + 255) // 256) * 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"

@@ -23,11 +23,15 @@ The dense within-chunk products contract in fp32; on the card they refuse to
 run while TF32 is allowed (``require_ieee_fp32``).  ``precision`` rides into
 the two scan-shaped phases, the log-decay cumsum and the cross-chunk
 ``linear_scan``, which resolve it against ``scan_method`` as their direct
-callers would; B17 takes none, as in JAX.  ``mlstm_chunked`` waits
-for the xLSTM models.
+callers would; B17 takes none, as in JAX.
+
+The mLSTM cell of xLSTM (:func:`mlstm_chunked`) is two such scans, its
+numerator and its normaliser, with :func:`mlstm_ref` as its sequential
+oracle.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -37,7 +41,7 @@ from repro_torch.core.linrec import linear_scan
 from repro_torch.core.precision import require_ieee_fp32
 from repro_torch.core.scan import scan as mm_scan
 
-__all__ = ["ssd_scan", "ssd_scan_ref"]
+__all__ = ["ssd_scan", "ssd_scan_ref", "mlstm_chunked", "mlstm_ref"]
 
 F32 = torch.float32
 
@@ -148,3 +152,79 @@ def ssd_scan_ref(x: torch.Tensor, a_log: torch.Tensor, b_mat: torch.Tensor,
     if return_final_state:
         return y, hs
     return y
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM's matrix-memory cell) on the same chunked scan
+# ---------------------------------------------------------------------------
+#
+# Cell:  C_t = f_t C_{t-1} + i_t k_t v_t^T ;  n_t = f_t n_{t-1} + i_t k_t
+#        h_t = (C_t^T q_t) / (|n_t^T q_t| + eps)
+# with f_t = sigmoid(f_pre), i_t = exp(i_pre).  Both C and n are scaled by
+# exp(-M), M = max(i_pre) over the sequence for each (batch, head), which cancels
+# in the division; the stepwise decode shifts by the running max instead.  The
+# denominator is ``|den| + MLSTM_EPS``, a documented deviation from xLSTM's
+# ``max(|den|, 1)`` floor, kept from the JAX package.  The shift cancels exactly
+# only without the epsilon: where ``|den|`` is small, the two stabilisations
+# (and the chunked pass over a longer sequence, whose max may come later) differ
+# by the epsilon's share of it.
+
+MLSTM_EPS = 1e-6
+
+
+def _mlstm_gates(q, i_pre, f_pre, dt):
+    """The log forget gate, the stabilised input gain and the scaled queries."""
+    f_log = F.logsigmoid(f_pre.to(dt))
+    i = i_pre.to(dt)
+    gain = torch.exp(i - torch.amax(i, dim=1, keepdim=True))          # (B,S,H)
+    qs = q.to(dt) / torch.tensor(math.sqrt(q.shape[-1]), dtype=dt)
+    return f_log, gain, qs
+
+
+def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  i_pre: torch.Tensor, f_pre: torch.Tensor, *, chunk: int = 128,
+                  scan_method: str = "auto", precision: str = "highest") -> torch.Tensor:
+    """The mLSTM cell over a whole sequence as two chunked SSD scans.
+
+    Args:
+        q, k, v: ``(B, S, H, D)`` queries, keys and values.
+        i_pre, f_pre: ``(B, S, H)`` input and forget gate pre-activations.
+        chunk: Tokens per chunk of the two scans (a ragged last chunk is padded).
+        scan_method: Method of both scans (B1 + B13 on ``"kernel"``, B2–B4 +
+            B14–B16 on ``"blocked"``).
+        precision: Passed to both scans, as ``ssd_scan`` takes it.
+
+    Returns:
+        ``h`` of ``(B, S, H, D)`` in ``q``'s dtype.  The numerator is the SSD
+        scan with ``x = gain·v``, ``B = k``, ``C = q/sqrt(D)``; the normaliser the
+        same recurrence with ``x = gain`` (``P = 1``).
+    """
+    f_log, gain, qs = _mlstm_gates(q, i_pre, f_pre, F32)
+    kf = k.to(F32)
+    num = ssd_scan(v.to(F32) * gain[..., None], f_log, kf, qs, chunk=chunk,
+                   scan_method=scan_method, precision=precision)
+    den = ssd_scan(gain[..., None], f_log, kf, qs, chunk=chunk,
+                   scan_method=scan_method, precision=precision)[..., 0]
+    return (num / (torch.abs(den) + MLSTM_EPS)[..., None]).to(q.dtype)
+
+
+def mlstm_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              i_pre: torch.Tensor, f_pre: torch.Tensor) -> torch.Tensor:
+    """Sequential oracle of :func:`mlstm_chunked` with the same global-max
+    stabilisation: one step per token, in fp32, or in fp64 when ``q`` is fp64."""
+    dt = torch.promote_types(q.dtype, F32)
+    bsz, s, h, d = q.shape
+    f_log, gain, qs = _mlstm_gates(q, i_pre, f_pre, dt)
+    kf, vf = k.to(dt), v.to(dt)
+    c = torch.zeros((bsz, h, d, v.shape[-1]), dtype=dt, device=q.device)
+    n = torch.zeros((bsz, h, d), dtype=dt, device=q.device)
+    ys = []
+    for t in range(s):
+        fg = torch.exp(f_log[:, t])                                     # (B,H)
+        c = fg[..., None, None] * c + kf[:, t][..., :, None] * \
+            (vf[:, t] * gain[:, t][..., None])[..., None, :]
+        n = fg[..., None] * n + kf[:, t] * gain[:, t][..., None]
+        den = torch.einsum("bhd,bhd->bh", n, qs[:, t])
+        num = torch.einsum("bhd,bhdp->bhp", qs[:, t], c)
+        ys.append(num / (torch.abs(den) + MLSTM_EPS)[..., None])
+    return torch.stack(ys, dim=1).to(q.dtype)

@@ -9,7 +9,12 @@ the B7/B8 kernels, ``--sampler topp_blocked`` the B4 block scan, and
 ``REPRO_SCAN_METHOD`` names: ``kernel`` for B9, ``blocked`` for B10–B12).
 ``--arch zamba2-1.2b`` serves the Mamba2 hybrid, whose SSD layers run on the
 method that ``REPRO_SCAN_METHOD`` names: ``kernel`` for B1 and B13,
-``blocked`` for B4 and B16.  Weights are random, made from ``--seed``.
+``blocked`` for B4 and B16; ``--arch xlstm-350m`` runs its mLSTM layers' prefill
+the same way (B1 + B13, or B4 + B16).  ``--arch whisper-small`` and ``--arch
+paligemma-3b`` serve with stub ``enc_embed`` / ``img_embed`` inputs
+(``models/model.py`` ``synth_batch``; the VLM's image tokens count in its
+``max_len``), ``--arch minicpm3-4b`` with MLA's absorbed decode.  Weights and
+inputs are random, made from ``--seed``.
 """
 from __future__ import annotations
 
@@ -18,10 +23,11 @@ import time
 
 import torch
 
-from repro_torch.models.model import ARCHS, build_model, get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models.model import ARCHS, build_model, get_config, synth_batch
+from repro_torch.models.transformer import _DTYPES
 from repro_torch.serving.engine import ServeEngine
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def main(argv=None):
@@ -40,14 +46,14 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
     params = model.init(args.seed, device=args.device, dtype=_DTYPES[cfg.dtype])
-    eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.new_tokens,
+    off = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.new_tokens + off,
                       top_p=args.top_p, sampler=args.sampler, device=args.device)
     gen = torch.Generator(device=eng.device).manual_seed(args.seed + 1)
-    prompts = torch.randint(0, min(cfg.vocab_size, 1000),
-                            (args.batch, args.prompt_len), generator=gen,
-                            device=eng.device)
+    batch = synth_batch(cfg, ShapeConfig("serve", args.prompt_len, args.batch, "prefill"),
+                        gen)
     t0 = time.perf_counter()
-    toks = eng.generate({"tokens": prompts}, args.new_tokens, gen)
+    toks = eng.generate(batch, args.new_tokens, gen)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     dt = time.perf_counter() - t0

@@ -12,7 +12,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ninit", "linear", "rmsnorm", "embed_lookup", "unembed", "mlp",
-           "rope_freqs", "apply_rope", "softcap", "matmul_f32", "bmm_f32", "ACTS"]
+           "rope_freqs", "apply_rope", "sinusoid_at", "sinusoidal_pos", "softcap",
+           "matmul_f32", "bmm_f32", "ACTS"]
 
 
 def ninit(gen: torch.Generator, shape, *, n: Optional[int] = None, scale=None,
@@ -117,3 +118,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """fp32 ``(len(positions), d)`` absolute positions: sin on the even columns,
+    cos on the odd, as JAX's ``sinusoidal_pos`` (its rates in fp32)."""
+    dev = positions.device
+    rate = -torch.log(torch.full((), 10000.0, dtype=torch.float32, device=dev)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=dev) * rate)
+    ang = positions.to(torch.float32)[:, None] * div
+    pe = torch.zeros((positions.shape[0], d), dtype=torch.float32, device=dev)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def sinusoidal_pos(seq_len: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """``(seq_len, d)`` positions ``0 … seq_len - 1`` of :func:`sinusoid_at`."""
+    return sinusoid_at(torch.arange(seq_len, device=device), d).to(dtype)

@@ -1,16 +1,21 @@
-"""The decoder LMs: init, prefill and decode.
+"""The language models: init, forward, prefill and decode.
 
-Port of ``repro/models/transformer.py`` for the decoder families (dense,
-local/global, MoE) and the ``"hybrid"`` family.  Parameters keep the JAX
-pytree layout:
+Port of ``repro/models/transformer.py`` for all its families.  Parameters keep
+the JAX pytree layout:
 
-* decoders: ``{"embed": {"embed"}, "final_norm": {"g"}, "stack": {"sub0": ...,
-  "sub{g-1}": ...}}``, one ``sub{i}`` a kind of the layer pattern
-  (:func:`layer_pattern`: the config's ``layer_pattern``, e.g. gemma2's
-  ``("local", "global")``; ``("moe",)`` for the MoE family; else
-  ``("dense",)``), every leaf stacked over the ``(n_layers - pre) // g``
-  pattern groups; MoE configs with ``first_k_dense`` layers also hold ``pre``,
-  ``{"sub0": dense block}`` stacked over those leading layers;
+* decoders (dense, local/global, MoE, MLA, xLSTM, VLM): ``{"embed":
+  {"embed"}, "final_norm": {"g"}, "stack": {"sub0": ..., "sub{g-1}": ...}}``,
+  one ``sub{i}`` a kind of the layer pattern (:func:`layer_pattern`: the
+  config's ``layer_pattern``, e.g. gemma2's ``("local", "global")``;
+  ``("mlstm",) * 3 + ("slstm",)`` for xlstm-350m; ``("moe",)`` for the MoE
+  family; ``("mla",)`` for MLA configs; else ``("dense",)``), every leaf
+  stacked over the ``(n_layers - pre) // g`` pattern groups; MoE configs with
+  ``first_k_dense`` layers also hold ``pre``, ``{"sub0": dense block}``
+  stacked over those leading layers;
+* enc-dec (whisper): ``enc_stack`` (``{"sub0": enc block}`` over
+  ``n_enc_layers``), ``enc_norm`` and ``stack`` (``{"sub0": dec block}``);
+  a ``dec`` block adds cross-attention (``norm_x``, ``xattn``) onto the
+  encoder's output;
 * hybrid (zamba2): ``stack`` holds ``n_layers // iv`` groups of Mamba2 blocks
   ``sub0 … sub{iv-1}`` (``iv = shared_attn_interval``), each leaf stacked over
   the groups; ``shared`` is one dense block, unstacked, that runs after every
@@ -21,10 +26,16 @@ A block of kind ``local`` attends within ``cfg.local_window``; ``moe`` blocks
 replace the MLP with :func:`repro_torch.models.moe.moe_apply` (its dispatch is
 the paper's int8 mask scan, under ``cfg.scan_method``), dropping no token in
 decode, as JAX's ``_block_apply`` asks; gemma2 configs (keyed on the name, as
-in JAX) add the sandwich norms ``post_norm1`` / ``post_norm2``.  The layers run
-in Python loops over the stacked axes (the JAX package's ``lax.scan``).  MLA,
-xLSTM, enc-dec and VLM configs raise ``NotImplementedError`` until they are
-ported.
+in JAX) add the sandwich norms ``post_norm1`` / ``post_norm2``; ``mla`` blocks
+run :func:`~repro_torch.models.attention.mla_full` (expanded) in train and
+prefill and the absorbed :func:`~repro_torch.models.attention.mla_decode`;
+``mlstm`` and ``slstm`` blocks are the xLSTM mixers of
+:mod:`repro_torch.models.xlstm` (the mLSTM on two chunked SSD scans under
+``cfg.scan_method``, the sLSTM a sequential loop).  The enc-dec decoder adds
+sinusoidal absolute positions (``rope=False``); the VLM puts ``img_embed``
+before the (scaled) text embeddings and attends bidirectionally over those
+``n_img_tokens`` positions (the prefix-LM mask).  The layers run in Python
+loops over the stacked axes (the JAX package's ``lax.scan``).
 
 Interface:
   init(seed, device=None, dtype=float32)        -> params
@@ -32,12 +43,16 @@ Interface:
   loss(params, batch)                           -> (total, {"ce", "aux"})
   prefill(params, batch, cache_len=None)        -> (last-position logits, caches)
   decode_step(params, tokens, caches, pos)      -> (logits, caches)
-  empty_caches(batch_size, cache_len)           -> zero dense caches (decoders)
+  empty_caches(batch_size, cache_len)           -> zero decode caches (not hybrid)
 
-``decode_step`` on a decoder takes ``pos`` as an int or a (B,) tensor of
-per-row positions, and runs paged attention (``attn_decode_paged``) when the
-caches hold a ``"pages"`` table (``serving/paged_kv.py``), as the JAX
-package's ``_block`` dispatches on that leaf.
+``batch`` holds ``tokens`` and, by family, ``enc_embed`` (enc-dec: (B, enc_len,
+D) stub frame embeddings) or ``img_embed`` (VLM: (B, n_img_tokens, D) stub patch
+embeddings); ``input_specs`` in ``models/model.py`` names them.
+``decode_step`` takes ``pos`` as an int, or on an attention-only stack a (B,)
+tensor of per-row positions, and runs paged attention
+(``attn_decode_paged``) when the caches hold a ``"pages"`` table
+(``serving/paged_kv.py``), as the JAX package's ``_block`` dispatches on that
+leaf.
 
 ``forward`` and ``loss`` are the JAX package's ``mode="train"`` pass: no
 caches, the hybrid's Mamba2 layers on the SSD chunk kernel B17 under
@@ -53,8 +68,9 @@ import torch
 
 from repro_torch.core import guards
 from repro_torch.models import attention as att
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (ACTS, embed_lookup, mlp, ninit, rmsnorm,
-                                       softcap, unembed)
+                                       sinusoid_at, sinusoidal_pos, softcap, unembed)
 from repro_torch.models.mamba import mamba_full, mamba_init, mamba_step
 from repro_torch.models.moe import moe_apply, moe_init
 
@@ -65,6 +81,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 F32 = torch.float32
 # the block kinds whose only decode state is an attention KV cache
 ATTENTION_KINDS = frozenset({"dense", "local", "global", "moe"})
+# the block kinds of the non-hybrid stacks
+BLOCK_KINDS = ATTENTION_KINDS | {"mla", "mlstm", "slstm", "enc", "dec"}
+_FAMILIES = ("decoder", "moe", "xlstm", "encdec", "vlm")
 
 
 def layer_pattern(cfg) -> tuple:
@@ -87,14 +106,32 @@ def _layer(tree, i: int):
     """Layer ``i`` of a stacked parameter (or cache) tree, as views."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_layer(v, i) for v in tree)
     return tree[i]
 
 
 def _stacked(caches):
-    """A list of cache dicts as one dict of tensors stacked on a new leading axis."""
+    """A list of cache trees as one tree of tensors stacked on a new leading axis."""
     if isinstance(caches[0], dict):
         return {k: _stacked([c[k] for c in caches]) for k in caches[0]}
+    if isinstance(caches[0], tuple):
+        return tuple(_stacked([c[i] for c in caches]) for i in range(len(caches[0])))
     return torch.stack(caches)
+
+
+def _write(dst, src) -> None:
+    """Copy a block's new decode cache into the stacked cache's views, leaf by
+    leaf; a leaf the block already wrote in place (the attention caches) is the
+    same tensor and is skipped."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for a, b in zip(dst, src):
+            _write(a, b)
+    elif dst is not src:
+        dst.copy_(src)
 
 
 def _depth(tree) -> int:
@@ -104,22 +141,60 @@ def _depth(tree) -> int:
     return tree.shape[0]
 
 
+def _decode_cache_for(kind: str, cfg, n: int, b: int, cache_len: int, dt, dev):
+    """Zero decode caches of ``n`` stacked blocks of ``kind``, shaped and typed as
+    a prefill builds them (JAX's ``_decode_cache_for``, stacked)."""
+    def zeros(*shape, dtype=dt):
+        return torch.zeros((n, b, *shape), dtype=dtype, device=dev)
+
+    def kv(t):
+        return {"k": zeros(t, cfg.n_kv_heads, cfg.head_dim_),
+                "v": zeros(t, cfg.n_kv_heads, cfg.head_dim_)}
+
+    if kind in ATTENTION_KINDS or kind == "enc":
+        return kv(cache_len)
+    if kind == "dec":
+        return {"kv": kv(cache_len), "xkv": kv(cfg.enc_len)}
+    if kind == "mla":
+        m = cfg.mla
+        return {"latent": zeros(cache_len, m.kv_lora_rank),
+                "k_rope": zeros(cache_len, m.qk_rope_head_dim)}
+    x = cfg.xlstm
+    if kind == "mlstm":
+        d_inner = int(x.proj_factor * cfg.d_model)
+        hd = d_inner // x.n_heads
+        return {"conv": zeros(x.conv_kernel - 1, d_inner),
+                "c": zeros(x.n_heads, hd, hd, dtype=F32),
+                "n": zeros(x.n_heads, hd, dtype=F32),
+                "m": torch.full((n, b, x.n_heads), xl.NEG, dtype=F32, device=dev)}
+    if kind == "slstm":
+        hd = cfg.d_model // x.n_heads
+        z = zeros(x.n_heads, hd, dtype=F32)
+        return {"conv": zeros(x.conv_kernel - 1, cfg.d_model),
+                "rec": (z, z.clone(), torch.full_like(z, xl.NEG), z.clone())}
+    raise ValueError(kind)
+
+
 class TransformerLM:
     def __init__(self, cfg):
         self.hybrid = (cfg.family == "hybrid" and cfg.ssm is not None
                        and bool(cfg.shared_attn_interval))
         self.pattern = layer_pattern(cfg)
-        decoder = (cfg.family in ("decoder", "moe") and cfg.ssm is None
-                   and set(self.pattern) <= ATTENTION_KINDS
-                   and (cfg.moe is not None) == ("moe" in self.pattern))
-        if not (decoder or self.hybrid) or cfg.mla or cfg.xlstm \
-                or cfg.act not in ACTS:
+        stack = (cfg.family in _FAMILIES and cfg.ssm is None
+                 and set(self.pattern) <= BLOCK_KINDS
+                 and (cfg.moe is not None) == ("moe" in self.pattern)
+                 and (cfg.mla is not None) == ("mla" in self.pattern)
+                 and (cfg.xlstm is not None) == (cfg.family == "xlstm"))
+        if not (stack or self.hybrid) or cfg.act not in ACTS:
             raise NotImplementedError(
-                f"{cfg.name}: MLA, xLSTM, enc-dec and VLM stacks are not ported yet; "
-                "the port builds the dense, local/global and MoE decoders and the "
-                "zamba2-style hybrid")
+                f"{cfg.name}: family {cfg.family!r}, pattern {self.pattern} or act "
+                f"{cfg.act!r} is not ported; the port builds the families "
+                f"{_FAMILIES + ('hybrid',)}, the block kinds {sorted(BLOCK_KINDS)} and "
+                f"the activations {sorted(ACTS)}")
         self.cfg = cfg
         self.cdt = _DTYPES[cfg.dtype]
+        self.encdec = cfg.family == "encdec"
+        self.vlm = cfg.family == "vlm"
         self.n_pre = cfg.moe.first_k_dense if cfg.moe else 0
         self.group = len(self.pattern)
         if not self.hybrid and (cfg.n_layers - self.n_pre) % self.group:
@@ -141,6 +216,7 @@ class TransformerLM:
         dev = guards.resolve_device(device, op="TransformerLM.init")
         gen = torch.Generator(device=dev).manual_seed(seed)
         kw = dict(dtype=dtype, device=dev)
+        d = cfg.d_model
         if self.hybrid:
             iv = cfg.shared_attn_interval
             n_groups = cfg.n_layers // iv
@@ -150,6 +226,10 @@ class TransformerLM:
                     "shared": self._block_init(gen, "dense", None, kw)}
             if trailing:
                 body["tail"] = {"sub0": self._mamba_init(gen, trailing, kw)}
+        elif self.encdec:
+            body = {"enc_stack": {"sub0": self._block_init(gen, "enc", cfg.n_enc_layers, kw)},
+                    "stack": {"sub0": self._block_init(gen, "dec", cfg.n_layers, kw)},
+                    "enc_norm": {"g": torch.zeros((d,), **kw)}}
         else:
             body = {}
             if self.n_pre:
@@ -157,19 +237,28 @@ class TransformerLM:
             n_groups = (cfg.n_layers - self.n_pre) // self.group
             body["stack"] = {f"sub{i}": self._block_init(gen, kind, n_groups, kw)
                              for i, kind in enumerate(self.pattern)}
-        d = cfg.d_model
         return {"embed": {"embed": ninit(gen, (cfg.padded_vocab, d),
                                          scale=d ** -0.5, **kw)},
                 "final_norm": {"g": torch.zeros((d,), **kw)}, **body}
 
     def _block_init(self, gen, kind, n, kw):
-        """One attention block's weights of ``kind``, stacked over ``n`` layers
-        (unstacked for None): JAX's ``_block_init``."""
+        """One block's weights of ``kind``, stacked over ``n`` layers (unstacked
+        for None): JAX's ``_block_init``."""
         cfg, d = self.cfg, self.cfg.d_model
         lead = () if n is None else (n,)
-        p = {"norm1": {"g": torch.zeros((*lead, d), **kw)},
-             "norm2": {"g": torch.zeros((*lead, d), **kw)},
-             "attn": att.attn_init(gen, cfg, n=n, **kw)}
+
+        def norm():
+            return {"g": torch.zeros((*lead, d), **kw)}
+
+        if kind in ("mlstm", "slstm"):
+            init = xl.mlstm_block_init if kind == "mlstm" else xl.slstm_block_init
+            return {"norm": norm(), "mixer": init(gen, cfg, n=n, **kw)}
+        p = {"norm1": norm(), "norm2": norm(),
+             "attn": (att.mla_init if kind == "mla" else att.attn_init)(gen, cfg, n=n,
+                                                                          **kw)}
+        if kind == "dec":                               # + cross-attention
+            p["norm_x"] = norm()
+            p["xattn"] = att.attn_init(gen, cfg, n=n, **kw)
         if kind == "moe":
             p["moe"] = moe_init(gen, cfg, n=n, **kw)
         else:
@@ -178,8 +267,8 @@ class TransformerLM:
             if cfg.act != "gelu_nogate":
                 p["mlp"]["w_gate"] = ninit(gen, (d, cfg.d_ff), n=n, **kw)
         if cfg.name.startswith("gemma2"):               # sandwich norms
-            p["post_norm1"] = {"g": torch.zeros((*lead, d), **kw)}
-            p["post_norm2"] = {"g": torch.zeros((*lead, d), **kw)}
+            p["post_norm1"] = norm()
+            p["post_norm2"] = norm()
         return p
 
     def _mamba_init(self, gen, n, kw):
@@ -188,27 +277,61 @@ class TransformerLM:
                 "mixer": mamba_init(gen, self.cfg, n=n, **kw)}
 
     # ---- one residual block ----
+    def _xlstm_block(self, p, h, kind, *, mode, cache=None):
+        """One xLSTM residual block; returns ``(h, cache, None)``."""
+        cfg, cdt = self.cfg, self.cdt
+        hin = rmsnorm(p["norm"], h, cfg.norm_eps)
+        if mode == "decode":
+            step = xl.mlstm_block_step if kind == "mlstm" else xl.slstm_block_step
+            y, nc = step(p["mixer"], hin, cfg, cache, cdt=cdt)
+        else:
+            full = xl.mlstm_block if kind == "mlstm" else xl.slstm_block
+            y = full(p["mixer"], hin, cfg, cdt=cdt, return_cache=mode == "prefill")
+            y, nc = y if mode == "prefill" else (y, None)
+        return h + y, nc, None
+
     def _block(self, p, h, kind="dense", *, mode, positions=None, cache=None,
-               pos=None, cache_len=None):
-        """One attention block of ``kind``; returns ``(h, cache, aux)`` (no cache
-        in ``"train"``; ``aux`` is the MoE load-balancing loss, else 0)."""
+               pos=None, cache_len=None, prefix_len=None, enc_out=None, causal=True):
+        """One block of ``kind``; returns ``(h, cache, aux)`` (no cache in
+        ``"train"``; ``aux`` is the MoE load-balancing loss, else None)."""
+        if kind in ("mlstm", "slstm"):
+            return self._xlstm_block(p, h, kind, mode=mode, cache=cache)
         cfg, cdt = self.cfg, self.cdt
         window = cfg.local_window if kind == "local" else None
         hin = rmsnorm(p["norm1"], h, cfg.norm_eps)
-        if mode == "decode":
+        self_cache = cache["kv"] if kind == "dec" and cache is not None else cache
+        if kind == "mla":
+            if mode == "decode":
+                y, new_cache = att.mla_decode(p["attn"], hin, cfg, self_cache, pos, cdt=cdt)
+            else:
+                y = att.mla_full(p["attn"], hin, cfg, positions=positions, cdt=cdt,
+                                 return_cache=mode == "prefill", cache_len=cache_len)
+                y, new_cache = y if mode == "prefill" else (y, None)
+        elif mode == "decode":
             # a "pages" leaf marks the paged KV layout (continuous batching)
-            dec = att.attn_decode_paged if "pages" in cache else att.attn_decode
-            y, new_cache = dec(p["attn"], hin, cfg, cache, pos, cdt=cdt, window=window)
-        elif mode == "prefill":
-            y, new_cache = att.attn_full(p["attn"], hin, cfg, positions=positions,
-                                         cdt=cdt, window=window, return_cache=True,
-                                         cache_len=cache_len)
+            dec = att.attn_decode_paged if "pages" in self_cache else att.attn_decode
+            y, new_cache = dec(p["attn"], hin, cfg, self_cache, pos, cdt=cdt,
+                               window=window)
         else:
-            y, new_cache = att.attn_full(p["attn"], hin, cfg, positions=positions,
-                                         cdt=cdt, window=window), None
+            y = att.attn_full(p["attn"], hin, cfg, positions=positions, cdt=cdt,
+                              causal=causal, window=window, prefix_len=prefix_len,
+                              return_cache=mode == "prefill", cache_len=cache_len)
+            y, new_cache = y if mode == "prefill" else (y, None)
         if "post_norm1" in p:
             y = rmsnorm(p["post_norm1"], y, cfg.norm_eps)
         h = h + y
+        if kind == "dec":                               # cross-attention
+            hin = rmsnorm(p["norm_x"], h, cfg.norm_eps)
+            if mode == "decode":
+                y = att.attn_cross_decode(p["xattn"], hin, cfg, cache["xkv"], cdt=cdt)
+                new_cache = {"kv": new_cache, "xkv": cache["xkv"]}
+            else:
+                y = att.attn_full(p["xattn"], hin, cfg, positions=None, cdt=cdt,
+                                  kv_x=enc_out, use_rope=False)
+                if mode == "prefill":
+                    new_cache = {"kv": new_cache,
+                                 "xkv": att.cross_kv(p["xattn"], enc_out, cfg, cdt=cdt)}
+            h = h + y
         hin = rmsnorm(p["norm2"], h, cfg.norm_eps)
         if kind == "moe":
             y, aux = moe_apply(p["moe"], hin, cfg, cdt=cdt, no_drop=mode == "decode")
@@ -218,32 +341,46 @@ class TransformerLM:
             y = rmsnorm(p["post_norm2"], y, cfg.norm_eps)
         return h + y, new_cache, aux
 
-    def _stack(self, params, h, *, mode, positions=None, caches=None, pos=None,
-               cache_len=None):
+    def _part(self, params, h, kinds, *, mode, caches=None, **kw):
+        """The pattern groups of one stacked part (``pre``, ``stack`` or
+        ``enc_stack``): returns ``(h, caches, aux)``.  Prefill builds the part's
+        caches (``sub{i}`` -> the block's cache, stacked over the groups);
+        decode writes them into ``caches`` and returns it; ``"train"`` builds
+        none.  ``aux`` sums the MoE layers' losses (fp32 scalar)."""
+        aux = torch.zeros((), dtype=F32, device=h.device)
+        out = {f"sub{i}": [] for i in range(len(kinds))}
+        for g in range(_depth(params)):
+            for i, kind in enumerate(kinds):
+                sub = f"sub{i}"
+                c = None if caches is None else _layer(caches[sub], g)
+                h, nc, a = self._block(_layer(params[sub], g), h, kind, mode=mode,
+                                       cache=c, **kw)
+                if a is not None:
+                    aux = aux + a
+                if c is not None:
+                    _write(c, nc)
+                elif mode == "prefill":
+                    out[sub].append(nc)
+        if caches is not None:
+            return h, caches, aux
+        new = {sub: _stacked(cs) for sub, cs in out.items()} if mode == "prefill" else None
+        return h, new, aux
+
+    def _stack(self, params, h, *, mode, caches=None, **kw):
         """The decoder's layers: ``pre``, then each pattern group's ``sub{i}``.
 
         Returns ``(h, caches, aux)``: prefill builds the caches in JAX's layout
-        (``pre``/``stack`` -> ``sub{i}`` -> ``{"k", "v"}`` stacked over layers);
-        decode writes ``caches`` in place and returns them; ``"train"`` builds
-        none.  ``aux`` sums the MoE layers' losses (fp32 scalar)."""
+        (``pre``/``stack`` -> ``sub{i}`` -> the block's cache stacked over
+        layers); decode writes ``caches`` in place and returns them;
+        ``"train"`` builds none."""
         aux = torch.zeros((), dtype=F32, device=h.device)
         new = {}
         parts = [("pre", ("dense",))] if "pre" in params else []
         for part, kinds in parts + [("stack", self.pattern)]:
-            out = {f"sub{i}": [] for i in range(len(kinds))}
-            for g in range(_depth(params[part])):
-                for i, kind in enumerate(kinds):
-                    sub = f"sub{i}"
-                    c = None if caches is None else _layer(caches[part][sub], g)
-                    h, nc, a = self._block(_layer(params[part][sub], g), h, kind,
-                                           mode=mode, positions=positions, cache=c,
-                                           pos=pos, cache_len=cache_len)
-                    if a is not None:
-                        aux = aux + a
-                    if mode == "prefill":
-                        out[sub].append(nc)
-            if mode == "prefill":
-                new[part] = {sub: _stacked(cs) for sub, cs in out.items()}
+            h, nc, a = self._part(params[part], h, kinds, mode=mode,
+                                  caches=None if caches is None else caches[part], **kw)
+            aux = aux + a
+            new[part] = nc
         if caches is not None:
             return h, caches, aux
         return h, (new if mode == "prefill" else None), aux
@@ -321,30 +458,63 @@ class TransformerLM:
             logits = torch.where(iota < cfg.vocab_size, logits, -1e30)
         return logits
 
-    def _train(self, params, batch):
-        """The ``mode="train"`` pass: ``(logits, aux)``."""
-        tokens = batch["tokens"]
-        h = self._embed(params, tokens)
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=h.device)[None, :]
+    def _encode(self, params, enc_embed):
+        """The enc-dec encoder over the stub frame embeddings ``enc_embed``
+        (B, enc_len, D): sinusoidal positions, the non-causal ``enc`` stack,
+        ``enc_norm``."""
+        cfg = self.cfg
+        h = enc_embed.to(device=params["enc_norm"]["g"].device, dtype=self.cdt)
+        h = h + sinusoidal_pos(h.shape[1], cfg.d_model, h.dtype, h.device)[None]
+        h, _, _ = self._part(params["enc_stack"], h, ("enc",), mode="train",
+                             positions=None, causal=False)
+        return rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+
+    def _run(self, params, batch, *, mode, caches=None, pos=None, cache_len=None):
+        """The embeddings and the stack of one pass: ``(h, caches, aux)``.
+
+        The VLM puts ``batch["img_embed"]`` before the text embeddings in train
+        and prefill, under the prefix-LM mask over those positions; the enc-dec
+        model encodes ``batch["enc_embed"]`` in train and prefill and adds the
+        decoder's sinusoidal positions (in decode, row ``pos`` of the same
+        table)."""
+        cfg = self.cfg
+        h = self._embed(params, batch["tokens"])
+        prefix_len = enc_out = None
+        if self.vlm and mode != "decode":
+            img = batch["img_embed"].to(device=h.device, dtype=h.dtype)
+            h = torch.cat([img, h], dim=1)
+            prefix_len = cfg.n_img_tokens
+        if self.encdec:
+            if mode == "decode":
+                pe = sinusoid_at(torch.full((1,), pos, device=h.device), cfg.d_model)
+            else:
+                enc_out = self._encode(params, batch["enc_embed"])
+                pe = sinusoidal_pos(h.shape[1], cfg.d_model, device=h.device)
+            h = h + pe.to(h.dtype)[None]
+        positions = (None if mode == "decode" else
+                     torch.arange(h.shape[1], dtype=torch.int32, device=h.device)[None, :])
         if self.hybrid:
-            h, _ = self._hybrid(params, h, mode="train", positions=positions)
-            aux = torch.zeros((), dtype=F32, device=h.device)
-        else:
-            h, _, aux = self._stack(params, h, mode="train", positions=positions)
-        return self._logits(params, h), aux
+            h, caches = self._hybrid(params, h, mode=mode, positions=positions,
+                                     caches=caches, pos=pos, cache_len=cache_len)
+            return h, caches, torch.zeros((), dtype=F32, device=h.device)
+        return self._stack(params, h, mode=mode, caches=caches, positions=positions,
+                           pos=pos, cache_len=cache_len, prefix_len=prefix_len,
+                           enc_out=enc_out)
 
     # ---- public API ----
     @torch.no_grad()
     def forward(self, params, batch) -> torch.Tensor:
-        """fp32 logits ``(B, S, V)`` of every position of ``batch["tokens"]`` (B, S).
+        """fp32 logits ``(B, S, V)`` of every position of the pass over ``batch``.
 
         The JAX package's ``mode="train"`` pass: no caches; under
         ``scan_method="kernel"`` each Mamba2 layer runs the SSD chunk kernel
-        B17 once and each MoE layer's dispatch one segmented scan (B9).  Runs
+        B17 once, each mLSTM layer two chunked SSD scans (B1 + B13 each) and
+        each MoE layer's dispatch one segmented scan (B9).  A VLM's logits
+        cover the image positions too (``S = n_img_tokens + text``).  Runs
         under ``torch.no_grad()`` (no gradients yet).
         """
-        return self._train(params, batch)[0]
+        h, _, _ = self._run(params, batch, mode="train")
+        return self._logits(params, h)
 
     @torch.no_grad()
     def loss(self, params, batch):
@@ -352,82 +522,79 @@ class TransformerLM:
 
         ``ce`` is ``logsumexp`` minus the target logit, in fp32, averaged over
         the positions where ``batch["loss_mask"]`` (optional, ``(B, S)``) is
-        set at the target; ``aux`` is the MoE layers' load-balancing losses
-        summed (0 without MoE layers) and ``total = ce + 0.01·aux``.  Runs under
-        ``torch.no_grad()``.
+        set at the target; a VLM's image positions predict nothing.  ``aux`` is
+        the MoE layers' load-balancing losses summed (0 without MoE layers) and
+        ``total = ce + 0.01·aux``.  Runs under ``torch.no_grad()``.
         """
-        logits, aux = self._train(params, batch)
-        targets = batch["tokens"][:, 1:].to(torch.int64)
+        h, _, aux = self._run(params, batch, mode="train")
+        logits = self._logits(params, h)
+        if self.vlm:                    # predictions for the text positions only
+            logits = logits[:, self.cfg.n_img_tokens:]
+        targets = batch["tokens"][:, 1:].to(device=logits.device, dtype=torch.int64)
         lg = logits[:, :-1].to(torch.float32)
         nll = torch.logsumexp(lg, dim=-1) - torch.gather(lg, -1, targets[..., None])[..., 0]
         mask = batch.get("loss_mask")
         if mask is not None:
-            m = mask[:, 1:].to(torch.float32)
+            m = mask[:, 1:].to(device=nll.device, dtype=torch.float32)
             ce = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
         else:
             ce = torch.mean(nll)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, batch, *, cache_len: Optional[int] = None):
-        """Run the prompt ``batch["tokens"]`` (B, S); return the last logits and caches.
+        """Run the prompt ``batch`` (``tokens`` (B, S) and the family's stub
+        embeddings); return the last position's logits and the caches.
 
-        Decoder caches are JAX's: ``{"stack": {"sub{i}": {"k", "v"}}}`` (and
-        ``"pre"`` for leading dense layers), each ``(layers, B, cache_len, K,
-        D)`` over the part's stacked layers.  Hybrid caches are the JAX
-        package's: ``stack`` ``{"conv", "ssm"}`` of ``(groups, iv, B, ...)``,
-        ``shared`` ``{"k", "v"}`` of ``(groups, B, cache_len, K, D)`` and
-        ``tail`` ``{"sub0": {"conv", "ssm"}}`` of ``(trailing, B, ...)``.
+        Caches keep JAX's layout: ``{"pre"?, "stack": {"sub{i}": cache}}`` (and
+        ``enc-dec`` ``{"stack": {"sub0": {"kv", "xkv"}}}``), each leaf stacked
+        over the part's layers: ``{"k", "v"}`` of ``(layers, B, cache_len, K,
+        D)`` for attention, ``{"latent", "k_rope"}`` for MLA, ``{"conv", "c",
+        "n", "m"}`` for mLSTM and ``{"conv", "rec": (c, n, m, h)}`` for sLSTM;
+        ``xkv`` is the cross KV of the encoder's output, computed once here.  A
+        VLM's cache holds its ``n_img_tokens`` image positions first.  Hybrid
+        caches are the JAX package's: ``stack`` ``{"conv", "ssm"}`` of
+        ``(groups, iv, B, ...)``, ``shared`` ``{"k", "v"}`` of ``(groups, B,
+        cache_len, K, D)`` and ``tail`` ``{"sub0": {"conv", "ssm"}}`` of
+        ``(trailing, B, ...)``.
         """
-        tokens = batch["tokens"]
-        h = self._embed(params, tokens)
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=h.device)[None, :]
-        if self.hybrid:
-            h, caches = self._hybrid(params, h, mode="prefill", positions=positions,
-                                     cache_len=cache_len)
-        else:
-            h, caches, _ = self._stack(params, h, mode="prefill", positions=positions,
-                                       cache_len=cache_len)
+        h, caches, _ = self._run(params, batch, mode="prefill", cache_len=cache_len)
         return self._logits(params, h[:, -1:])[:, -1], caches
 
     def decode_step(self, params, tokens, caches, pos):
         """One token per row (``tokens``: (B, 1)) written at position ``pos``.
 
-        ``pos`` is an int, or for a decoder a (B,) integer tensor of per-row
-        positions (continuous batching); the hybrid takes an int only.  Decoder
-        caches may be the paged layout of ``serving/paged_kv.py``.  Updates
-        ``caches`` in place and returns ``(logits (B, V), caches)``.
+        ``pos`` is an int, or on an attention-only stack (``ATTENTION_KINDS``)
+        a (B,) integer tensor of per-row positions (continuous batching); a
+        VLM's positions count its image tokens.  Decoder caches may be the paged
+        layout of ``serving/paged_kv.py``.  Updates ``caches`` in place and
+        returns ``(logits (B, V), caches)``.
         """
         cfg = self.cfg
-        h = self._embed(params, tokens)
         per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
-        if self.hybrid:
-            if per_row:
-                raise ValueError(
-                    f"decode_step: {cfg.name} is a hybrid stack; per-row positions "
-                    "are for attention-only stacks (its SSM state has no position)")
-            h, _ = self._hybrid(params, h, mode="decode", caches=caches, pos=int(pos))
-            return self._logits(params, h)[:, -1], caches
-        h, _, _ = self._stack(params, h, mode="decode", caches=caches,
-                              pos=pos if per_row else int(pos))
+        if per_row and (self.hybrid or not set(self.pattern) <= ATTENTION_KINDS):
+            raise ValueError(
+                f"decode_step: {cfg.name} is not an attention-only stack; per-row "
+                "positions are for attention-only stacks (its recurrent state, latent "
+                "or cross cache has no per-row position)")
+        h, caches, _ = self._run(params, {"tokens": tokens}, mode="decode", caches=caches,
+                                 pos=pos if per_row else int(pos))
         return self._logits(params, h)[:, -1], caches
 
     def empty_caches(self, batch_size: int, cache_len: int, *, device=None) -> Dict:
-        """Zero dense decode caches of a decoder, shaped and typed as
-        :meth:`prefill` returns them: ``{"pre"?, "stack": {"sub{i}": {"k", "v"}}}``,
-        each ``(layers, batch_size, cache_len, K, D)`` in the config's dtype.
+        """Zero decode caches, shaped and typed as :meth:`prefill` returns them
+        (JAX's ``_decode_cache_for`` for each kind, stacked over the layers).
         ``device=None`` means ``"cuda"``; ``"meta"`` gives the shapes alone."""
         cfg = self.cfg
         if self.hybrid:
             raise NotImplementedError(
-                f"empty_caches: {cfg.name} is a hybrid stack; only the decoders' "
+                f"empty_caches: {cfg.name} is a hybrid stack; only the non-hybrid "
                 "caches are built here")
         dev = guards.resolve_device(device, op="TransformerLM.empty_caches")
 
         def part(n, kinds):
-            shape = (n, batch_size, cache_len, cfg.n_kv_heads, cfg.head_dim_)
-            return {f"sub{i}": {name: torch.zeros(shape, dtype=self.cdt, device=dev)
-                                for name in ("k", "v")} for i in range(len(kinds))}
+            return {f"sub{i}": _decode_cache_for(kind, cfg, n, batch_size, cache_len,
+                                                 self.cdt, dev)
+                    for i, kind in enumerate(kinds)}
 
         c = {"pre": part(self.n_pre, ("dense",))} if self.n_pre else {}
         c["stack"] = part((cfg.n_layers - self.n_pre) // self.group, self.pattern)

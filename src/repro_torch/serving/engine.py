@@ -135,7 +135,9 @@ class ServeEngine:
         """Generate up to ``max_new_tokens`` tokens per row.
 
         Args:
-            batch: Model inputs including ``"tokens"`` of shape (B, S).
+            batch: Model inputs including ``"tokens"`` of shape (B, S), and the
+                family's stub embeddings (``"enc_embed"``, ``"img_embed"``),
+                moved to the engine's device.
             max_new_tokens: Number of tokens to decode (>= 0).
             generator: Source of the sampler's uniforms (on the engine's
                 device) when ``uniforms`` is not given.
@@ -153,22 +155,25 @@ class ServeEngine:
         Raises:
             ValueError: If ``max_new_tokens`` is negative, ``sync_every`` is
                 not positive, ``uniforms`` has the wrong shape, or the request
-                overflows the KV budget (``prompt_len + max_new_tokens >
-                max_len``).
+                overflows the KV budget (``prompt_len + cache_offset +
+                max_new_tokens > max_len``, the offset a VLM's
+                ``n_img_tokens``).
         """
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        tokens = batch["tokens"]
         b, s = tokens.shape
+        off = self.cfg.n_img_tokens if self.cfg.family == "vlm" else 0
         if max_new_tokens < 0:
             raise ValueError(
                 f"generate: max_new_tokens must be >= 0, got {max_new_tokens}")
         sync_every = guards.validate_positive(sync_every, name="sync_every",
                                               op="generate")
-        if s + max_new_tokens > self.max_len:
+        if s + off + max_new_tokens > self.max_len:
             raise ValueError(
-                f"generate: prompt ({s} tokens) + max_new_tokens "
-                f"({max_new_tokens}) = {s + max_new_tokens} overflows the KV "
-                f"cache budget (max_len={self.max_len}); raise max_len= at "
-                "engine construction or shorten the request")
+                f"generate: prompt ({s} tokens) + cache offset ({off}) + "
+                f"max_new_tokens ({max_new_tokens}) = {s + off + max_new_tokens} "
+                f"overflows the KV cache budget (max_len={self.max_len}); raise "
+                "max_len= at engine construction or shorten the request")
         if max_new_tokens == 0:
             return torch.zeros((b, 0), dtype=torch.int32, device=self.device)
         if uniforms is not None:
@@ -181,19 +186,19 @@ class ServeEngine:
         def u_at(i):
             return None if uniforms is None else uniforms[i][:, None]
 
-        logits, caches = self.model.prefill(self.params, {"tokens": tokens},
-                                            cache_len=self.max_len)
+        logits, caches = self.model.prefill(self.params, batch, cache_len=self.max_len)
         tok = self._sample(logits, generator, u_at(0))
         done = (tok == eos_id) if eos_id is not None else None
         out = [tok]
+        pos = s + off                   # a VLM's cache holds its image tokens first
         for i in range(max_new_tokens - 1):
             if done is not None and i % sync_every == 0 and bool(done.all()):
                 break  # every row emitted eos_id
-            guards.guard_check(lambda: s + i < self.max_len,
+            guards.guard_check(lambda: pos + i < self.max_len,
                                "decode: pos must stay below max_len (the KV cache "
                                "budget) — raise max_len= at engine construction")
             logits, caches = self.model.decode_step(self.params, tok[:, None],
-                                                    caches, s + i)
+                                                    caches, pos + i)
             tok = self._sample(logits, generator, u_at(i + 1))
             if done is not None:
                 tok = torch.where(done, torch.full_like(tok, eos_id), tok)

@@ -2107,3 +2107,96 @@ def test_qk_norm_model_on_the_card_matches_the_cpu(dev):
     b = ServeEngine(cfg, _to_device(params, dev), max_len=20, sampler="greedy").generate(
         {"tokens": toks}, 4, uniforms=u)
     assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("method,want", [
+    ("kernel", dict(scan_mm=2, linrec_scan=2)),
+    ("blocked", dict(block_scan=2, linrec_block_scan=2))])
+def test_mlstm_chunked_on_the_kernels_matches_the_fp64_oracle(dev, method, want):
+    """The mLSTM cell on (2, 300, 4, 64), chunks of 128 (a ragged last one), q and k
+    >= 0 so that its normaliser does not cancel: two scans of each kind (numerator
+    and normaliser), within 2e-5 of max|h| of the fp64 sequential oracle."""
+    from repro_torch.core.ssd import mlstm_chunked, mlstm_ref
+    g = _gen(dev, 11)
+    q, k, v = (torch.randn((2, 300, 4, 64), generator=g, device=dev) for _ in range(3))
+    q, k = q.abs(), k.abs()
+    i_pre = torch.randn((2, 300, 4), generator=g, device=dev)
+    f_pre = torch.randn((2, 300, 4), generator=g, device=dev) + 3.0
+    ops.reset_launch_counts()
+    h = mlstm_chunked(q, k, v, i_pre, f_pre, chunk=128, scan_method=method)
+    torch.cuda.synchronize(dev)
+    assert ops.launch_counts() == _counts(**want)
+    ref = mlstm_ref(*(t.double() for t in (q, k, v, i_pre, f_pre)))
+    assert float((h.double() - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+def test_xlstm_prefill_and_decode_follow_the_forward_on_the_card(dev):
+    """xlstm SMOKE (3 mLSTM + 1 sLSTM layers) in fp32 under "kernel" over 300 tokens
+    (3 chunks of 128): the forward and a prefill of 296 launch 6 B1 + 6 B13 (two
+    scans a mLSTM layer), a prefill of one chunk 6 B1 alone, a decode step none;
+    prefill plus 4 decode steps within 1e-3 of the forward over the same tokens, and
+    the forward within 1e-3 of the CPU's (the cell's normaliser cancels at random
+    weights, so fp32 programs differ there by ~4e-4)."""
+    cfg = dataclasses.replace(get_config("xlstm-350m", smoke=True), scan_method="kernel")
+    params = build_model(cfg).init(0, device="cpu")
+    gp = _to_device(params, dev)
+    model = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300),
+                         generator=torch.Generator().manual_seed(4))
+    ops.reset_launch_counts()
+    full = model.forward(gp, {"tokens": toks.to(dev)})
+    assert ops.launch_counts() == _counts(scan_mm=6, linrec_scan=6)
+    ops.reset_launch_counts()
+    model.prefill(gp, {"tokens": toks[:, :100].to(dev)})
+    assert ops.launch_counts() == _counts(scan_mm=6)
+    ops.reset_launch_counts()
+    lg, caches = model.prefill(gp, {"tokens": toks[:, :296].to(dev)}, cache_len=300)
+    assert ops.launch_counts() == _counts(scan_mm=6, linrec_scan=6)
+    errs = [float((lg - full[:, 295]).abs().max())]
+    ops.reset_launch_counts()
+    for i in range(4):
+        lg, caches = model.decode_step(gp, toks[:, 296 + i:297 + i].to(dev), caches, 296 + i)
+        errs.append(float((lg - full[:, 296 + i]).abs().max()))
+    assert ops.launch_counts() == _counts()
+    assert max(errs) <= 1e-3, errs
+    cpu = build_model(cfg).forward(params, {"tokens": toks})
+    assert float((full.cpu() - cpu).abs().max()) <= 1e-3
+
+
+def test_mla_absorbed_decode_matches_the_expanded_form_on_the_card(dev):
+    """minicpm3 SMOKE's layer 0 on the card: ``mla_decode`` at position 16 after a
+    prefill of 16 within 2e-5 of the last row of ``mla_full`` over the 17 tokens."""
+    cfg = get_config("minicpm3-4b", smoke=True)
+    p = {k: (v[0] if not isinstance(v, dict) else {"g": v["g"][0]}) for k, v in
+         build_model(cfg).init(0, device=dev)["stack"]["sub0"]["attn"].items()}
+    x = torch.randn((2, 17, cfg.d_model), generator=_gen(dev, 5), device=dev)
+    pos = torch.arange(17, dtype=torch.int32, device=dev)[None]
+    _, cache = attention.mla_full(p, x[:, :16], cfg, positions=pos[:, :16],
+                                  cdt=torch.float32, return_cache=True, cache_len=20)
+    dec = attention.mla_decode(p, x[:, 16:], cfg, cache, 16, cdt=torch.float32)[0]
+    full = attention.mla_full(p, x, cfg, positions=pos, cdt=torch.float32)
+    assert float((dec[:, 0] - full[:, 16]).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "paligemma-3b", "minicpm3-4b"])
+def test_encdec_vlm_and_mla_models_on_the_card_match_the_cpu(dev, arch):
+    """The SMOKE model's prefill logits on the card within 1e-4 of the CPU's and its
+    greedy stream equal, the stub embeddings from ``synth_batch``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import synth_batch
+    cfg = get_config(arch, smoke=True)
+    params = build_model(cfg).init(0, device="cpu")
+    batch = synth_batch(cfg, ShapeConfig("serve", 24, 2, "prefill"),
+                        torch.Generator().manual_seed(2))
+    off = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    clen = batch["tokens"].shape[1] + off + 4
+    model = build_model(cfg)
+    lc, _ = model.prefill(params, batch, cache_len=clen)
+    lg, _ = model.prefill(_to_device(params, dev), {k: v.to(dev) for k, v in batch.items()},
+                          cache_len=clen)
+    assert float((lg.cpu() - lc).abs().max()) < 1e-4
+    a = ServeEngine(cfg, params, max_len=clen, sampler="greedy", device="cpu").generate(
+        batch, 4)
+    b = ServeEngine(cfg, _to_device(params, dev), max_len=clen, sampler="greedy").generate(
+        batch, 4)
+    assert torch.equal(a, b.cpu())
