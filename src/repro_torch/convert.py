@@ -4,8 +4,11 @@
 numpy (nested dicts of arrays, e.g. ``jax.tree.map(np.asarray, params)``) and
 returns the port's parameter tree: the same nesting and the same JAX
 ``(d_in, d_out)`` weight layout, as torch tensors.  Nothing is transposed, so
-``linear`` computes ``x @ w`` in both packages.  Like the other entry points it
-puts the tensors on the GPU unless the caller asks for the CPU.
+``linear`` computes ``x @ w`` in both packages.  :func:`train_state_from_jax`
+carries a whole JAX train state across (``params``, AdamW's ``opt.mu``,
+``opt.nu`` and ``opt.step``), in the layout of ``training.trainer.Trainer``.
+Like the other entry points they put the tensors on the GPU unless the caller
+asks for the CPU.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.core import guards
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "train_state_from_jax"]
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -48,6 +51,29 @@ def params_from_jax(tree: Any, *, device=None,
         ((2, 3), torch.float32)
     """
     return _convert(tree, guards.resolve_device(device, op="params_from_jax"), dtype)
+
+
+def train_state_from_jax(state: Any, *, device=None,
+                         param_dtype: Optional[torch.dtype] = None) -> Any:
+    """Convert a numpy JAX train state ``{"params", "opt": {"mu", "nu", "step"}}``.
+
+    The parameters keep their dtype unless ``param_dtype`` is given; the
+    moments are fp32 and the step an int32 scalar, as AdamW keeps them.
+
+    Example:
+        >>> st = {"params": {"w": np.ones((2, 2), np.float32)},
+        ...       "opt": {"mu": {"w": np.zeros((2, 2), np.float32)},
+        ...               "nu": {"w": np.zeros((2, 2), np.float32)},
+        ...               "step": np.asarray(3, np.int32)}}
+        >>> int(train_state_from_jax(st, device="cpu")["opt"]["step"])
+        3
+    """
+    dev = guards.resolve_device(device, op="train_state_from_jax")
+    opt = state["opt"]
+    return {"params": _convert(state["params"], dev, param_dtype),
+            "opt": {"mu": _convert(opt["mu"], dev, torch.float32),
+                    "nu": _convert(opt["nu"], dev, torch.float32),
+                    "step": _tensor(opt["step"], dev, torch.int32)}}
 
 
 def _convert(tree, device, dtype):

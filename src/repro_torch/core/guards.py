@@ -448,19 +448,49 @@ def resolve_device(device, *, op: str):
     return dev
 
 
-def refuse_grad(*xs, op: str) -> None:
-    """Raise when grad mode is on and a tensor among ``xs`` requires grad.
+def refuse_grad(*xs, op: str, method: str,
+                methods: Tuple[str, ...] = ("kernel", "blocked"),
+                instead: Optional[str] = None) -> None:
+    """Raise when ``method`` has no gradient and an input among ``xs`` needs one.
 
-    The port's linear recurrences and the SSD chunk kernel have no backward
-    pass yet (it comes with training); running them on such inputs would
-    silently drop the gradient.
+    The JAX package differentiates its ``"vector"`` and ``"matmul"`` paths and
+    ``linear_scan``'s custom VJP on every method; ``jax.grad`` fails on the
+    other Pallas kernels (``scan``, ``segment_scan``, ``split`` and
+    ``multi_split`` on ``"kernel"``, the first two also on ``"blocked"``, and
+    the SSD chunk kernel).  The port refuses exactly there, on the CPU (where
+    the plain versions are differentiable torch) and on the card (where a
+    kernel writes a fresh tensor with no graph) alike.  Entry points call this
+    in the method's dispatch, after ``"auto"`` resolved; integer inputs never
+    require grad.
+
+    Args:
+        xs: The operands; non-tensors are ignored.
+        op: The operator, for the message.
+        method: The resolved method.
+        methods: The methods of ``op`` that have no gradient.
+        instead: What differentiates, for the message; by default the
+            methods of ``METHODS`` outside ``methods``.
+
+    Raises:
+        NotImplementedError: grad mode is on, ``method`` is in ``methods`` and a
+            tensor among ``xs`` requires grad.
+
+    Example:
+        >>> refuse_grad(torch.ones(2, requires_grad=True), op="scan", method="vector")
+        >>> refuse_grad(torch.ones(2), op="scan", method="kernel")
     """
-    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
-                                       for x in xs):
-        raise NotImplementedError(
-            f"{op} has no gradient in the port yet: its backward pass comes with "
-            "training (ROADMAP Queue A item 11); run it under torch.no_grad() or on "
-            "inputs that do not require grad")
+    if method not in methods or not torch.is_grad_enabled():
+        return
+    if not any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs):
+        return
+    if instead is None:
+        ok = [m for m in ("vector", "matmul", "kernel", "blocked") if m not in methods]
+        instead = " and ".join(f"method={m!r}" for m in ok)
+    raise NotImplementedError(
+        f"{op} has no gradient on method={method!r}, as in the JAX package (jax.grad "
+        f"fails on its Pallas kernel there); {instead} differentiate, as does "
+        "method='auto' where it resolves to them. Run it under torch.no_grad() or on "
+        "inputs that do not require grad")
 
 
 # ---------------------------------------------------------------------------

@@ -32,9 +32,16 @@ data×data contraction: under ``"compensated"`` both operands split); the CUDA
 kernels and the column walk form no triangle and return the bits of
 ``"highest"`` under every precision.
 
-There is no gradient yet: with grad mode on, an input that requires grad
-raises ``NotImplementedError`` (the analytic reverse-recurrence adjoint comes
-with the training slice), so no method returns a result cut from the graph.
+Every method has the same analytic gradient, JAX's custom VJP: the adjoint
+of a linear recurrence is the same recurrence run in reverse,
+
+    λ_t = ḡ_t + a_{t+1}·λ_{t+1},      b̄_t = λ_t,      ā_t = λ_t·y_{t−1},
+
+computed by one more call of the same method (:class:`_LinrecCore`; on the
+card B13 or B14–B16 launch again), or by the column walk from the other end
+(:class:`_LinrecColumns`).  ``initial``, ``exclusive``, ``reverse``, the
+length-1 step and the non-finite policy stay outside it, in differentiable
+torch, as in JAX.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core import guards
 from repro_torch.core.autotune import maybe_resolve
@@ -242,6 +250,123 @@ def _linrec_blocked(a, b, *, method, tile_s, block_tiles, accum_dtype, precision
 
 
 # ---------------------------------------------------------------------------
+# the analytic adjoint (JAX's _linrec_core custom VJP)
+# ---------------------------------------------------------------------------
+
+
+def _unbroadcast(x: torch.Tensor, shape) -> torch.Tensor:
+    """Sum-reduce ``x`` back to a rank-aligned ``shape`` it broadcast from."""
+    if tuple(x.shape) == tuple(shape):
+        return x
+    dims = tuple(i for i, (xs, ps) in enumerate(zip(x.shape, shape)) if ps == 1 and xs != 1)
+    return torch.sum(x, dim=dims, keepdim=True)
+
+
+class _LinrecCore(torch.autograd.Function):
+    """The method-dispatched inclusive recurrence over the last axis from a zero
+    state, and its reverse-recurrence adjoint.
+
+    ``b`` arrives at the output's shape, so its cotangent is ``λ`` as it is;
+    ``a`` may keep size-1 dims of a shared decay, whose cotangent sums back
+    over them.  The backward recurrence runs the same method, tile, block and
+    precision (a compensated forward pass gets a compensated adjoint).
+    """
+
+    @staticmethod
+    def forward(ctx, a, b, method, tile_s, block_tiles, acc, precision):
+        y = dispatch("linear_scan", method)(a, b, method=method, tile_s=tile_s,
+                                            block_tiles=block_tiles, accum_dtype=acc,
+                                            precision=precision)
+        ctx.save_for_backward(a, y)
+        ctx.opts = dict(method=method, tile_s=tile_s, block_tiles=block_tiles,
+                        accum_dtype=acc, precision=precision)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, y = ctx.saved_tensors
+        acc = ctx.opts["accum_dtype"]
+        ash = torch.cat([a[..., 1:], torch.ones_like(a[..., :1])], dim=-1)
+        flip = (-1,)
+        lam = torch.flip(dispatch("linear_scan", ctx.opts["method"])(
+            torch.flip(ash, flip), torch.flip(g.to(acc), flip), **ctx.opts), flip)
+        ga = None
+        if ctx.needs_input_grad[0]:
+            ga = _unbroadcast(lam * _shift_in(y, 0.0), a.shape).to(a.dtype)
+        return ga, lam, None, None, None, None, None
+
+
+def _step_shift(x: torch.Tensor, axis: int, *, later: bool, reverse: bool, fill):
+    """``x`` along ``axis`` moved one step of a walk: with ``later``, place ``t``
+    holds the step after ``t`` (``t + 1``, or ``t - 1`` walking in ``reverse``),
+    else the step before it; the place left open holds ``fill`` (a scalar, or a
+    tensor shaped like ``x`` without ``axis``)."""
+    n = x.shape[axis]
+    head = later != reverse                  # the kept steps come from the axis's end
+    kept = x.narrow(axis, 1, n - 1) if head else x.narrow(axis, 0, n - 1)
+    shape = list(x.shape)
+    shape[axis] = 1
+    if isinstance(fill, torch.Tensor):
+        edge = fill.to(x.dtype).unsqueeze(axis).expand(shape)
+    else:
+        edge = torch.full(shape, fill, dtype=x.dtype, device=x.device)
+    return torch.cat([kept, edge] if head else [edge, kept], dim=axis)
+
+
+class _LinrecColumns(torch.autograd.Function):
+    """The column walk of a short axis that is not the last (one launch of B13's
+    or B16's walk on the card), and its adjoint: the walk from the other end
+    over the shifted ``a`` and the output's cotangent.
+
+    ``initial`` and ``exclusive`` stay inside the walk, as the kernel applies
+    them, so the forward pass keeps its bits; their cotangents are formed here:
+    ``initial`` receives ``a``'s first step times ``λ``'s (plus the cotangent of
+    the exclusive output's first step, which is ``initial``).
+    """
+
+    @staticmethod
+    def forward(ctx, a, b, initial, axis, exclusive, reverse, blocked):
+        from repro_torch.kernels import linrec_mm  # no import cycle
+        out = linrec_mm.linrec_columns(a, b, axis, exclusive=exclusive, reverse=reverse,
+                                       initial=initial, blocked=blocked)
+        ctx.save_for_backward(a, out, initial)
+        ctx.opts = (axis, exclusive, reverse, blocked, tuple(b.shape))
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        from repro_torch.kernels import linrec_mm  # no import cycle
+        a, out, initial = ctx.saved_tensors
+        axis, exclusive, reverse, blocked, b_shape = ctx.opts
+        n = out.shape[axis]
+        first = n - 1 if reverse else 0
+        ae = a.expand(*a.shape[:axis], n, *a.shape[axis + 1:])
+        g = g.to(out.dtype)
+        # the cotangent of the inclusive states: the exclusive output at t is y
+        # of the step before t
+        gy = _step_shift(g, axis, later=True, reverse=reverse, fill=0.0) if exclusive else g
+        ash = _step_shift(ae, axis, later=True, reverse=reverse, fill=1.0)
+        lam = linrec_mm.linrec_columns(ash, gy, axis, reverse=not reverse, blocked=blocked)
+        ga = gb = gi = None
+        if ctx.needs_input_grad[0]:
+            y_prev = out if exclusive else _step_shift(
+                out, axis, later=False, reverse=reverse,
+                fill=0.0 if initial is None else initial.expand(
+                    out.shape[:axis] + out.shape[axis + 1:]))
+            ga = _unbroadcast(lam * y_prev, a.shape).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _unbroadcast(lam, b_shape)
+        if initial is not None and ctx.needs_input_grad[2]:
+            gi = lam.select(axis, first) * ae.select(axis, first)
+            if exclusive:
+                gi = gi + g.select(axis, first)
+            gi = gi.sum_to_size(initial.shape).to(initial.dtype)
+        return ga, gb, gi, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 
@@ -290,7 +415,6 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
         ValueError: An unknown ``method`` or ``precision``, ``tile_s`` out
             of range, an axis out of bounds, or an explicit non-default
             ``precision`` with an explicit ``method="vector"``.
-        NotImplementedError: An input requires grad while grad mode is on.
         NonFiniteError: ``nonfinite="raise"`` and ``a`` or ``b`` holds a
             non-finite value.
 
@@ -308,7 +432,6 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
     if not 2 <= tile_s <= MAX_TILE:
         raise ValueError(f"tile_s must be in [2, {MAX_TILE}] (the exponent-normalized "
                          f"window-product range), got {tile_s}")
-    guards.refuse_grad(a, b, initial, op="linear_scan")
     if not isinstance(a, torch.Tensor):
         a = torch.as_tensor(a, device=b.device if isinstance(b, torch.Tensor) else None)
     if not isinstance(b, torch.Tensor):
@@ -338,9 +461,8 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
         # products below, as JAX's Pallas kernel does after moving the axis
         init = None if initial is None else torch.as_tensor(initial, dtype=acc,
                                                             device=b.device)
-        return linrec_mm.linrec_columns(a.to(acc), b.to(acc), axis, exclusive=exclusive,
-                                        reverse=reverse, initial=init,
-                                        blocked=method == "blocked")
+        return _LinrecColumns.apply(a.to(acc), b.to(acc), init, axis, exclusive, reverse,
+                                    method == "blocked")
     moved = axis != nd - 1
     if moved:
         a, b = torch.movedim(a, axis, -1), torch.movedim(b, axis, -1)
@@ -364,9 +486,7 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
             # exactly this, so no dispatch and no kernel launch (the decode step)
             out = b.expand(full).clone()
         else:
-            out = dispatch("linear_scan", method)(a, b, method=method, tile_s=tile_s,
-                                                  block_tiles=block_tiles,
-                                                  accum_dtype=acc, precision=precision)
+            out = _LinrecCore.apply(a, b, method, tile_s, block_tiles, acc, precision)
         if exclusive:
             if init is not None:
                 first = (init[..., None] if init.dim() else init).expand(out[..., :1].shape)

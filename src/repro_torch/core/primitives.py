@@ -129,6 +129,7 @@ def split(x: torch.Tensor, flags: torch.Tensor, *, method: str = "auto",
     """
     guards.validate_same_shape(x.shape, flags.shape, op="split")
     method = maybe_resolve(method, "split", x.shape[-1], x.dtype, device=x.device)
+    guards.refuse_grad(x, op="split", method=method, methods=("kernel",))
     z, ind, n_true = dispatch("split", method)(x, flags, method=method, tile_s=tile_s)
     if return_indices:
         return z, ind, n_true
@@ -225,6 +226,7 @@ def multi_split(x: torch.Tensor, digits: torch.Tensor, num_buckets: int, *,
                                b_name="digits")
     method = maybe_resolve(method, "multi_split", x.shape[-1], x.dtype,
                            device=x.device)
+    guards.refuse_grad(x, op="multi_split", method=method, methods=("kernel",))
     z, ind, counts = dispatch("multi_split", method)(
         x, digits, num_buckets, method=method, tile_s=tile_s)
     if return_indices:

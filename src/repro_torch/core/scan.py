@@ -178,6 +178,9 @@ def scan(x: torch.Tensor, axis: int = -1, *, exclusive: bool = False,
 
     Raises:
         NonFiniteError: ``nonfinite="raise"`` and ``x`` holds a non-finite value.
+        NotImplementedError: ``x`` requires grad under grad mode and the method
+            is ``"kernel"`` or ``"blocked"``, where ``jax.grad`` fails too
+            (``guards.refuse_grad``); ``"vector"`` and ``"matmul"`` differentiate.
 
     Example:
         >>> scan(torch.arange(1, 9, dtype=torch.int32), method="vector").tolist()
@@ -200,6 +203,7 @@ def scan(x: torch.Tensor, axis: int = -1, *, exclusive: bool = False,
                            device=x.device)
     precision = resolve_precision(precision, method=method,
                                   explicit_method=explicit_method)
+    guards.refuse_grad(x, op="scan", method=method)
     x = guards.apply_nonfinite(x, guards.resolve_nonfinite(nonfinite, op="scan"), op="scan")
     last = x.dim() - 1
     if axis != last:

@@ -279,6 +279,8 @@ def segment_scan(values, offsets=None, *, exclusive: bool = False,
     Raises:
         NonFiniteError: ``nonfinite="raise"`` and ``values`` holds a non-finite
             value.
+        NotImplementedError: ``values`` requires grad under grad mode on
+            ``"kernel"`` or ``"blocked"`` (B9–B12), where ``jax.grad`` fails too.
 
     Example:
         >>> x = torch.ones(5, dtype=torch.int32)
@@ -312,6 +314,7 @@ def _segment_scan(values, offsets, *, exclusive, reverse, method, tile_s, block_
                             block_tiles=block_tiles, accum_dtype=accum_dtype,
                             precision=precision)
         return torch.flip(out, dims=(-1,))
+    guards.refuse_grad(values, op="segment_scan", method=method)
     out = dispatch("segment_scan", method)(values, offsets, method=method, tile_s=tile_s,
                                            block_tiles=block_tiles, accum_dtype=acc,
                                            precision=precision)

@@ -15,7 +15,9 @@ workspace, the inputs read through their strides) and runs
 :func:`ssd_chunk_plain` on CPU tensors; ``ssd_chunk_plain(chained=True)``
 models the kernel's chunk-parallel pass.  Neither has a gradient: the JAX
 package cannot differentiate the Pallas kernel either, so B17 serves the
-forward pass and the loss of a ``scan_method="kernel"`` hybrid model.
+forward pass and the loss of a ``scan_method="kernel"`` hybrid model, and an
+input that requires grad is refused before any launch
+(``guards.refuse_grad``); ``ssd_scan`` on ``"vector"``/``"matmul"`` trains.
 """
 from __future__ import annotations
 
@@ -171,7 +173,8 @@ def ssd_chunk_scan(x: torch.Tensor, a_log: torch.Tensor, b_mat: torch.Tensor,
         ValueError: mismatched shapes, or (on the card) a chunk, state and
             head width that one CTA cannot hold (``ssd_check_tile``).
     """
-    guards.refuse_grad(x, a_log, b_mat, c_mat, op="ssd_chunk_scan")
+    guards.refuse_grad(x, a_log, b_mat, c_mat, op="ssd_chunk_scan", method="kernel",
+                       instead="ssd_scan's scan_method='vector' and 'matmul'")
     chunk = guards.validate_positive(chunk, name="chunk", op="ssd_chunk_scan")
     if x.dim() != 4:
         raise ValueError(f"ssd_chunk_scan: x must be (B, S, H, P), got {tuple(x.shape)}")

@@ -61,21 +61,48 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with fp32 accumulation and an fp32 result.
 
     bf16/fp16 operands on the card use ``torch.mm(..., out_dtype=float32)``
-    (the analogue of ``preferred_element_type=float32``); elsewhere the
-    operands are widened to fp32 first, which is exact.
+    (the analogue of ``preferred_element_type=float32``), through
+    :class:`_MatmulF32` for its gradient; elsewhere the operands are widened
+    to fp32 first, which is exact.
     """
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and a.dtype == b.dtype:
         lead = a.shape[:-1]
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*lead, b.shape[-1])
     return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of bf16/fp16 operands on the card with an fp32 result
+    (``torch.mm``/``torch.bmm`` with ``out_dtype``, which have no derivative).
+
+    The backward forms each gradient as the widening path does (and JAX's
+    transpose of a ``preferred_element_type`` product): the fp32 cotangent
+    against the other operand widened to fp32, cast to the operand's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.to(torch.float32).transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.to(torch.float32).transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
 
 
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` (``(E, M, K) @ (E, K, N)``) with fp32 accumulation and an
     fp32 result: :func:`matmul_f32` for a batch of products (the MoE experts)."""
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and a.dtype == b.dtype:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _MatmulF32.apply(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 

@@ -57,14 +57,26 @@ leaf.
 ``forward`` and ``loss`` are the JAX package's ``mode="train"`` pass: no
 caches, the hybrid's Mamba2 layers on the SSD chunk kernel B17 under
 ``scan_method="kernel"``, and the MoE layers' load-balancing losses summed
-into ``aux``.  They run under ``torch.no_grad()``: the port has no gradients
-yet (training is ROADMAP Queue A item 11).
+into ``aux``.  They build the autograd graph when grad mode is on, as
+``jax.value_and_grad(loss)`` differentiates JAX's: the recurrences through
+``linear_scan``'s analytic adjoint, and a method without a gradient (B17, the
+scans on ``"kernel"``/``"blocked"``) raises before it launches.  With
+``cfg.remat`` each layer group of a training pass is recomputed in the
+backward pass (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the
+group body): a pattern group, a hybrid group of Mamba2 blocks and the shared
+block, each tail block; the recomputation launches the group's kernels again.
+JAX's scanned hybrid stack (``scan_layers``) checkpoints only its tail and its
+unrolled one every group; the port's layers are a Python loop, and it
+checkpoints every group as the unrolled stack does (the gradients are the
+same).  ``prefill`` and ``decode_step`` are inference only and run under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import guards
 from repro_torch.models import attention as att
@@ -350,17 +362,23 @@ class TransformerLM:
         aux = torch.zeros((), dtype=F32, device=h.device)
         out = {f"sub{i}": [] for i in range(len(kinds))}
         for g in range(_depth(params)):
-            for i, kind in enumerate(kinds):
-                sub = f"sub{i}"
-                c = None if caches is None else _layer(caches[sub], g)
-                h, nc, a = self._block(_layer(params[sub], g), h, kind, mode=mode,
-                                       cache=c, **kw)
-                if a is not None:
-                    aux = aux + a
-                if c is not None:
-                    _write(c, nc)
-                elif mode == "prefill":
-                    out[sub].append(nc)
+            def group(h, g=g):
+                aux = torch.zeros((), dtype=F32, device=h.device)
+                for i, kind in enumerate(kinds):
+                    sub = f"sub{i}"
+                    c = None if caches is None else _layer(caches[sub], g)
+                    h, nc, a = self._block(_layer(params[sub], g), h, kind, mode=mode,
+                                           cache=c, **kw)
+                    if a is not None:
+                        aux = aux + a
+                    if c is not None:
+                        _write(c, nc)
+                    elif mode == "prefill":
+                        out[sub].append(nc)
+                return h, aux
+
+            h, a = self._remat(group, h, mode)
+            aux = aux + a
         if caches is not None:
             return h, caches, aux
         new = {sub: _stacked(cs) for sub, cs in out.items()} if mode == "prefill" else None
@@ -384,6 +402,13 @@ class TransformerLM:
         if caches is not None:
             return h, caches, aux
         return h, (new if mode == "prefill" else None), aux
+
+    def _remat(self, fn, h, mode):
+        """``fn(h)``, recomputed in the backward pass when ``cfg.remat`` and a
+        training pass builds a graph (JAX's ``jax.checkpoint`` of a group)."""
+        if self.cfg.remat and mode == "train" and torch.is_grad_enabled():
+            return checkpoint(fn, h, use_reentrant=False)
+        return fn(h)
 
     def _mamba(self, p, h, *, mode, cache=None):
         """One Mamba2 residual block; returns ``(h, cache)`` (no cache in ``"train"``,
@@ -419,21 +444,26 @@ class TransformerLM:
             return h
 
         for g in range(stack["sub0"]["norm"]["g"].shape[0]):
-            subs = []
-            for i in range(iv):
-                c = None if caches is None else _layer(_layer(caches["stack"], g), i)
-                h = mamba(_layer(stack[f"sub{i}"], g), h, c, subs)
-            c = None if caches is None else _layer(caches["shared"], g)
-            h, nc, _ = self._block(params["shared"], h, mode=mode, positions=positions,
-                                   cache=c, pos=pos, cache_len=cache_len)
-            if nc is not None and caches is None:
-                groups.append(_stacked(subs))
-                shared.append(nc)
+            def group(h, g=g):
+                subs = []
+                for i in range(iv):
+                    c = None if caches is None else _layer(_layer(caches["stack"], g), i)
+                    h = mamba(_layer(stack[f"sub{i}"], g), h, c, subs)
+                c = None if caches is None else _layer(caches["shared"], g)
+                h, nc, _ = self._block(params["shared"], h, mode=mode, positions=positions,
+                                       cache=c, pos=pos, cache_len=cache_len)
+                if nc is not None and caches is None:
+                    groups.append(_stacked(subs))
+                    shared.append(nc)
+                return h
+
+            h = self._remat(group, h, mode)
         if "tail" in params:
             tail = params["tail"]["sub0"]
             for t in range(tail["norm"]["g"].shape[0]):
                 c = None if caches is None else _layer(caches["tail"]["sub0"], t)
-                h = mamba(_layer(tail, t), h, c, tails)
+                h = self._remat(lambda h, t=t, c=c: mamba(_layer(tail, t), h, c, tails),
+                                h, mode)
         if caches is not None:
             return h, caches
         if mode == "train":
@@ -502,7 +532,6 @@ class TransformerLM:
                            enc_out=enc_out)
 
     # ---- public API ----
-    @torch.no_grad()
     def forward(self, params, batch) -> torch.Tensor:
         """fp32 logits ``(B, S, V)`` of every position of the pass over ``batch``.
 
@@ -510,13 +539,13 @@ class TransformerLM:
         ``scan_method="kernel"`` each Mamba2 layer runs the SSD chunk kernel
         B17 once, each mLSTM layer two chunked SSD scans (B1 + B13 each) and
         each MoE layer's dispatch one segmented scan (B9).  A VLM's logits
-        cover the image positions too (``S = n_img_tokens + text``).  Runs
-        under ``torch.no_grad()`` (no gradients yet).
+        cover the image positions too (``S = n_img_tokens + text``).  With
+        grad mode on and parameters that require grad it builds the graph
+        (module docstring); wrap it in ``torch.no_grad()`` for inference.
         """
         h, _, _ = self._run(params, batch, mode="train")
         return self._logits(params, h)
 
-    @torch.no_grad()
     def loss(self, params, batch):
         """Next-token cross-entropy of ``batch["tokens"]``: ``(total, {"ce", "aux"})``.
 
@@ -524,7 +553,8 @@ class TransformerLM:
         the positions where ``batch["loss_mask"]`` (optional, ``(B, S)``) is
         set at the target; a VLM's image positions predict nothing.  ``aux`` is
         the MoE layers' load-balancing losses summed (0 without MoE layers) and
-        ``total = ce + 0.01·aux``.  Runs under ``torch.no_grad()``.
+        ``total = ce + 0.01·aux``.  Differentiable, as ``forward`` is: the
+        trainer calls ``total.backward()``.
         """
         h, _, aux = self._run(params, batch, mode="train")
         logits = self._logits(params, h)
@@ -541,6 +571,7 @@ class TransformerLM:
             ce = torch.mean(nll)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
+    @torch.no_grad()
     def prefill(self, params, batch, *, cache_len: Optional[int] = None):
         """Run the prompt ``batch`` (``tokens`` (B, S) and the family's stub
         embeddings); return the last position's logits and the caches.
@@ -560,6 +591,7 @@ class TransformerLM:
         h, caches, _ = self._run(params, batch, mode="prefill", cache_len=cache_len)
         return self._logits(params, h[:, -1:])[:, -1], caches
 
+    @torch.no_grad()
     def decode_step(self, params, tokens, caches, pos):
         """One token per row (``tokens``: (B, 1)) written at position ``pos``.
 

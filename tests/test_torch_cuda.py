@@ -1249,7 +1249,7 @@ def test_ssd_chunk_kernel_reads_strides_and_checks_limits(dev):
     x, al, bm, cm = _ssd_args(dev, (1, 300, 1, 64, 64), 6)
     with pytest.raises(ValueError, match="shared memory"):
         ssd_chunk.ssd_chunk_scan(x, al, bm, cm, chunk=256)
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    with pytest.raises(NotImplementedError, match="ssd_chunk_scan has no gradient"):
         ssd_chunk.ssd_chunk_scan(x.requires_grad_(), al, bm, cm)
 
 
@@ -2200,3 +2200,79 @@ def test_encdec_vlm_and_mla_models_on_the_card_match_the_cpu(dev, arch):
     b = ServeEngine(cfg, _to_device(params, dev), max_len=clen, sampler="greedy").generate(
         batch, 4)
     assert torch.equal(a, b.cpu())
+
+
+# ---------------------------------------------------------------------------
+# gradients on the card (training)
+# ---------------------------------------------------------------------------
+
+
+def test_matmul_f32_gradient_matches_widening(dev):
+    """The fp32-output product of bf16 operands (``torch.mm(out_dtype=)``, no
+    derivative of its own) has the widening path's gradients, bit for bit."""
+    from repro_torch.models.layers import bmm_f32, matmul_f32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for fn, sa, sb in ((matmul_f32, (3, 33, 64), (64, 48)), (bmm_f32, (4, 33, 64), (4, 64, 48))):
+        a = torch.randn(sa, generator=gen, device=dev).bfloat16().requires_grad_()
+        b = torch.randn(sb, generator=gen, device=dev).bfloat16().requires_grad_()
+        w = torch.randn(sa[:-1] + sb[-1:], generator=gen, device=dev)
+        (fn(a, b) * w).sum().backward()
+        a2, b2 = a.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+        (torch.matmul(a2.float(), b2.float()) * w).sum().backward()
+        assert a.grad.dtype == b.grad.dtype == torch.bfloat16
+        assert torch.equal(a.grad, a2.grad) and torch.equal(b.grad, b2.grad)
+
+
+@pytest.mark.parametrize("method", ["kernel", "blocked"])
+def test_linear_scan_adjoint_on_card(dev, method):
+    """The analytic adjoint on the card: one more launch of the method's kernels in
+    the backward pass (rows and the column walk), gradients within 1e-5·max of
+    fp64 "vector" autograd, ``initial`` included."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows_want = (_counts(linrec_scan=1) if method == "kernel" else
+                 _counts(linrec_summaries=1, linrec_carry=1, linrec_block_scan=1))
+    walk_want = _counts(**{"linrec_scan" if method == "kernel" else "linrec_block_scan": 1})
+    cases = (((2, 300_000), (2, 300_000), -1, (2,), rows_want),
+             ((2, 16, 3, 1, 1), (2, 16, 3, 4, 4), 1, (2, 3, 4, 4), walk_want))
+    for sa, sb, axis, si, want in cases:
+        a = 0.5 + 0.5 * torch.rand(sa, generator=gen, device=dev)
+        b = torch.randn(sb, generator=gen, device=dev)
+        i = torch.randn(si, generator=gen, device=dev)
+        g = torch.randn(torch.broadcast_shapes(sa, sb), generator=gen, device=dev)
+        xs64 = [t.double().requires_grad_() for t in (a, b, i)]
+        y64 = linear_scan(xs64[0], xs64[1], axis=axis, method="vector", initial=xs64[2])
+        refs = torch.autograd.grad(y64, xs64, g.double())
+        xs = [t.clone().requires_grad_() for t in (a, b, i)]
+        ops.reset_launch_counts()
+        y = linear_scan(xs[0], xs[1], axis=axis, method=method, initial=xs[2])
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == want
+        ops.reset_launch_counts()
+        got = torch.autograd.grad(y, xs, g)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == want
+        for gt, rf in zip(got, refs):
+            assert gt.shape == rf.shape
+            assert float((gt.double() - rf).abs().max()) <= 1e-5 * float(rf.abs().max())
+
+
+def test_kernel_methods_refuse_grad_on_card(dev):
+    """Where ``jax.grad`` fails the port raises on the card too, before any launch;
+    no kernel output comes back with its graph cut."""
+    x = torch.randn(2, 5000, device=dev, requires_grad=True)
+    off = torch.tensor([0, 1000, 5000], device=dev)
+    calls = [lambda m: scan(x, method=m), lambda m: segment_scan(x, off, method=m)]
+    for method in ("kernel", "blocked"):
+        for call in calls:
+            ops.reset_launch_counts()
+            with pytest.raises(NotImplementedError, match="has no gradient"):
+                call(method)
+            assert not any(ops.launch_counts().values())
+        with torch.no_grad():
+            assert not scan(x, method=method).requires_grad
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="has no gradient"):
+        split(x, x > 0, method="kernel")
+    assert not any(ops.launch_counts().values())
+    y = scan(x, method="vector")
+    assert y.requires_grad

@@ -122,12 +122,35 @@ def test_loss_mask_weights_the_positions():
     assert float(none["ce"]) == 0.0                           # clamp(sum(mask), 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_kernel_grad_error():
+    """The exception ``jax.grad`` raises through the "kernel" zamba2 loss (B17)."""
+    jm = _models("zamba2-1.2b", "kernel")[0]
+    toks, _ = _batch()
+    try:
+        jax.grad(lambda p: jm.loss(p, {"tokens": jnp.asarray(toks)})[0])(
+            _jax_params("zamba2-1.2b"))
+    except Exception as e:                                    # noqa: BLE001
+        return type(e).__name__
+    return None
+
+
 def test_forward_runs_without_grad_on_params_that_require_it():
-    """forward/loss run under no_grad, so B17's refusal of grad never fires."""
+    """With grad mode on, the "kernel" zamba2 forward on params that require grad
+    raises before any launch, as ``jax.grad`` fails through B17; under
+    ``torch.no_grad()`` it runs and equals the forward on plain params."""
+    assert _jax_kernel_grad_error() is not None
     tm = _models("zamba2-1.2b", "kernel")[1]
     params = jax.tree.map(lambda t: t.clone().requires_grad_(), _port_params("zamba2-1.2b"))
     toks, _ = _batch()
-    logits = tm.forward(params, {"tokens": torch.from_numpy(toks)})
+    ops.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="ssd_chunk_scan has no gradient"):
+        tm.forward(params, {"tokens": torch.from_numpy(toks)})
+    with pytest.raises(NotImplementedError, match="ssd_chunk_scan has no gradient"):
+        tm.loss(params, {"tokens": torch.from_numpy(toks)})
+    assert not any(ops.launch_counts().values())
+    with torch.no_grad():
+        logits = tm.forward(params, {"tokens": torch.from_numpy(toks)})
     assert not logits.requires_grad
     want = tm.forward(_port_params("zamba2-1.2b"), {"tokens": torch.from_numpy(toks)})
     assert torch.equal(logits, want)

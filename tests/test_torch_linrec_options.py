@@ -193,14 +193,24 @@ def test_validation_and_grad_refusal():
         linear_scan(torch.from_numpy(an), torch.from_numpy(bn), nonfinite="raise")
     with pytest.raises(ValueError, match="nonfinite"):
         linear_scan(a, b, nonfinite="ignore")
+    # no refusal any more: every method has JAX's custom-VJP gradient, for a,
+    # b and initial (integer-valued, so exact on both sides)
+    av, bv = np.asarray([1.0, -1.0, 0.0, 1.0], np.float32), np.asarray([1.0, 2.0, -3.0, 1.0],
+                                                                      np.float32)
+    w = np.asarray([1.0, 2.0, -1.0, 3.0], np.float32)
     for method in METHODS:
-        with pytest.raises(NotImplementedError, match="gradient"):
-            linear_scan(a.clone().requires_grad_(), b, method=method)
-        with pytest.raises(NotImplementedError, match="gradient"):
-            linear_scan(a, b, method=method, initial=torch.ones(()).requires_grad_())
+        def f(x, y, i):
+            return jnp.sum(jax_linrec.linear_scan(x, y, method=method, initial=i) * w)
+        want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(av), jnp.asarray(bv),
+                                              jnp.asarray(2.0, jnp.float32))
+        ta, tb = torch.tensor(av, requires_grad=True), torch.tensor(bv, requires_grad=True)
+        ti = torch.tensor(2.0, requires_grad=True)
+        (linear_scan(ta, tb, method=method, initial=ti) * torch.from_numpy(w)).sum().backward()
+        for got, ref in zip((ta.grad, tb.grad, ti.grad), want):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     with torch.no_grad():
         out = linear_scan(a.clone().requires_grad_(), b, method="vector")
-    assert out.tolist() == [1.0, 2.0, 3.0, 4.0]
+    assert out.tolist() == [1.0, 2.0, 3.0, 4.0] and not out.requires_grad
 
 
 @pytest.mark.parametrize("method", METHODS)

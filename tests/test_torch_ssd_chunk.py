@@ -98,7 +98,7 @@ def test_ssd_chunk_keeps_the_input_dtype():
 def test_ssd_chunk_refuses_grad_and_validates():
     x, a, bm, cm = (torch.from_numpy(t) for t in _inputs((1, 16, 2, 4, 4), 1))
     xg = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    with pytest.raises(NotImplementedError, match="ssd_chunk_scan has no gradient"):
         ssd_chunk_scan(xg, a, bm, cm, chunk=8)
     with torch.no_grad():
         assert torch.equal(ssd_chunk_scan(xg, a, bm, cm, chunk=8),
