@@ -242,7 +242,29 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               new tokens, in a world of 2 ranks on the card: the same stream on both
               ranks, every token inside the window of the solo sampler, the decode
               step's ms and collectives;
-26. timing -- kernel, plain-version and library times beside each kernel's bound, and
+26. mesh   -- two worlds of 2 ranks sharing the card (``phase_mesh``): ``train_dp``,
+              zamba2-1.2b at full width, its depth cut 38 -> 12 (a multiple of its
+              shared-attention interval; two ranks of 38 layers do not fit), trained
+              by ``Trainer(mesh=)`` on a (2 data, 1 model) grid (fp32 state, bf16
+              compute, remat, "auto", 4 x 2048 SyntheticLM tokens, 5 steps): exactly
+              36 B16 a step a rank and no other launch, the losses finite and
+              falling, one gradient all-reduce a step equal to
+              ``modeled_dp_step_traffic``, ``compressed_grad_sync`` on step 1's
+              gradients within 5% of the fp32 mean, and in fp32 at 6 layers on one
+              row a rank the synced gradients and first loss against one rank's
+              ``Trainer`` on both rows (run here after the world exits), with the
+              summed gradient planted above the limit, and the world's checkpoint
+              restored here bit for bit; step ms, tokens/s, peak GB and the
+              all-reduce's ms a rank; ``serve_ep``, deepseek-moe-16b at full size in
+              bf16 on a (1 data, 2 model) grid, each rank holding 32 of each layer's
+              64 experts: ``ServeEngine`` greedy and ``topp_sharded`` at batch 4,
+              prompt 128, 16 new tokens on "kernel": exactly 27 B1 a pass a rank (the
+              expert-parallel dispatch's mask scan) and no other launch, both ranks'
+              streams equal, collectives equal to ``modeled_ep_traffic`` (and the
+              sampler's ``modeled_dist_traffic``), the prefill's logits against the
+              one-rank model's (here) within ``EP_LOGIT_TOL`` with the other rank's
+              part dropped planted above it; prefill and decode ms, peak GB a rank;
+27. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
@@ -288,6 +310,7 @@ import subprocess
 import sys
 import time
 import warnings
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
@@ -429,7 +452,9 @@ import torch.distributed as dist  # noqa: E402
 
 from repro_torch.analysis import ulp  # noqa: E402
 from repro_torch.analysis.faults import inject_nonfinite  # noqa: E402
-from repro_torch.analysis.collectives import modeled_dist_traffic  # noqa: E402
+from repro_torch.analysis.collectives import (modeled_dist_traffic,  # noqa: E402
+                                              modeled_dp_step_traffic, modeled_ep_traffic,
+                                              sum_forms)
 from repro_torch.analysis.streams import (DenseReplay, first_divergence,  # noqa: E402
                                           step_margin)
 from repro_torch.core import autotune, comm, guards  # noqa: E402
@@ -467,8 +492,13 @@ from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousEngine, poisson_trace  # noqa: E402
 from repro_torch.tools import sweep, tune  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.training.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.training.grad_compression import (compressed_grad_sync,  # noqa: E402
+                                                   init_errors)
 from repro_torch.training.optimizer import AdamWConfig, tree_leaves  # noqa: E402
 from repro_torch.training.trainer import Trainer  # noqa: E402
+from repro_torch.utils import sharding  # noqa: E402
+from repro_torch.utils.sharding import Grid  # noqa: E402
 
 DEV = torch.device("cuda")
 
@@ -5625,6 +5655,352 @@ def phase_serve_sharded():
 
 
 # ---------------------------------------------------------------------------
+# mesh: data-parallel training and expert-parallel serving on grids of ranks
+# ---------------------------------------------------------------------------
+
+# train_dp: zamba2-1.2b at full width, its depth cut to a multiple of its
+# shared-attention interval (6) so that two ranks fit the card (one rank at 38
+# layers peaks at 46.1 GB); the fp32 check runs a shallower copy on one row a rank
+MESH_TRAIN = dict(layers=12, batch=4, seq=2048, steps=5, seed=0, lr=1e-3, fp32_layers=6)
+# the fp32 synced gradients against one rank's on the same rows: each leaf within
+# MESH_GRAD_TOL of its largest magnitude (the CPU gradient tests' limit), the first
+# loss within MESH_LOSS_RTOL; the planted fault (the gradient summed instead of
+# averaged) reads 1.0
+MESH_GRAD_TOL = 1e-4
+MESH_LOSS_RTOL = 1e-5
+COMPRESSED_TOL = 0.05               # compressed_grad_sync: JAX's limit, of max|mean|
+# serve_ep: deepseek-moe-16b at full size, 32 of each layer's 64 experts a rank; the
+# logits check runs the model at full width in fp32 on its first fp32_layers layers
+MESH_SERVE = dict(batch=4, prompt=128, new=16, seed=0, fp32_layers=4)
+# the fp32 prefill's logits against the one-rank model's, of max|logit|: the two
+# parts of each MoE layer are summed in another order; the planted fault (the
+# other rank's part dropped) reads O(1).  In bf16 at full depth the random stack
+# amplifies the expert-parallel path's roundings (its gates and each rank's part
+# rounded to bf16, the parts summed in bf16) past any use: an H100 (700 W) read
+# 1.11 of max|logit|, and the CPU 0.66 on the SMOKE model at 28 layers (0.0073
+# at 3, 0.0 in fp32); that reading is printed, not held
+EP_LOGIT_TOL = 1e-4
+MESH_TIMEOUT = 900
+
+
+def _leaf_worst(got, ref) -> tuple:
+    """The worst leaf's ``max|got - ref| / max|ref|`` over two flat dicts."""
+    worst = (0.0, None)
+    for k, r in ref.items():
+        scale = float(r.abs().max()) or 1.0
+        worst = max(worst, (float((got[k].to(r.device) - r).abs().max()) / scale, k))
+    return worst
+
+
+def _flat_tensors(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_tensors(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _crc(t) -> int:
+    return zlib.crc32(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                      .numpy().tobytes())
+
+
+def mesh_train_rank(layers, batch, seq, steps, seed, lr, fp32_layers, workdir):
+    """One rank of ``train_dp``: zamba2-1.2b (``layers`` deep) data-parallel on a
+    (2 data, 1 model) grid, then the fp32 check's gradients and checkpoint."""
+    warnings.simplefilter("error", AutotuneFallbackWarning)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = Grid((2, 1), ("data", "model"))
+    me = comm.axis_index()
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=layers)
+    opt = AdamWConfig(lr=lr, warmup_steps=20, total_steps=steps)
+    tr = Trainer(cfg, opt, mesh=grid, device=DEV)
+    state = tr.init_state(seed)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    src = SyntheticLM(cfg.vocab_size, seq, batch)
+    b0 = {k: torch.as_tensor(v).to(DEV) for k, v in src.batch_at(0).items()}
+
+    # the int8 sync on step 1's real gradients against their fp32 mean
+    _, _, local = tr.grads(state["params"], b0, sync=False)
+    _, _, synced = tr.grads(state["params"], b0)
+    comp, _ = compressed_grad_sync(local, grid.group("data"), init_errors(local))
+    compressed_worst = _leaf_worst(_flat_tensors(comp), _flat_tensors(synced))
+    del local, synced, comp
+    _free()
+
+    per_step = {"linrec_block_scan": 3 * layers}
+    step_form = modeled_dp_step_traffic(data=2, block_elements=n_params, terms=3)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    losses, step_ms, launched = [], [], {k: 0 for k in ops.KERNELS}
+    for step in range(steps):
+        b = src.batch_at(step)
+        sync()
+        ops.reset_launch_counts()
+        comm.reset_comm_counts()
+        t0 = time.perf_counter()
+        state, metrics = tr.train_step(state, b)
+        losses.append(float(metrics["loss"]))
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts, coll = ops.launch_counts(), comm.comm_counts()
+        expect_counts(counts, f"train_dp step {step} on rank {me}", **per_step)
+        check(_nonzero(coll["calls"]) == step_form["counts_by_kind"]
+              and _nonzero(coll["bytes"]) == step_form["bytes_by_kind"],
+              f"train_dp step {step} on rank {me}: collectives {coll} != {step_form}")
+        for k in ops.KERNELS:
+            launched[k] += counts[k]
+    peak_gb = torch.cuda.max_memory_allocated(DEV) / 1e9
+    flat = torch.zeros(n_params + 3, dtype=torch.float32, device=DEV)
+    allreduce_ms = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        comm.all_reduce(flat, "sum", grid.group("data"))
+        sync()
+        allreduce_ms.append((time.perf_counter() - t0) * 1e3)
+    del state, flat, tr
+    _free()
+
+    # fp32, one row a rank: the synced gradients and loss, then a step and a save
+    c32 = dataclasses.replace(cfg, n_layers=fp32_layers, dtype="float32")
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    tr32 = Trainer(c32, opt, mesh=grid, device=DEV, ckpt_dir=ckpt_dir)
+    st32 = tr32.init_state(seed + 1)
+    rows = {k: torch.as_tensor(v[:2]).to(DEV) for k, v in src.batch_at(0).items()}
+    loss32, _, g32 = tr32.grads(st32["params"], rows)
+    if me == 0:
+        torch.save({k: v.cpu() for k, v in _flat_tensors(g32).items()},
+                   os.path.join(workdir, "grads32.pt"))
+    del g32
+    st32, _ = tr32.train_step(st32, {k: v.cpu() for k, v in rows.items()})
+    tr32.save(1, st32)
+    places = _flat_tensors(tr32.state_shardings())
+    whole = {k: sharding.gather(v, places[k]) for k, v in _flat_tensors(st32).items()}
+    crcs = {k: _crc(v) for k, v in whole.items()} if me == 0 else None
+    return {"rank": me, "coord": dict(grid.coord), "params": n_params, "losses": losses,
+            "step_ms": step_ms, "launches": launched, "per_step": per_step,
+            "step_collectives": step_form, "peak_mem_gb": peak_gb,
+            "allreduce_ms": allreduce_ms, "allreduce_bytes": 4 * (n_params + 3),
+            "compressed_worst": compressed_worst, "loss32": float(loss32),
+            "ckpt_dir": ckpt_dir, "crcs": crcs, "transport": comm.transport(None, DEV)}
+
+
+def _ep_params(cfg, grid, seed, dtype):
+    """``cfg``'s parameters from ``seed`` with this rank's experts only; the ranks
+    build them one after the other, so one whole model is on the card at a time."""
+    params = None
+    for r in range(comm.axis_size()):
+        if comm.axis_index() == r:
+            params = moe_model.expert_blocks(build_model(cfg).init(seed, device=DEV,
+                                                                   dtype=dtype),
+                                             grid, cfg.moe.n_experts)
+            _free()
+        comm.barrier()
+    return params
+
+
+def mesh_serve_rank(batch, prompt, new, seed, fp32_layers):
+    """One rank of ``serve_ep``: deepseek-moe-16b on a (1 data, 2 model) grid, each
+    rank holding 32 of each layer's 64 experts, greedy and ``topp_sharded``."""
+    warnings.simplefilter("error", AutotuneFallbackWarning)
+    grid = Grid((1, 2), ("data", "model"))
+    me = comm.axis_index()
+    cfg = get_config("deepseek-moe-16b")
+    params = _ep_params(cfg, grid, seed, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(DEV)               # the serving peak, not the init's
+    n_held = sum(t.numel() for t in _leaves(params))
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)      # the same on every rank
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=DEV)
+    uniforms = torch.rand((new, batch), generator=gen, device=DEV)
+    inputs = {"tokens": prompts}
+    eng = ServeEngine(cfg, params, mesh=grid, max_len=prompt + new, sampler="greedy",
+                      scan_method="kernel")
+    with torch.inference_mode(), sharding.use_mesh(grid):
+        logits = eng.model.prefill(eng.params, inputs, cache_len=prompt + new)[0].float()
+    layers = cfg.n_layers - cfg.moe.first_k_dense
+    kw = dict(model=2, data=1, d_model=cfg.d_model, top_k=cfg.moe.top_k,
+              n_experts=cfg.moe.n_experts, layers=layers, itemsize=2)
+    ep_form = sum_forms(modeled_ep_traffic(tokens=batch * prompt, **kw),
+                        modeled_ep_traffic(tokens=batch, passes=new - 1, **kw))
+    out = {"rank": me, "coord": dict(grid.coord), "params_held": n_held,
+           "logits": logits.cpu(), "ep_form": ep_form}
+    per_pass = {"scan_mm": layers}
+    for sampler in ("greedy", "topp_sharded"):
+        eng.sampler = sampler
+        u = uniforms if sampler == "topp_sharded" else None
+        eng.generate(inputs, 2, uniforms=None if u is None else u[:2])     # warm-up
+        sync()
+        ops.reset_launch_counts()
+        comm.reset_comm_counts()
+        toks, t_full = _timed_generate(eng, inputs, new, uniforms=u)
+        launches, coll = ops.launch_counts(), comm.comm_counts()
+        expect_counts(launches, f"serve_ep {sampler} on rank {me}",
+                      scan_mm=per_pass["scan_mm"] * new)
+        form = ep_form
+        if sampler == "topp_sharded":
+            form = sum_forms(ep_form, *[modeled_dist_traffic(
+                "dist_top_p_sample", d=2, n=cfg.padded_vocab, batch=batch)] * new)
+        check(_nonzero(coll["calls"]) == form["counts_by_kind"]
+              and _nonzero(coll["bytes"]) == form["bytes_by_kind"],
+              f"serve_ep {sampler} on rank {me}: collectives {coll} != {form}")
+        _, t_one = _timed_generate(eng, inputs, 1, uniforms=None if u is None else u[:1])
+        out[sampler] = {"tokens": toks.cpu(), "launches": launches, "collectives": coll,
+                        "generate_s": t_full, "prefill_plus_first_sample_ms": t_one * 1e3,
+                        "decode_step_ms": (t_full - t_one) / (new - 1) * 1e3}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(DEV) / 1e9
+    out["per_pass"] = per_pass
+    out["transport"] = comm.transport(None, DEV)
+    del eng, params
+    _free()
+    # the logits check: full width, fp32, the first fp32_layers layers
+    c32 = dataclasses.replace(cfg, n_layers=fp32_layers, dtype="float32",
+                              scan_method="kernel")
+    p32 = _ep_params(c32, grid, seed, torch.float32)
+    m32 = build_model(c32)
+    with torch.inference_mode(), sharding.use_mesh(grid):
+        out["logits32"] = m32.prefill(p32, inputs, cache_len=prompt + new)[0].cpu()
+        with planted(comm, "psum", lambda x, group=None: x):    # the other part dropped
+            out["fault32"] = m32.prefill(p32, inputs, cache_len=prompt + new)[0].cpu()
+    return out
+
+
+def phase_mesh():
+    """``mesh``: ``train_dp`` (zamba2-1.2b, 2 data ranks) and ``serve_ep``
+    (deepseek-moe-16b, 2 model ranks), each a world of 2 on the card.  Returns
+    the kernels' launches summed over the ranks of both."""
+    _free_card()
+    t_phase = time.perf_counter()
+    cfg = MESH_TRAIN
+    wdir = _world_dir("mesh_train")
+    t0 = time.perf_counter()
+    ranks = run_world("chip_smoke:mesh_train_rank", 2, dict(cfg, workdir=wdir),
+                      workdir=wdir, timeout=MESH_TIMEOUT, pythonpath=[ROOT])
+    train_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        check(all(math.isfinite(x) for x in r["losses"]) and r["losses"][-1] < r["losses"][0],
+              f"train_dp rank {r['rank']}: losses {r['losses']} not finite or not falling")
+        check(r["losses"] == r0["losses"], "train_dp: the ranks report other losses")
+        check(r["compressed_worst"][0] < COMPRESSED_TOL,
+              f"train_dp: compressed_grad_sync {r['compressed_worst']} >= {COMPRESSED_TOL}")
+    # the fp32 check against one rank on the same two rows, in this process
+    zcfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=cfg["fp32_layers"],
+                               dtype="float32")
+    opt = AdamWConfig(lr=cfg["lr"], warmup_steps=20, total_steps=cfg["steps"])
+    one = Trainer(zcfg, opt, device=DEV)
+    st = one.init_state(cfg["seed"] + 1)
+    src = SyntheticLM(zcfg.vocab_size, cfg["seq"], cfg["batch"])
+    rows = {k: torch.as_tensor(v[:2]).to(DEV) for k, v in src.batch_at(0).items()}
+    loss1, _, g1 = one.grads(st["params"], rows)
+    ref = _flat_tensors(g1)
+    world = torch.load(os.path.join(wdir, "grads32.pt"))
+    grad_worst = _leaf_worst(world, ref)
+    fault_worst = _leaf_worst({k: 2 * v for k, v in world.items()}, ref)
+    loss_rel = abs(r0["loss32"] - float(loss1)) / abs(float(loss1))
+    check(grad_worst[0] <= MESH_GRAD_TOL and loss_rel <= MESH_LOSS_RTOL,
+          f"train_dp fp32: gradients {grad_worst}, loss {loss_rel} against one rank")
+    check(fault_worst[0] > MESH_GRAD_TOL, f"train_dp fp32: the summed gradient reads "
+          f"{fault_worst} <= {MESH_GRAD_TOL}")
+    del g1, ref, world
+    restored = CheckpointManager(r0["ckpt_dir"]).restore(1, st)
+    same = {k: _crc(v) == r0["crcs"][k] for k, v in _flat_tensors(restored).items()}
+    check(all(same.values()) and len(same) == len(r0["crcs"]),
+          f"train_dp: the world's checkpoint restored on one rank differs: "
+          f"{[k for k, v in same.items() if not v][:5]}")
+    del st, restored, one
+    _free_card()
+    tokens = cfg["batch"] * cfg["seq"]
+    train = {"arch": "zamba2-1.2b", "grid": [2, 1], "n_layers": cfg["layers"],
+             "depth_cut": "38 -> %d (a multiple of shared_attn_interval 6)" % cfg["layers"],
+             "params": r0["params"], "batch": cfg["batch"], "seq": cfg["seq"],
+             "launches_per_step_rank": r0["per_step"], "losses": r0["losses"],
+             "step_ms": [r["step_ms"] for r in ranks],
+             "step_ms_median": [statistics.median(r["step_ms"]) for r in ranks],
+             "tokens_per_s": tokens / (max(statistics.median(r["step_ms"]) for r in ranks)
+                                       / 1e3),
+             "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+             "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+             "allreduce_bytes": r0["allreduce_bytes"],
+             "collectives_per_step": r0["step_collectives"]["counts_by_kind"],
+             "collective_bytes_per_step": r0["step_collectives"]["bytes_by_kind"],
+             "compressed_worst": [r["compressed_worst"] for r in ranks],
+             "fp32_layers": cfg["fp32_layers"], "fp32_grad_worst": grad_worst,
+             "fp32_grad_tol": MESH_GRAD_TOL, "fp32_fault_summed": fault_worst,
+             "fp32_loss_rel": loss_rel, "checkpoint_leaves_bit_equal": len(same),
+             "transport": r0["transport"], "seconds": train_s}
+
+    scfg = MESH_SERVE
+    t0 = time.perf_counter()
+    sranks = run_world("chip_smoke:mesh_serve_rank", 2, scfg,
+                       workdir=_world_dir("mesh_serve"), timeout=MESH_TIMEOUT,
+                       pythonpath=[ROOT])
+    serve_s = time.perf_counter() - t0
+    s0 = sranks[0]
+    for sampler in ("greedy", "topp_sharded"):
+        toks = s0[sampler]["tokens"]
+        check(tuple(toks.shape) == (scfg["batch"], scfg["new"]),
+              f"serve_ep {sampler}: tokens of {tuple(toks.shape)}")
+        for r in sranks[1:]:
+            check(torch.equal(r[sampler]["tokens"], toks),
+                  f"serve_ep {sampler}: rank {r['rank']}'s stream differs from rank 0's")
+    dcfg = get_config("deepseek-moe-16b")
+    params = build_model(dcfg).init(scfg["seed"], device=DEV, dtype=torch.bfloat16)
+    gen = torch.Generator(device=DEV).manual_seed(scfg["seed"] + 1)
+    prompts = torch.randint(0, dcfg.vocab_size, (scfg["batch"], scfg["prompt"]),
+                            generator=gen, device=DEV)
+    cache_len = scfg["prompt"] + scfg["new"]
+    solo = ServeEngine(dcfg, params, max_len=cache_len, sampler="greedy", scan_method="kernel")
+    with torch.inference_mode():
+        ref = solo.model.prefill(params, {"tokens": prompts}, cache_len=cache_len)[0].float()
+    solo_toks = solo.generate({"tokens": prompts}, scfg["new"]).cpu()
+    bf16_err = [float((r["logits"] - ref.cpu()).abs().max() / ref.abs().max()) for r in sranks]
+    del params, solo
+    _free_card()
+    c32 = dataclasses.replace(dcfg, n_layers=scfg["fp32_layers"], dtype="float32",
+                              scan_method="kernel")
+    p32 = build_model(c32).init(scfg["seed"], device=DEV, dtype=torch.float32)
+    with torch.inference_mode():
+        ref32 = build_model(c32).prefill(p32, {"tokens": prompts},
+                                         cache_len=cache_len)[0].cpu()
+    scale = float(ref32.abs().max())
+    logit_err = [float((r["logits32"] - ref32).abs().max()) / scale for r in sranks]
+    fault_err = float((s0["fault32"] - ref32).abs().max()) / scale
+    check(max(logit_err) <= EP_LOGIT_TOL, f"serve_ep: fp32 prefill logits {logit_err} of "
+          f"max|logit| from one rank's, above {EP_LOGIT_TOL}")
+    check(fault_err > EP_LOGIT_TOL, f"serve_ep: dropping the other rank's part reads "
+          f"{fault_err} <= {EP_LOGIT_TOL}")
+    del p32
+    _free_card()
+    serve = {"arch": "deepseek-moe-16b", "grid": [1, 2], "dtype": "bfloat16",
+             "experts_a_rank": dcfg.moe.n_experts // 2, "params_held": s0["params_held"],
+             "batch": scfg["batch"], "prompt": scfg["prompt"], "new_tokens": scfg["new"],
+             "scan_method": "kernel", "b1_per_pass_rank": s0["per_pass"]["scan_mm"],
+             "fp32_layers": scfg["fp32_layers"], "fp32_logit_err": logit_err,
+             "logit_tol": EP_LOGIT_TOL, "fp32_fault_dropped_part": fault_err,
+             "bf16_full_depth_logit_err": bf16_err,
+             "greedy_agreement_with_one_rank":
+                 float((s0["greedy"]["tokens"] == solo_toks).float().mean()),
+             "ep_collectives": s0["ep_form"]["counts_by_kind"],
+             "ep_collective_bytes": s0["ep_form"]["bytes_by_kind"],
+             **{f"{k}_{m}": [r[k][m] for r in sranks]
+                for k in ("greedy", "topp_sharded")
+                for m in ("prefill_plus_first_sample_ms", "decode_step_ms")},
+             "peak_mem_gb": [r["peak_mem_gb"] for r in sranks],
+             "transport": s0["transport"], "seconds": serve_s}
+    emit({"phase": "mesh", "train_dp": train, "serve_ep": serve,
+          "seconds": time.perf_counter() - t_phase})
+    counts = collections.Counter()
+    for r in ranks:
+        counts.update(r["launches"])
+    for r in sranks:
+        for sampler in ("greedy", "topp_sharded"):
+            counts.update(r[sampler]["launches"])
+    return {k: counts[k] for k in ops.KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -6070,6 +6446,12 @@ def time_linrec(gen):
         ssd[key] = dict(ms=k, plain_ms=pl, bound_ms=bound(sb.numel() * 8 + sa.numel() * 4)[0],
                         device_ms=graph_ms(lambda bl=blocked: linrec_mm.linrec_columns(
                             sa, sb, 1, blocked=bl), 20))
+    # the mesh phase's train_dp walks: each rank's two rows of the batch
+    sa2, sb2 = sa[:2], sb[:2]
+    ssd["B16"]["mesh_rank"] = dict(
+        shape=list(sb2.shape), ms=cuda_ms(lambda: linrec_mm.linrec_columns(sa2, sb2, 1,
+                                                                           blocked=True), 5),
+        bound_ms=bound(sb2.numel() * 8 + sa2.numel() * 4)[0])
     ssd["B13"]["rows_ms"] = cuda_ms(lambda: linrec_mm.linrec_scan_tiles(ar, br, s=16), 5)
     a4, b4 = ar.reshape(nr, 1, 1, nn), br.reshape(nr, 1, 1, nn)
     z = torch.zeros((nr, 1), device=DEV)
@@ -6182,7 +6564,8 @@ def time_b7h(gen):
                         d2_shard_ms=d2, d2_shard_bound_ms=bound(b * 2 * n * 16)[0])}
 
 
-def launches_by_shape(multisplit, linrec, zamba, forward, train, worlds, timing) -> dict:
+def launches_by_shape(multisplit, linrec, zamba, forward, train, worlds, timing,
+                      mesh) -> dict:
     """B6's, B13's, B16's and B17's launches on the main paths by the shape they ran
     at, each beside the kernel's ms and bound there (timing): the launches of the
     kernels line, split by path.  The SSD shape is zamba2's cross-chunk states at
@@ -6217,7 +6600,10 @@ def launches_by_shape(multisplit, linrec, zamba, forward, train, worlds, timing)
                    "serve_zamba2 prefill and forward_zamba2, scan_method='blocked'"),
                 at(train["linrec_block_scan"], ssd_rows_, ssd["B16"]["ms"],
                    ssd["B16"]["bound_ms"], "phase_train, scan_method='auto': the forward, "
-                   "its remat recompute and the adjoint")]
+                   "its remat recompute and the adjoint"),
+                at(mesh["linrec_block_scan"], ssd["B16"]["mesh_rank"]["shape"],
+                   ssd["B16"]["mesh_rank"]["ms"], ssd["B16"]["mesh_rank"]["bound_ms"],
+                   "phase_mesh train_dp, scan_method='auto', both ranks")]
         + [at(worlds[dd]["linrec_block_scan"], rows[dd], t[f"B16_d{dd}_shard"]["ms"],
               t[f"B16_d{dd}_shard"]["bound_ms"], f"dist_linear_scan, world of {dd}")
            for dd in DIST_WORLDS],
@@ -6286,6 +6672,7 @@ def main() -> int:
     b7h_err = phase_b7h(gen)
     dist_counts, dist_sort_ms, dist_worlds = phase_dist()
     sharded_counts = phase_serve_sharded()
+    mesh_counts = phase_mesh()
     timing = phase_timing(gen, dist_sort_ms)
     seg_launches = {k: segmented_counts[k] + serve_s_counts[k] + models_counts[k]
                     for k in ops.KERNELS}
@@ -6294,8 +6681,10 @@ def main() -> int:
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [
-        ("B1 scan_tiles (ScanU/ScanUL1 tile scan; launches include zamba2 serving and "
-         "xlstm-350m's forward, loss and serving under scan_method='kernel')", "scan_mm.cu", "src/repro/kernels/scan_mm.py:36",
+        ("B1 scan_tiles (ScanU/ScanUL1 tile scan; launches include zamba2 serving, "
+         "xlstm-350m's forward, loss and serving under scan_method='kernel', and the "
+         "mesh phase's expert-parallel deepseek-moe-16b dispatch, one a MoE layer a pass "
+         "a rank)", "scan_mm.cu", "src/repro/kernels/scan_mm.py:36",
          scan_counts["scan_mm"] + zamba_counts["scan_mm"], b1_err, timing["B1"]),
         ("B2 block_partial_sums (block sums of the blocked pipeline)", "block_sums.cu",
          "src/repro/kernels/scan_pipeline.py:71", blocked_counts["block_sums"],
@@ -6372,7 +6761,8 @@ def main() -> int:
          "main_linrec, zamba2 prefill, zamba2 forward and loss, and xlstm-350m's "
          "forward, loss and prefill under scan_method='blocked', their cross-chunk "
          "states on the column walk; and zamba2-1.2b training on scan_method='auto', "
-         "38 x 3 walks a step: the forward, its remat recompute and the adjoint)",
+         "38 x 3 walks a step: the forward, its remat recompute and the adjoint, and "
+         "in the mesh phase 12 x 3 a step a rank at 12 layers on two data ranks)",
          "linrec_block_scan.cu", "src/repro/kernels/linrec_mm.py:219",
          lin_launches["linrec_block_scan"], lin_err["B16"], timing["B16"]),
         ("B17 ssd_chunk_scan (chunked SSD scan, one CTA a chunk with the state handed "
@@ -6383,11 +6773,13 @@ def main() -> int:
     ]
     # every row also counts the dist phase's checked calls on every rank (the kernel
     # methods' scans, splits and passes), the topp_sharded run (none: "matmul"), the
-    # topp_auto run (the auto phase's serving default, on the "cuda" table) and the
+    # topp_auto run (the auto phase's serving default, on the "cuda" table), the
     # families phase (xlstm's mLSTM scans, the four families' topp_kernel sampling)
+    # and the mesh phase on both ranks (train_dp's B16 walks, serve_ep's B1 dispatch)
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
                     launches=n + dist_counts[f[:-3]] + sharded_counts[f[:-3]]
-                    + auto_counts.get(f[:-3], 0) + families_counts[f[:-3]],
+                    + auto_counts.get(f[:-3], 0) + families_counts[f[:-3]]
+                    + mesh_counts[f[:-3]],
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
@@ -6396,7 +6788,7 @@ def main() -> int:
           f"kernels launched no time on their main paths: "
           f"{[k['name'] for k in kernels if not k['launches']]}")
     emit(launches_by_shape(multisplit_counts, linrec_counts, zamba_counts, forward_counts,
-                           train_counts, dist_worlds, timing))
+                           train_counts, dist_worlds, timing, mesh_counts))
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,13 +13,21 @@ shard (``4·B·D·C·n_local`` bytes an ``all_to_all``), because XLA's
 ``all_to_all`` is static-shape; the port sends each element once, so a rank
 receives ``4·B·C·n_local`` bytes.  ``jax_operand_bytes`` gives JAX's form
 beside the port's.
+
+The grid's training and serving (``Trainer(mesh=)``, the expert-parallel MoE)
+have closed forms of their own: :func:`modeled_dp_step_traffic` for a
+step's parameter gathers, gradient bucket and clip norm, and
+:func:`modeled_ep_traffic` for the MoE layers' combines and what a training
+pass adds to them.  Their ``jax_operand_bytes`` is None: JAX's step is one
+compiled program whose collectives XLA chooses.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
-__all__ = ["modeled_dist_traffic", "SORT_BITS"]
+__all__ = ["modeled_dist_traffic", "modeled_dp_step_traffic", "modeled_ep_traffic",
+           "sum_forms", "SORT_BITS"]
 
 SORT_BITS = {"float32": 32, "bfloat16": 16, "float16": 16, "int32": 32, "int16": 16,
              "uint32": 32, "uint16": 16, "int8": 8, "uint8": 8}
@@ -105,3 +113,99 @@ def modeled_dist_traffic(op: str, *, d: int, n: int, batch: int = 1,
         b = itemsize * d * batch
         return _form({"all_gather": 1}, {"all_gather": b}, b)
     raise ValueError(f"modeled_dist_traffic: unknown op {op!r}")
+
+
+def sum_forms(*forms: Dict) -> Dict:
+    """The traffic of several calls: the sum of their forms, kind by kind."""
+    calls, nbytes, jax = {}, {}, 0
+    for f in forms:
+        for k, v in f["counts_by_kind"].items():
+            calls[k] = calls.get(k, 0) + v
+        for k, v in f["bytes_by_kind"].items():
+            nbytes[k] = nbytes.get(k, 0) + v
+        jax = None if jax is None or f["jax_operand_bytes"] is None \
+            else jax + f["jax_operand_bytes"]
+    return _form(calls, nbytes, jax)
+
+
+def modeled_dp_step_traffic(*, data: int, block_elements: int, terms: int = 3,
+                            gathered: Sequence[int] = (), norm_sets: int = 0,
+                            param_itemsize: int = 4) -> Dict:
+    """Closed-form collective traffic of one ``Trainer.train_step`` on a grid,
+    the model's own collectives (:func:`modeled_ep_traffic`) aside.
+
+    * the parameters split over a grid axis of more than one rank: one
+      ``all_gather`` a leaf, of the whole leaf padded to the blocks' length
+      (``gathered``: each such leaf's padded element count);
+    * the gradient: one ``all_reduce`` over the data group (``data > 1``) of
+      a flat fp32 bucket of the rank's gradient blocks (``block_elements``)
+      and the ``terms`` loss values (``loss``, and ``aux`` and ``ce`` when
+      ``grad_accum`` is 1), ``4·(block_elements + terms)`` bytes;
+    * the clip's norm: one ``all_reduce`` of one fp32 scalar for each set of
+      grid axes (of more than one rank) that splits some leaf
+      (``norm_sets``).
+
+    Args:
+        data: Ranks over the grid's batch axes.
+        block_elements: Elements of the rank's gradient blocks, every leaf.
+        terms: Loss values that ride in the bucket.
+        gathered: Padded element count of each gathered leaf.
+        norm_sets: Axis sets whose squares are summed.
+        param_itemsize: Bytes a parameter element.
+    """
+    calls, nbytes = {}, {}
+    if gathered:
+        calls["all_gather"] = len(gathered)
+        nbytes["all_gather"] = param_itemsize * sum(gathered)
+    if data > 1 or norm_sets:
+        calls["all_reduce"] = (data > 1) + norm_sets
+        nbytes["all_reduce"] = (4 * (block_elements + terms) if data > 1 else 0) + 4 * norm_sets
+    return _form(calls, nbytes, None)
+
+
+def modeled_ep_traffic(*, model: int, data: int = 1, tokens: int, d_model: int,
+                       top_k: int, n_experts: int, layers: int, itemsize: int,
+                       passes: int = 1, global_aux: bool = False, backward: bool = False,
+                       remat: bool = False) -> Dict:
+    """Closed-form collective traffic of the MoE layers on a grid.
+
+    A MoE layer's forward pass on a ``"model"`` axis of ``model > 1`` ranks
+    is one ``all_reduce`` of the rank's ``(tokens, d_model)`` parts in the
+    activation dtype (the combine, ``itemsize`` bytes an element).  With
+    ``global_aux`` (a training pass: the transformer's ``mode="train"``) and
+    ``data > 1`` it adds one ``all_reduce`` of the ``n_experts`` fp32
+    first-choice fractions.  A ``backward`` pass on ``model > 1`` ranks sums
+    the gradients of the tokens and of the gate values over the model group:
+    ``(tokens, d_model)`` and ``(tokens, top_k)`` in the activation dtype;
+    ``remat`` recomputes the forward's collectives in it.
+
+    Args:
+        model: Ranks of the ``"model"`` axis.
+        data: Ranks over the batch axes.
+        tokens: This rank's tokens a pass (its rows times the sequence).
+        d_model: The model width.
+        top_k: Experts a token.
+        n_experts: Routed experts.
+        layers: MoE layers.
+        itemsize: Bytes of an activation element.
+        passes: Forward passes (each with its backward when ``backward``).
+        global_aux: The loss's global ``aux`` (a training pass).
+        backward: Each pass is differentiated.
+        remat: The layer groups are recomputed in the backward pass.
+    """
+    calls, nbytes = {}, {}
+
+    def add(n, b):
+        calls["all_reduce"] = calls.get("all_reduce", 0) + n
+        nbytes["all_reduce"] = nbytes.get("all_reduce", 0) + b
+
+    reps = 2 if (backward and remat) else 1
+    if model > 1:
+        add(reps, reps * tokens * d_model * itemsize)
+    if global_aux and data > 1:
+        add(reps, reps * 4 * n_experts)
+    if backward and model > 1:
+        add(2, tokens * (d_model + top_k) * itemsize)
+    scale = layers * passes
+    return _form({k: v * scale for k, v in calls.items()},
+                 {k: v * scale for k, v in nbytes.items()}, None)

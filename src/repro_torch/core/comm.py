@@ -9,8 +9,12 @@ group is what every collective of ``torch.distributed`` takes, and it behaves
 the same under gloo on the CPU, gloo with several ranks on one card, and NCCL
 across cards; a ``DeviceMesh`` would add named dims, but it also binds each
 rank to a device and builds groups of its own.  A 2-D mesh is a grid of
-groups (:func:`grid_groups`).  Without an initialized process group a
-``None`` group is a world of one rank, and nothing here is called.
+groups (:func:`grid_groups`, :func:`subgrid_group`), which
+``repro_torch.utils.sharding.Grid`` names by JAX's mesh axes.  Without an
+initialized process group a ``None`` group is a world of one rank, and
+nothing here is called.  :func:`psum` and :func:`pbroadcast` are the
+collectives with gradients that JAX's ``shard_map`` gives its ``psum`` and
+its replicated inputs.
 
 Every collective of the distributed operators goes through this module, and
 each call adds to its kind's count of calls and of bytes: the bytes of the
@@ -36,14 +40,15 @@ from __future__ import annotations
 import collections
 import itertools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["KINDS", "comm_counts", "reset_comm_counts", "axis_size", "axis_index",
            "all_gather", "all_reduce", "all_to_all", "transport", "grid_groups",
-           "shard_len", "shard_last", "gather_last"]
+           "subgrid_group", "psum", "pbroadcast", "barrier", "shard_len", "shard_last",
+           "gather_last"]
 
 KINDS = ("all_gather", "all_to_all", "all_reduce")
 _CALLS: collections.Counter = collections.Counter()
@@ -139,6 +144,13 @@ def all_to_all(t: torch.Tensor, send_splits: Sequence[int], recv_splits: Sequenc
     return out
 
 
+def barrier(group=None) -> None:
+    """Wait until every rank of ``group`` reaches this call.  It moves no data
+    and counts nothing; a world of one rank returns at once."""
+    if axis_size(group) > 1:
+        dist.barrier(group=group)
+
+
 def grid_groups(shape: Sequence[int]) -> Tuple:
     """The groups of this rank along each dim of a row-major grid of the world.
 
@@ -151,24 +163,93 @@ def grid_groups(shape: Sequence[int]) -> Tuple:
     ``(2, 1)``) the group of ranks ``[1, 3, 5, 7]`` along dim 0 and ``[4, 5]``
     along dim 1.
     """
+    return tuple(subgrid_group(shape, (axis,)) for axis in range(len(shape)))
+
+
+def subgrid_group(shape: Sequence[int], dims: Sequence[int]):
+    """This rank's group over several dims of a row-major grid of the world.
+
+    The group holds the ranks that share every coordinate outside ``dims``,
+    in row-major order of their coordinates along ``dims`` (the first of
+    ``dims`` the major one, as a JAX ``PartitionSpec`` entry of several mesh
+    axes orders its devices).  Every rank must call this with the same
+    arguments, in one order (it creates every such group of the grid).
+
+    Example: in a world of 8 on the grid ``(2, 2, 2)``, ``subgrid_group((2, 2,
+    2), (0, 1))`` gives rank 5 (coordinate ``(1, 0, 1)``) the group of ranks
+    ``[1, 3, 5, 7]``.
+    """
     world, me = dist.get_world_size(), dist.get_rank()
     if math.prod(shape) != world:
         raise ValueError(f"grid_groups: a grid of {tuple(shape)} needs {math.prod(shape)} "
                          f"ranks, the world has {world}")
+    dims = tuple(dims)
     strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
-    mine: List = []
-    for axis, size in enumerate(shape):
-        others = [range(s) for i, s in enumerate(shape) if i != axis]
-        found = None
-        for rest in itertools.product(*others):
-            coord = list(rest[:axis]) + [0] + list(rest[axis:])
-            base = sum(c * st for c, st in zip(coord, strides))
-            ranks = [base + j * strides[axis] for j in range(size)]
-            g = dist.new_group(ranks)
-            if me in ranks:
-                found = g
-        mine.append(found)
-    return tuple(mine)
+    rest_dims = [i for i in range(len(shape)) if i not in dims]
+    found = None
+    for rest in itertools.product(*(range(shape[i]) for i in rest_dims)):
+        base = sum(c * strides[i] for c, i in zip(rest, rest_dims))
+        ranks = [base + sum(c * strides[i] for c, i in zip(inner, dims))
+                 for inner in itertools.product(*(range(shape[i]) for i in dims))]
+        g = dist.new_group(ranks)
+        if me in ranks:
+            found = g
+    return found
+
+
+class _Psum(torch.autograd.Function):
+    """Sum over ``group`` forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Pbroadcast(torch.autograd.Function):
+    """The identity forward; the cotangents summed over ``group`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), "sum", ctx.group), None
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's ``x`` (one counted ``all_reduce``), whose
+    gradient is the identity.
+
+    This is how JAX's ``psum`` under ``shard_map`` transposes: every rank of
+    ``group`` uses the sum identically, so each rank's cotangent is already
+    the whole cotangent of its own part.  ``torch.distributed.nn``'s
+    ``all_reduce`` sums the cotangents too, which multiplies the parts'
+    gradients by the group's size.  A group of one rank issues no call.
+    """
+    if axis_size(group) == 1:
+        return x
+    return _Psum.apply(x, group)
+
+
+def pbroadcast(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` as it is, whose gradient is summed over ``group`` (one counted
+    ``all_reduce`` in the backward pass).
+
+    The input side of :func:`psum`: a tensor that every rank of ``group``
+    holds alike and feeds to its own part of a sum gets each part's cotangent
+    on one rank only, and the sum of them is its gradient (JAX's
+    ``shard_map`` sums the cotangents of an input that is replicated over an
+    axis).  A group of one rank issues no call.
+    """
+    if axis_size(group) == 1:
+        return x
+    return _Pbroadcast.apply(x, group)
 
 
 def shard_len(n: int, d: int) -> int:

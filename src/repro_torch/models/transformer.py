@@ -346,7 +346,8 @@ class TransformerLM:
             h = h + y
         hin = rmsnorm(p["norm2"], h, cfg.norm_eps)
         if kind == "moe":
-            y, aux = moe_apply(p["moe"], hin, cfg, cdt=cdt, no_drop=mode == "decode")
+            y, aux = moe_apply(p["moe"], hin, cfg, cdt=cdt, no_drop=mode == "decode",
+                               global_aux=mode == "train")
         else:
             y, aux = mlp(p["mlp"], hin, cdt, act=cfg.act), None
         if "post_norm2" in p:
@@ -546,7 +547,7 @@ class TransformerLM:
         h, _, _ = self._run(params, batch, mode="train")
         return self._logits(params, h)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, ce_denominator=None):
         """Next-token cross-entropy of ``batch["tokens"]``: ``(total, {"ce", "aux"})``.
 
         ``ce`` is ``logsumexp`` minus the target logit, in fp32, averaged over
@@ -554,7 +555,10 @@ class TransformerLM:
         set at the target; a VLM's image positions predict nothing.  ``aux`` is
         the MoE layers' load-balancing losses summed (0 without MoE layers) and
         ``total = ce + 0.01·aux``.  Differentiable, as ``forward`` is: the
-        trainer calls ``total.backward()``.
+        trainer calls ``total.backward()``.  ``ce_denominator``, when given,
+        replaces the masked mean's ``max(Σ mask, 1)``: a data-parallel rank
+        passes its share of the whole batch's, so that the ranks' mean is the
+        whole batch's ``ce``.
         """
         h, _, aux = self._run(params, batch, mode="train")
         logits = self._logits(params, h)
@@ -564,7 +568,11 @@ class TransformerLM:
         lg = logits[:, :-1].to(torch.float32)
         nll = torch.logsumexp(lg, dim=-1) - torch.gather(lg, -1, targets[..., None])[..., 0]
         mask = batch.get("loss_mask")
-        if mask is not None:
+        if ce_denominator is not None:
+            m = (torch.ones_like(nll) if mask is None
+                 else mask[:, 1:].to(device=nll.device, dtype=torch.float32))
+            ce = torch.sum(nll * m) / ce_denominator
+        elif mask is not None:
             m = mask[:, 1:].to(device=nll.device, dtype=torch.float32)
             ce = torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
         else:

@@ -10,10 +10,20 @@ runs B9, ``"blocked"`` B10–B12), ``topp_sharded`` (the vocab sharded over the
 ranks of ``mesh=``, a process group, and sampled by ``dist_top_p_sample``
 with ``method="matmul"``; with no group, or a group of one rank, it is the
 local matmul sampler that ``topp_scan`` runs) and ``topp_xla`` (a stable
-``torch.argsort``; the name matches the JAX package's baseline).  Under
-``topp_sharded`` the model runs whole on every rank, and each rank samples its
-slice of the vocab: the JAX engine's ``use_mesh`` weight sharding comes with
-training and sharding (ROADMAP Queue A item 11).  :meth:`ServeEngine.sample_packed`
+``torch.argsort``; the name matches the JAX package's baseline).
+
+``mesh=`` is a bare process group or a grid (``utils.sharding.Grid``).  With a
+process group the model runs whole on every rank and, under
+``topp_sharded``, each rank samples its slice of the vocab.  With a grid the
+model runs under ``use_mesh(grid)``, as JAX's engine runs it: the MoE layers
+take the expert-parallel path (each rank holds its block of every
+``experts`` leaf: the engine cuts whole ones, ``moe.expert_blocks``; the
+other leaves stay whole), ``topp_sharded`` samples over the grid's
+``"model"`` group, and a data axis of more than one rank splits the batch's
+rows over the data ranks when they divide (else every rank runs every row);
+the tokens are then gathered, so every rank returns the whole ``(B, new)``.
+Without ``uniforms=`` a split batch draws each rank's rows from
+``generator`` on that rank.  :meth:`ServeEngine.sample_packed`
 samples a ragged packed batch of logit rows without padding.  The engine runs
 on the card unless it is given ``device="cpu"``.  ``scan_method=`` overrides
 the model config's scan method, which the hybrid (zamba2) models' SSD layers
@@ -43,8 +53,32 @@ from repro_torch.core.dist_ops import dist_top_p_sample
 from repro_torch.core.primitives import METHODS, top_p_sample
 from repro_torch.core.segmented import SegmentedBatch, segment_top_p_sample
 from repro_torch.models.model import build_model
+from repro_torch.models.moe import expert_blocks
+from repro_torch.utils import sharding
 
-__all__ = ["ServeEngine", "sample_tokens"]
+__all__ = ["ServeEngine", "sample_tokens", "sampling_group", "grid_params"]
+
+
+def sampling_group(mesh):
+    """The group ``topp_sharded`` samples over: a bare process group (or None)
+    as it is; a grid's ``"model"`` group, or None (the local sampler) when
+    that axis holds one rank or is missing, as JAX degrades."""
+    if isinstance(mesh, sharding.Grid):
+        return mesh.group("model") if mesh.shape.get("model", 1) > 1 else None
+    return mesh
+
+
+def grid_params(cfg, params, mesh):
+    """The parameters an engine holds on ``mesh``: under a grid with a
+    ``"model"`` axis of more than one rank, the MoE experts cut to this rank's
+    block; otherwise ``params`` as they are."""
+    if isinstance(mesh, sharding.Grid) and cfg.moe is not None:
+        return expert_blocks(params, mesh, cfg.moe.n_experts)
+    return params
+
+
+def _grid(mesh):
+    return mesh if isinstance(mesh, sharding.Grid) else None
 
 
 def sample_tokens(sampler: str, logits: torch.Tensor, u=None, generator=None, *, mesh=None,
@@ -54,10 +88,11 @@ def sample_tokens(sampler: str, logits: torch.Tensor, u=None, generator=None, *,
     ``generator``.  Both ``ServeEngine`` and ``ContinuousEngine`` sample here."""
     if sampler == "greedy":
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    if sampler == "topp_sharded" and mesh is not None and comm.axis_size(mesh) > 1:
+    group = sampling_group(mesh)
+    if sampler == "topp_sharded" and group is not None and comm.axis_size(group) > 1:
         v = logits.shape[-1]
-        shard = comm.shard_last(logits, comm.axis_size(mesh), comm.axis_index(mesh))
-        return dist_top_p_sample(shard, v, mesh, generator=generator, p=top_p,
+        shard = comm.shard_last(logits, comm.axis_size(group), comm.axis_index(group))
+        return dist_top_p_sample(shard, v, group, generator=generator, p=top_p,
                                  temperature=temperature, method="matmul",
                                  bits_per_pass=bits_per_pass, u=u)
     if sampler == "topp_segmented":
@@ -96,7 +131,7 @@ class ServeEngine:
                                  f"expected one of {METHODS + ('auto',)}")
             cfg = dataclasses.replace(cfg, scan_method=scan_method)
         self.cfg = cfg
-        self.params = params
+        self.params = grid_params(cfg, params, mesh)
         self.mesh = mesh
         self.top_p = top_p
         self.temperature = temperature
@@ -183,6 +218,31 @@ class ServeEngine:
                 raise ValueError(f"generate: uniforms must be ({max_new_tokens}, "
                                  f"{b}), got {tuple(uniforms.shape)}")
 
+        grid = _grid(self.mesh)
+        dp = sharding.dp_axes(grid) if grid is not None else None
+        split = dp is not None and grid.size_of(dp) > 1 and b % grid.size_of(dp) == 0
+        if split:
+            per = b // grid.size_of(dp)
+            lo = grid.index_of(dp) * per
+            batch = {k: v[lo:lo + per] for k, v in batch.items()}
+            if uniforms is not None:
+                uniforms = uniforms[:, lo:lo + per]
+        with sharding.use_mesh(grid):
+            res = self._generate_rows(batch, max_new_tokens, generator, eos_id,
+                                      sync_every, uniforms, s + off)
+        if split:
+            if eos_id is not None and res.shape[1] < max_new_tokens:
+                pad = torch.full((res.shape[0], max_new_tokens - res.shape[1]), eos_id,
+                                 dtype=res.dtype, device=res.device)
+                res = torch.cat([res, pad], dim=1)
+            parts = comm.all_gather(res, grid.group(dp))
+            res = parts.reshape(b, res.shape[1])
+        return _trim_finished(res, eos_id)
+
+    def _generate_rows(self, batch, max_new_tokens, generator, eos_id, sync_every,
+                       uniforms, pos):
+        """Prefill and decode of this rank's rows, untrimmed: ``(rows, new)``,
+        fewer columns when every row emitted ``eos_id`` early."""
         def u_at(i):
             return None if uniforms is None else uniforms[i][:, None]
 
@@ -190,7 +250,6 @@ class ServeEngine:
         tok = self._sample(logits, generator, u_at(0))
         done = (tok == eos_id) if eos_id is not None else None
         out = [tok]
-        pos = s + off                   # a VLM's cache holds its image tokens first
         for i in range(max_new_tokens - 1):
             if done is not None and i % sync_every == 0 and bool(done.all()):
                 break  # every row emitted eos_id
@@ -204,12 +263,15 @@ class ServeEngine:
                 tok = torch.where(done, torch.full_like(tok, eos_id), tok)
                 done = done | (tok == eos_id)
             out.append(tok)
-        res = torch.stack(out, dim=1)
-        if done is not None and res.shape[1] > 1:
-            # trim columns decoded after every row had finished, so the
-            # result does not depend on sync_every
-            col_done = torch.cummax((res == eos_id).to(torch.int32), dim=1)
-            hits = torch.nonzero(col_done.values.all(dim=0))
-            if hits.numel():
-                res = res[:, :int(hits[0, 0]) + 1]
-        return res
+        return torch.stack(out, dim=1)
+
+
+def _trim_finished(res: torch.Tensor, eos_id) -> torch.Tensor:
+    """Drop the columns decoded after every row had emitted ``eos_id``, so the
+    result does not depend on ``sync_every``."""
+    if eos_id is not None and res.shape[1] > 1:
+        col_done = torch.cummax((res == eos_id).to(torch.int32), dim=1)
+        hits = torch.nonzero(col_done.values.all(dim=0))
+        if hits.numel():
+            res = res[:, :int(hits[0, 0]) + 1]
+    return res

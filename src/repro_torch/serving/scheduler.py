@@ -55,7 +55,8 @@ from repro_torch.core import guards
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import ATTENTION_KINDS, layer_pattern
 from repro_torch.serving import paged_kv
-from repro_torch.serving.engine import sample_tokens
+from repro_torch.serving.engine import grid_params, sample_tokens
+from repro_torch.utils import sharding
 
 __all__ = ["Request", "RequestState", "poisson_trace", "ContinuousEngine"]
 
@@ -124,6 +125,15 @@ class ContinuousEngine:
     construction.  ``alloc_method`` is the allocator's
     ``compress`` method (``"kernel"``: one B5 launch an allocation).  The
     engine runs on the card unless it is given ``device="cpu"``.
+
+    ``mesh=`` is a bare process group (``topp_sharded`` samples the vocab over
+    it) or a grid (``utils.sharding.Grid``): the prefills and decode steps then
+    run under ``use_mesh(grid)`` as JAX's do, the MoE layers expert-parallel
+    (each rank holds its block of the experts) and ``topp_sharded`` over the
+    grid's ``"model"`` group.  The schedule is host logic that every rank runs
+    alike, so a data axis does not split the rows: each data rank runs every
+    row.  (JAX splits a batch-1 prefill's tokens over its data axes; the two
+    differ only where a MoE layer's group-local capacity drops assignments.)
     """
 
     SAMPLERS = ("greedy", "topp_scan", "topp_sharded", "topp_xla")
@@ -163,8 +173,9 @@ class ContinuousEngine:
         self.top_p = top_p
         self.temperature = temperature
         self.cfg = cfg
-        self.params = params
+        self.params = grid_params(cfg, params, mesh)
         self.mesh = mesh
+        self._grid = mesh if isinstance(mesh, sharding.Grid) else None
         self.model = build_model(cfg)
         self.caches = paged_kv.build_paged_caches(
             self.model, self.max_batch, self.n_pages, self.page_size, self.n_blocks,
@@ -204,8 +215,9 @@ class ContinuousEngine:
     # ---- prefill (one request alone, batch 1) ----
     def _prefill(self, toks: np.ndarray, u0: torch.Tensor, cache_len: int):
         tokens = torch.as_tensor(toks, device=self.device)[None, :]
-        logits, dense = self.model.prefill(self.params, {"tokens": tokens},
-                                           cache_len=cache_len)
+        with sharding.use_mesh(self._grid):
+            logits, dense = self.model.prefill(self.params, {"tokens": tokens},
+                                               cache_len=cache_len)
         return self._sample_rows(logits, u0.reshape(1, 1))[0], dense
 
     # ---- one tick: up to n_steps decode steps ----
@@ -235,8 +247,9 @@ class ContinuousEngine:
         eos = self._eos
         last = self._u.shape[1] - 1
         for i in range(n_steps):
-            logits, self.caches = self.model.decode_step(self.params, tok[:, None],
-                                                         self.caches, pos)
+            with sharding.use_mesh(self._grid):
+                logits, self.caches = self.model.decode_step(self.params, tok[:, None],
+                                                             self.caches, pos)
             idx = torch.clamp(self._budget - rem, max=last)
             u = torch.gather(self._u, 1, idx[:, None])
             new = self._sample_rows(logits, u)

@@ -10,10 +10,14 @@ package restores in the port:
   leaf's shape, dtype and crc32; a file whose crc differs is refused;
 * an asynchronous save: one device-to-host copy of the tree, then the write in
   a thread, one save in flight at a time;
-* ``keep_last`` retention.
-
-Re-sharding on restore (``shardings=``) comes with the mesh slice (ROADMAP
-Queue A item 11, its launch side).
+* ``keep_last`` retention;
+* under a grid (``utils.sharding``), ``save(..., shardings=)`` gathers each
+  leaf's blocks (counted ``all_gather`` calls on every rank), rank 0 writes
+  the files and every rank waits at a barrier until they are published, so a
+  checkpoint written on a grid is the same files as one written on one
+  device; ``restore(..., shardings=)`` loads the whole leaves and returns
+  this rank's block of each, so a job may restart on another layout
+  (elastic: another grid, or one device).
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core import comm
 
 __all__ = ["CheckpointManager", "SEP"]
 
@@ -86,12 +92,28 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ---- save ----
-    def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
+    def save(self, step: int, tree: Any, *, blocking: bool = False,
+             shardings: Any = None) -> None:
         """Copy ``tree`` to the host, then write it (in a thread unless
-        ``blocking`` or the manager is synchronous)."""
+        ``blocking`` or the manager is synchronous).
+
+        With ``shardings`` (a ``Placement`` a leaf, mirroring ``tree``, whose
+        leaves are this rank's blocks) every rank must call it: the leaves are
+        gathered, rank 0 writes them synchronously, and every rank returns
+        once the checkpoint is published.
+        """
         self.wait()                                      # one save in flight at most
+        if shardings is not None:
+            from repro_torch.utils.sharding import gather
+            flat_p = _flatten(shardings)
+            tree = {k: gather(v.detach(), flat_p[k]) for k, v in _flatten(tree).items()}
         host = {k: (_to_numpy(v.detach().to("cpu", copy=True)), str(v.dtype).split(".")[-1])
                 for k, v in _flatten(tree).items()}
+        if shardings is not None:
+            if comm.axis_index() == 0:
+                self._write(step, host)
+            comm.barrier()
+            return
         if self.async_save and not blocking:
             self._thread = threading.Thread(target=self._write, args=(step, host),
                                             daemon=True)
@@ -151,14 +173,16 @@ class CheckpointManager:
         """Load step ``step``, verify every crc, and return ``template``'s
         structure with each leaf on its template's device and dtype.
 
+        With ``shardings`` (a ``utils.sharding.Placement`` a leaf, mirroring
+        ``template``) each leaf is this rank's block of the saved array, cut
+        after the load; the template's leaves then give only device and dtype
+        (they may be blocks of another layout, or whole).
+
         Raises:
             IOError: a file's crc32 differs from the manifest's.
-            NotImplementedError: ``shardings`` is given.
+            KeyError: the checkpoint lacks a leaf of ``template``.
+            ValueError: a saved shape differs from its placement's.
         """
-        if shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(shardings=): re-sharding on load comes with "
-                "the mesh slice (ROADMAP Queue A item 11, its launch side)")
         d = os.path.join(self.dir, f"ckpt_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -174,5 +198,17 @@ class CheckpointManager:
         missing = sorted(set(tpl) - set(flat))
         if missing:
             raise KeyError(f"checkpoint {d} lacks {missing[:5]}")
-        return _unflatten_into(template, {k: _to_torch(flat[k], dtypes[k], t)
-                                          for k, t in tpl.items()})
+        if shardings is None:
+            return _unflatten_into(template, {k: _to_torch(flat[k], dtypes[k], t)
+                                              for k, t in tpl.items()})
+        from repro_torch.utils.sharding import block_slices
+        places = _flatten(shardings)
+        out = {}
+        for k, t in tpl.items():
+            pl = places[k]
+            if tuple(flat[k].shape) != tuple(pl.shape):
+                raise ValueError(f"checkpoint {d}: {k!r} is {tuple(flat[k].shape)}, its "
+                                 f"placement {tuple(pl.shape)}")
+            block = np.array(flat[k][block_slices(pl)])        # a copy, 0-d kept 0-d
+            out[k] = _to_torch(block, dtypes[k], t)
+        return _unflatten_into(template, out)

@@ -2,7 +2,8 @@
 
 The port (``src/repro_torch``, the rank entry point of its distributed
 worlds ``launch/world.py`` included), ``chip_smoke.py`` and the rank-side
-cases of the distributed tests (``tests/torch_dist_worlds.py``) import
+cases of the distributed tests (``tests/torch_dist_worlds.py``,
+``tests/torch_mesh_worlds.py``) import
 neither JAX nor the JAX package; its entry points default to the GPU and refuse to carry on
 quietly without one; its kernel wrappers take the plain path only for CPU
 tensors, and then count no launch.
@@ -29,7 +30,8 @@ from repro_torch.serving.engine import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worlds.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worlds.py",
+    ROOT / "tests" / "torch_mesh_worlds.py"]
 
 
 def _imported_modules(path: pathlib.Path):

@@ -37,6 +37,7 @@ from repro_torch.training.optimizer import (AdamWConfig, adamw_init, adamw_updat
                                             global_norm, lr_at, tree_leaves)
 from repro_torch.training.straggler import StragglerConfig, StragglerMonitor
 from repro_torch.training.trainer import Trainer
+from repro_torch.utils import sharding
 
 CPU = "cpu"
 
@@ -186,8 +187,14 @@ def test_checkpoint_atomic_corruption_and_retention(tmp_path):
     np.save(os.path.join(ck, victim), arr)
     with pytest.raises(IOError, match="corruption"):
         cm.restore(3, tree)
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        cm.restore(2, tree, shardings=object())
+    one = sharding.Grid((1,), ("data",))          # a grid of one rank holds every block whole
+    places = {"a": sharding.Placement(one, ("data", None), (2, 3)),
+              "b": {"c": sharding.replicated(one, (4,))},
+              "d": (sharding.replicated(one, (2,)), sharding.replicated(one, ()))}
+    for a, b in zip(leaves(cm.restore(2, tree, shardings=places)), leaves(tree)):
+        assert torch.equal(a, b) and a.dtype == b.dtype
+    with pytest.raises(ValueError, match="placement"):
+        cm.restore(2, tree, shardings=dict(places, a=sharding.Placement(one, (), (3, 2))))
 
 
 def test_async_save_snapshots_before_the_write(tmp_path):
@@ -310,10 +317,13 @@ def test_entry_points_default_to_the_card_and_refuse_a_mesh(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(cfg, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    with pytest.raises(TypeError, match="utils.sharding.Grid"):
         Trainer(cfg, AdamWConfig(), mesh=object(), device=CPU)
+    with pytest.raises(ValueError, match="abstract grid"):
+        Trainer(cfg, AdamWConfig(), mesh=sharding.Grid.abstract((4, 2), ("data", "model")),
+                device=CPU)
     with pytest.raises(SystemExit):
-        train_cli.main(["--mesh", "debug"])
+        train_cli.main(["--mesh", "bogus"])
 
 
 def test_train_launcher_on_the_cpu(tmp_path, capsys):
