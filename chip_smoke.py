@@ -264,7 +264,17 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               sampler's ``modeled_dist_traffic``), the prefill's logits against the
               one-rank model's (here) within ``EP_LOGIT_TOL`` with the other rank's
               part dropped planted above it; prefill and decode ms, peak GB a rank;
-27. timing -- kernel, plain-version and library times beside each kernel's bound, and
+27. dryrun -- ``launch/dryrun.py``'s record of zamba2-1.2b x long_500k on a 1 x 1 grid
+              (fp32 params, bf16 caches of 524288 positions: ~30.2 GB predicted),
+              then that cell allocated on the card (``init`` and the hybrid
+              ``empty_caches``): the growth of ``memory_allocated`` within
+              ``DRYRUN_TOL`` of the prediction; one ``decode_step`` at position
+              524287 with finite logits, its ms and the peak GB beside the
+              prediction;
+28. examples -- each ``examples/torch_*.py`` ``main()`` in-process on the card at the
+              small arguments of ``EXAMPLES``, every check it prints holding; its
+              launches count in the kernels line;
+29. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
@@ -301,6 +311,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -480,6 +491,8 @@ from repro_torch.core import ssd as ssd_core  # noqa: E402
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref  # noqa: E402
 from repro_torch.kernels import (_build, linrec_mm, lookback, ops,  # noqa: E402
                                  scan_mm, scan_pipeline, segscan_mm, split_mm, ssd_chunk)
+from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.world import run_world  # noqa: E402
 from repro_torch.models import attention as att_model  # noqa: E402
 from repro_torch.models import mamba as mamba_model  # noqa: E402
@@ -6001,6 +6014,120 @@ def phase_mesh():
 
 
 # ---------------------------------------------------------------------------
+# the dry run's prediction against an allocation on the card, and the examples
+# ---------------------------------------------------------------------------
+
+# the dry run's cell allocated for real: zamba2-1.2b x long_500k on a 1 x 1 grid
+DRYRUN = dict(arch="zamba2-1.2b", shape="long_500k", mesh_shape=(1, 1), seed=0)
+DRYRUN_TOL = 0.01                   # allocated growth against the predicted arguments
+# each example's arguments on the card (small, as the CPU tests run them)
+EXAMPLES = {"quickstart": [], "scan_operators": [],
+            "serve_topp": ["--batch", "2", "--prompt-len", "16", "--new-tokens", "6"],
+            "serve_continuous": [],
+            "train_lm": ["--steps", "20", "--seq", "64"]}
+
+
+def phase_dryrun():
+    """``launch/dryrun.py``'s record of zamba2-1.2b x long_500k on a 1 x 1 grid, then
+    that cell allocated on the card: fp32 ``init`` and the hybrid ``empty_caches(1,
+    524288)`` in bf16, the token and ``pos``.  The growth of
+    ``torch.cuda.memory_allocated()`` must lie within ``DRYRUN_TOL`` of the predicted
+    ``bytes_per_device.arguments``; one ``decode_step`` at position 524287 gives
+    finite logits; its ms and the peak GB are printed beside the prediction."""
+    rec = dryrun.run_cell(DRYRUN["arch"], DRYRUN["shape"], "single",
+                          mesh_shape=DRYRUN["mesh_shape"])
+    pred = rec["bytes_per_device"]["arguments"]
+    shape = SHAPES[DRYRUN["shape"]]
+    cfg = dataclasses.replace(get_config(DRYRUN["arch"]), scan_method="matmul",
+                              scan_layers=False)
+    model = build_model(cfg)
+    meta = model.empty_caches(shape.global_batch, shape.seq_len, device="meta")
+    pred_caches = sum(t.numel() * t.element_size() for t in _leaves(meta))
+    _free()
+    sync()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    base = torch.cuda.memory_allocated(DEV)
+    t0 = time.perf_counter()
+    params = model.init(DRYRUN["seed"], device=DEV)
+    caches = model.empty_caches(shape.global_batch, shape.seq_len, device=DEV)
+    tokens = torch.zeros((shape.global_batch, 1), dtype=torch.int32, device=DEV)
+    pos = torch.tensor(shape.seq_len - 1, dtype=torch.int32, device=DEV)
+    sync()
+    alloc_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated(DEV) - base
+    rel = abs(grown - pred) / pred
+    check(rel <= DRYRUN_TOL, f"dryrun: the cell allocated {grown} bytes on the card, the "
+          f"dry run predicted {pred} ({rel:.4%} apart > {DRYRUN_TOL:.0%})")
+    step = lambda: model.decode_step(params, tokens, caches, int(pos))   # noqa: E731
+    logits, _ = step()                                                   # warm-up
+    sync()
+    t0 = time.perf_counter()
+    logits, _ = step()
+    sync()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(logits.shape) == (shape.global_batch, cfg.padded_vocab)
+          and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          f"dryrun: decode at position {shape.seq_len - 1} gave logits of shape "
+          f"{tuple(logits.shape)} or non-finite values")
+    peak = torch.cuda.max_memory_allocated(DEV) - base
+    out = {"phase": "dryrun", "cell": f"{DRYRUN['arch']} x {DRYRUN['shape']} x "
+           f"{DRYRUN['mesh_shape'][0]}x{DRYRUN['mesh_shape'][1]}",
+           "predicted_arguments_bytes": pred, "predicted_cache_bytes": pred_caches,
+           "predicted_param_bytes": rec["n_params"] * 4, "allocated_bytes": grown,
+           "allocated_vs_predicted": grown / pred, "alloc_s": alloc_s,
+           "decode_ms": decode_ms, "peak_gb": peak / 1e9, "predicted_gb": pred / 1e9,
+           "n_params": rec["n_params"], "plan_s": rec["lower_s"]}
+    emit(out)
+    print(f"dryrun: {out['cell']}: predicted {pred / 1e9:.3f} GB "
+          f"({rec['n_params'] * 4 / 1e9:.3f} GB fp32 params + {pred_caches / 1e9:.3f} GB "
+          f"caches), allocated "
+          f"{grown / 1e9:.3f} GB; decode at {shape.seq_len - 1}: {decode_ms:.2f} ms, peak "
+          f"{peak / 1e9:.3f} GB", flush=True)
+    del params, caches, logits
+    _free()
+    return out
+
+
+def _load_example(name: str):
+    path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples():
+    """Each ``examples/torch_*.py`` ``main()`` in-process on the card (no
+    ``--device``: the card is the default) at the arguments of ``EXAMPLES``, the
+    counters zeroed just before and read just after each; every check it prints
+    holds.  Returns the launches summed, which the kernels line counts."""
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train_lm")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs, total = {}, {k: 0 for k in ops.KERNELS}
+    for name, argv in EXAMPLES.items():
+        argv = argv + (["--ckpt-dir", ckpt] if name == "train_lm" else [])
+        mod = _load_example(name)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        sync()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(res["checks"] and all(res["checks"].values()),
+              f"examples: torch_{name}.py: a check failed: {res['checks']}")
+        runs[name] = {"seconds": secs, "checks": res["checks"],
+                      "launches": {k: v for k, v in counts.items() if v}}
+        if name == "serve_continuous":
+            runs[name]["host_syncs"] = res["host_syncs"]
+            runs[name]["ticks"] = res["stats"]["ticks"]
+        for k in ops.KERNELS:
+            total[k] += counts[k]
+        _free()
+    emit({"phase": "examples", "runs": runs})
+    return total
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -6673,6 +6800,8 @@ def main() -> int:
     dist_counts, dist_sort_ms, dist_worlds = phase_dist()
     sharded_counts = phase_serve_sharded()
     mesh_counts = phase_mesh()
+    phase_dryrun()
+    examples_counts = phase_examples()
     timing = phase_timing(gen, dist_sort_ms)
     seg_launches = {k: segmented_counts[k] + serve_s_counts[k] + models_counts[k]
                     for k in ops.KERNELS}
@@ -6775,11 +6904,12 @@ def main() -> int:
     # methods' scans, splits and passes), the topp_sharded run (none: "matmul"), the
     # topp_auto run (the auto phase's serving default, on the "cuda" table), the
     # families phase (xlstm's mLSTM scans, the four families' topp_kernel sampling)
-    # and the mesh phase on both ranks (train_dp's B16 walks, serve_ep's B1 dispatch)
+    # and the mesh phase on both ranks (train_dp's B16 walks, serve_ep's B1 dispatch),
+    # and the examples phase (the five examples/torch_*.py on the card)
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
                     launches=n + dist_counts[f[:-3]] + sharded_counts[f[:-3]]
                     + auto_counts.get(f[:-3], 0) + families_counts[f[:-3]]
-                    + mesh_counts[f[:-3]],
+                    + mesh_counts[f[:-3]] + examples_counts[f[:-3]],
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])

@@ -20,14 +20,27 @@ step's parameter gathers, gradient bucket and clip norm, and
 :func:`modeled_ep_traffic` for the MoE layers' combines and what a training
 pass adds to them.  Their ``jax_operand_bytes`` is None: JAX's step is one
 compiled program whose collectives XLA chooses.
+
+The CLI prints one dry-run cell's modeled collectives a step, grouped by
+(kind, operand), with counts and bytes a device, largest first::
+
+    PYTHONPATH=src python -m repro_torch.analysis.collectives --arch deepseek-moe-16b \\
+        --shape train_4k [--mesh single] [--debug-mesh] [--top 15]
+
+These are the port's closed forms for what it would issue on that grid
+(``launch/dryrun.py`` ``plan_cell``), not a parsed HLO as in JAX's CLI: no
+compiler runs.  The port's measured counterpart of JAX's
+``measure_collectives`` is ``core/comm.py``'s counters, read around a call.
 """
 from __future__ import annotations
 
+import argparse
+import collections
 import math
 from typing import Dict, List, Sequence
 
 __all__ = ["modeled_dist_traffic", "modeled_dp_step_traffic", "modeled_ep_traffic",
-           "sum_forms", "SORT_BITS"]
+           "sum_forms", "SORT_BITS", "main"]
 
 SORT_BITS = {"float32": 32, "bfloat16": 16, "float16": 16, "int32": 32, "int16": 16,
              "uint32": 32, "uint16": 16, "int8": 8, "uint8": 8}
@@ -209,3 +222,35 @@ def modeled_ep_traffic(*, model: int, data: int = 1, tokens: int, d_model: int,
     scale = layers * passes
     return _form({k: v * scale for k, v in calls.items()},
                  {k: v * scale for k, v in nbytes.items()}, None)
+
+
+def main(argv=None) -> int:
+    """CLI entry point (see the module docstring)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import make_grid, plan_cell
+    from repro_torch.models.model import ARCHS
+
+    ap = argparse.ArgumentParser(description="a dry-run cell's modeled collectives")
+    ap.add_argument("--arch", required=True, choices=list(ARCHS))
+    ap.add_argument("--shape", required=True, choices=list(SHAPES))
+    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--debug-mesh", action="store_true")
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+    grid = make_grid(args.mesh, debug=args.debug_mesh)
+    form, calls = plan_cell(args.arch, args.shape, grid)["collectives"]
+    groups = collections.defaultdict(lambda: [0, 0])
+    for kind, operand, nbytes in calls:
+        g = groups[(kind, operand)]
+        g[0] += 1
+        g[1] += nbytes
+    print(f"{args.arch} × {args.shape} × {args.mesh}: {form['collective_count']} "
+          f"collectives, {form['operand_bytes'] / 1e9:.3f} GB a device a step (modeled)")
+    rows = sorted(groups.items(), key=lambda kv: -kv[1][1])[:args.top]
+    for (kind, operand), (n, nbytes) in rows:
+        print(f"  {nbytes / 1e9:9.3f} GB  n={n:4d}  {kind:<12} {operand}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

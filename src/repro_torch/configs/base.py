@@ -3,7 +3,9 @@
 The port's own copy of ``repro/configs/base.py`` (that module imports
 ``jax.numpy``).  The fields and defaults are the same, so a config reads the
 same in both packages; the port builds every family of the ten configs.
-``ShapeConfig`` names an input shape for ``models.model.input_specs``.
+``ShapeConfig`` names an input shape for ``models.model.input_specs``;
+``SHAPES`` are the four cells of the dry run (``launch/dryrun.py``) and
+``SMOKE_SHAPE`` the reduced one, with JAX's values.
 """
 from __future__ import annotations
 
@@ -95,6 +97,14 @@ class ModelConfig:
         """Embedding rows padded to a multiple of 256 (padded logits masked)."""
         return ((self.vocab_size + 255) // 256) * 256
 
+    def param_count(self) -> int:
+        """Total parameters (for MODEL_FLOPS), counted on an init on the
+        ``"meta"`` device: no memory, no random numbers."""
+        from repro_torch.models.model import build_model
+        from repro_torch.training.optimizer import tree_leaves
+        params = build_model(self).init(device="meta")
+        return sum(x.numel() for x in tree_leaves(params))
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -102,3 +112,14 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                       # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# smoke-test (reduced) shape
+SMOKE_SHAPE = ShapeConfig("smoke", 64, 2, "train")

@@ -15,7 +15,7 @@ from repro_torch.core.guards import (
 from repro_torch.core.linrec import cummax, cumprod, linear_scan, linrec_accum_dtype_for
 from repro_torch.core.precision import PRECISIONS, pdot, precision_override, resolve_precision
 from repro_torch.core.primitives import (
-    multi_split, radix_sort, sort, top_p_sample, topk, weighted_sample,
+    compress, multi_split, radix_sort, sort, split, top_p_sample, topk, weighted_sample,
 )
 from repro_torch.core.segmented import (
     SegmentedBatch, boundary_flags, segment_compress, segment_cumsum, segment_ids,

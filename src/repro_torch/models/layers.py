@@ -22,8 +22,11 @@ def ninit(gen: torch.Generator, shape, *, n: Optional[int] = None, scale=None,
 
     With ``n`` the result is ``n`` independent draws stacked on a leading
     axis (one per layer), made one layer at a time so a full-size init never
-    holds more than one layer in fp32.
+    holds more than one layer in fp32.  On the ``"meta"`` device it draws
+    nothing and returns the shape alone (``gen`` may be None there).
     """
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape if n is None else (n, *shape), dtype=dtype, device=device)
     scale = scale if scale is not None else shape[0] ** -0.5
     if n is None:
         return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)

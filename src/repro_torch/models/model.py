@@ -9,7 +9,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.transformer import _DTYPES, TransformerLM
 
-__all__ = ["ARCHS", "get_config", "build_model", "input_specs", "synth_batch"]
+__all__ = ["ARCHS", "get_config", "build_model", "cell_supported", "input_specs",
+           "synth_batch"]
 
 # the JAX package's ten architectures, all ported
 ARCHS = {
@@ -35,6 +36,14 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
 
 def build_model(cfg: ModelConfig) -> TransformerLM:
     return TransformerLM(cfg)
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
+    """Whether this (arch × shape) cell runs, and the reason when it is skipped
+    (JAX's ``cell_supported``, word for word)."""
+    if shape.name == "long_500k" and not cfg.supports_long:
+        return False, "long_500k skipped: pure full-attention arch (quadratic)"
+    return True, ""
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:

@@ -43,7 +43,7 @@ Interface:
   loss(params, batch)                           -> (total, {"ce", "aux"})
   prefill(params, batch, cache_len=None)        -> (last-position logits, caches)
   decode_step(params, tokens, caches, pos)      -> (logits, caches)
-  empty_caches(batch_size, cache_len)           -> zero decode caches (not hybrid)
+  empty_caches(batch_size, cache_len)           -> zero decode caches
 
 ``batch`` holds ``tokens`` and, by family, ``enc_embed`` (enc-dec: (B, enc_len,
 D) stub frame embeddings) or ``img_embed`` (VLM: (B, n_img_tokens, D) stub patch
@@ -165,6 +165,11 @@ def _decode_cache_for(kind: str, cfg, n: int, b: int, cache_len: int, dt, dev):
 
     if kind in ATTENTION_KINDS or kind == "enc":
         return kv(cache_len)
+    if kind == "mamba":
+        s = cfg.ssm
+        conv_dim = s.expand * cfg.d_model + 2 * s.n_groups * s.d_state
+        return {"conv": zeros(s.conv_kernel - 1, conv_dim),
+                "ssm": zeros(s.n_heads, s.d_state, s.head_dim, dtype=F32)}
     if kind == "dec":
         return {"kv": kv(cache_len), "xkv": kv(cfg.enc_len)}
     if kind == "mla":
@@ -222,11 +227,13 @@ class TransformerLM:
         port against the JAX package, convert the JAX parameters with
         :func:`repro_torch.convert.params_from_jax` instead.  Every stacked
         leaf is drawn one layer at a time, so a full-size init in bf16 never
-        holds more than one layer of a leaf in fp32.
+        holds more than one layer of a leaf in fp32.  On ``device="meta"``
+        it is the abstract init (JAX's ``jax.eval_shape`` of ``init``): the
+        same tree, shapes and dtypes, with no memory and no random draw.
         """
         cfg = self.cfg
         dev = guards.resolve_device(device, op="TransformerLM.init")
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         kw = dict(dtype=dtype, device=dev)
         d = cfg.d_model
         if self.hybrid:
@@ -622,13 +629,13 @@ class TransformerLM:
 
     def empty_caches(self, batch_size: int, cache_len: int, *, device=None) -> Dict:
         """Zero decode caches, shaped and typed as :meth:`prefill` returns them
-        (JAX's ``_decode_cache_for`` for each kind, stacked over the layers).
-        ``device=None`` means ``"cuda"``; ``"meta"`` gives the shapes alone."""
+        (JAX's ``empty_caches``: ``_decode_cache_for`` each kind, stacked over
+        the layers).  The hybrid stack's are ``stack`` ``{"conv", "ssm"}`` of
+        ``(groups, iv, B, ...)``, ``shared`` ``{"k", "v"}`` of ``(groups, B,
+        cache_len, K, D)`` and ``tail`` ``{"sub0": {"conv", "ssm"}}`` of
+        ``(trailing, B, ...)``.  ``device=None`` means ``"cuda"``; ``"meta"``
+        gives the shapes alone."""
         cfg = self.cfg
-        if self.hybrid:
-            raise NotImplementedError(
-                f"empty_caches: {cfg.name} is a hybrid stack; only the non-hybrid "
-                "caches are built here")
         dev = guards.resolve_device(device, op="TransformerLM.empty_caches")
 
         def part(n, kinds):
@@ -636,6 +643,16 @@ class TransformerLM:
                                                  self.cdt, dev)
                     for i, kind in enumerate(kinds)}
 
+        if self.hybrid:
+            iv = cfg.shared_attn_interval
+            groups = cfg.n_layers // iv
+            trailing = cfg.n_layers - groups * iv
+            stack = part(groups * iv, ("mamba",))["sub0"]
+            c = {"stack": {k: v.unflatten(0, (groups, iv)) for k, v in stack.items()},
+                 "shared": part(groups, ("dense",))["sub0"]}
+            if trailing:
+                c["tail"] = part(trailing, ("mamba",))
+            return c
         c = {"pre": part(self.n_pre, ("dense",))} if self.n_pre else {}
         c["stack"] = part((cfg.n_layers - self.n_pre) // self.group, self.pattern)
         return c

@@ -1,16 +1,18 @@
 """Guards of the PyTorch port: import boundary, device defaults, CPU fallbacks.
 
 The port (``src/repro_torch``, the rank entry point of its distributed
-worlds ``launch/world.py`` included), ``chip_smoke.py`` and the rank-side
+worlds ``launch/world.py`` and the dry run ``launch/dryrun.py`` included), its
+examples (``examples/torch_*.py``), ``chip_smoke.py`` and the rank-side
 cases of the distributed tests (``tests/torch_dist_worlds.py``,
 ``tests/torch_mesh_worlds.py``) import
-neither JAX nor the JAX package; its entry points default to the GPU and refuse to carry on
-quietly without one; its kernel wrappers take the plain path only for CPU
+neither JAX nor the JAX package; its entry points and examples default to the GPU and refuse
+to carry on quietly without one; its kernel wrappers take the plain path only for CPU
 tensors, and then count no launch.
 """
 from __future__ import annotations
 
 import ast
+import importlib.util
 import json
 import os
 import pathlib
@@ -29,7 +31,8 @@ from repro_torch.models.model import build_model, get_config, synth_batch
 from repro_torch.serving.engine import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + EXAMPLES + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worlds.py",
     ROOT / "tests" / "torch_mesh_worlds.py"]
 
@@ -69,6 +72,26 @@ def test_engine_and_init_default_to_the_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({"w": np.ones((2, 2), np.float32)})
     assert guards.resolve_device("cpu", op="t") == torch.device("cpu")
+
+
+def test_port_files_include_the_dry_run_and_the_examples():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "src/repro_torch/launch/dryrun.py" in names
+    assert {p.name for p in EXAMPLES} == {f"torch_{n}.py" for n in (
+        "quickstart", "scan_operators", "serve_topp", "serve_continuous", "train_lm")}
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_examples_default_to_the_gpu(path):
+    """Without ``--device cpu`` an example runs on the card, and without one it
+    raises before any work: no silent CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-GPU refusal cannot be shown here")
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
 
 
 def test_cpu_wrappers_take_the_plain_path_and_count_nothing():

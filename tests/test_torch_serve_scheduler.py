@@ -325,8 +325,12 @@ def test_hybrid_decode_refuses_per_row_positions():
     _, caches = model.prefill(params, {"tokens": toks}, cache_len=8)
     with pytest.raises(ValueError, match="per-row"):
         model.decode_step(params, toks[:, :1], caches, torch.tensor([4, 4]))
-    with pytest.raises(NotImplementedError):
-        model.empty_caches(2, 8, device="cpu")
+    # the hybrid stack's empty caches, once refused, have the prefill's layout
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    empty = model.empty_caches(2, 8, device="cpu")
+    assert tree_map(lambda t: (tuple(t.shape), t.dtype), empty) == \
+        tree_map(lambda t: (tuple(t.shape), t.dtype), caches)
+    assert not any(bool(t.any()) for t in tree_leaves(empty))
 
 
 def test_empty_caches_have_the_prefill_caches_layout():
