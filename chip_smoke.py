@@ -22,8 +22,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               its model (``split_mm._topp_tail_cluster``) and over five more
               calls, one launch each;
 6. b2b4    -- the §4 pipeline's block sums, carry scan and block scan each against
-              their plain versions at (4, 2^24), then the whole pipeline on a
-              ragged row and on a one-block row (where B2 and B3 must not launch);
+              their plain versions at (4, 2^24), and the fused block sums and
+              carries (one launch) against B2 alone and B3 on its sums, bit for bit
+              (five fp32 calls bit-equal), then the whole pipeline (two launches)
+              on a ragged row and on a one-block row (where B2 and B3 must not
+              launch), and the fused launch on int8 rows off 16-byte alignment;
 7. b5      -- SplitInd against its plain version and a stable argsort, exact, one
               launch a call; at and around the edge of its tiles (rows of 1, TILE - 1,
               TILE, TILE + 1 and 3 TILE + 17, batches of 1 and 64, every word size,
@@ -280,7 +283,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
               other row, and as CUDA graph replays (their device time, under names of
               their own), as are B5 at both shapes and B10; B1 and B9 beside their
-              three-launch pipelines; B6 at
+              pipelines; B6 at
               R = 10, 16 and 256 and at the vocab shards (eager and graph), B13 at
               (4, 2^24) (eager and graph), its dist shards, B13 and B16 on the SSD's
               column walk beside the row path before it and the whole axis-1
@@ -289,7 +292,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               with its design options (threads a CTA, CTAs a cluster) and at
               (4, 2^20); B11 at (4, 128) and (4, 2^20), eager and graph; the
               launch floor (one ``zero_()`` of 4 elements, eager and graph);
-              B2, B3, B4, B12, B14 and B15 as graph replays; and
+              B2, B3, B4, B12, B14 and B15 as graph replays (B2-B4 and the
+              pipeline at fp32, int8 and bf16; B2 + B3 in one launch beside B2
+              then B3, also at 65536 blocks a row); and
               ``top_p_sample(method="kernel")`` as a graph replay; then, after the
               kernels line's checks, one
               ``launches_by_shape`` line: B6's, B13's, B16's and B17's launches by
@@ -435,6 +440,14 @@ def expect_counts(counts, what: str, **want) -> None:
     """Every kernel's launch count is ``want``'s (0 where it names none)."""
     full = {k: want.get(k, 0) for k in ops.KERNELS}
     check(counts == full, f"{what}: expected launches {full}, got {counts}")
+
+
+def fused_walks(what: str, want: int) -> int:
+    """The fused B2 + B3 launches since the counters were zeroed (counted under
+    ``block_sums``, and apart under ``block_sums_carries``): B3's walk ran in each."""
+    got = _build.LAUNCHES["block_sums_carries"]
+    check(got == want, f"{what}: expected {want} fused B2+B3 launches, got {got}")
+    return got
 
 
 def emit(obj) -> None:
@@ -911,8 +924,9 @@ def _ulp_cpu(got, ref, scale):
 
 
 def phase_b2b4(gen):
-    """B2, B3 and B4 each against their plain versions on the same inputs, then the
-    whole pipeline; ints and integer-valued fp32 exact, random fp32 within
+    """B2, B3, B2 + B3 in one launch and B4 each against their plain versions on the
+    same inputs (the fused sums bit-equal to B2's, its carries to B3's on them), then
+    the whole pipeline; ints and integer-valued fp32 exact, random fp32 within
     ``B1_F32_ULP`` of the fp64 scan (block sums and carries at the scan's scale)."""
     b, n = SCAN_SHAPE
     inputs = {
@@ -927,7 +941,7 @@ def phase_b2b4(gen):
     ref_np, scale_np = ulp.scan_ref(xr64.cpu().numpy()), ulp.scan_scale(xr64.cpu().numpy())
     limit = B1_F32_ULP
     cases = []
-    worst = {"B2": 0.0, "B3": 0.0, "B4": 0.0}
+    worst = {"B2": 0.0, "B3": 0.0, "B2B3": 0.0, "B4": 0.0}
     for s in (16, 128):
         for bt in (1, 8):
             m, block_len, nb = scan_pipeline.block_geometry(n, s, bt)
@@ -939,18 +953,28 @@ def phase_b2b4(gen):
                 sums_p = scan_pipeline.block_partial_sums_plain(blocks, acc)
                 carries = scan_pipeline.carry_scan(sums_p)
                 carries_p = scan_pipeline.carry_scan_plain(sums_p)
+                # B2 + B3 in one launch: B2's bits, and B3's bits on those sums
+                fsums, fcar = scan_pipeline.block_sums_carries(blocks)
+                check(torch.equal(fsums, sums), f"B2+B3 fused {tag}: sums != B2's")
+                check(torch.equal(fcar, scan_pipeline.carry_scan(fsums)),
+                      f"B2+B3 fused {tag}: carries != B3's on the same sums")
                 case = {"input": name, "s": s, "block_tiles": bt, "nb": nb}
                 if name != "f32rand":
                     check(torch.equal(sums, sums_p), f"B2 {tag}: kernel != plain")
                     check(torch.equal(carries, carries_p), f"B3 {tag}: kernel != plain")
+                    check(torch.equal(fcar, carries_p), f"B2+B3 fused {tag}: carries != plain")
                 else:
+                    check(all(all(map(torch.equal, scan_pipeline.block_sums_carries(blocks),
+                                      (fsums, fcar))) for _ in range(5)),
+                          f"B2+B3 fused {tag}: five fp32 calls not bit-equal")
                     b64 = blocks.double()
                     bref, bscale = b64.sum((-2, -1)), b64.abs().sum((-2, -1))
                     cref = torch.cumsum(bref, -1) - bref
                     cscale = torch.cumsum(bscale, -1) - bscale
                     for key, got, plain, r, sc in (
                             ("B2", sums, sums_p, bref, bscale),
-                            ("B3", carries, carries_p, cref, cscale)):
+                            ("B3", carries, carries_p, cref, cscale),
+                            ("B2B3", fcar, carries_p, cref, cscale)):
                         r, sc = r.cpu().numpy(), sc.cpu().numpy()
                         e_k, e_p = _ulp_cpu(got, r, sc), _ulp_cpu(plain, r, sc)
                         check(e_k <= limit and e_p <= limit,
@@ -984,6 +1008,7 @@ def phase_b2b4(gen):
     for n2 in (RAGGED_N, VOCAB):
         xg = torch.randint(-1000, 1000, (b, n2), generator=gen, device=DEV, dtype=torch.int32)
         xr = torch.randn((b, n2), generator=gen, device=DEV)
+        x8 = torch.randint(-128, 128, (b, n2), generator=gen, device=DEV).to(torch.int8)
         r64 = xr.double().cpu().numpy()
         ref2, scale2 = ulp.scan_ref(r64), ulp.scan_scale(r64)
         for s, bt in ((16, 1), (128, 8)):
@@ -994,7 +1019,7 @@ def phase_b2b4(gen):
                 sync()
                 two = 1 if nb > 1 else 0
                 expect_counts(ops.launch_counts(), f"blocked_scan n={n2} s={s} nb={nb}",
-                              block_sums=two, carry_scan=two, block_scan=1)
+                              block_sums=two, block_scan=1)
                 plain = scan_pipeline.blocked_scan_plain(xg, s=s, block_tiles=bt,
                                                          variant=variant, acc=torch.int32)
                 check(torch.equal(got, plain) and
@@ -1005,6 +1030,20 @@ def phase_b2b4(gen):
                 check(e <= limit, f"pipeline fp32 n={n2} s={s} {variant}: {e} ulp > {limit}")
                 rows.append({"n": n2, "s": s, "block_tiles": bt, "nb": nb,
                              "variant": variant, "f32rand_max_ulp": e})
+            # int8 rows (off 16-byte alignment at RAGGED_N): the fused launch on the raw
+            # rows against the plain versions on the zero-padded block view, and the scan
+            m, block_len, _ = scan_pipeline.block_geometry(n2, s, bt)
+            xk, code = scan_mm.kernel_operand(x8, torch.int32, op="phase_b2b4")
+            fsums, fcar = scan_pipeline._block_sums_carries_cuda(xk, code, torch.int32, nb,
+                                                                block_len)
+            pad = torch.nn.functional.pad(x8.to(torch.int32), (0, nb * block_len - n2))
+            ps, pc = scan_pipeline.block_sums_carries_plain(pad.reshape(b, nb, m, s),
+                                                            torch.int32)
+            check(torch.equal(fsums, ps) and torch.equal(fcar, pc),
+                  f"B2+B3 fused int8 n={n2} s={s}: != plain")
+            check(torch.equal(scan_pipeline.blocked_scan(x8, s=s, block_tiles=bt),
+                              torch.cumsum(x8, -1, dtype=torch.int32)),
+                  f"pipeline int8 n={n2} s={s}: != cumsum")
     sync()
     emit({"phase": "b2b4", "shape": list(SCAN_SHAPE), "cases": cases, "rows": rows,
           "ulp_limit": limit, "max_abs_err_f32rand_vs_plain": worst})
@@ -1923,7 +1962,7 @@ def guard_operators(gen) -> dict:
         "blocked": lambda t: scan_pipeline.blocked_scan_plain(t, s=128, block_tiles=8,
                                                               variant="scanul1", acc=f32)}
     want_scan = {"kernel": {"scan_mm": 1},
-                 "blocked": {"block_sums": 1, "carry_scan": 1, "block_scan": 1}}
+                 "blocked": {"block_sums": 1, "block_scan": 1}}
     for m in ("kernel", "blocked"):
         out[f"scan/{m}"] = guard_path(
             f"scan/{m}", (x,), lambda k: (inj(x, k),), lambda k: (inj(x, k),),
@@ -2240,8 +2279,8 @@ def main_blocked(gen):
     out = scan(x, method="blocked")
     sync()
     runs["scan"] = ops.launch_counts()
-    expect_counts(runs["scan"], "scan(method='blocked')", block_sums=1, carry_scan=1,
-                  block_scan=1)
+    expect_counts(runs["scan"], "scan(method='blocked')", block_sums=1, block_scan=1)
+    walks = fused_walks("scan(method='blocked')", 1)
     check(out.shape == x.shape and out.dtype == torch.float32 and bool(out.isfinite().all()),
           "scan(method='blocked') output has the wrong shape or non-finite values")
     err = float((out[:, -1].double() - x.double().sum(-1)).abs().max())
@@ -2255,7 +2294,8 @@ def main_blocked(gen):
     sync()
     runs["compress_blocked"] = ops.launch_counts()
     expect_counts(runs["compress_blocked"], "compress(method='blocked')", block_sums=1,
-                  carry_scan=1, block_scan=1)
+                  block_scan=1)
+    walks += fused_walks("compress(method='blocked')", 1)
     check(torch.equal(kk.long(), mask.sum(-1)) and torch.equal(kk, kb) and torch.equal(vk, vb),
           "compress: the kernel and blocked paths disagree")
     for r in range(SCAN_SHAPE[0]):
@@ -2263,8 +2303,10 @@ def main_blocked(gen):
         check(torch.equal(vk[r, :k], x[r][mask[r]]) and not bool(vk[r, k:].any()),
               f"compress row {r}: not the masked elements packed left, zeros after")
     emit({"phase": "main_blocked", "shape": list(SCAN_SHAPE), "launches": runs,
-          "abs_err_of_row_totals": err, "n_true": kk.tolist()})
-    return {k: sum(c[k] for c in runs.values()) for k in ops.KERNELS}
+          "fused_b2_b3_launches": walks, "abs_err_of_row_totals": err,
+          "n_true": kk.tolist()})
+    return {**{k: sum(c[k] for c in runs.values()) for k in ops.KERNELS},
+            "carry_walks": walks}
 
 
 def main_segmented(gen):
@@ -4567,7 +4609,7 @@ def moe_dispatch_check(cfg, params, eidx) -> dict:
              ("blocked", "segmented"): seg_counts("blocked", eidx.shape[1], 1),
              ("blocked", "grouped"): {"block_scan": 1}}
     if scan_pipeline.block_geometry(eidx.shape[1], 128, 8)[2] > 1:
-        wants[("blocked", "grouped")] = {"block_sums": 1, "carry_scan": 1, "block_scan": 1}
+        wants[("blocked", "grouped")] = {"block_sums": 1, "block_scan": 1}
     pos = {}
     for (method, mode), want in wants.items():
         ops.reset_launch_counts()
@@ -5460,7 +5502,7 @@ def dist_rank(shape, vocab, seed, time_reps):
     ref8 = x8.long().cumsum(-1)
     scan_model = modeled_dist_traffic("mcscan", d=d, n=n, batch=b, itemsize=4)
     for method, want in (("kernel", {"scan_mm": 1}),
-                         ("blocked", {"block_sums": 1, "carry_scan": 1, "block_scan": 1})):
+                         ("blocked", {"block_sums": 1, "block_scan": 1})):
         y = main_call(f"mcscan_f32_{method}", lambda: mcscan(xf[:, lo:hi], method=method),
                       want, scan_model)
         res["max_ulp"][f"mcscan_{method}"] = e = max_ulp_dev(y, ref[:, lo:hi],
@@ -6273,29 +6315,44 @@ def time_topp_design(sp, u, p) -> dict:
 
 
 def time_pipeline(x, x8):
-    """B2, B3, B4 and the whole pipeline at the default geometry (s=128, 8 tiles:
-    128 blocks per row), fp32 and int8, each kernel timed in turns with its plain
-    version.  The keys without a prefix are fp32's."""
+    """B2, B3, B4, B2 + B3 in one launch (``B2B3``) and the whole pipeline at the
+    default geometry (s=128, 8 tiles: 128 blocks per row), fp32, int8 and bf16, each
+    kernel timed eagerly in turns with its plain version (``ms``) and as a CUDA-graph
+    replay (``device_ms``); the fused launch beside B2 followed by B3, also at s=16 with
+    one tile a block (65536 blocks a row).  The keys without a prefix are fp32's."""
     b, n = x.shape
     m, block_len, nb = scan_pipeline.block_geometry(n, 128, 8)
-    out = {"B2": {}, "B3": {}, "B4": {}, "pipeline": {}}
-    for name, xx in (("", x), ("int8_", x8)):
+    out = {"B2": {}, "B3": {}, "B4": {}, "B2B3": {}, "pipeline": {}}
+
+    def two_launches(blocks):
+        return lambda: scan_pipeline.carry_scan(scan_pipeline.block_partial_sums(blocks))
+
+    for name, xx in (("", x), ("int8_", x8), ("bf16_", x.to(torch.bfloat16))):
         blocks = xx.reshape(b, nb, m, 128)
         acc = accum_dtype_for(xx.dtype)
-        esz, f32 = xx.element_size(), xx.dtype == torch.float32
+        esz, fl = xx.element_size(), xx.is_floating_point()
         sums = scan_pipeline.block_partial_sums_plain(blocks, acc)
         carries = scan_pipeline.carry_scan_plain(sums)
         k, pl = paired_ms(lambda: scan_pipeline.block_partial_sums(blocks),
                           lambda: scan_pipeline.block_partial_sums_plain(blocks, acc), 10)
-        bms, by = bound(b * n * esz + b * nb * 4, b * n if f32 else 0)
+        bms, by = bound(b * n * esz + b * nb * 4, b * n if fl else 0)
         out["B2"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
                           name + "bound_by": by, name + "library_ms": cuda_ms(
                               lambda: torch.sum(blocks, dim=(-2, -1), dtype=acc), 10),
                           name + "device_ms": graph_ms(
                               lambda: scan_pipeline.block_partial_sums(blocks), 20)})
+        k, pl = paired_ms(lambda: scan_pipeline.block_sums_carries(blocks),
+                          lambda: scan_pipeline.block_sums_carries_plain(blocks, acc), 10)
+        bms, by = bound(b * n * esz + 2 * b * nb * 4, b * (n + nb) if fl else 0)
+        out["B2B3"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
+                            name + "bound_by": by, name + "library_ms": None,
+                            name + "device_ms": graph_ms(
+                                lambda: scan_pipeline.block_sums_carries(blocks), 20),
+                            name + "b2_then_b3_ms": cuda_ms(two_launches(blocks), 10),
+                            name + "b2_then_b3_device_ms": graph_ms(two_launches(blocks), 20)})
         k, pl = paired_ms(lambda: scan_pipeline.carry_scan(sums),
                           lambda: scan_pipeline.carry_scan_plain(sums), 50)
-        bms, by = bound(b * nb * 8, b * nb if f32 else 0)
+        bms, by = bound(b * nb * 8, b * nb if fl else 0)
         out["B3"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
                           name + "bound_by": by, name + "library_ms": None,
                           name + "device_ms": graph_ms(
@@ -6304,7 +6361,7 @@ def time_pipeline(x, x8):
             lambda: scan_pipeline.block_scan_carry(blocks, carries),
             lambda: scan_pipeline.block_scan_carry_plain(blocks, carries, variant="scanul1",
                                                          acc=acc), 10)
-        bms, by = bound(b * n * (esz + 4) + b * nb * 4, 3 * b * n if f32 else 0)
+        bms, by = bound(b * n * (esz + 4) + b * nb * 4, 3 * b * n if fl else 0)
         out["B4"].update({name + "ms": k, name + "plain_ms": pl, name + "bound_ms": bms,
                           name + "bound_by": by, name + "library_ms": None,
                           name + "scanu_ms": cuda_ms(lambda: scan_pipeline.block_scan_carry(
@@ -6317,11 +6374,22 @@ def time_pipeline(x, x8):
                                                      variant="scanul1", acc=acc), 10)
         out["pipeline"].update({
             name + "ms": k, name + "plain_ms": pl,
+            name + "device_ms": graph_ms(lambda: scan(xx, method="blocked"), 10),
             name + "library_ms": cuda_ms(lambda: torch.cumsum(xx, -1, dtype=acc), 5),
             name + "bound_ms": bound(b * n * (esz + 4))[0],               # the scan's bytes
             name + "pipeline_bytes_bound_ms": bound(b * n * (2 * esz + 4))[0]})
-    # B3 where it has real work: s=16, one tile per block gives 65536 blocks a row
-    nb16 = scan_pipeline.block_geometry(n, 16, 1)[2]
+    # s=16, one tile per block: 65536 blocks a row, where B3 has real work
+    m16, _, nb16 = scan_pipeline.block_geometry(n, 16, 1)
+    for name, xx in (("", x), ("int8_", x8)):
+        blocks = xx.reshape(b, nb16, m16, 16)
+        def fused(blocks=blocks):
+            return scan_pipeline.block_sums_carries(blocks)
+        out["B2B3"].update({
+            name + "nb65536_ms": cuda_ms(fused, 10),
+            name + "nb65536_device_ms": graph_ms(fused, 20),
+            name + "nb65536_b2_then_b3_ms": cuda_ms(two_launches(blocks), 10),
+            name + "nb65536_b2_then_b3_device_ms": graph_ms(two_launches(blocks), 20),
+            name + "nb65536_bound_ms": bound(b * n * xx.element_size() + 2 * b * nb16 * 4)[0]})
     big = torch.randn((b, nb16), device=DEV)
     out["B3"]["nb65536_ms"], out["B3"]["nb65536_plain_ms"] = paired_ms(
         lambda: scan_pipeline.carry_scan(big), lambda: scan_pipeline.carry_scan_plain(big), 20)
@@ -6818,9 +6886,12 @@ def main() -> int:
         ("B2 block_partial_sums (block sums of the blocked pipeline)", "block_sums.cu",
          "src/repro/kernels/scan_pipeline.py:71", blocked_counts["block_sums"],
          b2b4_err["B2"], timing["B2"]),
-        ("B3 carry_scan (exclusive scan of the block sums)", "carry_scan.cu",
-         "src/repro/kernels/scan_pipeline.py:105", blocked_counts["carry_scan"],
-         b2b4_err["B3"], timing["B3"]),
+        ("B3 carry_scan (exclusive scan of the block sums; launches: the pipeline's "
+         "fused B2 launches, whose CTA that finishes a row runs B3's walk, carry_row.cuh; "
+         "times: B3's own launch)", "carry_scan.cu",
+         "src/repro/kernels/scan_pipeline.py:105",
+         blocked_counts["carry_scan"] + blocked_counts["carry_walks"],
+         max(b2b4_err["B3"], b2b4_err["B2B3"]), timing["B3"]),
         ("B4 block_scan_carry (block scan plus carry; launches include topp_blocked "
          "serving, zamba2 serving, zamba2 forward and loss, and xlstm-350m's forward, "
          "loss and serving under scan_method='blocked')", "block_scan.cu",

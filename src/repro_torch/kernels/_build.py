@@ -65,6 +65,7 @@ ENTRIES: Dict[tuple, list] = {
     ("seg_summaries", "repro_seg_summaries_design"):
         [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P],
     ("topp_tail", "repro_topp_tail_design"): [_P, _L, _P, _P, _I, _L, _F, _I, _I, _P],
+    ("block_sums", "repro_block_sums_carries"): [_P, _P, _P, _P, _L, _I, _L, _I, _L, _I, _P],
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

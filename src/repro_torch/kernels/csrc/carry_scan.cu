@@ -5,58 +5,36 @@
 // carry_scan): the exclusive prefix of each row of the (b, nb) block sums,
 // (b, nb) -> (b, nb), in the sums' dtype (int32 or fp32).
 //
-// Design.  One CTA per row walks its nb sums in chunks of 4096 (1024 threads
-// x 4 consecutive values): each thread sums its 4 in order, a block-wide
-// exclusive scan (warp shuffles, then one warp over the warp totals) places
-// the thread, and a running carry links the chunks in order, since nb can be
-// in the hundreds of thousands.  Integer carries are exact (int32 adds wrap as
-// the JAX cumsum does); fp32 carries are summed in another order than
-// jnp.cumsum's.
+// Design.  One CTA of 1024 threads per row walks its nb sums in chunks of
+// 4096 (1024 threads x 4 consecutive values): each thread sums its 4 in order,
+// a block-wide exclusive scan (warp shuffles, then one warp over the warp
+// totals) places the thread, and a running carry links the chunks in order,
+// since nb can be in the hundreds of thousands.  The walk is carry_row.cuh's,
+// which block_sums.cu's fused entry (repro_block_sums_carries) also runs, so
+// the blocked pipeline gets these carries, bit for bit, without this launch;
+// this entry stays for carry_scan called on its own.  Integer carries are exact
+// (int32 adds wrap as the JAX cumsum does); fp32 carries are summed in another
+// order than jnp.cumsum's.
 //
 // Bound.  It moves 8 B per block (a few KB at the pipeline's usual nb), so it
 // is bound by its launch and its one CTA per row, not by bytes.
-#include "common.cuh"
+#include "carry_row.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 4;
-constexpr int kChunk = kThreads * kItems;
-
 template <typename A>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(repro::kCarryLanes)
 carry_scan_kernel(const A* __restrict__ sums, A* __restrict__ carries, long long nb) {
-    __shared__ A scratch[2 * kWarps + 1];
+    __shared__ A scratch[repro::kCarryScratch];
     const long long row = blockIdx.x;
-    const A* in = sums + row * nb;
-    A* out = carries + row * nb;
-    A carry = A(0);
-    for (long long base = 0; base < nb; base += kChunk) {
-        const long long i0 = base + static_cast<long long>(threadIdx.x) * kItems;
-        A v[kItems];
-        A run = A(0);
-#pragma unroll
-        for (int k = 0; k < kItems; ++k) {
-            v[k] = i0 + k < nb ? in[i0 + k] : A(0);
-            run = run + v[k];
-        }
-        A total;
-        A ex = repro::block_exclusive_scan<A, kWarps>(run, scratch, total);
-        ex = carry + ex;
-#pragma unroll
-        for (int k = 0; k < kItems; ++k) {
-            if (i0 + k < nb) out[i0 + k] = ex;
-            ex = ex + v[k];
-        }
-        carry = carry + total;
-    }
+    repro::carry_row<A, repro::kCarryLanes, false>(sums + row * nb, carries + row * nb, nb,
+                                                   scratch);
 }
 
 template <typename A>
 int launch(const void* sums, void* carries, int b, long long nb, cudaStream_t stream) {
-    carry_scan_kernel<A><<<b, kThreads, 0, stream>>>(static_cast<const A*>(sums),
-                                                     static_cast<A*>(carries), nb);
+    carry_scan_kernel<A><<<b, repro::kCarryLanes, 0, stream>>>(
+        static_cast<const A*>(sums), static_cast<A*>(carries), nb);
     return static_cast<int>(cudaGetLastError());
 }
 

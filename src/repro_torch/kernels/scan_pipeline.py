@@ -12,8 +12,15 @@ short row pays for one block at most), and three kernels scan it:
   fused: each block's ScanU/ScanUL1 partial scan on its ``(m, s)`` view plus
   its carry, so each element is read once and written once.
 
-:func:`blocked_scan` runs the three.  With one block per row (``nb == 1``)
-the carries are zero and B2 and B3 are not launched.
+:func:`block_sums_carries` is B2 and B3 in one launch: B2's second entry point
+writes the sums, and the CTA that finishes a row's last block runs B3's walk
+(``csrc/carry_row.cuh``) over them, so its carries are bit for bit
+:func:`carry_scan`'s.  It counts one launch, under ``block_sums`` (and, apart
+from the kernels' counts, under ``block_sums_carries``).
+
+:func:`blocked_scan` runs the pipeline in two launches, the fused sums and
+carries and then B4.  With one block per row (``nb == 1``) the carries are
+zero and only B4 is launched.
 
 On CUDA tensors the wrappers launch the kernels, which mask the ragged end of
 a row themselves, so :func:`blocked_scan` pads nothing there.  On CPU tensors
@@ -38,9 +45,10 @@ from repro_torch.core.scan import (_operand_dtype, accum_dtype_for,
 from repro_torch.kernels import _build
 from repro_torch.kernels.scan_mm import MAX_TILE, VARIANTS, kernel_operand
 
-__all__ = ["blocked_scan", "block_partial_sums", "carry_scan", "block_scan_carry",
-           "blocked_scan_plain", "block_partial_sums_plain", "carry_scan_plain",
-           "block_scan_carry_plain", "block_geometry"]
+__all__ = ["blocked_scan", "block_partial_sums", "carry_scan", "block_sums_carries",
+           "block_scan_carry", "blocked_scan_plain", "block_partial_sums_plain",
+           "carry_scan_plain", "block_sums_carries_plain", "block_scan_carry_plain",
+           "block_geometry"]
 
 _CARRY_CODES = {torch.float32: 0, torch.int32: 1}
 
@@ -72,6 +80,12 @@ def carry_scan_plain(sums: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix of each row of the ``(b, nb)`` block sums."""
     inc = torch.cumsum(sums, dim=-1, dtype=sums.dtype)
     return torch.cat([torch.zeros_like(inc[:, :1]), inc[:, :-1]], dim=-1)
+
+
+def block_sums_carries_plain(blocks: torch.Tensor, acc: torch.dtype):
+    """:func:`block_partial_sums_plain`, then :func:`carry_scan_plain` on its sums."""
+    sums = block_partial_sums_plain(blocks, acc)
+    return sums, carry_scan_plain(sums)
 
 
 def block_scan_carry_plain(blocks: torch.Tensor, carries: torch.Tensor, *,
@@ -113,7 +127,7 @@ def blocked_scan_plain(xb: torch.Tensor, *, s: int, block_tiles: int, variant: s
     if nb == 1:
         carries = torch.zeros((b, 1), dtype=acc, device=xb.device)
     else:
-        carries = carry_scan_plain(block_partial_sums_plain(blocks, acc))
+        carries = block_sums_carries_plain(blocks, acc)[1]
     out = block_scan_carry_plain(blocks, carries, variant=variant, acc=acc,
                                  precision=precision)
     return out.reshape(b, nb * block_len)[:, :n]
@@ -132,6 +146,20 @@ def _block_sums_cuda(xb, code, acc, nb, block_len):
         _build.launch("block_sums", xb.data_ptr(), sums.data_ptr(), b, n, nb,
                       block_len, code, stream)
     return sums
+
+
+def _block_sums_carries_cuda(xb, code, acc, nb, block_len):
+    b, n = xb.shape
+    sums = torch.empty((b, nb), dtype=acc, device=xb.device)
+    carries = torch.empty_like(sums)
+    tickets = torch.empty((b,), dtype=torch.int32, device=xb.device)
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream(xb.device).cuda_stream
+        _build.launch("block_sums", xb.data_ptr(), sums.data_ptr(), carries.data_ptr(),
+                      tickets.data_ptr(), tickets.numel() * tickets.element_size(), b, n,
+                      nb, block_len, code, stream, entry="repro_block_sums_carries")
+    _build.LAUNCHES["block_sums_carries"] += 1   # B3's walk ran in this launch too
+    return sums, carries
 
 
 def _carry_scan_cuda(sums):
@@ -156,7 +184,7 @@ def _block_scan_cuda(xb, code, carries, acc, nb, block_len, s, variant):
 
 
 # ---------------------------------------------------------------------------
-# the three phases on the (b, nb, m, s) block view, and the whole pipeline
+# the phases on the (b, nb, m, s) block view, and the whole pipeline
 # ---------------------------------------------------------------------------
 
 
@@ -186,6 +214,24 @@ def carry_scan(sums: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"carry_scan: the CUDA kernel takes {list(_CARRY_CODES)}, "
                         f"got {sums.dtype}")
     return _carry_scan_cuda(sums.contiguous())
+
+
+def block_sums_carries(blocks: torch.Tensor, *, accum_dtype=None):
+    """Phases 1 and 2 in one launch: the block sums of ``(b, nb, m, s)`` blocks and
+    their exclusive prefix, ``((b, nb), (b, nb))``.
+
+    The sums are :func:`block_partial_sums`'s and the carries :func:`carry_scan`'s
+    of those sums, bit for bit.
+    """
+    if blocks.dim() != 4:
+        raise ValueError(f"block_sums_carries: blocks must be (b, nb, m, s), got "
+                         f"{tuple(blocks.shape)}")
+    b, nb, m, s = blocks.shape
+    acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
+    if not blocks.is_cuda or blocks.numel() == 0:
+        return block_sums_carries_plain(blocks, acc)
+    xb, code = kernel_operand(blocks.reshape(b, nb * m * s), acc, op="block_sums_carries")
+    return _block_sums_carries_cuda(xb, code, acc, nb, m * s)
 
 
 def block_scan_carry(blocks: torch.Tensor, carries: torch.Tensor, *,
@@ -229,7 +275,7 @@ def block_scan_carry(blocks: torch.Tensor, carries: torch.Tensor, *,
 def blocked_scan(x: torch.Tensor, *, s: int = 128, block_tiles: int = 8,
                  variant: str = "scanul1", accum_dtype=None,
                  precision: str = "highest") -> torch.Tensor:
-    """Scan the last axis of ``x`` with the three-phase blocked pipeline.
+    """Scan the last axis of ``x`` with the blocked pipeline (two launches).
 
     Args:
         x: ``(..., n)`` input; a CUDA tensor launches the kernels, a CPU
@@ -270,6 +316,6 @@ def blocked_scan(x: torch.Tensor, *, s: int = 128, block_tiles: int = 8,
         # one block: the carry is zero, so phases 1 and 2 are skipped
         carries = torch.zeros((b, 1), dtype=acc, device=x.device)
     else:
-        carries = _carry_scan_cuda(_block_sums_cuda(xk, code, acc, nb, block_len))
+        carries = _block_sums_carries_cuda(xk, code, acc, nb, block_len)[1]
     return _block_scan_cuda(xk, code, carries, acc, nb, block_len, s,
                             variant).reshape(x.shape)

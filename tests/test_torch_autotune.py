@@ -17,6 +17,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.core import autotune as jax_autotune
 from repro.core import guards as jax_guards

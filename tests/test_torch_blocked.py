@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.analysis import ulp
 from repro.core.primitives import radix_sort as jax_radix_sort
@@ -57,19 +58,57 @@ def _check(kind, got, want, x):
 # ---- the three phase functions, module against module ----
 
 
-@pytest.mark.parametrize("kind", ["int8", "int32", "f32int", "f32rand"])
-def test_block_partial_sums_matches_jax(kind):
-    blocks = _input(kind, (2, 3, 16, 8), seed=1)
-    j = np.asarray(jax_sp.block_partial_sums(jnp.asarray(blocks)))
-    t = port_sp.block_partial_sums(torch.from_numpy(blocks)).numpy()
-    assert t.shape == (2, 3) and t.dtype == j.dtype
+def _b2_rows(kind: str, shape, seed: int):
+    """Rows of every dtype B2 reads, as numpy (bf16 as fp32 holding bf16 values)."""
+    rng = np.random.default_rng(seed)
+    if kind == "bool":
+        return rng.random(shape) < 0.5
+    if kind == "uint8":
+        return rng.integers(0, 256, shape).astype(np.uint8)
+    if kind == "int16":
+        return rng.integers(-32768, 32768, shape).astype(np.int16)
+    if kind == "bf16":
+        return rng.integers(-8, 9, shape).astype(np.float32)
+    return _input(kind, shape, seed)
+
+
+def _both(kind, xn):
+    """The same rows as a JAX array and a torch tensor."""
+    if kind == "bf16":
+        return jnp.asarray(xn, jnp.bfloat16), torch.from_numpy(xn).to(torch.bfloat16)
+    return jnp.asarray(xn), torch.from_numpy(xn)
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["whole", "ragged"])
+@pytest.mark.parametrize("kind", ["int8", "uint8", "bool", "int16", "int32", "bf16",
+                                  "f32int", "f32rand"])
+def test_block_partial_sums_matches_jax(kind, ragged):
+    """B2 alone and the fused sums and carries, against JAX's ``block_partial_sums``
+    and ``carry_scan``; a ragged row is zero-padded to whole blocks, as
+    ``blocked_scan`` pads it."""
+    n = 3 * 16 * 8 - (37 if ragged else 0)
+    xn = _b2_rows(kind, (2, n), seed=1)
+    xn = np.pad(xn, ((0, 0), (0, 3 * 16 * 8 - n))).reshape(2, 3, 16, 8)
+    jx, tx = _both(kind, xn)
+    j = np.asarray(jax_sp.block_partial_sums(jx))
+    jc = np.asarray(jax_sp.carry_scan(jnp.asarray(j)))
+    t = port_sp.block_partial_sums(tx).numpy()
+    ts, tc = (v.numpy() for v in port_sp.block_sums_carries(tx))
+    assert t.shape == (2, 3) and t.dtype == j.dtype == ts.dtype == tc.dtype
+    np.testing.assert_array_equal(ts, t)
     if kind == "f32rand":
-        flat = blocks.reshape(2, 3, -1).astype(np.float64)
+        flat = xn.reshape(2, 3, -1).astype(np.float64)
         ref, sc = flat.sum(-1), np.abs(flat).sum(-1)
         bound = ulp.ulp_bound("highest", flat.shape[-1])
         assert ulp.max_ulp(t, ref, sc) <= bound and ulp.max_ulp(j, ref, sc) <= bound
+        np.testing.assert_array_equal(tc, port_sp.carry_scan(torch.from_numpy(t)).numpy())
+        cref = np.concatenate([np.zeros((2, 1)), np.cumsum(ref, -1)[:, :-1]], -1)
+        csc = np.concatenate([np.zeros((2, 1)), np.cumsum(sc, -1)[:, :-1]], -1)
+        bound = ulp.ulp_bound("highest", flat.shape[-1] * 3)
+        assert ulp.max_ulp(tc, cref, csc) <= bound and ulp.max_ulp(jc, cref, csc) <= bound
     else:
         np.testing.assert_array_equal(t, j)
+        np.testing.assert_array_equal(tc, jc)
 
 
 @pytest.mark.parametrize("kind", ["int32", "f32int", "f32rand"])

@@ -242,6 +242,70 @@ def test_pipeline_kernels_match_plain(dev, dtype, s, block_tiles):
         assert torch.equal(got, want)
 
 
+_B2_DTYPES = [torch.int8, torch.uint8, torch.bool, torch.int16, torch.int32,
+              torch.bfloat16, torch.float16, torch.float32]
+
+
+def _b2_rows(dtype, shape, dev, seed=0):
+    """Integer-valued rows of ``dtype`` (random normal for ``None``: fp32)."""
+    g = _gen(dev, seed)
+    if dtype is None:
+        return torch.randn(shape, generator=g, device=dev)
+    if dtype == torch.bool:
+        return torch.rand(shape, generator=g, device=dev) < 0.5
+    lo, hi = {torch.int8: (-128, 128), torch.uint8: (0, 256),
+              torch.int16: (-32768, 32768)}.get(dtype, (-1000, 1000))
+    if dtype.is_floating_point:
+        lo, hi = -8, 9
+    return torch.randint(lo, hi, shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("n,s,block_tiles", [
+    (1000, 128, 8),                                   # nb = 1
+    (7, 1, 2),                                        # nb = 4 blocks of 2: rows share a CTA
+    (16385, 128, 1),                                  # nb = 2, the second of 1 element
+    (16384 + 3, 8, 2),                                # nb = 129, a ragged last block
+    (300001, 128, 8),                                 # nb = 3, rows off 16-byte alignment
+    (1 << 24, 16, 1),                                 # nb = 65536 blocks of 256
+    (8191, 1, 3),                                     # blocks of 3 elements: scalars only
+])
+@pytest.mark.parametrize("dtype", _B2_DTYPES + [None], ids=lambda d: str(d)[6:] or "f32rand")
+def test_fused_sums_and_carries_equal_b2_and_b3(dev, dtype, n, s, block_tiles):
+    """The fused launch's sums are B2's bits and its carries B3's on those sums, at
+    every dtype, on raw (b, n) rows whose starts are not 16-byte aligned; both
+    equal the plain versions on integer inputs."""
+    b = 1 if n == 1 << 24 else 3
+    x = _b2_rows(dtype, (b, n), dev, seed=n)
+    acc = accum_dtype_for(x.dtype)
+    m, block_len, nb = scan_pipeline.block_geometry(n, s, block_tiles)
+    xk, code = scan_mm.kernel_operand(x, acc, op="test")
+    ops.reset_launch_counts()
+    sums, carries = scan_pipeline._block_sums_carries_cuda(xk, code, acc, nb, block_len)
+    assert ops.launch_counts() == _counts(block_sums=1)
+    alone = scan_pipeline._block_sums_cuda(xk, code, acc, nb, block_len)
+    assert torch.equal(sums, alone)
+    assert torch.equal(carries, scan_pipeline._carry_scan_cuda(sums))
+    if dtype is None:
+        return
+    pad = nb * block_len - n
+    blocks = torch.nn.functional.pad(x.to(acc), (0, pad)).reshape(b, nb, m, s)
+    want_s, want_c = scan_pipeline.block_sums_carries_plain(blocks, acc)
+    assert torch.equal(sums, want_s) and torch.equal(carries, want_c)
+
+
+@pytest.mark.parametrize("s,block_tiles", [(128, 8), (16, 1)])
+def test_fused_sums_and_carries_are_deterministic(dev, s, block_tiles):
+    """Five fp32 calls give the same bits, whichever CTA finished a row last."""
+    x = torch.randn((4, 1 << 22), generator=_gen(dev, 7), device=dev)
+    m, _, nb = scan_pipeline.block_geometry(x.shape[1], s, block_tiles)
+    blocks = x.reshape(4, nb, m, s)
+    first = scan_pipeline.block_sums_carries(blocks)
+    assert torch.equal(first[0], scan_pipeline.block_partial_sums(blocks))
+    for _ in range(5):
+        again = scan_pipeline.block_sums_carries(blocks)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
 @pytest.mark.parametrize("n", [1, 100, 16387, 300001])
 @pytest.mark.parametrize("s,block_tiles", [(8, 1), (16, 2), (128, 8)])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32, torch.bool])
@@ -343,7 +407,11 @@ def test_pipeline_and_split_launch_counts(dev):
     ops.reset_launch_counts()
     scan(x, method="blocked", tile_s=16, block_tiles=8)          # 128 blocks per row
     torch.cuda.synchronize()
-    assert ops.launch_counts() == _counts(block_sums=1, carry_scan=1, block_scan=1)
+    assert ops.launch_counts() == _counts(block_sums=1, block_scan=1)
+    assert _build.LAUNCHES["block_sums_carries"] == 1
+    ops.reset_launch_counts()
+    scan_pipeline.carry_scan(torch.zeros((4, 128), device=dev))  # alone, B3 still launches
+    assert ops.launch_counts() == _counts(carry_scan=1)
     ops.reset_launch_counts()
     scan(x, method="blocked", tile_s=128, block_tiles=16)        # one block per row
     assert ops.launch_counts()["block_scan"] == 1
@@ -1713,8 +1781,7 @@ def test_kernel_allocator_picks_equal_vector_with_one_b5_an_alloc(dev):
 
 
 @pytest.mark.parametrize("method,want", [("kernel", dict(scan_mm=1)),
-                                         ("blocked", dict(block_sums=1, carry_scan=1,
-                                                          block_scan=1))])
+                                         ("blocked", dict(block_sums=1, block_scan=1))])
 def test_scan_policies_on_the_kernels(dev, method, want):
     """``raise`` refuses before any launch; ``sanitize`` is bit-equal to the same
     method on the input with zeros for its non-finite elements, with the launches
@@ -1988,8 +2055,7 @@ def test_moe_dispatch_positions_on_the_kernels_equal_the_cumsum(dev, n):
              ("kernel", "grouped"): _counts(scan_mm=1),
              ("blocked", "segmented"): _counts(seg_block_scan=1, seg_summaries=int(multi),
                                                seg_carry=int(multi)),
-             ("blocked", "grouped"): _counts(block_scan=1, block_sums=int(multi),
-                                             carry_scan=int(multi))}
+             ("blocked", "grouped"): _counts(block_scan=1, block_sums=int(multi))}
     for (method, mode), want in wants.items():
         ops.reset_launch_counts()
         got = moe.dispatch_positions(eidx, e, scan_method=method, mode=mode)

@@ -44,6 +44,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.core.linrec import linear_scan as jax_linear_scan
 from repro.core.primitives import radix_sort as jax_radix_sort

@@ -1,11 +1,15 @@
 """``dist_top_p_sample``'s non-finite policies in a gloo world of 2, against JAX.
 
 The other half of ``test_torch_dist_ops.py``, in a file of its own so that
-``--dist loadfile`` can run the two on two workers: JAX's reference for these
-cases runs eagerly (the raise gate needs concrete logits) and takes most of
-the two files' time.  The world of 2 (``torch_dist_worlds.run_world_cases``)
-runs every policy case; JAX's ``dist_top_p_sample`` on a mesh of 2 host
-devices runs them in two subprocesses at once, half the policies each.  The
+``--dist loadfile`` can run the two on two workers.  The world of 2
+(``torch_dist_worlds.run_world_cases``) runs every policy case; JAX's
+``dist_top_p_sample`` on a mesh of 2 host devices runs them in two
+subprocesses at once, half the policies each.  JAX's raise gate reads
+concrete logits, so each ``raise`` case first runs that gate
+(``primitives._reject_poisoned_logits``, the one ``dist_top_p_sample`` calls)
+on them; then every case that passes runs jitted, the gate staged as a
+``debug_check`` that a plain ``jit`` drops, as the sampler's own jitted calls
+do.  (Eagerly, JAX's sampler took 2–3 minutes a case here.)  The
 tests hold each case's tokens (or its ``NonFiniteError``) and collectives
 against JAX and the port's closed forms, on the same numpy inputs as
 ``test_torch_dist_ops.py``'s top-p cases:
@@ -25,6 +29,7 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro_torch.core import dist_ops, guards
 from repro_torch.core.primitives import top_p_sample
@@ -41,7 +46,7 @@ _POLICIES = {
     "raise": dict(p=0.8, method="matmul", nonfinite="raise"),
     "raise-clean-rows": dict(p=0.8, method="matmul", nonfinite="raise", rows=2),
 }
-# JAX's eager reference in two subprocesses at once, about half the time each
+# JAX's reference in two subprocesses at once, about half the time each
 _JAX_GROUPS = (("sanitize-matmul", "raise"), ("sanitize-kernel", "raise-clean-rows"))
 
 
@@ -58,6 +63,7 @@ BY_ID = {c["id"]: c for c in POLICY_CASES}
 _JAX_SCRIPT = """
 import numpy as np, jax, jax.numpy as jnp
 from repro.core import dist_top_p_sample
+from repro.core.primitives import _reject_poisoned_logits
 from repro.utils.compat import make_mesh
 from repro.core.guards import NonFiniteError
 inp = np.load({inputs!r}, allow_pickle=True)
@@ -67,10 +73,13 @@ out = {{}}
 for name, kw in inp["policies"].item().items():
     kw = dict(kw)
     rows = kw.pop("rows", 4)
-    try:                     # eager: the raise gate needs concrete logits
-        out[f"policy-{{name}}"] = np.asarray(dist_top_p_sample(
-            jnp.asarray(inp["poisoned"][:rows]), None, mesh2, "model", u=u[:rows],
-            tile_s=8, **kw))
+    lg = jnp.asarray(inp["poisoned"][:rows])
+    try:
+        if kw["nonfinite"] == "raise":      # the gate on concrete logits
+            _reject_poisoned_logits(lg)
+        f = jax.jit(lambda ll, uu: dist_top_p_sample(ll, None, mesh2, "model", u=uu,
+                                                     tile_s=8, **kw))
+        out[f"policy-{{name}}"] = np.asarray(f(lg, u[:rows]))
     except NonFiniteError:
         out[f"policy-{{name}}"] = np.asarray("NonFiniteError")
 np.savez({outputs!r}, **out)

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.core.scan import scan as jax_scan
 from repro_torch.analysis.collectives import modeled_dist_traffic

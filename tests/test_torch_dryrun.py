@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 from jax.sharding import AbstractMesh, NamedSharding, PartitionSpec as P
 
 _XLA_FLAGS = os.environ.get("XLA_FLAGS")

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.models import attention as jax_att
 from repro.models.layers import sinusoidal_pos as jax_sinusoidal_pos

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.analysis.ulp import max_ulp, scan_scale, segment_scan_scale, ulp_bound
 from repro.configs.base import ModelConfig as JaxModelConfig

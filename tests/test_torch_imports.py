@@ -21,6 +21,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro_torch.configs.base import ModelConfig, MoEConfig, ShapeConfig
 from repro_torch.convert import params_from_jax

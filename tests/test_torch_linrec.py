@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.core import linrec as jax_linrec
 from repro_torch.core.linrec import linear_scan, linrec_accum_dtype_for

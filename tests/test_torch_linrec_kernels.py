@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.kernels import linrec_mm as jax_lin
 from repro_torch.kernels import linrec_mm as port_lin

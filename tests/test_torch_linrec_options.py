@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core import linrec as jax_linrec

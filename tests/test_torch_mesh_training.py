@@ -55,6 +55,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.models.model import build_model as jax_build_model
 from repro.models.model import get_config as jax_get_config

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.models import moe as jax_moe
 from repro.models.layers import use_compute_dtype

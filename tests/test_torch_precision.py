@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 import repro.core as J
 from repro.analysis import ulp

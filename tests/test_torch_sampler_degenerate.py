@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.core import guards as jax_guards
 from repro.core.primitives import top_p_sample as jax_top_p_sample

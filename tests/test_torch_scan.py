@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.analysis import ulp
 from repro.core.scan import accum_dtype_for as jax_accum_dtype_for

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.analysis import ulp
 from repro.core import segmented as J

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.core.segmented import SegmentedBatch as JaxSegmentedBatch
 from repro.models.model import build_model as jax_build_model

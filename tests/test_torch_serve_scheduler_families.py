@@ -29,6 +29,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models.model import build_model, get_config
 from repro_torch.serving import paged_kv
 from repro_torch.serving.scheduler import ContinuousEngine, poisson_trace
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 ARCHS = ("gemma2-2b", "deepseek-moe-16b")
 GEOM = dict(max_batch=2, page_size=8, n_pages=9, max_len=24, tick_tokens=4)

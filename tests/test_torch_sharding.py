@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 from jax.sharding import AbstractMesh
 
 from repro.launch import sharding_plan as jax_plan

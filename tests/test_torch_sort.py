@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.core.primitives import multi_split as jax_multi_split
 from repro.core.primitives import radix_sort as jax_radix_sort

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.core import ssd as jax_ssd
 from repro_torch.core.ssd import ssd_scan, ssd_scan_ref

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.kernels.ops import ssd_kernel as jax_ssd_kernel
 from repro.kernels.ref import ssd_ref as jax_ssd_ref

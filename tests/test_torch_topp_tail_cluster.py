@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.kernels import split_mm as jax_split_mm
 from repro_torch.kernels import split_mm

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.core.ssd import mlstm_chunked as jax_mlstm_chunked
 from repro.core.ssd import mlstm_ref as jax_mlstm_ref

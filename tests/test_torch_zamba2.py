@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one torch thread a test process)
 
 from repro.models.layers import use_compute_dtype
 from repro.models.mamba import mamba_full as jax_mamba_full
