@@ -49,8 +49,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 9. linrec -- the linear-recurrence kernels (B13-B16) each against its plain version
               at (4, 2^24) on random, integer-valued and a = 1 rows (ints exact and
               equal to an fp64 reference; random fp32 within 16 ulp of the fp64
-              recurrence, a bf16-operand control failing that limit), then a
-              ragged row, a one-block row (where B14 and B15 must not launch), the
+              recurrence, a bf16-operand control failing that limit), B14 + B15 in
+              one launch bit-equal to B14 and to B15 on its summaries (also at one
+              tile a block, 65536 blocks a row; five fp32 calls bit-equal), then a
+              ragged row, a one-block row (where B14 must not launch; B15 never
+              launches on the pipeline, its walk runs in B14's launch), the
               SSD's (4, 16, 64, 64, 64) shape along axis 1 (the column walk of B13
               and B16: one launch, exact on integer values against its plain
               version and fp64, random fp32 within 16 ulp, five repeated calls
@@ -294,7 +297,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               launch floor (one ``zero_()`` of 4 elements, eager and graph);
               B2, B3, B4, B12, B14 and B15 as graph replays (B2-B4 and the
               pipeline at fp32, int8 and bf16; B2 + B3 in one launch beside B2
-              then B3, also at 65536 blocks a row); and
+              then B3, also at 65536 blocks a row; B14 + B15 in one launch beside
+              B14 then B15 at 128, 256, 512, 1024 and 65536 blocks a row, and the
+              linear-recurrence pipeline as a graph replay); and
               ``top_p_sample(method="kernel")`` as a graph replay; then, after the
               kernels line's checks, one
               ``launches_by_shape`` line: B6's, B13's, B16's and B17's launches by
@@ -442,11 +447,12 @@ def expect_counts(counts, what: str, **want) -> None:
     check(counts == full, f"{what}: expected launches {full}, got {counts}")
 
 
-def fused_walks(what: str, want: int) -> int:
-    """The fused B2 + B3 launches since the counters were zeroed (counted under
-    ``block_sums``, and apart under ``block_sums_carries``): B3's walk ran in each."""
-    got = _build.LAUNCHES["block_sums_carries"]
-    check(got == want, f"{what}: expected {want} fused B2+B3 launches, got {got}")
+def fused_walks(what: str, want: int, key: str = "block_sums_carries") -> int:
+    """The fused launches since the counters were zeroed: B2 + B3 (counted under
+    ``block_sums``, and apart under ``block_sums_carries``: B3's walk ran in each), or
+    with ``key="linrec_summaries_carries"`` B14 + B15 (under ``linrec_summaries``)."""
+    got = _build.LAUNCHES[key]
+    check(got == want, f"{what}: expected {want} fused {key} launches, got {got}")
     return got
 
 
@@ -1551,14 +1557,16 @@ def block_views(a, b, s, bt):
 
 
 def phase_linrec(gen):
-    """B13, B14, B15 and B16 each against its plain version on the same inputs, then the
-    pipeline whole.  Integer-valued rows are exact against the plain version and the
-    fp64 recurrence; random fp32 from a kernel stays within ``B1_F32_ULP`` of the fp64
+    """B13, B14, B15, B14 + B15 in one launch and B16 each against its plain version on
+    the same inputs (the fused summaries bit-equal to B14's, its carries to B15's on
+    them, also at one tile a block, and five fp32 calls bit-equal), then the pipeline
+    whole.  Integer-valued rows are exact against the plain version and the fp64
+    recurrence; random fp32 from a kernel stays within ``B1_F32_ULP`` of the fp64
     recurrence, the ulp taken at the recurrence run on ``|a|, |b|``.  Returns each
     kernel's largest absolute difference from its plain version."""
     rows, n = SCAN_SHAPE
     limit = B1_F32_ULP
-    worst = {"B13": 0.0, "B14": 0.0, "B15": 0.0, "B16": 0.0, "pipeline": 0.0}
+    worst = {"B13": 0.0, "B14": 0.0, "B15": 0.0, "B14B15": 0.0, "B16": 0.0, "pipeline": 0.0}
     cases = []
 
     def hold(key, tag, got, plain, ref, scale, exact):
@@ -1608,6 +1616,14 @@ def phase_linrec(gen):
         pc = linrec_mm.linrec_carry_scan_plain(prods, lasts)
         case["B15_max_ulp"], case["B15_plain_max_ulp"] = hold("B15", kind, carries, pc, rc,
                                                               sc, exact)
+        # B14 + B15 in one launch: B14's bits, and B15's bits on those summaries
+        fp, fl, fc = linrec_mm.linrec_summaries_carries(ab, bb)
+        check(torch.equal(fp, prods) and torch.equal(fl, lasts),
+              f"B14+B15 fused {kind}: summaries != B14's")
+        check(torch.equal(fc, carries), f"B14+B15 fused {kind}: carries != B15's on the "
+              f"same summaries")
+        case["B14B15_max_ulp"] = hold("B14B15", kind, fc, pc, rc, sc, exact)[0]
+        del fp, fl, fc
         # B16 seeded with the exact states entering the blocks, rounded to fp32
         cin = rc.float()
         out = linrec_mm.linrec_block_scan_carry(ab, bb, cin).reshape(rows, -1)[:, :n]
@@ -1623,6 +1639,23 @@ def phase_linrec(gen):
         case["nb"] = nb
         cases.append(case)
         del whole, wplain
+    # the fused launch on the random rows at the default geometry and at one tile a
+    # block (65536 blocks a row: CTAs of 32 threads play B15's 1024): B14's and B15's
+    # bits, and five more calls bit-equal to the first
+    a, b = inputs["random"]
+    fused = {}
+    for s1, bt1 in ((s, bt), (16, 1)):
+        ab, bb, nb1, _ = block_views(a, b, s1, bt1)
+        first = linrec_mm.linrec_summaries_carries(ab, bb)
+        p1, l1 = linrec_mm.linrec_block_summaries(ab, bb)
+        check(torch.equal(first[0], p1) and torch.equal(first[1], l1)
+              and torch.equal(first[2], linrec_mm.linrec_carry_scan(p1, l1)),
+              f"B14+B15 fused at nb={nb1}: != B14 then B15")
+        check(all(all(map(torch.equal, linrec_mm.linrec_summaries_carries(ab, bb), first))
+                  for _ in range(5)), f"B14+B15 fused at nb={nb1}: five calls not bit-equal")
+        fused[f"nb{nb1}"] = {"s": s1, "block_tiles": bt1, "bit_equal_to_b14_then_b15": True,
+                             "repeat_calls_bit_equal": 5}
+        del ab, bb, first, p1, l1
     # controls: the plain scan of the random rows with their operands rounded to
     # bf16 or TF32 must fail the limit above
     a, b = inputs["random"]
@@ -1640,8 +1673,8 @@ def phase_linrec(gen):
     single = linrec_single_pass(gen, limit)
     sync()
     emit({"phase": "linrec", "shape": list(SCAN_SHAPE), "ulp_limit": limit, "cases": cases,
-          "controls_max_ulp": controls, "rows": rows_out, "single_pass": single,
-          "max_abs_err_vs_plain": worst})
+          "fused_b14_b15": fused, "controls_max_ulp": controls, "rows": rows_out,
+          "single_pass": single, "max_abs_err_vs_plain": worst})
     return worst
 
 
@@ -1697,7 +1730,8 @@ def linrec_single_pass(gen, limit) -> dict:
 
 def linrec_rows(gen, limit):
     """A ragged row and a one-block row through B13 and the pipeline, with exact launch
-    counts: B14 and B15 launch only where a row has more than one block."""
+    counts: B14 launches only where a row has more than one block, B15's walk in its
+    launch (``nb <= LINREC_FUSED_NB_MAX``), so B15 itself never."""
     out = []
     for n2 in (RAGGED_N, 100003):
         shape = (SCAN_SHAPE[0], n2)
@@ -1709,13 +1743,15 @@ def linrec_rows(gen, limit):
             row = {"n": n2, "input": kind, "nb": nb}
             for method, want in (("kernel", {"linrec_scan": 1}),
                                  ("blocked", {"linrec_block_scan": 1, **(
-                                     {"linrec_summaries": 1, "linrec_carry": 1}
-                                     if nb > 1 else {})})):
+                                     {"linrec_summaries": 1} if nb > 1 else {})})):
                 ops.reset_launch_counts()
                 got = linear_scan(a, b, method=method)
                 sync()
                 expect_counts(ops.launch_counts(), f"linear_scan n={n2} {kind} {method}",
                               **want)
+                if method == "blocked":
+                    fused_walks(f"linear_scan n={n2} {kind}", int(nb > 1),
+                                "linrec_summaries_carries")
                 if kind == "int":
                     check(torch.equal(got.double(), ref),
                           f"linear_scan n={n2} int {method}: != the fp64 recurrence")
@@ -2000,8 +2036,7 @@ def guard_operators(gen) -> dict:
                                                                       block_tiles=8,
                                                                       acc=f32)}
     want_lin = {"kernel": {"linrec_scan": 1},
-                "blocked": {"linrec_summaries": 1, "linrec_carry": 1,
-                            "linrec_block_scan": 1}}
+                "blocked": {"linrec_summaries": 1, "linrec_block_scan": 1}}
     for m in ("kernel", "blocked"):
         out[f"linear_scan/{m}"] = guard_path(
             f"linear_scan/{m}", (a, b), lambda k: (inj(a, k, GUARD_SEED + 1), inj(b, k)),
@@ -2350,26 +2385,32 @@ def main_segmented(gen):
 
 def main_linrec(gen):
     """``linear_scan`` through the public entry on (4, 2^24) random rows: ``"kernel"``
-    launches exactly one B13, ``"blocked"`` (128 blocks a row) exactly one each of
-    B14, B15 and B16; both within the ulp limit of the fp64 recurrence."""
+    launches exactly one B13, ``"blocked"`` (128 blocks a row) exactly one B14, whose
+    CTA that finishes a row runs B15's walk, and one B16; both within the ulp limit
+    of the fp64 recurrence."""
     a, b = lin_inputs(gen, SCAN_SHAPE)["random"]
     ref, scale = lin_ref64(a, b), lin_ref64(a.abs(), b.abs())
     runs, res = {}, {}
+    walks = 0
     for method, want in (("kernel", {"linrec_scan": 1}),
-                         ("blocked", {"linrec_summaries": 1, "linrec_carry": 1,
-                                      "linrec_block_scan": 1})):
+                         ("blocked", {"linrec_summaries": 1, "linrec_block_scan": 1})):
         ops.reset_launch_counts()
         out = linear_scan(a, b, method=method)
         sync()
         runs[method] = ops.launch_counts()
         expect_counts(runs[method], f"linear_scan(method={method!r})", **want)
+        if method == "blocked":
+            walks = fused_walks("linear_scan(method='blocked')", 1,
+                                "linrec_summaries_carries")
         check(out.shape == a.shape and out.dtype == torch.float32
               and bool(out.isfinite().all()),
               f"linear_scan({method}) output has the wrong shape or non-finite values")
         res[f"{method}_max_ulp"] = e = max_ulp_dev(out, ref, scale)
         check(e <= B1_F32_ULP, f"linear_scan({method}): {e} ulp > {B1_F32_ULP}")
-    emit({"phase": "main_linrec", "shape": list(SCAN_SHAPE), "launches": runs, **res})
-    return {k: sum(c[k] for c in runs.values()) for k in ops.KERNELS}
+    emit({"phase": "main_linrec", "shape": list(SCAN_SHAPE), "launches": runs,
+          "fused_b14_b15_launches": walks, **res})
+    return {**{k: sum(c[k] for c in runs.values()) for k in ops.KERNELS},
+            "carry_walks": walks}
 
 
 # ---------------------------------------------------------------------------
@@ -4281,11 +4322,17 @@ def adjoint_check(a, b, g, axis: int, method: str, want: dict, **kw) -> dict:
         y = linear_scan(ar, br, axis=axis, method=method, **kw)
         sync()
         fwd_counts = ops.launch_counts()
+        fwd_walks = _build.LAUNCHES["linrec_summaries_carries"]
         ops.reset_launch_counts()
         runs.append(torch.autograd.grad(y, (ar, br), g))
         sync()
         expect_counts(ops.launch_counts(), f"{method} adjoint at {tuple(b.shape)}", **want)
         expect_counts(fwd_counts, f"{method} forward at {tuple(b.shape)}", **want)
+        # every B14 of the rows' pipeline runs B15's walk in its launch
+        walks = want.get("linrec_summaries", 0)
+        fused_walks(f"{method} adjoint at {tuple(b.shape)}", walks, "linrec_summaries_carries")
+        check(fwd_walks == walks, f"{method} forward at {tuple(b.shape)}: {fwd_walks} "
+              f"fused B14 + B15 launches, not {walks}")
     same = all(torch.equal(r[0], runs[0][0]) and torch.equal(r[1], runs[0][1])
                for r in runs[1:])
     check(same, f"{method} adjoint at {tuple(b.shape)}: {ADJOINT_REPS} calls differ")
@@ -4314,8 +4361,7 @@ def adjoint_phase(gen, cross) -> dict:
     with a random cotangent."""
     out = {}
     rows_want = {"kernel": {"linrec_scan": 1},
-                 "blocked": {"linrec_summaries": 1, "linrec_carry": 1,
-                             "linrec_block_scan": 1}}
+                 "blocked": {"linrec_summaries": 1, "linrec_block_scan": 1}}
     for shape in ADJOINT_ROWS:
         a, b = lin_inputs(gen, shape)["random"]
         g = torch.randn(shape, generator=gen, device=DEV)
@@ -4600,7 +4646,9 @@ def moe_dispatch_check(cfg, params, eidx) -> dict:
     modes on "kernel" (B9, B1) and "blocked" (B12, B4, one block a row), each one
     launch, bit-equal to one another and to an int64 cumsum of the one-hot; B9 and
     B12 also against their plain versions on the same one-hot on the card.  Then the
-    dispatch scan's ms beside the layer's expert GEMMs' ms at this routing's capacity."""
+    dispatch scan's ms beside the layer's expert GEMMs' ms at this routing's capacity,
+    and B9's and B12's ms on the one-hot (eager and as graph replays), where most of
+    their launches run, beside its byte bound (the one-hot and flags in, int32 out)."""
     e = cfg.moe.n_experts
     onehot = torch.nn.functional.one_hot(eidx.to(torch.int64), e)              # (1, N, E)
     ref = torch.gather(torch.cumsum(onehot, 1) - onehot, 2,
@@ -4635,6 +4683,11 @@ def moe_dispatch_check(cfg, params, eidx) -> dict:
     b9_ms = cuda_ms(lambda: segscan_mm.seg_scan_tiles(oh8, flags), 20)
     b9_device_ms = graph_ms(lambda: segscan_mm.seg_scan_tiles(oh8, flags), 20)
     b9_bound_ms, _ = bound(oh8.numel() + flags.numel() + 4 * oh8.numel())
+    ops.reset_launch_counts()
+    segscan_mm.seg_blocked_scan(oh8, flags)
+    b12_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    b12_ms = cuda_ms(lambda: segscan_mm.seg_blocked_scan(oh8, flags), 20)
+    b12_device_ms = graph_ms(lambda: segscan_mm.seg_blocked_scan(oh8, flags), 20)
     cap = moe_model.capacity_of(eidx.shape[1] // cfg.moe.top_k, cfg)
     w = _first(params["stack"]["sub0"]["moe"]["experts"])
     ex_in = torch.randn((e, cap, cfg.d_model), generator=torch.Generator(DEV).manual_seed(5),
@@ -4646,6 +4699,8 @@ def moe_dispatch_check(cfg, params, eidx) -> dict:
             "dropped": int((ref >= cap).sum()),
             "dispatch_scan_ms": scan_ms, "dispatch_host_syncs": syncs,
             "b9_ms": b9_ms, "b9_device_ms": b9_device_ms, "b9_bound_ms": b9_bound_ms,
+            "b12_ms": b12_ms, "b12_device_ms": b12_device_ms, "b12_bound_ms": b9_bound_ms,
+            "b12_launches_a_call": b12_launches, "one_hot_shape": list(oh8.shape),
             "expert_gemms_ms": gemm_ms,
             "dispatch_share_of_layer_moe": scan_ms / (scan_ms + gemm_ms)}
 
@@ -5521,11 +5576,13 @@ def dist_rank(shape, vocab, seed, time_reps):
     refi = lin_ref64(ai, bi)
     lin_model = modeled_dist_traffic("dist_linear_scan", d=d, n=n, batch=b, itemsize=4)
     for method, want in (("kernel", {"linrec_scan": 2}),
-                         ("blocked", {"linrec_summaries": 2, "linrec_carry": 2,
-                                      "linrec_block_scan": 2})):
+                         ("blocked", {"linrec_summaries": 2, "linrec_block_scan": 2})):
         y = main_call(f"dist_linear_scan_{method}",
                       lambda: dist_linear_scan(a[:, lo:hi], bb[:, lo:hi], n, method=method),
                       want, lin_model)
+        if method == "blocked":             # B15's walk in each B14 launch
+            res["calls"][f"dist_linear_scan_{method}"]["fused_b14_b15"] = fused_walks(
+                f"dist_linear_scan on rank {me} of {d}", 2, "linrec_summaries_carries")
         res["max_ulp"][f"dist_linear_scan_{method}"] = e = max_ulp_dev(
             y, ref[:, lo:hi], scale[:, lo:hi])
         check(e <= B1_F32_ULP, f"dist_linear_scan({method}) on rank {me}: {e} ulp")
@@ -6577,7 +6634,12 @@ def time_linrec(gen):
     block: 128 blocks a row) and at the SSD shape (the rows of (4, 16, 64, 64, 64)
     along axis 1: 2^20 rows of 16, one block each), each in turns with its plain
     version.  No single PyTorch call computes the general recurrence, so
-    ``library_ms`` is None; beside B13 stands ``torch.cumsum``, the a = 1 case."""
+    ``library_ms`` is None; beside B13 stands ``torch.cumsum``, the a = 1 case.
+    B14 + B15 in one launch (``B14B15``) eagerly and as a graph replay, beside B14
+    followed by B15, at the default geometry and at s=16 with one tile a block
+    (65536 blocks a row); and ``B15.fused_by_nb``: the two at 128, 256, 512, 1024
+    and 65536 blocks a row of (4, 2^24), the times that set
+    ``linrec_mm.LINREC_FUSED_NB_MAX``."""
     out = {}
     a, b = lin_inputs(gen, SCAN_SHAPE)["random"]
     rows, n = SCAN_SHAPE
@@ -6612,6 +6674,42 @@ def time_linrec(gen):
     bms, by = bound(rows * nb * 12, rows * nb * 2)
     out["B15"] = dict(ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by, nb=nb,
                       device_ms=graph_ms(lambda: linrec_mm.linrec_carry_scan(pp, pl_), 200))
+
+    def two_launches(ab_, bb_):
+        return lambda: linrec_mm.linrec_carry_scan(*linrec_mm.linrec_block_summaries(ab_, bb_))
+
+    def fused_launch(ab_, bb_):
+        return lambda: linrec_mm.linrec_summaries_carries(ab_, bb_)
+
+    # the fused launch against B14 then B15 by blocks a row, device times in turns
+    # (two, fused, fused, two) and eager; the default geometry first, one tile a block
+    # (B2B3's nb65536 shape) last
+    by_nb = {}
+    for s1, bt1 in ((128, 8), (128, 4), (128, 2), (128, 1), (16, 1)):
+        ab1, bb1, nb1, bl1 = block_views(a, b, s1, bt1)
+        two, fused = two_launches(ab1, bb1), fused_launch(ab1, bb1)
+        t = [graph_ms(two, 20), graph_ms(fused, 20), graph_ms(fused, 20), graph_ms(two, 20)]
+        e = [cuda_ms(two, 10), cuda_ms(fused, 10), cuda_ms(fused, 10), cuda_ms(two, 10)]
+        by_nb[str(nb1)] = dict(
+            block_len=bl1, fused_by_rule=linrec_mm.fuses_carries(nb1),
+            b14_device_ms=graph_ms(lambda: linrec_mm.linrec_block_summaries(ab1, bb1), 20),
+            fused_device_ms=(t[1] + t[2]) / 2, b14_then_b15_device_ms=(t[0] + t[3]) / 2,
+            fused_ms=(e[1] + e[2]) / 2, b14_then_b15_ms=(e[0] + e[3]) / 2,
+            bound_ms=bound(rows * n * 8 + rows * nb1 * 12)[0])
+        del ab1, bb1
+    out["B15"]["fused_by_nb"] = by_nb
+    k, pl = paired_ms(fused_launch(ab, bb),
+                      lambda: linrec_mm.linrec_summaries_carries_plain(ab, bb, f32), 5)
+    bms, by = bound(rows * n * 8 + rows * nb * 12, rows * nb * 2)
+    default, one_tile = by_nb[str(nb)], by_nb[str(nb1)]
+    out["B14B15"] = dict(
+        ms=k, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by,
+        device_ms=default["fused_device_ms"], b14_then_b15_ms=default["b14_then_b15_ms"],
+        b14_then_b15_device_ms=default["b14_then_b15_device_ms"],
+        nb65536_ms=one_tile["fused_ms"], nb65536_device_ms=one_tile["fused_device_ms"],
+        nb65536_b14_then_b15_ms=one_tile["b14_then_b15_ms"],
+        nb65536_b14_then_b15_device_ms=one_tile["b14_then_b15_device_ms"],
+        nb65536_bound_ms=one_tile["bound_ms"])
     cin = linrec_mm.linrec_carry_scan_plain(pp, pl_)
     k, pl = paired_ms(lambda: linrec_mm.linrec_block_scan_carry(ab, bb, cin),
                       lambda: linrec_mm.linrec_block_scan_carry_plain(ab, bb, cin, f32), 1,
@@ -6622,6 +6720,8 @@ def time_linrec(gen):
                       lambda: linrec_mm.linrec_blocked_scan_plain(a, b, s=128, block_tiles=8,
                                                                   acc=f32), 1, kernel_reps=10)
     out["linrec_pipeline"] = dict(ms=k, plain_ms=pl, library_ms=None,
+                                  device_ms=graph_ms(lambda: linear_scan(a, b, method="blocked"),
+                                                     10),
                                   bound_ms=bound(rows * n * 20)[0],     # B14's and B16's reads
                                   recurrence_bound_ms=bound(rows * n * 12)[0],
                                   vector_ms=cuda_ms(lambda: linear_scan(a, b, method="vector"),
@@ -6951,12 +7051,16 @@ def main() -> int:
          "dist_linear_scan's shards)", "linrec_scan.cu",
          "src/repro/kernels/linrec_mm.py:72", lin_launches["linrec_scan"], lin_err["B13"],
          timing["B13"]),
-        ("B14 linrec_block_summaries ((prod a, trailing sum) per block)",
+        ("B14 linrec_block_summaries ((prod a, trailing sum) per block; launches include "
+         "the pipeline's fused B14 + B15 launches)",
          "linrec_summaries.cu", "src/repro/kernels/linrec_mm.py:143",
          lin_launches["linrec_summaries"], lin_err["B14"], timing["B14"]),
-        ("B15 linrec_carry_scan (exclusive affine scan of the block summaries)",
+        ("B15 linrec_carry_scan (exclusive affine scan of the block summaries; launches: "
+         "the pipeline's fused B14 launches, whose CTA that finishes a row runs B15's "
+         "walk, linrec_carry_row.cuh; times: B15's own launch)",
          "linrec_carry.cu", "src/repro/kernels/linrec_mm.py:183",
-         lin_launches["linrec_carry"], lin_err["B15"], timing["B15"]),
+         lin_launches["linrec_carry"] + linrec_counts["carry_walks"],
+         max(lin_err["B15"], lin_err["B14B15"]), timing["B15"]),
         ("B16 linrec_block_scan_carry (block recurrence seeded with its carry; launches: "
          "main_linrec, zamba2 prefill, zamba2 forward and loss, and xlstm-350m's "
          "forward, loss and prefill under scan_method='blocked', their cross-chunk "

@@ -66,6 +66,8 @@ ENTRIES: Dict[tuple, list] = {
         [_P, _P, _L, _P, _P, _I, _L, _I, _L, _I, _I, _I, _P],
     ("topp_tail", "repro_topp_tail_design"): [_P, _L, _P, _P, _I, _L, _F, _I, _I, _P],
     ("block_sums", "repro_block_sums_carries"): [_P, _P, _P, _P, _L, _I, _L, _I, _L, _I, _P],
+    ("linrec_summaries", "repro_linrec_summaries_carries"):
+        [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _L, _P],
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -1,5 +1,6 @@
 // The affine-pair walk shared by B13 (linrec_scan.cu), B14 (linrec_summaries.cu),
-// B15 (linrec_carry.cu) and B16 (linrec_block_scan.cu).
+// B15 (linrec_carry.cu, through linrec_carry_row.cuh) and B16
+// (linrec_block_scan.cu).
 //
 // The linear recurrence y_t = a_t * y_{t-1} + b_t is a scan under the
 // affine-pair operator on the maps y -> A*y + B,
@@ -14,12 +15,12 @@
 // The state entering a thread's first element is A_ex * y_in + B_ex, where
 // (A_ex, B_ex) composes every earlier element of the round; from there the
 // thread walks its own elements with y = fma(a, y, b).  A CTA-wide round
-// (affine_round_scan / affine_round_store: B13's tiles, and B15's and B16's
-// ranges through block_linrec_range) moves its pairs and its results through
-// shared memory, each warp's in address order (16-byte cp.async copies in,
+// (affine_round_scan / affine_round_store: B13's tiles, and B16's ranges
+// through block_linrec_range) moves its pairs and its results through shared
+// memory, each warp's in address order (16-byte cp.async copies in,
 // warp_store_staged out), so its global accesses are whole 16-byte words side
-// by side; the warp walk (rows of at most kLinWarpMax) and B14 load straight
-// from global memory.
+// by side; the warp walk (rows of at most kLinWarpMax), B14 and B15's walk of
+// the summaries (linrec_carry_row.cuh) load straight from global memory.
 //
 // What this does about the Pallas design.  The TPU kernels build a weighted
 // triangle W[i, j] = p_i / p_j from exponent-normalized cumulative products
@@ -148,18 +149,15 @@ __device__ __forceinline__ void load_fold(const float* __restrict__ a,
 }
 
 // Walk a thread's kLinItems elements from the state s entering the first one,
-// storing the inclusive (or, kExclusive, the entering) state of each.
-template <bool kExclusive>
+// storing the inclusive state of each.
 __device__ __forceinline__ void walk_store(const float (&av)[kLinItems],
                                            const float (&bv)[kLinItems], float s,
                                            float* __restrict__ out, long long i0,
                                            long long hi) {
 #pragma unroll
     for (int k = 0; k < kLinItems; ++k) {
-        const bool in = i0 + k < hi;
-        if (kExclusive && in) out[i0 + k] = s;
         s = fmaf(av[k], s, bv[k]);
-        if (!kExclusive && in) out[i0 + k] = s;
+        if (i0 + k < hi) out[i0 + k] = s;
     }
 }
 
@@ -238,8 +236,8 @@ __device__ __forceinline__ void affine_round_scan(const float* __restrict__ a,
 }
 
 // Write the round that starts at base below hi, from the state y entering it:
-// each element's inclusive (or, kExclusive, entering) state.
-template <bool kExclusive, int N>
+// each element's inclusive state.
+template <int N>
 __device__ __forceinline__ void affine_round_store(float* __restrict__ out, long long base,
                                                    long long hi, const AffineRound& r, float y,
                                                    unsigned char* stage) {
@@ -252,9 +250,8 @@ __device__ __forceinline__ void affine_round_store(float* __restrict__ out, long
     float s = fmaf(r.exA, y, r.exB);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-        if (kExclusive) v[k] = s;
         s = fmaf(av[k], s, bv[k]);
-        if (!kExclusive) v[k] = s;
+        v[k] = s;
     }
     warp_store_staged<float, N>(out + wbase, hi - wbase, sa, lane, v);
 }
@@ -262,7 +259,6 @@ __device__ __forceinline__ void affine_round_store(float* __restrict__ out, long
 // The recurrence over [lo, hi) of one row, walked by the whole CTA round after
 // round and seeded with the state y; returns the state leaving hi.  `stage`
 // holds affine_stage_bytes(blockDim.x) bytes.
-template <bool kExclusive>
 __device__ __forceinline__ float block_linrec_range(const float* __restrict__ a,
                                                     const float* __restrict__ b,
                                                     float* __restrict__ out, long long lo,
@@ -272,7 +268,7 @@ __device__ __forceinline__ float block_linrec_range(const float* __restrict__ a,
     for (long long base = lo; base < hi; base += round) {
         AffineRound r;
         affine_round_scan<kLinItems>(a, b, base, hi, r, sc, stage);
-        affine_round_store<kExclusive, kLinItems>(out, base, hi, r, y, stage);
+        affine_round_store<kLinItems>(out, base, hi, r, y, stage);
         y = fmaf(r.totA, y, r.totB);
     }
     return y;
@@ -298,7 +294,7 @@ __device__ __forceinline__ float warp_linrec_range(const float* __restrict__ a,
         }
         const float totA = __shfl_sync(kFullMask, iA, 31);
         const float totB = __shfl_sync(kFullMask, iB, 31);
-        walk_store<false>(av, bv, fmaf(exA, y, exB), out, i0, hi);
+        walk_store(av, bv, fmaf(exA, y, exB), out, i0, hi);
         y = fmaf(totA, y, totB);
     }
     return y;

@@ -135,17 +135,6 @@ __device__ __forceinline__ A team_share(const T* __restrict__ x, long long e0, l
     return acc;
 }
 
-// *p += v at device scope, returning the old value.  Release: the CTA's sums,
-// ordered before this thread by the barrier, are visible to whoever takes a
-// later ticket; acquire: the sums of the CTAs that took earlier ones are
-// visible to this CTA after the next barrier (the walk reads them from L2).
-__device__ __forceinline__ int ticket(int* p, int v) {
-    int old;
-    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;"
-                 : "=r"(old) : "l"(p), "r"(v) : "memory");
-    return old;
-}
-
 template <typename T, typename A, bool kCarries>
 __global__ void __launch_bounds__(kThreads)
 block_sums_kernel(const T* __restrict__ x, A* sums, A* carries, int* tickets, long long n,
@@ -193,7 +182,7 @@ block_sums_kernel(const T* __restrict__ x, A* sums, A* carries, int* tickets, lo
             const unsigned r = r0 + threadIdx.x;
             const unsigned lo = max(t0, r * nb), hi = min(t1, (r + 1) * nb);
             const int cnt = static_cast<int>(hi - lo);
-            last[threadIdx.x] = ticket(tickets + r, cnt) + cnt == nb;
+            last[threadIdx.x] = repro::ticket(tickets + r, cnt) + cnt == nb;
         }
         __syncthreads();
         for (int k = 0; k < rows; ++k) {

@@ -67,6 +67,19 @@ __device__ __forceinline__ A block_exclusive_scan(A v, A* scratch, A& total) {
     return ex;
 }
 
+// *p += v at device scope, returning the old value: the ticket of a row's
+// fused carry walk (block_sums.cu, linrec_summaries.cu).  Release: what the
+// CTA wrote, ordered before this thread by a barrier (or written by it), is
+// visible to whoever takes a later ticket; acquire: what the CTAs that took
+// earlier ones wrote is visible to this CTA after the next barrier (the walk
+// reads it from L2).
+__device__ __forceinline__ int ticket(int* p, int v) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;"
+                 : "=r"(old) : "l"(p), "r"(v) : "memory");
+    return old;
+}
+
 // Vector words of the loads below.
 template <int B> struct VecWord;
 template <> struct VecWord<16> { using type = uint4; };

@@ -41,8 +41,8 @@ linrec_block_scan_kernel(const float* __restrict__ a, const float* __restrict__ 
     const long long row = cta / nb;
     const long long lo = (cta - row * nb) * block_len;
     const long long hi = min(n, lo + block_len);
-    repro::block_linrec_range<false>(a + row * n, b + row * n, out + row * n, lo, hi,
-                                     carries[cta], sc, stage);
+    repro::block_linrec_range(a + row * n, b + row * n, out + row * n, lo, hi, carries[cta],
+                              sc, stage);
 }
 
 __global__ void __launch_bounds__(32 * repro::kLinRowsPerCta)

@@ -80,7 +80,7 @@ linrec_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
         if (threadIdx.x == 0) carry_sh = c;
     }
     __syncthreads();
-    repro::affine_round_store<false, kItems>(out + row * n, base, n, r, carry_sh, stage);
+    repro::affine_round_store<kItems>(out + row * n, base, n, r, carry_sh, stage);
 }
 
 __global__ void __launch_bounds__(32 * repro::kLinRowsPerCta)

@@ -1,4 +1,6 @@
-// B14 — the block summaries of the linear-recurrence §4 pipeline (phase 1).
+// B14 — the block summaries of the linear-recurrence §4 pipeline (phase 1),
+// and, through a second entry point, B15's carry scan run inside the same
+// launch.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/linrec_mm.py::_summary_kernel
 // (launched by linrec_block_summaries): for each block of block_len
@@ -15,16 +17,29 @@
 // rounds are composed in order.  The operator does not commute, so no
 // atomics.  The ragged end of a row is the identity (1, 0).
 //
+// Fused carries (repro_linrec_summaries_carries).  After thread 0 writes its
+// block's summary it takes a ticket from its row's int32 counter with an
+// acquire-release atomic.  The CTA that takes a row's last ticket reads the
+// row's nb summaries through L2 and runs B15's walk over them
+// (linrec_carry_row.cuh), playing B15's lin_threads(nb) threads with its own
+// lin_threads(block_len), so the carries are bit for bit linrec_carry's of the
+// same summaries whichever CTA comes last.  The walk loads straight from L2,
+// so the CTAs take no dynamic shared memory.  The counters are the caller's
+// scratch, zeroed here on the launch's stream.
+//
 // Bound.  It reads a and b once and writes 8 B per block: 8 B per element,
 // bound by bytes (0.160 ms at (4, 2^24) at 3.35 TB/s).
-#include "affine_tile.cuh"
+#include "linrec_carry_row.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(repro::kLinMaxThreads)
+// two CTAs of 1024 an SM, 32 registers a thread, as B14 alone: the walk's
+// registers must not halve the occupancy of every CTA for the one that walks
+template <bool kCarries>
+__global__ void __launch_bounds__(repro::kLinMaxThreads, 2)
 linrec_summaries_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                        float* __restrict__ prods, float* __restrict__ lasts, long long n,
-                        int nb, long long block_len) {
+                        float* prods, float* lasts, float* carries, int* tickets, long long n,
+                        int nb, long long block_len, int carry_threads) {
     __shared__ repro::AffineScratch sc;
     const long long cta = blockIdx.x;
     const long long row = cta / nb;
@@ -43,10 +58,46 @@ linrec_summaries_kernel(const float* __restrict__ a, const float* __restrict__ b
         L = fmaf(totA, L, totB);              // (P, L) o (totA, totB)
         P = P * totA;
     }
-    if (threadIdx.x == 0) {
+    if constexpr (kCarries) {
+        // thread 0 writes the summary and takes the row's ticket (release covers
+        // its own stores); the CTA with the row's last ticket walks the row
+        __shared__ int last;
+        if (threadIdx.x == 0) {
+            prods[cta] = P;
+            lasts[cta] = L;
+            last = repro::ticket(tickets + row, 1) == nb - 1;
+        }
+        __syncthreads();
+        if (last) {
+            const long long off = row * nb;
+            repro::linrec_carry_row<true>(prods + off, lasts + off, carries + off, nb,
+                                          carry_threads, sc);
+        }
+    } else if (threadIdx.x == 0) {
         prods[cta] = P;
         lasts[cta] = L;
     }
+}
+
+bool bad_geometry(int rows, long long n, int nb, long long block_len) {
+    return block_len < 1 || nb != (n + block_len - 1) / block_len ||
+           static_cast<long long>(rows) * nb > 0x7fffffffLL;
+}
+
+template <bool kCarries>
+int launch(const void* a, const void* b, void* prods, void* lasts, void* carries, int* tickets,
+           int rows, long long n, int nb, long long block_len, cudaStream_t stream) {
+    if (kCarries) {
+        const cudaError_t e = cudaMemsetAsync(tickets, 0, sizeof(int) * rows, stream);
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    linrec_summaries_kernel<kCarries><<<static_cast<unsigned>(rows) * nb,
+                                        repro::lin_threads(block_len, repro::kLinMaxThreads), 0,
+                                        stream>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(prods),
+        static_cast<float*>(lasts), static_cast<float*>(carries), tickets, n, nb, block_len,
+        repro::lin_threads(nb, repro::kLinMaxThreads));
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -57,14 +108,24 @@ extern "C" int repro_linrec_summaries(const void* a, const void* b, void* prods,
                                       int rows, long long n, int nb, long long block_len,
                                       void* stream) {
     if (rows <= 0 || n <= 0) return 0;
-    if (block_len < 1 || nb != (n + block_len - 1) / block_len ||
-        static_cast<long long>(rows) * nb > 0x7fffffffLL) {
+    if (bad_geometry(rows, n, nb, block_len)) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<false>(a, b, prods, lasts, nullptr, nullptr, rows, n, nb, block_len,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// As repro_linrec_summaries, and carries: (rows, nb) fp32 gets the state entering
+// each block, as repro_linrec_carry computes it from prods and lasts.  tickets:
+// the caller's scratch of at least rows int32 counters (tickets_bytes), zeroed
+// here.
+extern "C" int repro_linrec_summaries_carries(const void* a, const void* b, void* prods,
+                                              void* lasts, void* carries, void* tickets,
+                                              long long tickets_bytes, int rows, long long n,
+                                              int nb, long long block_len, void* stream) {
+    if (rows <= 0 || n <= 0) return 0;
+    if (bad_geometry(rows, n, nb, block_len) ||
+        tickets_bytes < static_cast<long long>(sizeof(int)) * rows) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    linrec_summaries_kernel<<<static_cast<unsigned>(rows) * nb,
-                              repro::lin_threads(block_len, repro::kLinMaxThreads), 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(prods),
-        static_cast<float*>(lasts), n, nb, block_len);
-    return static_cast<int>(cudaGetLastError());
+    return launch<true>(a, b, prods, lasts, carries, static_cast<int*>(tickets), rows, n, nb,
+                        block_len, static_cast<cudaStream_t>(stream));
 }

@@ -16,9 +16,19 @@ sharing the affine-pair walk of ``csrc/affine_tile.cuh``:
 * :func:`linrec_block_scan_carry` (B16, ``csrc/linrec_block_scan.cu``) —
   phases 1 and 3 fused: each block's recurrence seeded with its carry.
 
-:func:`linrec_blocked_scan` runs B14–B16 with the JAX geometry: blocks of
-``t = min(block_tiles, ⌈n/s²⌉)`` tiles, ``m = t·s`` rows of ``s``; with one
-block per row the carry is zero and B14 and B15 are not launched.
+:func:`linrec_summaries_carries` is B14 and B15 in one launch: B14's second
+entry point writes the summaries, and the CTA that finishes a row's last block
+runs B15's walk (``csrc/linrec_carry_row.cuh``) over them, so its carries are
+bit for bit :func:`linrec_carry_scan`'s.  It counts one launch, under
+``linrec_summaries`` (and, apart from the kernels' counts, under
+``linrec_summaries_carries``).
+
+:func:`linrec_blocked_scan` runs the pipeline with the JAX geometry: blocks of
+``t = min(block_tiles, ⌈n/s²⌉)`` tiles, ``m = t·s`` rows of ``s``.  Where
+:func:`fuses_carries` holds (``nb <= 256``: rows of up to 2^25 at the default
+geometry's 131072-pair blocks) that is two launches, the fused summaries and
+carries and then B16; else B14, B15 and B16.  With one block per row the
+carry is zero and only B16 is launched.
 
 :func:`linrec_columns` walks a short scan axis that is not the last where it
 lies (``csrc/linrec_columns.cuh``: one thread a column of an ``(outer, n,
@@ -58,11 +68,13 @@ from repro_torch.kernels import _build, lookback
 from repro_torch.kernels.scan_pipeline import block_geometry
 
 __all__ = ["linrec_scan_tiles", "linrec_block_summaries", "linrec_carry_scan",
-           "linrec_block_scan_carry", "linrec_blocked_scan", "linrec_scan_tiles_plain",
-           "linrec_block_summaries_plain", "linrec_carry_scan_plain",
+           "linrec_summaries_carries", "linrec_block_scan_carry", "linrec_blocked_scan",
+           "linrec_scan_tiles_plain", "linrec_block_summaries_plain",
+           "linrec_carry_scan_plain", "linrec_summaries_carries_plain",
            "linrec_block_scan_carry_plain", "linrec_blocked_scan_plain", "linrec_scan_tile",
-           "linrec_columns", "linrec_columns_plain", "column_walk_applies",
-           "LINREC_SCAN_THREADS", "LINREC_SCAN_ITEMS", "LINREC_WARP_MAX", "LINREC_COLUMN_MAX"]
+           "linrec_columns", "linrec_columns_plain", "column_walk_applies", "fuses_carries",
+           "LINREC_SCAN_THREADS", "LINREC_SCAN_ITEMS", "LINREC_WARP_MAX", "LINREC_COLUMN_MAX",
+           "LINREC_FUSED_NB_MAX"]
 
 # elements of the largest triangle stack a plain version builds at once
 _CHUNK_ELEMS = 1 << 26
@@ -79,6 +91,27 @@ LINREC_WARP_MAX = 2048
 # still keeps every thread's loads of 8 steps in flight while the columns fill
 # the card
 LINREC_COLUMN_MAX = 64
+# the most blocks a row for which linrec_blocked_scan runs B15's walk inside
+# B14's launch (fuses_carries)
+LINREC_FUSED_NB_MAX = 256
+
+
+def fuses_carries(nb: int) -> bool:
+    """Whether :func:`linrec_blocked_scan` runs B15's walk inside B14's launch: for
+    ``1 < nb <= LINREC_FUSED_NB_MAX``, a geometry rule.
+
+    At ``nb <= 256`` B15's CTA is one warp (``lin_threads(nb) = 32``), which any
+    fused CTA plays with its first warp; the fused launch costs B14 plus its last
+    CTA's ticket and walk, about what B15 costs after it on the device, and saves
+    B15's launch on the host.  Above it every CTA's ticket holds its slot on the
+    SM for an atomic's round trip, which costs more than B15's launch where rows
+    have many short blocks, and a fused CTA smaller than B15's plays B15's warps one
+    after another (one tile a block: CTAs of 32 threads for B15's 1024).
+    ``chip_smoke.py``'s ``time_linrec`` times both branches at nb = 128 to 65536
+    (``B15.fused_by_nb``; PERF.md §6 has the times that set the rule).  Both
+    branches are the kernels.
+    """
+    return 1 < nb <= LINREC_FUSED_NB_MAX
 
 
 def linrec_scan_tile(n: int) -> int:
@@ -216,6 +249,14 @@ def linrec_carry_scan_plain(prods: torch.Tensor, lasts: torch.Tensor, *,
     return F.pad(inc, (1, 0))[..., :-1]
 
 
+def linrec_summaries_carries_plain(ablocks: torch.Tensor, bblocks: torch.Tensor,
+                                   acc: torch.dtype, precision: str = "highest"):
+    """:func:`linrec_block_summaries_plain`, then :func:`linrec_carry_scan_plain` on
+    its summaries: ``(prods, lasts, carries)``."""
+    prods, lasts = linrec_block_summaries_plain(ablocks, bblocks, acc)
+    return prods, lasts, linrec_carry_scan_plain(prods, lasts, precision=precision)
+
+
 def linrec_block_scan_carry_plain(ablocks: torch.Tensor, bblocks: torch.Tensor,
                                   carries: torch.Tensor, acc: torch.dtype,
                                   precision: str = "highest") -> torch.Tensor:
@@ -235,8 +276,7 @@ def linrec_blocked_scan_plain(ab: torch.Tensor, bb: torch.Tensor, *, s: int,
     if nb == 1:
         carries = torch.zeros((rows, 1), dtype=acc, device=ab.device)
     else:
-        carries = linrec_carry_scan_plain(
-            *linrec_block_summaries_plain(ablocks, bblocks, acc), precision=precision)
+        carries = linrec_summaries_carries_plain(ablocks, bblocks, acc, precision)[2]
     out = linrec_block_scan_carry_plain(ablocks, bblocks, carries, acc, precision)
     return out.reshape(rows, nb * block_len)[:, :n]
 
@@ -286,6 +326,21 @@ def _linrec_summaries_cuda(ak, bk, nb, block_len):
         _build.launch("linrec_summaries", ak.data_ptr(), bk.data_ptr(), prods.data_ptr(),
                       lasts.data_ptr(), rows, n, nb, block_len, _stream(ak))
     return prods, lasts
+
+
+def _linrec_summaries_carries_cuda(ak, bk, nb, block_len):
+    rows, n = ak.shape
+    prods = torch.empty((rows, nb), dtype=torch.float32, device=ak.device)
+    lasts = torch.empty_like(prods)
+    carries = torch.empty_like(prods)
+    tickets = torch.empty((rows,), dtype=torch.int32, device=ak.device)
+    with torch.cuda.device(ak.device):
+        _build.launch("linrec_summaries", ak.data_ptr(), bk.data_ptr(), prods.data_ptr(),
+                      lasts.data_ptr(), carries.data_ptr(), tickets.data_ptr(),
+                      tickets.numel() * tickets.element_size(), rows, n, nb, block_len,
+                      _stream(ak), entry="repro_linrec_summaries_carries")
+    _build.LAUNCHES["linrec_summaries_carries"] += 1   # B15's walk ran in this launch too
+    return prods, lasts, carries
 
 
 def _linrec_carry_cuda(prods, lasts):
@@ -508,6 +563,27 @@ def linrec_carry_scan(prods: torch.Tensor, lasts: torch.Tensor, *,
     return _linrec_carry_cuda(pk, lk)
 
 
+def linrec_summaries_carries(ablocks: torch.Tensor, bblocks: torch.Tensor, *,
+                             accum_dtype=None, precision: str = "highest"):
+    """Phases 1 and 2 in one launch: ``(prods, lasts, carries)``, each ``(rows, nb)``,
+    of ``(rows, nb, m, s)`` blocks.
+
+    The summaries are :func:`linrec_block_summaries`'s and the carries
+    :func:`linrec_carry_scan`'s of those summaries, bit for bit, at every
+    geometry.  ``precision`` reaches the plain version's carry products only.
+    """
+    guards.validate_choice(precision, PRECISIONS, name="precision",
+                           op="linrec_summaries_carries")
+    _check_pair("linrec_summaries_carries", ablocks, bblocks, ndim=4)
+    rows, nb, m, s = ablocks.shape
+    acc = _acc_of(ablocks, bblocks, accum_dtype)
+    if not ablocks.is_cuda or ablocks.numel() == 0:
+        return linrec_summaries_carries_plain(ablocks, bblocks, acc, precision)
+    ak, bk = _kernel_rows(ablocks.reshape(rows, -1), bblocks.reshape(rows, -1), acc,
+                          op="linrec_summaries_carries")
+    return _linrec_summaries_carries_cuda(ak, bk, nb, m * s)
+
+
 def linrec_block_scan_carry(ablocks: torch.Tensor, bblocks: torch.Tensor,
                             carries: torch.Tensor, *, accum_dtype=None,
                             precision: str = "highest") -> torch.Tensor:
@@ -541,7 +617,8 @@ def linrec_block_scan_carry(ablocks: torch.Tensor, bblocks: torch.Tensor,
 def linrec_blocked_scan(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
                         block_tiles: int = 8, accum_dtype=None,
                         precision: str = "highest") -> torch.Tensor:
-    """Linear recurrence of the last axis with the three-phase blocked pipeline.
+    """Linear recurrence of the last axis with the blocked pipeline: on the card
+    two launches where :func:`fuses_carries` holds, else three.
 
     Example:
         >>> linrec_blocked_scan(torch.full((300,), 0.5), torch.ones(300), s=8,
@@ -566,6 +643,8 @@ def linrec_blocked_scan(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
     if nb == 1:
         # one block: the carry is zero, so phases 1 and 2 are skipped
         carries = torch.zeros((ab.shape[0], 1), dtype=torch.float32, device=a.device)
+    elif fuses_carries(nb):
+        carries = _linrec_summaries_carries_cuda(ak, bk, nb, block_len)[2]
     else:
         carries = _linrec_carry_cuda(*_linrec_summaries_cuda(ak, bk, nb, block_len))
     return _linrec_block_scan_cuda(ak, bk, carries, nb, block_len).reshape(a.shape)

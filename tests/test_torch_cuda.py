@@ -992,6 +992,87 @@ def test_linrec_carry_kernel_many_rounds(dev, nb):
     assert torch.equal(got.double(), ref)
 
 
+def _bits(x, y):
+    """Equal bit for bit, NaN payloads included."""
+    return x.shape == y.shape and torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,n,s,block_tiles", [
+    (3, 2 * 64 - 5, 8, 1),              # nb = 2, ragged; CTAs of 32 play B15's 32
+    (3, 3 * 64 - 17, 8, 1),             # nb = 3, ragged
+    (4, 1 << 24, 128, 8),               # nb = 128, the default geometry: CTAs of 1024
+    (3, 300 * 256 - 100, 16, 1),        # nb = 300, ragged: CTAs of 32 play B15's 64
+    (1, 1 << 24, 16, 1),                # nb = 65536, one row: CTAs of 32 play B15's 1024
+    (1, 9000 * 8192 - 3, 64, 2),        # nb = 9000, one ragged row: two rounds of 1024
+])
+@pytest.mark.parametrize("kind", ["int", "gated", "poison"])
+def test_fused_linrec_summaries_and_carries_equal_b14_and_b15(dev, kind, rows, n, s,
+                                                              block_tiles):
+    """The fused launch's summaries are B14's bits and its carries B15's on those
+    summaries, NaN and ±inf included, whichever CTA finishes a row last; integer
+    pairs also equal the plain versions."""
+    a, b = _lin_pair("gated" if kind == "poison" else kind, (rows, n), dev)
+    if kind == "poison":                # a few ±inf and NaN in a and in b
+        g = _gen(dev, 9)
+        for t in (a, b):
+            at = torch.randint(0, n, (rows, 3), generator=g, device=dev)
+            t.scatter_(1, at, torch.tensor([float("inf"), -float("inf"), float("nan")],
+                                           device=dev).expand(rows, 3))
+    m, block_len, nb = scan_pipeline.block_geometry(n, s, block_tiles)
+    ops.reset_launch_counts()
+    prods, lasts, carries = linrec_mm._linrec_summaries_carries_cuda(a, b, nb, block_len)
+    assert ops.launch_counts() == _counts(linrec_summaries=1)
+    assert _build.LAUNCHES["linrec_summaries_carries"] == 1
+    p1, l1 = linrec_mm._linrec_summaries_cuda(a, b, nb, block_len)
+    assert _bits(prods, p1) and _bits(lasts, l1)
+    assert _bits(carries, linrec_mm._linrec_carry_cuda(prods, lasts))
+    if kind == "int":
+        pad = nb * block_len - n
+        ab = torch.nn.functional.pad(a, (0, pad), value=1.0).reshape(rows, nb, m, s)
+        bb = torch.nn.functional.pad(b, (0, pad)).reshape(rows, nb, m, s)
+        want = linrec_mm.linrec_summaries_carries_plain(ab, bb, torch.float32)
+        assert all(torch.equal(got, w) for got, w in zip((prods, lasts, carries), want))
+
+
+@pytest.mark.parametrize("s,block_tiles", [(128, 8), (16, 1)])
+def test_fused_linrec_summaries_and_carries_are_deterministic(dev, s, block_tiles):
+    """Five fp32 calls give the same bits, whichever CTA finished a row last."""
+    a, b = _lin_pair("gated", (4, 1 << 22), dev)
+    m, _, nb = scan_pipeline.block_geometry(a.shape[1], s, block_tiles)
+    ab, bb = a.reshape(4, nb, m, s), b.reshape(4, nb, m, s)
+    first = linrec_mm.linrec_summaries_carries(ab, bb)
+    assert all(map(_bits, first[:2], linrec_mm.linrec_block_summaries(ab, bb)))
+    for _ in range(5):
+        assert all(map(_bits, linrec_mm.linrec_summaries_carries(ab, bb), first))
+
+
+def test_fused_linrec_summaries_and_carries_under_cuda_graph(dev):
+    """The fused launch (its ticket memset included) and the two-launch pipeline,
+    captured in a CUDA graph and replayed on new inputs, give the eager bits."""
+    a, b = _lin_pair("gated", (4, 1 << 20), dev)
+    m, _, nb = scan_pipeline.block_geometry(a.shape[1], 16, 8)
+    ab, bb = a.view(4, nb, m, 16), b.view(4, nb, m, 16)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            linrec_mm.linrec_summaries_carries(ab, bb)
+            linrec_mm.linrec_blocked_scan(a, b, s=16, block_tiles=8)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fused = linrec_mm.linrec_summaries_carries(ab, bb)
+        whole = linrec_mm.linrec_blocked_scan(a, b, s=16, block_tiles=8)
+    for seed in range(3):
+        a2, b2 = _lin_pair("gated", a.shape, dev)
+        a.copy_(a2.flip(-1) if seed % 2 else a2)
+        b.copy_(torch.randn(b.shape, generator=_gen(dev, 20 + seed), device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(map(_bits, fused, linrec_mm.linrec_summaries_carries(ab, bb)))
+        assert _bits(whole, linrec_mm.linrec_blocked_scan(a, b, s=16, block_tiles=8))
+
+
 def test_linrec_edge_cases_hold_on_the_card(dev):
     """Zeros reset exactly, deep decay stays finite, moderate decay stays accurate."""
     a = torch.tensor([2.0, 0.0, 2.0, 2.0, 0.0, 1.0], device=dev)
@@ -1020,12 +1101,21 @@ def test_linrec_launch_counts_and_operators(dev):
     assert ops.launch_counts() == _counts(linrec_scan=1)
     ops.reset_launch_counts()
     bl = linear_scan(a, b, method="blocked", tile_s=16, block_tiles=8)     # 49 blocks
+    assert ops.launch_counts() == _counts(linrec_summaries=1, linrec_block_scan=1)
+    assert _build.LAUNCHES["linrec_summaries_carries"] == 1
+    ops.reset_launch_counts()
+    linrec_mm.linrec_carry_scan(torch.ones((4, 49), device=dev), b[:, :49])  # alone: B15
+    assert ops.launch_counts() == _counts(linrec_carry=1)
+    ops.reset_launch_counts()
+    nb1 = linear_scan(a, b, method="blocked", tile_s=16, block_tiles=1)    # 391 blocks of 256
+    assert not linrec_mm.fuses_carries(391)                                # B15 launches
     assert ops.launch_counts() == _counts(linrec_summaries=1, linrec_carry=1,
                                           linrec_block_scan=1)
     ops.reset_launch_counts()
     b1 = linear_scan(a, b, method="blocked")                              # one block
     assert ops.launch_counts() == _counts(linrec_block_scan=1)
     assert torch.equal(k.double(), want) and torch.equal(bl, k) and torch.equal(b1, k)
+    assert torch.equal(nb1, k)
     ops.reset_launch_counts()
     one = linear_scan(a[:, :1], b[:, :1], method="kernel", initial=2.0)
     assert not any(ops.launch_counts().values())
@@ -2296,7 +2386,7 @@ def test_linear_scan_adjoint_on_card(dev, method):
     fp64 "vector" autograd, ``initial`` included."""
     gen = torch.Generator(device=dev).manual_seed(1)
     rows_want = (_counts(linrec_scan=1) if method == "kernel" else
-                 _counts(linrec_summaries=1, linrec_carry=1, linrec_block_scan=1))
+                 _counts(linrec_summaries=1, linrec_block_scan=1))
     walk_want = _counts(**{"linrec_scan" if method == "kernel" else "linrec_block_scan": 1})
     cases = (((2, 300_000), (2, 300_000), -1, (2,), rows_want),
              ((2, 16, 3, 1, 1), (2, 16, 3, 4, 4), 1, (2, 3, 4, 4), walk_want))

@@ -103,6 +103,37 @@ def test_b15_many_blocks_matches_jax(kind):
     _hold(kind, got, want)
 
 
+@functools.lru_cache(maxsize=None)
+def _blocks_nb(kind: str, nb: int):
+    """Block views of ``nb`` blocks of one tile (``m = S``) a row, the last ragged."""
+    a, b = _pair(kind, shape=(ROWS, nb * S * S - 17), seed=nb)
+    pad = ((0, 0), (0, 17))
+    a, b = np.pad(a, pad, constant_values=1.0), np.pad(b, pad)
+    return a.reshape(ROWS, nb, S, S), b.reshape(ROWS, nb, S, S)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("nb", [3, 6, 300])
+def test_fused_summaries_and_carries_match_jax(kind, nb):
+    """B14 and B15 in one launch (on the CPU, their plain versions one after the
+    other) against JAX's ``linrec_block_summaries`` followed by ``linrec_carry_scan``,
+    and against the port's two phase functions."""
+    if nb == 300:
+        ab, bb = _blocks_nb(kind, nb)
+    else:
+        ab, bb = _blocks(kind, 2 if nb == 3 else 1)
+    assert ab.shape[1] == nb
+    ta, tb = torch.from_numpy(ab), torch.from_numpy(bb)
+    jp, jl = jax_lin.linrec_block_summaries(jnp.asarray(ab), jnp.asarray(bb))
+    jc = jax_lin.linrec_carry_scan(jp, jl)
+    tp, tl, tc = port_lin.linrec_summaries_carries(ta, tb)
+    for got, want in ((tp, jp), (tl, jl), (tc, jc)):
+        _hold(kind, got, want)
+    sp, sl = port_lin.linrec_block_summaries(ta, tb)
+    assert torch.equal(tp, sp) and torch.equal(tl, sl)
+    assert torch.equal(tc, port_lin.linrec_carry_scan(sp, sl))
+
+
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("block_tiles", [1, 2, 8])      # nb = 6, 3 and 1 (B16 alone)
 def test_blocked_pipeline_matches_jax(kind, block_tiles):
@@ -148,6 +179,8 @@ def test_wrappers_validate_shapes():
         port_lin.linrec_scan_tiles(x, torch.ones((2, 9)))
     with pytest.raises(ValueError):
         port_lin.linrec_block_summaries(x, x)
+    with pytest.raises(ValueError):
+        port_lin.linrec_summaries_carries(x, x)
     with pytest.raises(ValueError):
         port_lin.linrec_block_scan_carry(x.reshape(1, 2, 2, 4), x.reshape(1, 2, 2, 4),
                                          torch.zeros((1, 3)))
