@@ -277,10 +277,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ``DRYRUN_TOL`` of the prediction; one ``decode_step`` at position
               524287 with finite logits, its ms and the peak GB beside the
               prediction;
-28. examples -- each ``examples/torch_*.py`` ``main()`` in-process on the card at the
+28. roofline -- ``analysis/roofline.py``'s count of three full-size steps on "meta"
+              equal to the same call's count on the card (product flops by dtype,
+              ATen bytes, each kernel's calls and bytes): zamba2-1.2b's train step
+              (``Trainer.train_step``, the train phase's dtypes, remat, "auto", 4 x
+              2048: 38 x 3 B16 walks), llama3-8b's bf16 prefill of 4 x 128 and a
+              decode step, and the dry run's zamba2-1.2b x long_500k decode at
+              524287, whose record's ``roofline`` equals the card's count; each step
+              timed alone (median of ``ROOFLINE_REPS`` after a warm-up) beside its
+              compute and memory terms, the share ``max(compute, memory) / ms`` held
+              to at most ``ROOFLINE_SHARE_MAX``, and MFU at the bf16 peak; its
+              launches count in the kernels line;
+29. examples -- each ``examples/torch_*.py`` ``main()`` in-process on the card at the
               small arguments of ``EXAMPLES``, every check it prints holding; its
               launches count in the kernels line;
-29. timing -- kernel, plain-version and library times beside each kernel's bound, and
+30. timing -- kernel, plain-version and library times beside each kernel's bound, and
               dist_sort's ms at D = 2 and 4 (gloo over loopback: the transport's time,
               not NCCL's).  The B7 chain, a pass and the torch.sort beside them, B1,
               B9 and B9's (1, 513024) sampler scan are timed as eager calls, as every
@@ -334,9 +345,6 @@ import warnings
 import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
-TF32_OPS_PER_S = 495e12            # H100 SXM TF32 on the tensor cores, dense
 SCAN_SHAPE = (4, 1 << 24)
 VOCAB_ROWS = 4
 SERVE = dict(batch=4, prompt=128, new=32, seed=0)
@@ -480,7 +488,9 @@ import numpy as np  # noqa: E402
 
 import torch.distributed as dist  # noqa: E402
 
+from repro_torch.analysis import roofline as rl  # noqa: E402
 from repro_torch.analysis import ulp  # noqa: E402
+from repro_torch.analysis.roofline import TF32_OPS_PER_S, bound  # noqa: E402
 from repro_torch.analysis.faults import inject_nonfinite  # noqa: E402
 from repro_torch.analysis.collectives import (modeled_dist_traffic,  # noqa: E402
                                               modeled_dp_step_traffic, modeled_ep_traffic,
@@ -578,11 +588,6 @@ def paired_ms(kernel, plain, reps: int, kernel_reps=None):
     k1 = cuda_ms(kernel, kreps)
     p1 = cuda_ms(plain, reps)
     return (k0 + k1) / 2, (p0 + p1) / 2
-
-
-def bound(nbytes: float, nops: float = 0.0, ops_rate: float = FP32_OPS_PER_S):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_rate
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -6132,7 +6137,9 @@ def phase_dryrun():
     524288)`` in bf16, the token and ``pos``.  The growth of
     ``torch.cuda.memory_allocated()`` must lie within ``DRYRUN_TOL`` of the predicted
     ``bytes_per_device.arguments``; one ``decode_step`` at position 524287 gives
-    finite logits; its ms and the peak GB are printed beside the prediction."""
+    finite logits; its ms and the peak GB are printed beside the prediction.
+    Returns the record and the cell on the card ``(model, params, tokens,
+    caches)``, which the roofline phase counts and frees."""
     rec = dryrun.run_cell(DRYRUN["arch"], DRYRUN["shape"], "single",
                           mesh_shape=DRYRUN["mesh_shape"])
     pred = rec["bytes_per_device"]["arguments"]
@@ -6182,9 +6189,182 @@ def phase_dryrun():
           f"caches), allocated "
           f"{grown / 1e9:.3f} GB; decode at {shape.seq_len - 1}: {decode_ms:.2f} ms, peak "
           f"{peak / 1e9:.3f} GB", flush=True)
-    del params, caches, logits
+    del logits
+    return rec, (model, params, tokens, caches)
+
+
+# ---------------------------------------------------------------------------
+# roofline: the counted terms of three full-size steps held to the card
+# ---------------------------------------------------------------------------
+
+ROOFLINE_REPS = 5                   # timed runs a step after one warm-up: the median
+ROOFLINE_SHARE_MAX = 1.05           # a bound above the measured time: the count is wrong
+ROOFLINE_SERVE = dict(arch="llama3-8b", batch=4, prompt=128, new=32, seed=0)
+
+
+def _counts_equal(what: str, meta, card) -> dict:
+    """Hold the count of a call on ``"meta"`` to the same call's on the card:
+    product flops by dtype, ATen bytes and each kernel's calls and bytes, equal."""
+    same = (meta.flops_by_dtype == card.flops_by_dtype and meta.aten_bytes == card.aten_bytes
+            and meta.kernels == card.kernels)
+    if not same:
+        ops_ = sorted(set(meta.by_op) | set(card.by_op))
+        diff = {o: (meta.by_op.get(o), card.by_op.get(o)) for o in ops_
+                if meta.by_op.get(o) != card.by_op.get(o)}
+        print(f"roofline: {what}: meta and card counts differ by op: {diff}", flush=True)
+    check(same, f"roofline: {what}: meta {meta.to_dict()} != card {card.to_dict()}")
+    return card.to_dict()
+
+
+def _median_ms(fn) -> tuple:
+    """``fn`` timed alone: one warm-up, then ``ROOFLINE_REPS`` runs, each on a
+    synchronised host clock; ``(median ms, every ms)``."""
+    fn()
+    sync()
+    times = []
+    for _ in range(ROOFLINE_REPS):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def _roofline_row(what, roof, ms, times, mflops, smi, count) -> dict:
+    """One step's line: the measured ms beside the counted terms, the share of
+    the time the larger of compute and memory explains, and MFU at the bf16 peak."""
+    share = max(roof.compute_s, roof.memory_s) * 1e3 / ms
+    mfu = mflops / (ms * 1e-3 * rl.BF16_OPS_PER_S)
+    check(share <= ROOFLINE_SHARE_MAX,
+          f"roofline: {what}: the counted bound is {share:.3f} of the measured "
+          f"{ms:.3f} ms (> {ROOFLINE_SHARE_MAX}): the count is wrong")
+    print(f"roofline: {what}: {ms:.3f} ms measured; compute {roof.compute_s * 1e3:.3f} ms, "
+          f"memory {roof.memory_s * 1e3:.3f} ms -> {roof.bottleneck}; share {share:.4f}, "
+          f"MFU {mfu:.4f} ({smi})", flush=True)
+    return {"ms": ms, "times_ms": times, "compute_ms": roof.compute_s * 1e3,
+            "memory_ms": roof.memory_s * 1e3, "bottleneck": roof.bottleneck,
+            "share": share, "mfu_bf16": mfu, "model_flops": mflops, "count": count,
+            "roofline": roof.to_dict()}
+
+
+def phase_roofline(dry_rec, dry_cell, smi: str) -> dict:
+    """``analysis/roofline.py``'s count of three full-size steps on ``"meta"`` held to
+    the same call's count on the card, then each step timed alone (uninstrumented):
+
+    1. zamba2-1.2b's train step (``Trainer.train_step``: the ``train`` phase's fp32
+       state, bf16 compute, remat, ``"auto"``, 4 x 2048 ``SyntheticLM`` tokens): its
+       kernel record shows 38 x 3 B16 walks;
+    2. llama3-8b in bf16: a prefill of 4 x 128 (caches of 160 positions, the
+       ``serve`` phase's) and one ``serve_step`` at position 128;
+    3. zamba2-1.2b x long_500k: the dry-run phase's cell, one ``serve_step`` at
+       524287; the dry run's ``roofline`` on the 1 x 1 grid equals the card's.
+
+    Each step's ms is printed beside ``compute_s``, ``memory_s``, the bottleneck, the
+    share ``max(compute_s, memory_s) / ms`` (which fails the run above
+    ``ROOFLINE_SHARE_MAX``) and MFU at the bf16 peak.  Returns the launches of the
+    card's runs, which the kernels line counts."""
+    total = {k: 0 for k in ops.KERNELS}
+    steps = {}
+
+    def on_card(fn):
+        ops.reset_launch_counts()
+        with rl.counting() as c:
+            fn()
+        sync()
+        got = ops.launch_counts()
+        for k, v in got.items():
+            total[k] += v
+        return c, got
+
+    def timed(fn):
+        ops.reset_launch_counts()
+        ms, times = _median_ms(fn)
+        for k, v in ops.launch_counts().items():
+            total[k] += v
+        return ms, times
+
+    # 3. zamba2-1.2b x long_500k: the dry run's cell, still on the card
+    model, params, tokens, caches = dry_cell
+    shape = SHAPES[DRYRUN["shape"]]
+    pos = shape.seq_len - 1
+    dcount, _ = on_card(lambda: dryrun.serve_step(model, params, tokens, caches, pos))
+    roof = rl.analyze(dcount)
+    check(roof.to_dict() == dry_rec["roofline"],
+          f"roofline: the dry run's long_500k roofline {dry_rec['roofline']} != the card's "
+          f"count {roof.to_dict()}")
+    ms, times = timed(lambda: dryrun.serve_step(model, params, tokens, caches, pos))
+    steps["zamba2_long_500k_decode"] = _roofline_row(
+        "zamba2-1.2b long_500k decode at 524287", roof, ms, times,
+        rl.model_flops(dry_rec["n_params"], shape.global_batch, "decode"), smi,
+        dcount.to_dict())
+    del model, params, tokens, caches, dry_cell
     _free()
-    return out
+
+    # 1. zamba2-1.2b's train step
+    cfg = get_config("zamba2-1.2b")
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    opt = AdamWConfig(lr=TRAIN["lr"], warmup_steps=20, total_steps=TRAIN["steps"])
+    batch = {k: torch.as_tensor(v).to(DEV)
+             for k, v in SyntheticLM(cfg.vocab_size, s, b).batch_at(0).items()}
+    meta_tr = Trainer(cfg, opt, device="meta")
+    meta_state = meta_tr.init_state(TRAIN["seed"])
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in batch.items()}
+    ops.reset_launch_counts()
+    with rl.counting() as mcount:
+        meta_tr.train_step(meta_state, meta_batch)
+    check(not any(ops.launch_counts().values()), "roofline: a meta step launched a kernel")
+    tr = Trainer(cfg, opt, device=DEV)
+    state = tr.init_state(TRAIN["seed"])
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    ccount, launches = on_card(lambda: tr.train_step(state, batch))
+    expect_counts(launches, "roofline: zamba2 train step", linrec_block_scan=3 * cfg.n_layers)
+    check(ccount.kernels.get("linrec_block_scan", {}).get("calls") == 3 * cfg.n_layers,
+          f"roofline: zamba2 train step's kernel record {ccount.kernels}")
+    count = _counts_equal("zamba2 train step", mcount, ccount)
+    ms, times = timed(lambda: tr.train_step(state, batch))
+    steps["zamba2_train"] = _roofline_row(
+        "zamba2-1.2b train step (4 x 2048)", rl.analyze(ccount), ms, times,
+        rl.model_flops(n_params, b * s, "train"), smi, count)
+    del tr, state, batch, meta_state
+    _free()
+
+    # 2. llama3-8b: a prefill of 4 x 128 and one decode step, bf16
+    sv = ROOFLINE_SERVE
+    lcfg = get_config(sv["arch"])
+    lmodel = build_model(lcfg)
+    clen = sv["prompt"] + sv["new"]
+    lparams, _, n_lparams = _init_bf16(lcfg, sv["seed"])
+    mparams = lmodel.init(device="meta", dtype=torch.bfloat16)
+    prompt = {"tokens": torch.randint(0, lcfg.vocab_size, (sv["batch"], sv["prompt"]),
+                                      dtype=torch.int32, device=DEV,
+                                      generator=torch.Generator(DEV).manual_seed(sv["seed"]))}
+    mprompt = {"tokens": torch.empty(prompt["tokens"].shape, dtype=torch.int32,
+                                     device="meta")}
+    with rl.counting() as mpre:
+        _, mcaches = lmodel.prefill(mparams, mprompt, cache_len=clen)
+    cpre, _ = on_card(lambda: lmodel.prefill(lparams, prompt, cache_len=clen))
+    count = _counts_equal("llama3-8b prefill", mpre, cpre)
+    ms, times = timed(lambda: lmodel.prefill(lparams, prompt, cache_len=clen))
+    steps["llama3_prefill"] = _roofline_row(
+        "llama3-8b prefill (4 x 128)", rl.analyze(cpre), ms, times,
+        rl.model_flops(n_lparams, sv["batch"] * sv["prompt"], "prefill"), smi, count)
+    _, caches = lmodel.prefill(lparams, prompt, cache_len=clen)
+    tok = prompt["tokens"][:, -1:].contiguous()
+    mtok = torch.empty(tok.shape, dtype=tok.dtype, device="meta")
+    with rl.counting() as mdec:
+        dryrun.serve_step(lmodel, mparams, mtok, mcaches, sv["prompt"])
+    cdec, _ = on_card(lambda: dryrun.serve_step(lmodel, lparams, tok, caches, sv["prompt"]))
+    count = _counts_equal("llama3-8b decode step", mdec, cdec)
+    ms, times = timed(lambda: dryrun.serve_step(lmodel, lparams, tok, caches, sv["prompt"]))
+    steps["llama3_decode"] = _roofline_row(
+        "llama3-8b decode step at 128 (batch 4)", rl.analyze(cdec), ms, times,
+        rl.model_flops(n_lparams, sv["batch"], "decode"), smi, count)
+    del lparams, caches, prompt
+    _free()
+    emit({"phase": "roofline", "nvidia_smi": smi, "steps": steps,
+          "launches": {k: v for k, v in total.items() if v}})
+    return total
 
 
 def _load_example(name: str):
@@ -6968,7 +7148,9 @@ def main() -> int:
     dist_counts, dist_sort_ms, dist_worlds = phase_dist()
     sharded_counts = phase_serve_sharded()
     mesh_counts = phase_mesh()
-    phase_dryrun()
+    dryrun_rec, dryrun_cell = phase_dryrun()
+    roofline_counts = phase_roofline(dryrun_rec, dryrun_cell, smi[0])
+    del dryrun_cell
     examples_counts = phase_examples()
     timing = phase_timing(gen, dist_sort_ms)
     seg_launches = {k: segmented_counts[k] + serve_s_counts[k] + models_counts[k]
@@ -7080,11 +7262,13 @@ def main() -> int:
     # topp_auto run (the auto phase's serving default, on the "cuda" table), the
     # families phase (xlstm's mLSTM scans, the four families' topp_kernel sampling)
     # and the mesh phase on both ranks (train_dp's B16 walks, serve_ep's B1 dispatch),
-    # and the examples phase (the five examples/torch_*.py on the card)
+    # the roofline phase (its zamba2 train steps' B16 walks, counted and timed) and
+    # the examples phase (the five examples/torch_*.py on the card)
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
                     launches=n + dist_counts[f[:-3]] + sharded_counts[f[:-3]]
                     + auto_counts.get(f[:-3], 0) + families_counts[f[:-3]]
-                    + mesh_counts[f[:-3]] + examples_counts[f[:-3]],
+                    + mesh_counts[f[:-3]] + examples_counts[f[:-3]]
+                    + roofline_counts[f[:-3]],
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])

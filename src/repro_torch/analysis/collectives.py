@@ -240,7 +240,7 @@ def main(argv=None) -> int:
     grid = make_grid(args.mesh, debug=args.debug_mesh)
     form, calls = plan_cell(args.arch, args.shape, grid)["collectives"]
     groups = collections.defaultdict(lambda: [0, 0])
-    for kind, operand, nbytes in calls:
+    for kind, operand, nbytes, _ in calls:
         g = groups[(kind, operand)]
         g[0] += 1
         g[1] += nbytes

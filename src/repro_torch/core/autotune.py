@@ -242,7 +242,9 @@ def maybe_resolve(method: str, op: str, n: int, dtype: torch.dtype, *,
             loaded for ``device``.
     """
     device = torch.device(device)
-    m = method if method != AUTO else resolve_method(op, n, dtype, backend=device.type)
+    # "meta" plans the card's program (the dry run), so it takes the "cuda" table
+    backend = "cuda" if device.type == "meta" else device.type
+    m = method if method != AUTO else resolve_method(op, n, dtype, backend=backend)
     if m in ("kernel", "blocked"):
         from repro_torch.core import guards  # local import: guards imports this module
         guards.ensure_available(m, op, device=device)

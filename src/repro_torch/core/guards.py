@@ -212,7 +212,7 @@ def apply_nonfinite(x: torch.Tensor, policy: str, *, op: str,
     if _BYPASS or policy == "propagate" or not x.dtype.is_floating_point:
         return x
     if policy == "raise":
-        if not bool(torch.isfinite(x).all()):
+        if not host_read(torch.isfinite(x).all(), meta=True):
             raise NonFiniteError(
                 f"{op}: non-finite input under nonfinite='raise' (use 'propagate' for "
                 "IEEE semantics or 'sanitize' for the identity-element fallback)")
@@ -274,7 +274,7 @@ def guard_check(pred, msg: str) -> None:
         return
     if callable(pred):
         pred = pred()
-    if not bool(pred):
+    if not host_read(pred, meta=True):
         raise GuardCheckError(msg)
 
 
@@ -424,6 +424,8 @@ def validate_offsets(offsets: torch.Tensor, n: int, *, op: str) -> torch.Tensor:
     if offsets.dtype.is_floating_point or offsets.dtype.is_complex or \
             offsets.dtype == torch.bool:
         raise TypeError(f"{op}: offsets must be integer, got {offsets.dtype}")
+    if offsets.is_meta:                 # no values to read: structure and dtype only
+        return offsets
     off = offsets.tolist()
     if off[0] != 0:
         raise ValueError(f"{op}: offsets[0] must be 0, got {off[0]}")
@@ -433,6 +435,13 @@ def validate_offsets(offsets: torch.Tensor, n: int, *, op: str) -> torch.Tensor:
     if any(b < a for a, b in zip(off, off[1:])):
         raise ValueError(f"{op}: offsets must be non-decreasing, got {off}")
     return offsets
+
+
+def host_read(t, *, meta: bool) -> bool:
+    """``bool(t)``: a check's one read on the host.  A ``"meta"`` tensor holds no
+    value, so there it is ``meta``: the outcome under which the dry run plans the
+    step (the check passing), after the same ops the card runs to form ``t``."""
+    return meta if isinstance(t, torch.Tensor) and t.is_meta else bool(t)
 
 
 def resolve_device(device, *, op: str):

@@ -56,6 +56,7 @@ from repro_torch.core.autotune import maybe_resolve
 from repro_torch.core.precision import normalize_exponents, pdot, resolve_precision
 from repro_torch.core.primitives import _register, dispatch
 from repro_torch.core.scan import METHODS, accum_dtype_for
+from repro_torch.kernels._build import on_card
 
 __all__ = ["linear_scan", "cumprod", "cummax", "linrec_accum_dtype_for", "MAX_TILE"]
 
@@ -454,7 +455,7 @@ def linear_scan(a, b, *, axis: int = -1, exclusive: bool = False, reverse: bool 
     b = guards.apply_nonfinite(b, nonfinite, op="linear_scan", identity=0.0)
     from repro_torch.kernels import linrec_mm  # no import cycle
     walk = linrec_mm.column_walk_applies(method, nd, axis, n, tile_s, block_tiles)
-    if walk and (b.is_cuda or precision == "highest"):
+    if walk and (on_card(b) or precision == "highest"):
         # a short axis that is not the last: walked where it lies, nothing moved.
         # The walk forms no product, so on the card every precision gets
         # "highest"'s bits; on the CPU a split precision takes the rows' tile

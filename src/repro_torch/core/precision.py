@@ -54,6 +54,8 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.kernels._build import on_card
+
 __all__ = ["PRECISIONS", "SPLIT_SHIFT", "ENV_VAR", "resolve_precision",
            "precision_override", "split_f16", "ldexp", "pdot", "require_ieee_fp32",
            "normalize_exponents"]
@@ -232,7 +234,7 @@ def split_f16(x: torch.Tensor, axis: int):
 
 def _mm(a: torch.Tensor, b: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
     """``a @ b`` accumulated in ``acc``; operands are exact in ``acc``."""
-    if not acc.is_floating_point and a.is_cuda:
+    if not acc.is_floating_point and on_card(a):
         # no integer matmul kernel on CUDA; fp64 products are exact here
         return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(acc)
     if acc == torch.float32 and a.is_cuda:

@@ -438,7 +438,7 @@ def _reject_poisoned_logits(logits: torch.Tensor) -> None:
     x = logits.to(torch.float32)
     bad = (torch.isnan(x).any() | torch.isposinf(x).any()
            | ~torch.isfinite(x).any(dim=-1).all())
-    if bool(bad):
+    if guards.host_read(bad, meta=False):
         raise guards.NonFiniteError(
             "top_p_sample: poisoned logits under nonfinite='raise' (NaN/+inf "
             "entries or a fully masked row)")

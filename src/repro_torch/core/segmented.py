@@ -660,7 +660,7 @@ def _reject_poisoned_packed_logits(values, offsets, n: int, num_segments: int) -
     lens = offsets[1:] - offsets[:-1]
     bad = (torch.isnan(v).any() | torch.isposinf(v).any()
            | ((has_finite == 0) & (lens > 0)).any())
-    if bool(bad):
+    if guards.host_read(bad, meta=False):
         raise guards.NonFiniteError(
             "segment_top_p_sample: poisoned logits under nonfinite='raise' — NaN, "
             "+inf, or a segment with no finite entry (-inf vocab masks are allowed)")

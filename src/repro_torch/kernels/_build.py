@@ -9,23 +9,28 @@ reused.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 :func:`launch` is the one place a kernel is launched from Python: it calls the
 C entry point, raises on a non-zero ``cudaError_t`` and then adds one to the
-kernel's count in :data:`LAUNCHES`.
+kernel's count in :data:`LAUNCHES`.  :func:`record` is where each wrapper
+gives its kernel's bytes to the counters of ``analysis/roofline.py`` (a
+launch is invisible to them), on the card and on ``"meta"``, where the
+wrapper returns its outputs without a launch: :func:`on_card` is the test the
+wrappers take their kernel's path by.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List
 
-__all__ = ["SOURCES", "ENTRIES", "BUILD_DIR", "LAUNCHES", "build_all", "load", "launch",
-           "nvcc_path"]
+__all__ = ["SOURCES", "ENTRIES", "BUILD_DIR", "LAUNCHES", "RECORDERS", "build_all", "load",
+           "launch", "nvcc_path", "on_card", "record"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -71,6 +76,8 @@ ENTRIES: Dict[tuple, list] = {
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
+# the recording counters of analysis/roofline.py, each called as (kernel, bytes)
+RECORDERS: List[Callable[[str, int], None]] = []
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -171,3 +178,22 @@ def launch(name: str, *args, entry: str | None = None) -> None:
         msg = lib.repro_error_string(rc).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {rc} ({msg})")
     LAUNCHES[name] += 1
+
+
+def on_card(t) -> bool:
+    """Whether a wrapper takes its kernel's path for ``t``: a CUDA tensor, or a
+    ``"meta"`` one, on which the dry run plans the card's program."""
+    return t.is_cuda or t.is_meta
+
+
+def record(name: str, reads, writes) -> bool:
+    """Give every recording counter kernel ``name``'s bytes: each tensor of
+    ``reads`` read once (its distinct elements: a broadcast dim counts once) and
+    each of ``writes`` written once, no flops.  Returns True on ``"meta"``, where
+    the caller returns ``writes`` without a launch (and its launch count does not
+    move)."""
+    nbytes = sum(math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0)
+                 * t.element_size() for t in (*reads, *writes) if t.numel())
+    for rec in RECORDERS:
+        rec(name, nbytes)
+    return writes[0].is_meta

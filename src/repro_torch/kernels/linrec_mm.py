@@ -311,6 +311,8 @@ def _linrec_scan_cuda(ak, bk, ws=None):
     out = torch.empty_like(ak)
     if ws is None and n > LINREC_WARP_MAX:
         ws = lookback.workspace(rows * -(-n // linrec_scan_tile(n)), ak.device, words=2)
+    if _build.record("linrec_scan", (ak, bk), (out,)):
+        return out
     with torch.cuda.device(ak.device):
         _build.launch("linrec_scan", ak.data_ptr(), bk.data_ptr(), out.data_ptr(), rows, n,
                       None if ws is None else ws.data_ptr(),
@@ -322,6 +324,8 @@ def _linrec_summaries_cuda(ak, bk, nb, block_len):
     rows, n = ak.shape
     prods = torch.empty((rows, nb), dtype=torch.float32, device=ak.device)
     lasts = torch.empty_like(prods)
+    if _build.record("linrec_summaries", (ak, bk), (prods, lasts)):
+        return prods, lasts
     with torch.cuda.device(ak.device):
         _build.launch("linrec_summaries", ak.data_ptr(), bk.data_ptr(), prods.data_ptr(),
                       lasts.data_ptr(), rows, n, nb, block_len, _stream(ak))
@@ -334,6 +338,8 @@ def _linrec_summaries_carries_cuda(ak, bk, nb, block_len):
     lasts = torch.empty_like(prods)
     carries = torch.empty_like(prods)
     tickets = torch.empty((rows,), dtype=torch.int32, device=ak.device)
+    if _build.record("linrec_summaries", (ak, bk), (prods, lasts, carries)):
+        return prods, lasts, carries
     with torch.cuda.device(ak.device):
         _build.launch("linrec_summaries", ak.data_ptr(), bk.data_ptr(), prods.data_ptr(),
                       lasts.data_ptr(), carries.data_ptr(), tickets.data_ptr(),
@@ -346,6 +352,8 @@ def _linrec_summaries_carries_cuda(ak, bk, nb, block_len):
 def _linrec_carry_cuda(prods, lasts):
     rows, nb = prods.shape
     carries = torch.empty_like(prods)
+    if _build.record("linrec_carry", (prods, lasts), (carries,)):
+        return carries
     with torch.cuda.device(prods.device):
         _build.launch("linrec_carry", prods.data_ptr(), lasts.data_ptr(), carries.data_ptr(),
                       rows, nb, _stream(prods))
@@ -355,6 +363,8 @@ def _linrec_carry_cuda(prods, lasts):
 def _linrec_block_scan_cuda(ak, bk, carries, nb, block_len):
     rows, n = ak.shape
     out = torch.empty_like(ak)
+    if _build.record("linrec_block_scan", (ak, bk, carries), (out,)):
+        return out
     with torch.cuda.device(ak.device):
         _build.launch("linrec_block_scan", ak.data_ptr(), bk.data_ptr(), carries.data_ptr(),
                       out.data_ptr(), rows, n, nb, block_len, _stream(ak))
@@ -424,6 +434,8 @@ def _linrec_columns_cuda(a, b, initial, axis, *, exclusive, reverse, blocked):
     out = torch.empty(full, dtype=torch.float32, device=b.device)
     g = (ctypes.c_longlong * 13)(*geom, int(reverse), int(exclusive))
     name = "linrec_block_scan" if blocked else "linrec_scan"
+    if _build.record(name, (ae, be) + (() if init is None else (init,)), (out,)):
+        return out
     with torch.cuda.device(b.device):
         _build.launch(name, ae.data_ptr(), be.data_ptr(),
                       None if init is None else init.data_ptr(), out.data_ptr(), g,
@@ -470,7 +482,7 @@ def linrec_columns(a: torch.Tensor, b: torch.Tensor, axis: int, *, exclusive: bo
     Raises:
         TypeError: on the card, operands that are not fp32.
     """
-    if not b.is_cuda:
+    if not _build.on_card(b):
         return linrec_columns_plain(a, b, axis, exclusive=exclusive, reverse=reverse,
                                     initial=initial)
     for t in (a, b) + (() if initial is None else (initial,)):
@@ -525,7 +537,7 @@ def linrec_scan_tiles(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
         return torch.zeros(a.shape, dtype=acc, device=a.device)
     n = a.shape[-1]
     ab, bb = a.reshape(-1, n), b.reshape(-1, n)
-    if not ab.is_cuda:
+    if not _build.on_card(ab):
         return linrec_scan_tiles_plain(ab, bb, s=s, acc=acc,
                                        precision=precision).reshape(a.shape)
     ak, bk = _kernel_rows(ab, bb, acc, op="linrec_scan_tiles")
@@ -541,7 +553,7 @@ def linrec_block_summaries(ablocks: torch.Tensor, bblocks: torch.Tensor, *,
     _check_pair("linrec_block_summaries", ablocks, bblocks, ndim=4)
     rows, nb, m, s = ablocks.shape
     acc = _acc_of(ablocks, bblocks, accum_dtype)
-    if not ablocks.is_cuda or ablocks.numel() == 0:
+    if not _build.on_card(ablocks) or ablocks.numel() == 0:
         return linrec_block_summaries_plain(ablocks, bblocks, acc)
     ak, bk = _kernel_rows(ablocks.reshape(rows, -1), bblocks.reshape(rows, -1), acc,
                           op="linrec_block_summaries")
@@ -557,7 +569,7 @@ def linrec_carry_scan(prods: torch.Tensor, lasts: torch.Tensor, *,
     """
     guards.validate_choice(precision, PRECISIONS, name="precision", op="linrec_carry_scan")
     _check_pair("linrec_carry_scan", prods, lasts, ndim=2)
-    if not prods.is_cuda or prods.numel() == 0:
+    if not _build.on_card(prods) or prods.numel() == 0:
         return linrec_carry_scan_plain(prods, lasts, precision=precision)
     pk, lk = _kernel_rows(prods, lasts, prods.dtype, op="linrec_carry_scan")
     return _linrec_carry_cuda(pk, lk)
@@ -577,7 +589,7 @@ def linrec_summaries_carries(ablocks: torch.Tensor, bblocks: torch.Tensor, *,
     _check_pair("linrec_summaries_carries", ablocks, bblocks, ndim=4)
     rows, nb, m, s = ablocks.shape
     acc = _acc_of(ablocks, bblocks, accum_dtype)
-    if not ablocks.is_cuda or ablocks.numel() == 0:
+    if not _build.on_card(ablocks) or ablocks.numel() == 0:
         return linrec_summaries_carries_plain(ablocks, bblocks, acc, precision)
     ak, bk = _kernel_rows(ablocks.reshape(rows, -1), bblocks.reshape(rows, -1), acc,
                           op="linrec_summaries_carries")
@@ -606,7 +618,7 @@ def linrec_block_scan_carry(ablocks: torch.Tensor, bblocks: torch.Tensor,
     guards.validate_same_shape((rows, nb), carries.shape, op="linrec_block_scan_carry",
                                a_name="blocks (rows, nb)", b_name="carries")
     acc = _acc_of(ablocks, bblocks, accum_dtype)
-    if not ablocks.is_cuda or ablocks.numel() == 0:
+    if not _build.on_card(ablocks) or ablocks.numel() == 0:
         return linrec_block_scan_carry_plain(ablocks, bblocks, carries, acc, precision)
     ak, bk = _kernel_rows(ablocks.reshape(rows, -1), bblocks.reshape(rows, -1), acc,
                           op="linrec_block_scan_carry")
@@ -635,7 +647,7 @@ def linrec_blocked_scan(a: torch.Tensor, b: torch.Tensor, *, s: int = 128,
         return torch.zeros(a.shape, dtype=acc, device=a.device)
     n = a.shape[-1]
     ab, bb = a.reshape(-1, n), b.reshape(-1, n)
-    if not ab.is_cuda:
+    if not _build.on_card(ab):
         return linrec_blocked_scan_plain(ab, bb, s=s, block_tiles=block_tiles, acc=acc,
                                          precision=precision).reshape(a.shape)
     _, block_len, nb = block_geometry(n, s, block_tiles)

@@ -10,7 +10,10 @@ kernels' own wrappers are ``scan_mm.scan_tiles`` (B1),
 (B9–B12),
 ``linrec_mm.{linrec_scan_tiles,linrec_block_summaries,linrec_carry_scan,linrec_block_scan_carry}``
 (B13–B16) and ``ssd_chunk.ssd_chunk_scan`` (B17); each runs its CUDA kernel on CUDA
-tensors and the kernel's plain PyTorch version on CPU tensors.  PyTorch runs
+tensors and the kernel's plain PyTorch version on CPU tensors.  On ``"meta"``
+tensors, where the dry run plans the card's program, each returns the
+kernel's outputs unlaunched; on the card and on ``"meta"`` each gives its
+bytes to ``analysis/roofline.py``'s counters (``_build.record``).  PyTorch runs
 eagerly, so the entry points here are plain calls where the JAX package
 ``jit``s.  Every kernel launch adds one to its count;
 :func:`launch_counts` reads the counts and :func:`reset_launch_counts` sets

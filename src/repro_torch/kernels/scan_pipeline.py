@@ -141,6 +141,8 @@ def blocked_scan_plain(xb: torch.Tensor, *, s: int, block_tiles: int, variant: s
 def _block_sums_cuda(xb, code, acc, nb, block_len):
     b, n = xb.shape
     sums = torch.empty((b, nb), dtype=acc, device=xb.device)
+    if _build.record("block_sums", (xb,), (sums,)):
+        return sums
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         _build.launch("block_sums", xb.data_ptr(), sums.data_ptr(), b, n, nb,
@@ -153,6 +155,8 @@ def _block_sums_carries_cuda(xb, code, acc, nb, block_len):
     sums = torch.empty((b, nb), dtype=acc, device=xb.device)
     carries = torch.empty_like(sums)
     tickets = torch.empty((b,), dtype=torch.int32, device=xb.device)
+    if _build.record("block_sums", (xb,), (sums, carries)):
+        return sums, carries
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         _build.launch("block_sums", xb.data_ptr(), sums.data_ptr(), carries.data_ptr(),
@@ -165,6 +169,8 @@ def _block_sums_carries_cuda(xb, code, acc, nb, block_len):
 def _carry_scan_cuda(sums):
     b, nb = sums.shape
     carries = torch.empty_like(sums)
+    if _build.record("carry_scan", (sums,), (carries,)):
+        return carries
     with torch.cuda.device(sums.device):
         stream = torch.cuda.current_stream(sums.device).cuda_stream
         _build.launch("carry_scan", sums.data_ptr(), carries.data_ptr(), b, nb,
@@ -175,6 +181,8 @@ def _carry_scan_cuda(sums):
 def _block_scan_cuda(xb, code, carries, acc, nb, block_len, s, variant):
     b, n = xb.shape
     out = torch.empty((b, n), dtype=acc, device=xb.device)
+    if _build.record("block_scan", (xb, carries), (out,)):
+        return out
     with torch.cuda.device(xb.device):
         stream = torch.cuda.current_stream(xb.device).cuda_stream
         _build.launch("block_scan", xb.data_ptr(), carries.data_ptr(), out.data_ptr(),
@@ -198,7 +206,7 @@ def block_partial_sums(blocks: torch.Tensor, *, accum_dtype=None) -> torch.Tenso
                          f"{tuple(blocks.shape)}")
     b, nb, m, s = blocks.shape
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
-    if not blocks.is_cuda or blocks.numel() == 0:
+    if not _build.on_card(blocks) or blocks.numel() == 0:
         return block_partial_sums_plain(blocks, acc)
     xb, code = kernel_operand(blocks.reshape(b, nb * m * s), acc, op="block_partial_sums")
     return _block_sums_cuda(xb, code, acc, nb, m * s)
@@ -208,7 +216,7 @@ def carry_scan(sums: torch.Tensor) -> torch.Tensor:
     """Phase 2: exclusive prefix of the ``(b, nb)`` block sums, per row."""
     if sums.dim() != 2:
         raise ValueError(f"carry_scan: sums must be (b, nb), got {tuple(sums.shape)}")
-    if not sums.is_cuda or sums.numel() == 0:
+    if not _build.on_card(sums) or sums.numel() == 0:
         return carry_scan_plain(sums)
     if sums.dtype not in _CARRY_CODES:
         raise TypeError(f"carry_scan: the CUDA kernel takes {list(_CARRY_CODES)}, "
@@ -228,7 +236,7 @@ def block_sums_carries(blocks: torch.Tensor, *, accum_dtype=None):
                          f"{tuple(blocks.shape)}")
     b, nb, m, s = blocks.shape
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
-    if not blocks.is_cuda or blocks.numel() == 0:
+    if not _build.on_card(blocks) or blocks.numel() == 0:
         return block_sums_carries_plain(blocks, acc)
     xb, code = kernel_operand(blocks.reshape(b, nb * m * s), acc, op="block_sums_carries")
     return _block_sums_carries_cuda(xb, code, acc, nb, m * s)
@@ -261,7 +269,7 @@ def block_scan_carry(blocks: torch.Tensor, carries: torch.Tensor, *,
     guards.validate_same_shape((b, nb), carries.shape, op="block_scan_carry",
                                a_name="blocks (b, nb)", b_name="carries")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
-    if not blocks.is_cuda or blocks.numel() == 0:
+    if not _build.on_card(blocks) or blocks.numel() == 0:
         return block_scan_carry_plain(blocks, carries, variant=variant, acc=acc,
                                       precision=precision)
     if s > MAX_TILE:
@@ -307,7 +315,7 @@ def blocked_scan(x: torch.Tensor, *, s: int = 128, block_tiles: int = 8,
     n = x.shape[-1]
     xb = x.reshape(-1, n)
     b = xb.shape[0]
-    if not xb.is_cuda:
+    if not _build.on_card(xb):
         return blocked_scan_plain(xb, s=s, block_tiles=block_tiles, variant=variant,
                                   acc=acc, precision=precision).reshape(x.shape)
     _, block_len, nb = block_geometry(n, s, block_tiles)

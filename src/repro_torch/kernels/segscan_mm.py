@@ -383,6 +383,8 @@ def _seg_scan_cuda(xk, code, fk, fstride, acc, ws=None):
     out = torch.empty((b, n), dtype=acc, device=xk.device)
     if ws is None:
         ws = lookback.workspace(b * -(-n // seg_scan_tile(n)), xk.device)
+    if _build.record("seg_scan", (xk, fk), (out,)):
+        return out
     with torch.cuda.device(xk.device):
         _build.launch("seg_scan", xk.data_ptr(), fk.data_ptr(), fstride, out.data_ptr(),
                       b, n, code, ws.data_ptr(), ws.numel() * ws.element_size(),
@@ -394,6 +396,8 @@ def _seg_summaries_cuda(xk, code, fk, fstride, acc, nb, block_len):
     b, n = xk.shape
     ts = torch.empty((b, nb), dtype=acc, device=xk.device)
     h = torch.empty((b, nb), dtype=torch.int32, device=xk.device)
+    if _build.record("seg_summaries", (xk, fk), (ts, h)):
+        return ts, h
     with torch.cuda.device(xk.device):
         _build.launch("seg_summaries", xk.data_ptr(), fk.data_ptr(), fstride, ts.data_ptr(),
                       h.data_ptr(), b, n, nb, block_len, code, _stream(xk))
@@ -409,6 +413,8 @@ def _seg_carry_cuda(ts, h, ws=None):
     tiles = -(-nb // seg_scan_tile(nb))
     if ws is None and tiles > 1:
         ws = lookback.workspace(b * tiles, ts.device)
+    if _build.record("seg_carry", (ts, h), (carries,)):
+        return carries
     ptr, nbytes = (0, 0) if ws is None else (ws.data_ptr(), ws.numel() * ws.element_size())
     with torch.cuda.device(ts.device):
         _build.launch("seg_carry", ts.data_ptr(), h.data_ptr(), carries.data_ptr(), b, nb,
@@ -419,6 +425,8 @@ def _seg_carry_cuda(ts, h, ws=None):
 def _seg_block_scan_cuda(xk, code, fk, fstride, carries, acc, nb, block_len):
     b, n = xk.shape
     out = torch.empty((b, n), dtype=acc, device=xk.device)
+    if _build.record("seg_block_scan", (xk, fk, carries), (out,)):
+        return out
     with torch.cuda.device(xk.device):
         _build.launch("seg_block_scan", xk.data_ptr(), fk.data_ptr(), fstride,
                       carries.data_ptr(), out.data_ptr(), b, n, nb, block_len, code,
@@ -469,7 +477,7 @@ def seg_scan_tiles(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
         return torch.zeros(x.shape, dtype=acc, device=x.device)
     n = x.shape[-1]
     xb = x.reshape(-1, n)
-    if not xb.is_cuda:
+    if not _build.on_card(xb):
         fb = (flags != 0).expand(x.shape).reshape(xb.shape)
         return seg_scan_tiles_plain(xb, fb, s=s, acc=acc,
                                     precision=precision).reshape(x.shape)
@@ -489,7 +497,7 @@ def seg_block_summaries(blocks: torch.Tensor, fblocks: torch.Tensor, *,
     _check_blocks("seg_block_summaries", blocks, fblocks)
     b, nb, m, s = blocks.shape
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
-    if not blocks.is_cuda or blocks.numel() == 0:
+    if not _build.on_card(blocks) or blocks.numel() == 0:
         return seg_block_summaries_plain(blocks, fblocks, acc)
     xk, code = kernel_operand(blocks.reshape(b, nb * m * s), acc, op="seg_block_summaries")
     fk, fstride = _flag_rows(fblocks.reshape(b, nb * m * s), xk.shape)
@@ -508,7 +516,7 @@ def seg_carry_scan(sums: torch.Tensor, has_boundary: torch.Tensor, *,
         raise ValueError(f"seg_carry_scan: sums must be (b, nb), got {tuple(sums.shape)}")
     guards.validate_same_shape(sums.shape, has_boundary.shape, op="seg_carry_scan",
                                a_name="sums", b_name="has_boundary")
-    if not sums.is_cuda or sums.numel() == 0:
+    if not _build.on_card(sums) or sums.numel() == 0:
         return seg_carry_scan_plain(sums, has_boundary, precision=precision)
     if sums.dtype not in _CARRY_CODES:
         raise TypeError(f"seg_carry_scan: the CUDA kernel takes {list(_CARRY_CODES)}, "
@@ -540,7 +548,7 @@ def seg_block_scan_carry(blocks: torch.Tensor, fblocks: torch.Tensor,
     guards.validate_same_shape((b, nb), carries.shape, op="seg_block_scan_carry",
                                a_name="blocks (b, nb)", b_name="carries")
     acc = accum_dtype if accum_dtype is not None else accum_dtype_for(blocks.dtype)
-    if not blocks.is_cuda or blocks.numel() == 0:
+    if not _build.on_card(blocks) or blocks.numel() == 0:
         return seg_block_scan_carry_plain(blocks, fblocks, carries, acc, precision)
     xk, code = kernel_operand(blocks.reshape(b, nb * m * s), acc, op="seg_block_scan_carry")
     fk, fstride = _flag_rows(fblocks.reshape(b, nb * m * s), xk.shape)
@@ -573,7 +581,7 @@ def seg_blocked_scan(x: torch.Tensor, flags: torch.Tensor, *, s: int = 128,
         return torch.zeros(x.shape, dtype=acc, device=x.device)
     n = x.shape[-1]
     xb = x.reshape(-1, n)
-    if not xb.is_cuda:
+    if not _build.on_card(xb):
         fb = (flags != 0).expand(x.shape).reshape(xb.shape)
         return seg_blocked_scan_plain(xb, fb, s=s, block_tiles=block_tiles,
                                       acc=acc, precision=precision).reshape(x.shape)

@@ -136,7 +136,7 @@ def split_tiles(x: torch.Tensor, flags: torch.Tensor):
     xb = x.reshape(-1, n)
     fb = flags.reshape(-1, n).to(torch.bool)
     b = xb.shape[0]
-    if not xb.is_cuda:
+    if not _build.on_card(xb):
         z, ind, cnt = split_plain(xb, fb)
     else:
         if xb.element_size() not in (1, 2, 4, 8):
@@ -151,6 +151,8 @@ def split_tiles(x: torch.Tensor, flags: torch.Tensor):
         # the tiles' (trues, falses) counts (b, 2, T), then the row totals (b, 2)
         scratch = torch.empty(b * 2 * (-(-n // RADIX_TILE) + 1), dtype=torch.int32,
                               device=xb.device)
+        if _build.record("split", (xb, fb), (z, ind, cnt)):
+            return z.reshape(x.shape), ind.reshape(x.shape), cnt.reshape(lead)
         with torch.cuda.device(xb.device):
             stream = torch.cuda.current_stream(xb.device).cuda_stream
             _build.launch("split", xb.data_ptr(), fb.data_ptr(), z.data_ptr(),
@@ -226,7 +228,7 @@ def multi_split_tiles(x: torch.Tensor, digits: torch.Tensor, *, num_buckets: int
     xb = x.reshape(-1, n)
     db = digits.reshape(-1, n).to(torch.int32)
     b = xb.shape[0]
-    if not xb.is_cuda:
+    if not _build.on_card(xb):
         z, ind, cnt = multi_split_plain(xb, db, num_buckets)
     else:
         if xb.element_size() not in (1, 2, 4, 8):
@@ -243,6 +245,9 @@ def multi_split_tiles(x: torch.Tensor, digits: torch.Tensor, *, num_buckets: int
         scratch = (torch.empty(b * (num_buckets + 1) * (-(-n // RADIX_TILE) + 1),
                                dtype=torch.int32, device=xb.device)
                    if num_buckets <= MULTI_SPLIT_TILE_MAX_BUCKETS else None)
+        if _build.record("multi_split", (xb, db), (z, ind, cnt)):
+            return (z.reshape(x.shape), ind.reshape(x.shape),
+                    cnt.reshape(*lead, num_buckets))
         with torch.cuda.device(xb.device):
             stream = torch.cuda.current_stream(xb.device).cuda_stream
             _build.launch("multi_split", xb.data_ptr(), db.data_ptr(), z.data_ptr(),
@@ -363,7 +368,7 @@ def radix_pass_multibit(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
                          f"do not fit {KEY_DTYPES[work.dtype]}-bit keys")
     if work.device != perm.device:
         raise ValueError("radix_pass_multibit: keys and perm live on different devices")
-    if not work.is_cuda:
+    if not _build.on_card(work):
         return radix_pass_plain(work, perm, shift=shift, pass_bits=pass_bits,
                                 with_counts=with_counts)
     b, n = work.shape
@@ -377,6 +382,14 @@ def radix_pass_multibit(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
     # the tile counts (b, R, T), then the bucket totals when B7 exports none
     scratch = torch.empty(b * radix * (-(-n // RADIX_TILE) + 1), dtype=torch.int32,
                           device=work.device)
+    if not with_counts and _build.record("radix_pass", (work, perm), (keys_out, perm_out)):
+        return keys_out, perm_out
+    # rows of no keys launch nothing, so their counts start at zero
+    counts = (torch.zeros if n == 0 else torch.empty)(
+        (b, radix), dtype=torch.int32, device=work.device) if with_counts else None
+    if with_counts and _build.record("radix_pass_hist", (work, perm),
+                                     (keys_out, perm_out, counts)):
+        return keys_out, perm_out, counts
     with torch.cuda.device(work.device):
         stream = torch.cuda.current_stream(work.device).cuda_stream
         if not with_counts:
@@ -384,9 +397,6 @@ def radix_pass_multibit(work: torch.Tensor, perm: torch.Tensor, *, shift: int,
                           keys_out.data_ptr(), perm_out.data_ptr(), scratch.data_ptr(), b, n,
                           shift, pass_bits, work.element_size(), RADIX_TILE, stream)
             return keys_out, perm_out
-        # rows of no keys launch nothing, so their counts start at zero
-        counts = (torch.zeros if n == 0 else torch.empty)(
-            (b, radix), dtype=torch.int32, device=work.device)
         _build.launch("radix_pass_hist", work.data_ptr(), perm.data_ptr(),
                       keys_out.data_ptr(), perm_out.data_ptr(), counts.data_ptr(),
                       scratch.data_ptr(), b, n, shift, pass_bits, work.element_size(),
@@ -527,7 +537,7 @@ def topp_mask_sample_tiles(sorted_p: torch.Tensor, u: torch.Tensor, *,
     if ub.shape[0] != sp.shape[0]:
         raise ValueError(f"topp_mask_sample_tiles: {ub.shape[0]} uniforms for "
                          f"{sp.shape[0]} rows")
-    if not sp.is_cuda:
+    if not _build.on_card(sp):
         return topp_tail_plain(sp, ub, p=p).reshape(lead)
     # rows of unit element stride are read where they lie, at any row stride
     # and 4-byte alignment (a slice of a wider tensor is not copied)
@@ -536,6 +546,8 @@ def topp_mask_sample_tiles(sorted_p: torch.Tensor, u: torch.Tensor, *,
     ub = ub.contiguous()
     b = sp.shape[0]
     j = torch.empty((b,), dtype=torch.int32, device=sp.device)
+    if _build.record("topp_tail", (sp, ub), (j,)):
+        return j.reshape(lead)
     with torch.cuda.device(sp.device):
         stream = torch.cuda.current_stream(sp.device).cuda_stream
         _build.launch("topp_tail", sp.data_ptr(), sp.stride(0), ub.data_ptr(), j.data_ptr(),

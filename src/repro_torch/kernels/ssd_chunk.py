@@ -192,7 +192,7 @@ def ssd_chunk_scan(x: torch.Tensor, a_log: torch.Tensor, b_mat: torch.Tensor,
     xf, af, bf, cf = (t.to(F32) for t in (x, a_log, b_mat, c_mat))
     if x.numel() == 0 or n == 0:
         return torch.zeros(x.shape, dtype=x.dtype, device=x.device)
-    if not x.is_cuda:
+    if not _build.on_card(x):
         return ssd_chunk_plain(xf, af, bf, cf, chunk=chunk).to(x.dtype)
     q = min(chunk, s)
     ssd_check_tile(q, n, p)
@@ -212,6 +212,8 @@ def _ssd_chunk_cuda(xf, af, bf, cf, q, *, ws=None):
         nbytes = ssd_workspace_bytes(bsz * h, -(-s // q), n, p)
         ws = torch.empty(-(-nbytes // 8), dtype=torch.int64, device=xf.device)
     y = torch.empty((bsz, s, h, p), dtype=F32, device=xf.device)
+    if _build.record("ssd_chunk", (xf, af, bf, cf), (y,)):
+        return y
     strides = (ctypes.c_longlong * 12)(*(st for t in (xf, af, bf, cf) for st in t.stride()[:3]))
     with torch.cuda.device(xf.device):
         stream = torch.cuda.current_stream(xf.device).cuda_stream

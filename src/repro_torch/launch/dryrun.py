@@ -36,24 +36,39 @@ split dim ``n`` does not divide; no cell of the ten archs on the four grids
 has one, and a ``--mesh-shape`` that makes one is planned here all the same.
 
 A record keeps JAX's keys.  ``n_params``, ``model_flops_global`` and
-``model_flops_per_chip`` (:func:`model_flops`: 6·N·D for train, 2·N·D
-otherwise, ``D`` the tokens of a step) and ``bytes_per_device.arguments``
-are JAX's numbers for the cell.  ``bytes_per_device.output`` follows this
-rule, where JAX reads XLA's choice: the train step returns its state (as
-placed) and an fp32 loss; the prefill returns fp32 last-position logits
-``(B, padded_vocab)`` placed as the batch and the caches of ``cache_len =
-seq_len`` placed as a decode cell's; a decode step returns the int32 sampled
-tokens ``(B,)`` placed as the batch and its caches.  ``temp``, ``alias`` and
-``code`` are None, as are ``compile_s``, ``roofline`` and
-``useful_fraction``: no compiler runs, so there is no temporary buffer, no
-donation analysis and no code size.  ``lower_s`` is the planning time.
-``collectives`` is the port's own modeled traffic of one step on that grid
-(``analysis/collectives.py``): :func:`modeled_dp_step_traffic` for a train
-step (``Trainer(mesh=)``: the split parameters gathered, the gradient bucket,
-the clip's norms) and :func:`modeled_ep_traffic` for the MoE layers'
-expert-parallel combines (every step of a MoE arch on a ``"model"`` axis of
-more than one rank).  The arguments are JAX's layout; the port's engines and
-trainer hold each model group's parameters whole (ROADMAP Queue C).
+``model_flops_per_chip`` (``analysis/roofline.py`` ``model_flops``: 6·N·D
+for train, 2·N·D otherwise, ``D`` the tokens of a step) and
+``bytes_per_device.arguments`` are JAX's numbers for the cell.
+``bytes_per_device.output`` follows this rule, where JAX reads XLA's choice:
+the train step returns its state (as placed) and an fp32 loss; the prefill
+returns fp32 last-position logits ``(B, padded_vocab)`` placed as the batch
+and the caches of ``cache_len = seq_len`` placed as a decode cell's; a decode
+step returns the int32 sampled tokens ``(B,)`` placed as the batch and its
+caches.  ``temp``, ``alias``, ``code`` and ``compile_s`` are None: no
+compiler runs, so there is no temporary buffer, no donation analysis and no
+code size.  ``lower_s`` is the planning time, ``count_s`` the count's.
+
+``roofline`` is ``analysis/roofline.py``'s ``Roofline`` of one rank's step
+(:func:`count_step`), run on ``"meta"`` under its counter as JAX's
+``lower_cell`` defines the step: the train step is ``Trainer.train_step``
+(``loss``, its backward, where remat recomputes each group and the recompute
+is counted, and ``adamw_update``); the prefill ``prefill(cache_len=seq_len)``; a decode step
+``decode_step`` at position ``seq_len - 1`` and the argmax.  The rank's rows
+are :func:`plan_cell`'s (the batch over the data axes, when they divide it).
+Every leaf enters whole: the port's engines and ``Trainer(mesh=)`` hold the
+leaves JAX splits over ``"model"`` whole (ROADMAP Queue C, "the model group
+computes redundantly"), so a rank counts the whole leaf, every expert of a
+MoE layer included, and ZeRO-1 leaves the step unchanged.  Its collectives
+are the modeled calls below.  Kernels on ``scan_method`` ``"kernel"`` or
+``"blocked"`` count their recorded bytes and launch nothing on ``"meta"``.
+``useful_fraction`` is JAX's ``model_flops_per_chip / roofline.flops``; the
+port's ``flops`` are the products alone (JAX's XLA count includes
+elementwise work).  ``collectives`` is the port's own modeled traffic of one
+step on that grid (``analysis/collectives.py``): :func:`modeled_dp_step_traffic`
+for a train step (``Trainer(mesh=)``: the split parameters gathered, the
+gradient bucket, the clip's norms) and :func:`modeled_ep_traffic` for the MoE
+layers' expert-parallel combines (every step of a MoE arch on a ``"model"``
+axis of more than one rank).  The arguments are JAX's layout.
 
 :func:`plan_cell` is the counterpart of JAX's ``lower_cell``: it returns the
 plan (the arguments and outputs with their placements, and the modeled
@@ -64,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -74,6 +90,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.analysis import roofline as rl
 from repro_torch.analysis.collectives import (modeled_dp_step_traffic, modeled_ep_traffic,
                                               sum_forms)
 from repro_torch.configs.base import SHAPES
@@ -83,10 +100,11 @@ from repro_torch.models.model import ARCHS, build_model, cell_supported, get_con
     input_specs
 from repro_torch.models.transformer import _DTYPES
 from repro_torch.training import optimizer as opt_lib
+from repro_torch.training.trainer import Trainer
 from repro_torch.utils.sharding import (Grid, Placement, dp_axes, param_shardings,
                                         replicated)
 
-__all__ = ["SkipCell", "abstract_state", "model_flops", "plan_cell", "run_cell",
+__all__ = ["SkipCell", "abstract_state", "plan_cell", "count_step", "serve_step", "run_cell",
            "leaf_bytes", "tree_bytes", "make_grid", "main"]
 
 META = torch.device("meta")
@@ -102,12 +120,6 @@ def abstract_state(model, opt: bool = True, param_dtype: str = "float32") -> Dic
     if not opt:
         return params
     return {"params": params, "opt": opt_lib.adamw_init(params)}
-
-
-def model_flops(n_params: int, tokens: int, kind: str) -> float:
-    """MODEL_FLOPS: 6·N·D for training, 2·N·D for prefill and decode (JAX's
-    ``analysis/roofline.py`` ``model_flops`` without ``n_active``)."""
-    return (6.0 if kind == "train" else 2.0) * n_params * tokens
 
 
 def make_grid(mesh_kind: str, *, debug: bool = False, mesh_shape=None) -> Grid:
@@ -158,7 +170,7 @@ def _dt(t) -> str:
 def _collectives(cfg, shape, grid: Grid, params, pspecs, rows: int, seq: int):
     """The port's modeled collectives of one step of the cell (module docstring):
     ``(form, calls)``, the closed forms summed and the calls they count, each
-    ``(kind, operand, bytes a device)``."""
+    ``(kind, operand, bytes a device, group)``, ``group`` the ranks it spans."""
     dp = grid.size_of(dp_axes(grid))
     model = grid.shape.get("model", 1)
     forms, calls = [], []
@@ -175,10 +187,12 @@ def _collectives(cfg, shape, grid: Grid, params, pspecs, rows: int, seq: int):
             gathered=[math.prod(p) for p in padded], norm_sets=norm_sets,
             param_itemsize=pdt.element_size()))
         calls += [("all_gather", f"{_dt(pdt.dtype)}{list(p)}",
-                   math.prod(p) * pdt.element_size()) for p in padded]
+                   math.prod(p) * pdt.element_size(), grid.size_of(pl.split_axes()))
+                  for p, pl in zip(padded, split)]
         if dp > 1:
-            calls.append(("all_reduce", f"f32[{block + 3}]", 4 * (block + 3)))
-        calls += [("all_reduce", "f32[]", 4)] * norm_sets
+            calls.append(("all_reduce", f"f32[{block + 3}]", 4 * (block + 3), dp))
+        calls += [("all_reduce", "f32[]", 4, grid.size_of(axes))
+                  for axes in sorted({pl.split_axes() for pl in split})]
     if cfg.moe is not None and model > 1 and cfg.moe.n_experts % model == 0:
         m, train = cfg.moe, shape.kind == "train"
         cdt = _DTYPES[cfg.dtype]
@@ -189,37 +203,44 @@ def _collectives(cfg, shape, grid: Grid, params, pspecs, rows: int, seq: int):
             global_aux=train, backward=train, remat=cfg.remat))
         reps = 2 if (train and cfg.remat) else 1
         combine = ("all_reduce", f"{_dt(cdt)}[{t}, {cfg.d_model}]",
-                   t * cfg.d_model * cdt.itemsize)
+                   t * cfg.d_model * cdt.itemsize, model)
         layer = [combine] * reps
         if train and dp > 1:
-            layer += [("all_reduce", f"f32[{m.n_experts}]", 4 * m.n_experts)] * reps
+            layer += [("all_reduce", f"f32[{m.n_experts}]", 4 * m.n_experts, dp)] * reps
         if train:
             layer += [combine, ("all_reduce", f"{_dt(cdt)}[{t}, {m.top_k}]",
-                                t * m.top_k * cdt.itemsize)]
+                                t * m.top_k * cdt.itemsize, model)]
         calls += layer * layers
     return sum_forms(*forms), calls
+
+
+def _config(arch: str, scan_method: str, over: tuple):
+    """The arch's config with ``scan_method``, layers unrolled, and ``over``'s
+    ``(field, value)`` pairs: ``moe_capacity`` or any config field."""
+    cfg = dataclasses.replace(get_config(arch), scan_method=scan_method, scan_layers=False,
+                              **{k: v for k, v in over if k != "moe_capacity"})
+    cap = dict(over).get("moe_capacity")
+    if cap is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cap))
+    return cfg
 
 
 def plan_cell(arch: str, shape_name: str, mesh: Grid, *, scan_method: str = "matmul",
               overrides: Optional[Dict] = None) -> Dict:
     """JAX's ``lower_cell`` on ``"meta"``: the cell's plan, not a lowered program.
 
-    Returns ``{"chips", "n_params", "kind", "arguments", "outputs",
-    "collectives"}``: ``arguments`` and ``outputs`` map a name to ``(tree of
-    meta tensors, tree of placements)``; ``collectives`` is ``(form, calls)``,
-    the modeled traffic of a step and the calls it counts, each ``(kind,
-    operand, bytes a device)``.  ``overrides`` takes JAX's ``zero``,
+    Returns ``{"chips", "n_params", "kind", "rows", "arguments", "outputs",
+    "collectives"}``: ``rows`` is a rank's rows of the batch; ``arguments`` and
+    ``outputs`` map a name to ``(tree of meta tensors, tree of placements)``;
+    ``collectives`` is ``(form, calls)``, the modeled traffic of a step and the
+    calls it counts, each ``(kind, operand, bytes a device, group)``.  ``overrides`` takes JAX's ``zero``,
     ``param_dtype`` and ``moe_capacity`` and any config field.  Raises
     :class:`SkipCell` with JAX's reason for a cell the arch does not run.
     """
-    cfg = get_config(arch)
     over = dict(overrides or {})
     zero = over.pop("zero", False)
     param_dtype = over.pop("param_dtype", "float32")
-    cap = over.pop("moe_capacity", None)
-    cfg = dataclasses.replace(cfg, scan_method=scan_method, scan_layers=False, **over)
-    if cap is not None and cfg.moe is not None:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cap))
+    cfg = _config(arch, scan_method, tuple(over.items()))
     shape = SHAPES[shape_name]
     ok, why = cell_supported(cfg, shape)
     if not ok:
@@ -239,7 +260,7 @@ def plan_cell(arch: str, shape_name: str, mesh: Grid, *, scan_method: str = "mat
         sspecs = {"params": pspecs, "opt": ospecs}
         batch = input_specs(cfg, shape)
         loss = torch.empty((), dtype=torch.float32, device=META)
-        return {"chips": mesh.size, "kind": "train",
+        return {"chips": mesh.size, "kind": "train", "rows": rows,
                 "n_params": sum(x.numel() for x in opt_lib.tree_leaves(state["params"])),
                 "arguments": {"state": (state, sspecs),
                               "batch": (batch, batch_specs(mesh, batch))},
@@ -267,9 +288,56 @@ def plan_cell(arch: str, shape_name: str, mesh: Grid, *, scan_method: str = "mat
                      "caches": (caches, cspecs), "pos": (pos, replicated(mesh, ()))}
         outputs = {"tokens": (sampled, batch_specs(mesh, sampled)), "caches": (caches, cspecs)}
         seq = 1
-    return {"chips": mesh.size, "kind": shape.kind, "n_params": n_params,
+    return {"chips": mesh.size, "kind": shape.kind, "n_params": n_params, "rows": rows,
             "arguments": arguments, "outputs": outputs,
             "collectives": _collectives(cfg, shape, mesh, params, pspecs, rows, seq)}
+
+
+def _rank_rows(tree, rows: int):
+    """A batch tree with its leading (batch) axis cut to one rank's ``rows``."""
+    return {k: torch.empty((rows, *v.shape[1:]), dtype=v.dtype, device=META)
+            for k, v in tree.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def count_step(arch: str, shape_name: str, rows: int, *, scan_method: str = "matmul",
+               param_dtype: str = "float32", over: tuple = ()) -> rl.Count:
+    """One rank's step of the cell on ``"meta"`` under ``analysis/roofline.py``'s
+    counter, as JAX's ``lower_cell`` defines the step (module docstring), on
+    ``rows`` rows of the batch.  ``over``: the config's overrides as sorted
+    ``(field, value)`` pairs (``moe_capacity`` among them).  Cached: the count
+    is a function of these arguments alone."""
+    cfg = _config(arch, scan_method, over)
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        # Trainer's step on one device: loss, backward (remat recomputes each
+        # group), AdamW in place
+        tr = Trainer(cfg, opt_lib.AdamWConfig(), param_dtype=_DTYPES[param_dtype],
+                     device=META)
+        state = tr.init_state()
+        batch = _rank_rows(input_specs(cfg, shape), rows)
+        with rl.counting() as count:
+            tr.train_step(state, batch)
+        return count
+    model = build_model(cfg)
+    params = abstract_state(model, opt=False)
+    if shape.kind == "prefill":
+        batch = _rank_rows(input_specs(cfg, shape), rows)
+        with rl.counting() as count:
+            model.prefill(params, batch, cache_len=shape.seq_len)
+        return count
+    caches = model.empty_caches(rows, shape.seq_len, device=META)
+    tokens = torch.empty((rows, 1), dtype=torch.int32, device=META)
+    with rl.counting() as count:
+        serve_step(model, params, tokens, caches, shape.seq_len - 1)
+    return count
+
+
+def serve_step(model, params, tokens, caches, pos: int) -> torch.Tensor:
+    """JAX's ``serve_step``: one ``decode_step`` at ``pos`` (the caches written in
+    place) and its greedy tokens, int32 ``(B,)``."""
+    logits, _ = model.decode_step(params, tokens, caches, pos)
+    return torch.argmax(logits, -1).to(torch.int32)
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, *, debug: bool = False,
@@ -281,21 +349,30 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *, debug: bool = False,
     plan = plan_cell(arch, shape_name, mesh, scan_method=scan_method, overrides=overrides)
     plan_s = time.time() - t0
     shape = SHAPES[shape_name]
+    over = dict(overrides or {})
+    over.pop("zero", None)              # the rank's step is the same under ZeRO-1
+    param_dtype = over.pop("param_dtype", "float32")
+    count = count_step(arch, shape_name, plan["rows"], scan_method=scan_method,
+                       param_dtype=param_dtype if shape.kind == "train" else "float32",
+                       over=tuple(sorted(over.items())))
+    roof = rl.analyze(count, plan["collectives"][1])
+    count_s = time.time() - t0 - plan_s
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
-    mflops = model_flops(plan["n_params"], tokens, shape.kind)
+    mflops = rl.model_flops(plan["n_params"], tokens, shape.kind)
     return {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind, "chips": plan["chips"],
         "tag": tag, "status": "ok", "lower_s": round(plan_s, 3), "compile_s": None,
+        "count_s": round(count_s, 3), "rows": plan["rows"],
         "n_params": plan["n_params"],
         "bytes_per_device": {
             "arguments": sum(tree_bytes(*v) for v in plan["arguments"].values()),
             "output": sum(tree_bytes(*v) for v in plan["outputs"].values()),
             "temp": None, "alias": None, "code": None,
         },
-        "roofline": None,
+        "roofline": roof.to_dict(),
         "model_flops_global": mflops,
         "model_flops_per_chip": mflops / plan["chips"],
-        "useful_fraction": None,
+        "useful_fraction": (mflops / plan["chips"]) / roof.flops if roof.flops else 0.0,
         "collectives": plan["collectives"][0],
     }
 
@@ -343,10 +420,13 @@ def main(argv=None) -> int:
                            mesh_shape=mesh_shape, tag=args.tag)
             by = rec["bytes_per_device"]
             c = rec["collectives"]
-            print(f"[dryrun] OK  {tag}: arguments {by['arguments'] / 1e9:.3f} GB/device, "
+            r = rec["roofline"]
+            print(f"[dryrun] OK  {tag}: compute {r['compute_s'] * 1e3:.2f}ms memory "
+                  f"{r['memory_s'] * 1e3:.2f}ms collective {r['collective_s'] * 1e3:.2f}ms "
+                  f"-> {r['bottleneck']}; arguments {by['arguments'] / 1e9:.3f} GB/device, "
                   f"output {by['output'] / 1e9:.3f} GB, {c['collective_count']} modeled "
                   f"collectives {c['operand_bytes'] / 1e9:.3f} GB a step "
-                  f"(plan {rec['lower_s']}s)", flush=True)
+                  f"(plan {rec['lower_s']}s, count {rec['count_s']}s)", flush=True)
         except SkipCell as e:
             rec = {"arch": arch, "shape": shape, "mesh": mk, "status": "skip",
                    "reason": str(e)}

@@ -11,6 +11,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._build import on_card
+
 __all__ = ["ninit", "linear", "rmsnorm", "embed_lookup", "unembed", "mlp",
            "rope_freqs", "apply_rope", "sinusoid_at", "sinusoidal_pos", "softcap",
            "matmul_f32", "bmm_f32", "ACTS"]
@@ -63,12 +65,12 @@ def embed_lookup(p, tokens: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with fp32 accumulation and an fp32 result.
 
-    bf16/fp16 operands on the card use ``torch.mm(..., out_dtype=float32)``
+    bf16/fp16 operands on the card (and on ``"meta"``, which plans it) use ``torch.mm(..., out_dtype=float32)``
     (the analogue of ``preferred_element_type=float32``), through
     :class:`_MatmulF32` for its gradient; elsewhere the operands are widened
     to fp32 first, which is exact.
     """
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and a.dtype == b.dtype:
+    if on_card(a) and a.dtype in (torch.bfloat16, torch.float16) and a.dtype == b.dtype:
         lead = a.shape[:-1]
         out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*lead, b.shape[-1])
@@ -104,7 +106,7 @@ class _MatmulF32(torch.autograd.Function):
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` (``(E, M, K) @ (E, K, N)``) with fp32 accumulation and an
     fp32 result: :func:`matmul_f32` for a batch of products (the MoE experts)."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and a.dtype == b.dtype:
+    if on_card(a) and a.dtype in (torch.bfloat16, torch.float16) and a.dtype == b.dtype:
         return _MatmulF32.apply(a, b)
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 

@@ -11,7 +11,9 @@ under ``"kernel"``; B2–B4 and B14–B16 under ``"blocked"``).  Its decode step
 The sLSTM cell mixes its hidden state through the recurrent weights ``r``
 inside the gates, so its recurrence is not associative and no scan, matmul or
 kernel, applies to it: :func:`_slstm_scan` steps through time in a plain Python
-loop, as the JAX package runs a sequential ``lax.scan``.
+loop, as the JAX package runs a sequential ``lax.scan``.  That loop and the
+mLSTM prefill's state replay go through ``analysis/roofline.py`` ``steps``, so
+a dry run on ``"meta"`` counts one step times the steps.
 
 Parameters keep the JAX layout, stacked over ``n`` layers; the compute dtype
 ``cdt`` is passed in explicitly.
@@ -23,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import roofline
 from repro_torch.core.linrec import linear_scan
 from repro_torch.core.ssd import MLSTM_EPS, mlstm_chunked
 from repro_torch.models.layers import ACTS, linear, ninit, rmsnorm
@@ -121,7 +124,7 @@ def mlstm_block(p, x: torch.Tensor, cfg, *, cdt, return_cache: bool = False):
     c = torch.zeros((b, h_, hd, hd), dtype=F32, device=x.device)
     n = torch.zeros((b, h_, hd), dtype=F32, device=x.device)
     m = torch.full((b, h_), NEG, dtype=F32, device=x.device)
-    for t in range(s):
+    for t in roofline.steps(s, x):
         it, ft = i_pre[:, t], flog[:, t]
         m_new = torch.maximum(ft + m, it)
         fs, is_ = torch.exp(ft + m - m_new), torch.exp(it - m_new)
@@ -210,7 +213,7 @@ def _slstm_scan(p, wx: torch.Tensor, cfg, state):
     pre = (wx.to(F32) + p["gate_bias"].to(F32)).reshape(b, s, 4, x.n_heads, hd)
     c, n, m, h = state
     ys = []
-    for t in range(s):
+    for t in roofline.steps(s, wx):
         g = pre[:, t] + torch.einsum("bhd,ghde->bghe", h, r)         # recurrent mixing
         zt = torch.tanh(g[:, 0])
         it = g[:, 1]                                                  # log-space input gate
@@ -223,7 +226,7 @@ def _slstm_scan(p, wx: torch.Tensor, cfg, state):
         h = ot * c / (n + 1e-6)
         m = m_new
         ys.append(h)
-    return torch.stack(ys, dim=1), (c, n, m, h)
+    return torch.stack(roofline.fill(ys, s), dim=1), (c, n, m, h)
 
 
 def slstm_block(p, x: torch.Tensor, cfg, *, cdt, state=None, return_cache: bool = False):

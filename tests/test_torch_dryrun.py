@@ -261,7 +261,7 @@ def test_modeled_calls_sum_to_the_closed_forms():
                     continue
                 form, calls = plan["collectives"]
                 counts, nbytes = {}, {}
-                for kind, _, b in calls:
+                for kind, _, b, _ in calls:
                     counts[kind] = counts.get(kind, 0) + 1
                     nbytes[kind] = nbytes.get(kind, 0) + b
                 assert counts == form["counts_by_kind"], (arch, shape_name, mesh_kind)
